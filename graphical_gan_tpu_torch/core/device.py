@@ -1,0 +1,33 @@
+"""Device resolution for the port's entry points.
+
+Entry points run on ``cuda`` unless the caller asks for the CPU; a missing
+card is an error, never a silent fall back to the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+
+def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} was asked for but CUDA is not available; "
+            "pass device='cpu' (--device cpu) to run the plain PyTorch "
+            "versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"the port runs on cuda or cpu, not {dev.type!r}")
+    return dev
+
+
+def set_serving_numerics() -> None:
+    """Full f32 products and convolutions (cuDNN runs f32 convolutions in
+    TF32 by default, which keeps about three decimal digits), and
+    deterministic cuDNN algorithms for the transpose convolutions, so that
+    exact-mode requests are bit-reproducible as in the JAX server."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True

@@ -1,0 +1,33 @@
+// Shared device helpers for the port's kernels: dtype conversion through the
+// bf16 intrinsics and the activation epilogue (codes match
+// graphical_gan_tpu_torch/ops/kernels/build.py: 0 none, 1 relu, 2 leaky 0.2).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ggan {
+
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+enum Act : int { kActNone = 0, kActRelu = 1, kActLeaky = 2 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
+}
+
+// relu is max(v, 0) and leaky is max(0.2*v, v), the reference's LeakyReLU
+// (LEAKY_ALPHA = 0.2); written as selects so that a NaN passes through as it
+// does in jnp.maximum and torch.
+__device__ __forceinline__ float apply_act(float v, int act) {
+  if (act == kActRelu) return v < 0.0f ? 0.0f : v;
+  if (act == kActLeaky) return v < 0.0f ? 0.2f * v : v;
+  return v;
+}
+
+}  // namespace ggan

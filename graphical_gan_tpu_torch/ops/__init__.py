@@ -1,0 +1,10 @@
+"""Tensor ops of the port, over NHWC tensors and ``{name: tensor}`` params."""
+
+from graphical_gan_tpu_torch.ops.activations import (  # noqa: F401
+    LEAKY_ALPHA, activation, dropout, leaky_relu, relu)
+from graphical_gan_tpu_torch.ops.conv import conv2d, deconv2d  # noqa: F401
+from graphical_gan_tpu_torch.ops.layout import (  # noqa: F401
+    flatten_image, unflatten_image)
+from graphical_gan_tpu_torch.ops.linear import linear  # noqa: F401
+from graphical_gan_tpu_torch.ops.norm import (  # noqa: F401
+    batchnorm, batchnorm_act)

@@ -1,0 +1,45 @@
+"""Elementwise activations and dropout (``graphical_gan_tpu/ops/activations.py``)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+LEAKY_ALPHA = 0.2  # the reference's LeakyReLU slope
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(x, 0)
+
+
+def leaky_relu(x: torch.Tensor, alpha: float = LEAKY_ALPHA) -> torch.Tensor:
+    """``max(alpha*x, x)``, the reference's LeakyReLU."""
+    return torch.maximum(alpha * x, x)
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def activation(name: Optional[str]):
+    """None | 'relu' | 'leaky_relu' -> callable."""
+    if name is None:
+        return _identity
+    if name == "relu":
+        return relu
+    if name == "leaky_relu":
+        return leaky_relu
+    raise ValueError(name)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool = False,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout; the identity unless ``training=True``. The reference
+    never passes ``training`` to ``tf.layers.dropout``, whose TF1 default is
+    False, so every dropout layer of the published models is the identity."""
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))

@@ -1,0 +1,64 @@
+"""2-D convolution and transpose convolution over NHWC
+(``graphical_gan_tpu/ops/conv.py``), forward only.
+
+Filters keep the JAX package's TF layouts: conv HWIO ``[K, K, in, out]``,
+transpose conv ``[K, K, out, in]``. Each casts the filter to the activation
+dtype, as ``ops/conv.py:72`` does.
+
+- ``conv2d`` goes through the K1 kernel (``ops/kernels/
+  fused_conv.py``), bias and activation fused into its epilogue. On a CPU
+  tensor that wrapper computes its plain version.
+- ``deconv2d`` is ``F.conv_transpose2d``: the JAX package computes it outside
+  any Pallas kernel (``ops/conv.py:181-184``). It runs on the NHWC tensor
+  viewed as channels-last NCHW, so nothing is copied to change layout. TF's
+  SAME transpose conv is the input-gradient of the asymmetrically padded
+  forward conv (pads ``(lo, hi)``, ``lo <= hi``), while torch's ``padding``
+  is symmetric, so it runs with ``padding=0`` and crops ``lo`` from the low
+  side.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from graphical_gan_tpu_torch.ops.kernels.fused_conv import (
+    fused_conv2d_bias_act, same_pads)
+
+
+def conv2d(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
+           stride: int = 1, padding: str = "SAME",
+           act: Optional[str] = None) -> torch.Tensor:
+    """act(conv2d(x) + bias); x [B, H, W, Cin] NHWC, ``name.Filters`` HWIO,
+    ``name.Biases`` [Cout]. Every conv of the ported networks has a bias;
+    the JAX ``biases=False`` form comes when a caller needs it."""
+    return fused_conv2d_bias_act(x.contiguous(), params[name + ".Filters"],
+                                 params[name + ".Biases"], stride, padding,
+                                 act)
+
+
+def deconv2d(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
+             stride: int = 2, padding: str = "SAME") -> torch.Tensor:
+    """TF ``conv2d_transpose`` plus ``name.Biases``; x [B, H, W, in] ->
+    [B, s*H, s*W, out] (SAME).
+
+    ``name.Filters`` is ``[K, K, out, in]``: the forward conv's HWIO filter
+    with in = out channels here. Torch's transpose-conv weight is that
+    forward conv's OIHW filter, ``[in, out, K, K]``.
+    """
+    if padding != "SAME":
+        raise NotImplementedError(
+            "deconv2d ports the SAME padding the models use; VALID waits for "
+            "a later slice of the port")
+    w = params[name + ".Filters"]
+    k = w.shape[0]
+    oh, ow = x.shape[1] * stride, x.shape[2] * stride
+    xc = x.permute(0, 3, 1, 2)  # channels-last NCHW view, no copy
+    full = F.conv_transpose2d(xc, w.to(x.dtype).permute(3, 2, 0, 1),
+                              stride=stride)
+    lo_h = same_pads(oh, k, stride)[0]
+    lo_w = same_pads(ow, k, stride)[0]
+    out = full[:, :, lo_h:lo_h + oh, lo_w:lo_w + ow].permute(0, 2, 3, 1)
+    return (out + params[name + ".Biases"].to(out.dtype)).contiguous()

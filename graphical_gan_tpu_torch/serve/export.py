@@ -1,0 +1,64 @@
+"""Serving entries (``graphical_gan_tpu/serve/export.py:53-146``).
+
+Each entry is ``fn(params, seed, *inputs) -> output`` over tensors, with
+``example`` inputs (numpy zeros at the config's batch size) that give the
+input shapes. ``seed`` is the request's seed; the gan_inference entries of
+this slice draw nothing from it (no_std posterior, deterministic inputs),
+and it is kept so the server's calling convention matches the JAX
+package's ``call(key, *inputs)``.
+
+The artifact export (``torch.export``) waits for a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+#: deployable entries per family ported so far
+ENTRIES = {
+    "gan_inference": ("sampler", "encoder", "reconstructor"),
+}
+
+#: what the entry's single output array is
+ENTRY_OUTPUT = {"sampler": "images", "reconstructor": "images",
+                "encoder": "latents"}
+
+
+def make_sampler(family: str, model) -> Tuple:
+    """(fn, example_inputs) for the generator-side entry."""
+    if family != "gan_inference":
+        raise NotImplementedError(
+            f"family {family!r} is served from a later slice of the port")
+    cfg = model.cfg
+
+    def fn(params, seed, noise):
+        return model.sample(params, noise)
+    example = (np.zeros((cfg.batch_size, cfg.dim_latent), np.float32),)
+    return fn, example
+
+
+def make_entry(family: str, model, entry: str = "sampler") -> Tuple:
+    """(fn, example_inputs, input_kinds) for a family's serving entry.
+
+    The image entries take RAW-space data as the dataset loaders yield it
+    (``model.normalize`` runs inside): ``encoder`` x -> q_z and
+    ``reconstructor`` x -> G(E(x)). ``input_kinds`` are ``"normal"`` (the
+    server can draw it from a seed) or ``"image"`` (the client sends it).
+    """
+    if entry not in ENTRIES.get(family, ()):
+        raise ValueError(f"family {family!r} has no entry {entry!r}; "
+                         f"choose from {ENTRIES.get(family, ())}")
+    if entry == "sampler":
+        from graphical_gan_tpu_torch.serve.server import input_kinds
+        fn, example = make_sampler(family, model)
+        return fn, example, input_kinds(family, model.cfg)
+
+    method = {"encoder": model.encode, "reconstructor": model.reconstruct}[entry]
+
+    def fn(params, seed, raw_x):
+        return method(params, raw_x)
+    cfg = model.cfg
+    example = (np.zeros((cfg.batch_size, cfg.data.output_dim), np.float32),)
+    return fn, example, ["image"]
