@@ -6,14 +6,17 @@ nothing of JAX or of the JAX package, and does in order:
 
 1. device: requires CUDA, prints the card's name and power limit;
 2. build: compiles ``graphical_gan_tpu_torch/csrc/*.cu`` with nvcc;
-3. check: holds each kernel (K1 conv+bias+act, K2a BN stats, K2b BN apply)
-   against its plain PyTorch version at every serving shape, B in
-   {8, 64, 256}, f32 and bf16, plus BN inputs with a large mean;
+3. check: holds each kernel (K1 conv+bias+act, K2a BN stats, K2b BN apply,
+   K2c BN backward reduce, K2d BN backward apply) against its plain PyTorch
+   version at every serving and training shape, B in {8, 64, 256}, f32 and
+   bf16, plus BN inputs with a large mean; and the K1 autograd Function's
+   first- and second-order gradients against plain autograd at the
+   discriminator's shapes;
 4. time: per kernel and shape, the kernel's median time from CUDA events
    on inputs that are not in L2, its plain version's, one PyTorch library
    call's, and the bound (bytes over 3.35 TB/s or the operations the
    function needs, taps in the padding left out, over 67 TFLOP/s f32 /
-   989 TFLOP/s bf16);
+   989 TFLOP/s bf16); and the library conv at the K3 bench shapes;
 5. serve: writes a full-width cifar10 wali-gp run directory (random
    weights from a seed), serves the sampler, encoder and reconstructor
    entries over HTTP on localhost through the port's server, checks the
@@ -21,18 +24,26 @@ nothing of JAX or of the JAX package, and does in order:
    64-row reconstruction with the same model on the CPU;
 6. dispatch: per dtype, entry and bucket, a dispatch's host and device
    time, its device busy share and its device time by kernel group;
-7. prints one JSON line per kernel summary, the card line, and last
+7. train: the port's Trainer at the published cifar10 wali-gp config
+   (B=64, DIM=64, z=128, k=5) on a resident synthetic 50k set, in f32 and
+   bf16: finite costs, every kernel launched, ms per iteration, images/s,
+   busy share and device time by group; then 2 iterations on the card
+   against the CPU from the same params, batches and noise, two runs from
+   one seed bit for bit, and a resumed run against an uninterrupted one;
+8. prints one JSON line per kernel summary, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line. ``--log PATH`` also
-writes every logged line to PATH.
+writes every logged line to PATH. Each phase logs its seconds.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -57,7 +68,19 @@ TOL = {
     # apply: one fused multiply-add vs two roundings; bf16 output rounding
     ("apply", "float32"): (1e-5, 1e-5),
     ("apply", "bfloat16"): (1e-2, 1e-2),
+    # K2d: the plain formula with other fused multiply-adds, terms of order
+    # |g|·inv·scale; bf16 output rounding
+    ("bwd_apply", "float32"): (1e-5, 1e-5),
+    ("bwd_apply", "bfloat16"): (1e-2, 1e-2),
+    # K1's gradients: the same cuDNN gradient calls on both sides, fed by
+    # K1's or the plain forward's output (f32 within 1e-4 of each other);
+    # atol scales with max(1, max |ref|)
+    ("conv_bwd", "float32"): (1e-4, 1e-4),
+    ("conv_bwd", "bfloat16"): (1e-2, 1e-2),
 }
+# K2c: f32 sums of R terms in another order; |Δ| <= 1e-5 of the sum of the
+# terms' magnitudes per channel
+RED_RTOL = 1e-5
 # each half of the model on the card vs on the CPU (plain versions), f32,
 # one 64-row dispatch at full width: the encoder's codes, and the
 # generator's images from the same codes
@@ -240,6 +263,20 @@ def _bn_inputs(rc, dtype, gen, mean=0.0):
     return x.to(dtype), scale, offset
 
 
+def _bn_cotangents(x, gen):
+    """Two cotangents for K2c/K2d: one drawn apart from x, and one that
+    follows x per channel (g = c·x + d + noise), so that the centring terms
+    Σgz/R and xhat·Σ(gz·xhat)/R are of the order of gz itself in both
+    dtypes, not O(1/√R) of it."""
+    import torch
+    r, c = x.shape
+    noise = torch.randn((r, c), generator=gen, device="cuda")
+    cc = torch.randn((c,), generator=gen, device="cuda")
+    dd = torch.randn((c,), generator=gen, device="cuda")
+    return (("", noise.to(x.dtype)),
+            ("+corr", (x.float() * cc + dd + noise).to(x.dtype)))
+
+
 # shapes off the serving path that reach the kernels' edge handling: odd
 # sizes, stride 1, VALID, 1x1, Cin 1, Cout not a multiple of the 64-wide
 # tile; BN with C not a multiple of 4 (scalar apply) and ragged row blocks
@@ -309,6 +346,79 @@ def _check_bn(label, x, scale, offset, act, mean, errs, misses):
         misses.append(f"K2b {label} {dn}")
 
 
+def _check_bn_bwd(label, x, g, scale, offset, act, errs, misses):
+    """K2c against its plain version, and K2d against its plain version
+    given the plain sums (so each kernel is held alone)."""
+    import torch
+    from graphical_gan_tpu_torch.ops.kernels import fused_norm
+    dn = str(x.dtype).split(".")[1]
+    mean, _, inv = fused_norm.bn_stats_plain(x)
+    red = fused_norm.bn_bwd_reduce(g, x, mean, inv, scale, offset, act)
+    pred = fused_norm.bn_bwd_reduce_plain(g, x, mean, inv, scale, offset,
+                                          act)
+    dx = fused_norm.bn_bwd_apply(g, x, mean, inv, scale, offset, pred, act)
+    pdx = fused_norm.bn_bwd_apply_plain(g, x, mean, inv, scale, offset, pred,
+                                        act)
+    torch.cuda.synchronize()
+    gz, xhat = fused_norm._gz_xhat(g, x, mean, inv, scale, offset, act)
+    mass = torch.stack([gz.abs().sum(0), (gz * xhat).abs().sum(0)])
+    e_red = float((red - pred).abs().max())
+    bad_red = not bool(torch.isfinite(red).all()) or bool(
+        ((red - pred).abs() > RED_RTOL * mass + 1e-6).any())
+    atol, rtol = TOL[("bwd_apply", dn)]
+    e_dx, bad_dx = max_err(dx, pdx, atol * max(1.0, float(pdx.float().abs()
+                                                          .max())), rtol)
+    errs["bn_bwd_reduce"] = max(errs.get("bn_bwd_reduce", 0.0), e_red)
+    errs["bn_bwd_apply"] = max(errs.get("bn_bwd_apply", 0.0), e_dx)
+    log({"check": "K2c/K2d", "shape": label, "dtype": dn, "act": act,
+         "R": x.shape[0], "C": x.shape[1], "reduce_max_abs_err": e_red,
+         "reduce_rtol_of_mass": RED_RTOL, "apply_max_abs_err": e_dx,
+         "ok": not (bad_red or bad_dx)})
+    if bad_red:
+        misses.append(f"K2c {label} {dn} {act}")
+    if bad_dx or dx.dtype != x.dtype:
+        misses.append(f"K2d {label} {dn} {act}")
+
+
+def _check_conv_bwd(label, x, w, bias, errs, misses):
+    """conv2d_bias_act (K1 forward, its backward) against plain autograd
+    of the plain forward: dx, dw, dbias at a cotangent g, and in f32 the
+    penalty's second order, d/dw of ||dx||²."""
+    import torch
+    from graphical_gan_tpu_torch.ops.kernels import fused_conv
+    dn = str(x.dtype).split(".")[1]
+    second = x.dtype == torch.float32
+    b, h, wd, _ = x.shape
+    g = torch.randn((b, -(-h // 2), -(-wd // 2), w.shape[3]), device="cuda")
+    sides = []
+    for fn in (fused_conv.conv2d_bias_act,
+               fused_conv.fused_conv2d_bias_act_plain):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (x, w, bias)]
+        y = fn(*leaves, 2, "SAME", "leaky_relu")
+        grads = torch.autograd.grad((y.float() * g).sum(), leaves,
+                                    create_graph=second)
+        if second:
+            grads = grads + torch.autograd.grad(
+                grads[0].square().sum(), leaves[1])
+        sides.append([t.detach() for t in grads])
+    torch.cuda.synchronize()
+    atol, rtol = TOL[("conv_bwd", dn)]
+    out, bad = {}, False
+    for name, got, want in zip(("dx", "dw", "dbias", "d2w"), *sides):
+        e, miss = max_err(got, want, atol * max(1.0, float(
+            want.float().abs().max())), rtol)
+        out[name] = e
+        bad |= miss
+    errs["conv2d_bias_act_backward"] = max(
+        errs.get("conv2d_bias_act_backward", 0.0), *out.values())
+    log({"check": "K1 backward", "shape": label, "dtype": dn,
+         "max_abs_err": out, "atol_times_max1_ref": atol, "rtol": rtol,
+         "ok": not bad})
+    if bad:
+        misses.append(f"K1 backward {label} {dn}")
+
+
 def phase_check(errs):
     """Each kernel against its plain version on the same inputs; ``errs``
     collects the max |Δ| per kernel."""
@@ -328,12 +438,26 @@ def phase_check(errs):
                     label = f"{name}{'+1e3' if mean else ''} B={b}"
                     _check_bn(label, x, scale, offset, act, mean, errs,
                               misses)
+        for b in (64, 256):  # the training shapes
+            for name, rc, _ in bn_shapes(b):
+                for act in ("relu", "leaky_relu"):
+                    x, scale, offset = _bn_inputs(rc, dtype, gen)
+                    for kind, g in _bn_cotangents(x, gen):
+                        _check_bn_bwd(f"{name}{kind} B={b}", x, g, scale,
+                                      offset, act, errs, misses)
+        for name, shape, cout, _ in conv_shapes(64):  # = D.1-3's shapes
+            x, w, bias = _conv_inputs(shape, cout, dtype, gen)
+            _check_conv_bwd(name.replace("E", "D") + " B=64", x, w, bias,
+                            errs, misses)
         for name, shape, cout, k, s, pad, act in EDGE_CONV:
             x, w, bias = _conv_inputs(shape, cout, dtype, gen, k)
             _check_conv(name, x, w, bias, s, pad, act, errs, misses)
         for name, rc, act in EDGE_BN:
             x, scale, offset = _bn_inputs(rc, dtype, gen)
             _check_bn(name, x, scale, offset, act, 0.0, errs, misses)
+            for kind, g in _bn_cotangents(x, gen):
+                _check_bn_bwd(name + kind, x, g, scale, offset, act, errs,
+                              misses)
     if misses:
         fail("kernels disagree with their plain versions: "
              + ", ".join(misses))
@@ -429,6 +553,95 @@ def phase_time(timings):
                        "bound_ms": t_b, "bound_by": by}
                 timings.append(row)
                 log({"timing": row})
+            _time_bn_bwd(timings, b, dtype, gen, card)
+    _time_k3_library(timings, card)
+
+
+def _time_bn_bwd(timings, b, dtype, gen, card):
+    """K2c and K2d at the training BN shapes; the library yardstick is
+    ``native_batch_norm_backward`` on gz = g·act'(y), the one PyTorch call
+    that computes K2c+K2d's function (so both rows show that one call)."""
+    import torch
+    from graphical_gan_tpu_torch.ops.kernels import fused_norm
+    dn = str(dtype).split(".")[1]
+    size = dtype.itemsize
+    for name, rc, act in bn_shapes(b):
+        x, scale, offset = _bn_inputs(rc, dtype, gen)
+        g = torch.randn(rc, generator=gen, device="cuda").to(dtype)
+        r, c = rc
+        mean, _, inv = fused_norm.bn_stats_plain(x)
+        red = fused_norm.bn_bwd_reduce_plain(g, x, mean, inv, scale, offset,
+                                             act)
+        gz = fused_norm._gz_xhat(g, x, mean, inv, scale, offset, act)[0].to(
+            dtype)
+        lib = time_ms(lambda *a: torch.ops.aten.native_batch_norm_backward(
+            *a, None, None, mean, inv, True, 1e-5, [True, True, True]),
+            (gz, x, scale))
+        args = (g, x, mean, inv, scale, offset)
+        # K2c: ~10 f32 operations per element; reads g and x, writes 2·C
+        t_b, by = bound(10.0 * r * c, 2 * r * c * size + 6 * c * 4,
+                        "float32")
+        row = {"kernel": "bn_bwd_reduce", "shape": name, "B": b,
+               "dtype": dn, "card": card,
+               "ms": time_ms(lambda *a: fused_norm.bn_bwd_reduce(*a, act),
+                             args),
+               "plain_ms": time_ms(
+                   lambda *a: fused_norm.bn_bwd_reduce_plain(*a, act), args),
+               "library_ms": lib, "library_covers": "K2c+K2d",
+               "bound_ms": t_b, "bound_by": by}
+        timings.append(row)
+        log({"timing": row})
+        # K2d: ~14 f32 operations per element; reads g and x, writes dx
+        t_b, by = bound(14.0 * r * c, 3 * r * c * size + 8 * c * 4,
+                        "float32")
+        row = {"kernel": "bn_bwd_apply", "shape": name, "B": b,
+               "dtype": dn, "card": card,
+               "ms": time_ms(lambda *a: fused_norm.bn_bwd_apply(*a, act),
+                             args + (red,)),
+               "plain_ms": time_ms(
+                   lambda *a: fused_norm.bn_bwd_apply_plain(*a, act),
+                   args + (red,)),
+               "library_ms": lib, "library_covers": "K2c+K2d",
+               "bound_ms": t_b, "bound_by": by}
+        timings.append(row)
+        log({"timing": row})
+
+
+# tools/bench_conv_kernel.py's shapes of the K3 kernels (conv_gemm, not yet
+# ported): (name, B, H=W, Cin, Cout), 5x5 stride 2 SAME, bias, leaky, bf16
+K3_SHAPES = [("disc2", 64, 16, 64, 128), ("disc3", 64, 8, 128, 256),
+             ("disc2_b512", 512, 16, 64, 128),
+             ("disc3_b512", 512, 8, 128, 256)]
+
+
+def _time_k3_library(timings, card):
+    """The K3 rows' bound and library time: F.conv2d + bias + leaky in
+    bf16 (cuDNN, channels-last) at the K3 bench shapes."""
+    import torch
+    import torch.nn.functional as F
+    from graphical_gan_tpu_torch.ops.activations import leaky_relu
+    from graphical_gan_tpu_torch.ops.kernels.fused_conv import same_pads
+    for name, b, h, cin, cout in K3_SHAPES:
+        lo, hi = same_pads(h, 5, 2)
+        x = torch.randn((b, cin, h + lo + hi, h + lo + hi), device="cuda",
+                        dtype=torch.bfloat16).contiguous(
+                            memory_format=torch.channels_last)
+        w = (torch.randn((cout, cin, 5, 5), device="cuda") * 0.05).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        bias = torch.randn((cout,), device="cuda", dtype=torch.bfloat16)
+        taps = conv_valid_taps(h, 5, 2, lo) ** 2
+        oh = -(-h // 2)
+        t_b, by = bound(2.0 * b * cout * cin * taps,
+                        (b * h * h * cin + b * oh * oh * cout
+                         + 25 * cin * cout + cout) * 2, "bfloat16")
+        row = {"kernel": "conv_gemm (K3, not ported)", "shape": name, "B": b,
+               "dtype": "bfloat16", "card": card,
+               "library_ms": time_ms(
+                   lambda *a: leaky_relu(F.conv2d(*a, stride=2)),
+                   (x, w, bias)),
+               "bound_ms": t_b, "bound_by": by}
+        timings.append(row)
+        log({"timing": row})
 
 
 def _post_concurrent(cl, payloads):
@@ -523,7 +736,7 @@ def _drive_entry(run_dir, entry, raw, dims, device="cuda"):
     dispatches = len(BUCKETS) + stats["batches"] + stats["exact_requests"]
     after = kernels.launches()
     got = {k: after[k] - before[k] for k in after}
-    want = {k: v * dispatches for k, v in PER_DISPATCH[entry].items()}
+    want = {k: PER_DISPATCH[entry].get(k, 0) * dispatches for k in got}
     log({"phase": "serve", "entry": entry, "warmup_s": round(warmup_s, 3),
          "requests_s": round(secs, 3), "dispatches": dispatches,
          "launches": got, "expected_launches": want, "stats": stats,
@@ -711,6 +924,368 @@ def phase_dispatch(run_dirs):
                     "top_kernels_ms": top}})
 
 
+# ---------------------------------------------------------------------------
+# training: the port's Trainer at the published cifar10 wali-gp config
+
+TRAIN_ITERS = 10     # Trainer iterations per compute dtype (the main path)
+TIME_ITERS = 20      # steady-state iterations timed after them
+PROFILE_ITERS = 5    # iterations under torch.profiler
+REPEAT_ITERS = 4     # iterations of the bit-identity and resume runs
+# kernel launches per training iteration: K1 runs E.1-3 and D.1-3 (9 in the
+# G update, 12 in each D update: D on real, fake and the interpolates),
+# K2a/K2b the 5 BNs of E and G once per update, K2c/K2d the 5 BNs in the
+# G update's backward (none at iteration 0, which skips the G update)
+PER_ITER = {"fused_conv2d_bias_act": (9 + 12 * 5, 0),
+            "bn_stats": (30, 0), "bn_apply": (30, 0),
+            "bn_bwd_reduce": (5, -5), "bn_bwd_apply": (5, -5)}
+# device-time groups of a training iteration: the kernel's name first, then
+# the autograd node or op that launched it
+TRAIN_GROUPS = (
+    ("K1 forward", ("conv2d_bias_act_kernel",), ()),
+    ("K2a-b BN forward", ("bn_stats_partial_kernel", "bn_stats_merge_kernel",
+                          "bn_apply_kernel"), ()),
+    ("K2c-d BN backward", ("bn_bwd_reduce_partial_kernel",
+                           "bn_bwd_reduce_merge_kernel",
+                           "bn_bwd_apply_kernel"), ()),
+    ("memcpy", ("Memcpy", "Memset"), ()),
+    ("optimizer", (), ("aten::_foreach",)),
+    ("conv gradients (cuDNN)", (), ("FusedConv2dBiasActBackward",
+                                    "ConvolutionBackwardBackward")),
+    ("deconv backward", (), ("ConvolutionBackward0",)),
+    ("deconv forward", (), ("aten::conv_transpose2d",)),
+    ("GEMMs", ("gemm", "cutlass", "ampere_", "sm90_xmma"),
+     ("aten::mm", "aten::addmm", "aten::matmul")),
+)
+# card against CPU after 2 iterations, f32, same params, batches and noise.
+# TF1 Adam's first steps are about lr·sign(g): a gradient element near 0
+# whose sign differs between the two devices moves its parameter up to
+# 2·lr_t the other way (lr_t < 1.3e-4 at lr 1e-4, b1 0.5, b2 0.9), which is
+# what happens to the biases of the convs before a BN (gradient zero in
+# exact arithmetic); so a parameter may differ by 2.6e-4 per update of its
+# player (G+E: 1, D: 10 in 2 iterations). That cap alone would pass a step
+# that updated nothing, so the state is also held as a whole:
+# - each leaf's update (its parameters' move from the initial values), as
+#   ‖card − CPU‖₂ / ‖CPU move‖₂ <= UPDATE_RTOL: the sign flips touch few
+#   elements (at most 0.099, G.Input.W, on an H100 80GB HBM3 at 700 W),
+#   while a skipped update gives 1 and one in the wrong direction 2;
+# - Adam's m and v per leaf within MOMENT_RTOL of the leaf's largest
+#   element, plus a floor of 1e-7 (m) and 1e-14 (v): G's gradient at
+#   iteration 1 is taken at D parameters that already differ by those sign
+#   flips, so it differs by more than rounding (at most 1.6e-2 of the
+#   leaf's largest, G.Input.W, same card);
+# - leaves whose largest m is below NOISE_REL of their player's largest
+#   (the biases before a BN, D's output bias) carry rounding noise only and
+#   get the cap and the floors, not the update ratio.
+# The phase also feeds two wrong states to the same check (a skipped step,
+# and every parameter moved the other way) and fails unless both are
+# refused at every leaf that the update ratio holds. The first updates'
+# gradients are held tightly: 1e-3 of the leaf's largest element, or of
+# 1e-3 of the player's largest, whichever is larger (f32 sums of up to
+# 16,384 terms in other orders, K1 and cuDNN against the CPU's
+# convolutions).
+SIGN_FLIP = 2.6e-4
+GRAD_RTOL = 1e-3
+UPDATE_RTOL = 0.25
+MOMENT_RTOL = 5e-2
+NOISE_REL = 1e-4
+
+
+def _train_group(kernel: str, chain) -> str:
+    for label, names, ops in TRAIN_GROUPS:
+        if any(k in kernel for k in names) or any(
+                o in c for o in ops for c in chain):
+            return label
+    return "other"
+
+
+def _profile_train(tr, n):
+    """(device busy / wall time, device ms per iteration, device ms per
+    iteration by group, the largest kernels, the host's ops per iteration
+    and the ops that take the most host time) over ``n`` Trainer iterations
+    under torch.profiler, whose own cost inflates the host times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    start = tr.state.step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            tr.step_fn(tr.state, tr.draw_batches(start + i), True,
+                       tr.generator)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, top = {}, {}
+    for ev in prof.events():
+        kernels = getattr(ev, "kernels", None) or []
+        if ev.device_type != DeviceType.CPU or not kernels:
+            continue
+        chain, q = [], ev
+        while q is not None:
+            chain.append(q.name)
+            q = q.cpu_parent
+        for k in kernels:
+            g = _train_group(k.name, chain)
+            groups[g] = groups.get(g, 0.0) + k.duration / 1e3
+            top[k.name[:90]] = top.get(k.name[:90], 0.0) + k.duration / 1e3
+    averages = prof.key_averages()
+    busy_ms = sum(
+        getattr(ev, "self_device_time_total",
+                getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+        for ev in averages if ev.device_type != DeviceType.CPU)
+    per_iter = {k: v / n for k, v in sorted(groups.items())}
+    top = [[k, v / n] for k, v in sorted(top.items(), key=lambda kv: -kv[1])
+           [:10]]
+    host = [ev for ev in averages if ev.device_type == DeviceType.CPU]
+    host_ops = sum(ev.count for ev in host if ev.key.startswith("aten::")) / n
+    host_top = [[ev.key, ev.self_cpu_time_total / 1e3 / n] for ev in sorted(
+        host, key=lambda ev: -ev.self_cpu_time_total)[:8]]
+    return (busy_ms / wall_ms, busy_ms / n, per_iter, top, host_ops,
+            host_top)
+
+
+def _time_train(tr, n):
+    """Host wall ms per Trainer iteration (batches drawn and gathered on
+    the card, one step), ``n`` back to back, ending in a synchronize."""
+    import torch
+    start = tr.state.step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        tr.step_fn(tr.state, tr.draw_batches(start + i), True, tr.generator)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _published(dtype):
+    from graphical_gan_tpu_torch.core.config import gan_inference_defaults
+    from graphical_gan_tpu_torch.models.gan_inference import GanInferenceModel
+    cfg = gan_inference_defaults("cifar10", "wali-gp", compute_dtype=dtype)
+    if (cfg.batch_size, cfg.dim, cfg.dim_latent, cfg.critic_iters, cfg.bn) \
+            != (64, 64, 128, 5, True):
+        fail(f"cifar10 wali-gp defaults changed: {cfg}")
+    return GanInferenceModel(cfg)
+
+
+def _finite_state(tr, label):
+    import torch
+    bad = [n for n, p in tr.state.params.items()
+           if not bool(torch.isfinite(p).all())]
+    if bad:
+        fail(f"{label}: non-finite parameters {bad[:5]}")
+
+
+def phase_train(launch_totals, data):
+    """The training main path: per compute dtype, the counts are set to 0,
+    the Trainer runs TRAIN_ITERS iterations, and the counts are read; then
+    the steady state is timed and profiled. ``launch_totals`` receives the
+    counts summed over both dtypes."""
+    from graphical_gan_tpu_torch.ops import kernels
+    from graphical_gan_tpu_torch.train.trainer import Trainer
+    base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
+                        "smoke_train")
+    shutil.rmtree(base, ignore_errors=True)
+    for dtype in ("float32", "bfloat16"):
+        model = _published(dtype)
+        tr = Trainer(model, data, os.path.join(base, dtype), seed=0,
+                     device="cuda", checkpoint_every=0)
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        metrics = tr.train(TRAIN_ITERS)
+        got = kernels.launches()
+        secs = time.perf_counter() - t0
+        for k, v in got.items():
+            launch_totals[k] = launch_totals.get(k, 0) + v
+        want = {k: a * TRAIN_ITERS + b for k, (a, b) in PER_ITER.items()}
+        if not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"train {dtype}: non-finite costs {metrics}")
+        _finite_state(tr, f"train {dtype}")
+        if got != want:
+            fail(f"train {dtype}: kernel launches {got} != {want}")
+        ms = _time_train(tr, TIME_ITERS)
+        busy, dev_ms, groups, top, host_ops, host_top = _profile_train(
+            tr, PROFILE_ITERS)
+        per_iter_images = (1 + model.cfg.critic_iters) * model.cfg.batch_size
+        log({"phase": "train", "dtype": dtype, "iters": TRAIN_ITERS,
+             "seconds": round(secs, 3), "last_metrics": metrics,
+             "launches": got, "ms_per_iter": ms,
+             "images_per_s": per_iter_images / ms * 1e3,
+             "busy_share": busy, "device_ms_per_iter": dev_ms,
+             "device_ms_per_iter_by_group": groups,
+             "top_kernels_ms_per_iter": top,
+             "profiled_host_aten_ops_per_iter": host_ops,
+             "profiled_host_self_ms_per_iter_top_ops": host_top})
+
+
+def _grads(model, params, raw, p_z, alpha, player):
+    import torch
+    from graphical_gan_tpu_torch.core.registry import merge, partition
+    names = model.GEN_PLAYER if player == "gen" else model.DISC_PLAYER
+    mine, _ = partition(params, names)
+    leaves = {n: p.detach().clone().requires_grad_(True)
+              for n, p in mine.items()}
+    merged = merge(params, leaves)
+    loss = model.gen_loss(merged, raw, p_z=p_z)[0] if player == "gen" \
+        else model.disc_loss(merged, raw, p_z=p_z, alpha=alpha)[0]
+    return dict(zip(leaves, torch.autograd.grad(loss, list(
+        leaves.values()))))
+
+
+def phase_train_parity():
+    """2 iterations on the card against the CPU (plain versions), f32, from
+    the same params, batches and noise; and the first updates' gradients."""
+    import numpy as np
+    import torch
+    from graphical_gan_tpu_torch.train.step import make_train_step
+    model = _published("float32")
+    cfg = model.cfg
+    k, b = cfg.critic_iters, cfg.batch_size
+    rng = np.random.default_rng(3)
+    raw = torch.from_numpy(rng.integers(0, 256, (2, 1 + k, b, 3072)).astype(
+        np.float32))
+    p_z = torch.from_numpy(rng.standard_normal((2, 1 + k, b, 128)).astype(
+        np.float32))
+    alpha = torch.from_numpy(rng.random((2, k, b, 1)).astype(np.float32))
+    params = model.init(seed=1, device="cpu")
+    dev = {"cpu": torch.device("cpu"), "cuda": torch.device("cuda")}
+    grads = {}
+    for name, d in dev.items():
+        on = {n: p.to(d) for n, p in params.items()}
+        grads[name] = {pl: _grads(model, on, raw[0, i].to(d), p_z[0, i].to(d),
+                                  alpha[0, 0].to(d), pl)
+                       for pl, i in (("gen", 0), ("disc", 1))}
+    grad_err, bad = {}, []
+    for pl in ("gen", "disc"):
+        top = max(float(g.abs().max()) for g in grads["cpu"][pl].values())
+        for n, ref in grads["cpu"][pl].items():
+            e = float((grads["cuda"][pl][n].cpu() - ref).abs().max())
+            grad_err[n] = e
+            if not e <= GRAD_RTOL * max(float(ref.abs().max()), 1e-3 * top):
+                bad.append(n)
+    states = {}
+    step, init_state = make_train_step(model)
+    for name, d in dev.items():
+        # copies: the step updates the parameters in place
+        st = init_state({n: p.to(d, copy=True) for n, p in params.items()})
+        for it in range(2):
+            st, _ = step(st, raw[it].to(d), it > 0,
+                         noise={"p_z": p_z[it].to(d),
+                                "alpha": alpha[it].to(d)})
+        states[name] = st
+    ref = states["cpu"]
+    got = _to_cpu_state(states["cuda"])
+    state_bad, report = _state_misses(ref, got, params, model, k)
+    # negative controls: a step that updates nothing, and one that moves
+    # every parameter the other way, must each fail at every held leaf
+    skipped = init_state({n: p.clone() for n, p in params.items()})
+    reversed_ = _to_cpu_state(states["cpu"])
+    reversed_.params = {n: 2 * params[n] - p for n, p in ref.params.items()}
+    held = report["ratio_held_leaves"]
+    controls = {}
+    for cname, ctrl in (("skipped", skipped), ("reversed", reversed_)):
+        cbad, _ = _state_misses(ref, ctrl, params, model, k)
+        controls[cname] = sorted(set(held) - {s.split()[0] for s in cbad})
+        if controls[cname] or not held:
+            bad.append(f"{cname} control passes at {controls[cname]}")
+    log({"phase": "train-parity", "dtype": "float32", "iters": 2,
+         "grad_max_abs_err": grad_err, "grad_rtol": GRAD_RTOL,
+         **report, "sign_flip_bound": SIGN_FLIP,
+         "update_rtol": UPDATE_RTOL, "moment_rtol": MOMENT_RTOL,
+         "noise_rel": NOISE_REL, "controls_passing_leaves": controls,
+         "ok": not (bad or state_bad)})
+    if bad or state_bad:
+        fail(f"training on the card differs from the CPU at "
+             f"{bad + state_bad}")
+
+
+def _to_cpu_state(st):
+    import copy
+    out = copy.copy(st)
+    out.params = {n: p.cpu() for n, p in st.params.items()}
+    for f in ("gen_opt", "disc_opt"):
+        setattr(out, f, {s: ({n: t.cpu() for n, t in v.items()}
+                             if isinstance(v, dict) else v)
+                         for s, v in getattr(st, f).items()})
+    return out
+
+
+def _state_misses(ref, got, init, model, k):
+    """Leaves where the state ``got`` departs from ``ref`` after 2
+    iterations (see SIGN_FLIP .. NOISE_REL), and the measures per leaf."""
+    import torch
+    bad = []
+    rep = {"param_max_abs_err": {}, "update_rel_err": {},
+           "moment_max_abs_err": {}, "moment_err_of_max": {},
+           "ratio_held_leaves": []}
+    for field, names in (("gen_opt", model.GEN_PLAYER),
+                         ("disc_opt", model.DISC_PLAYER)):
+        rm, gm = getattr(ref, field), getattr(got, field)
+        leaves = [n for n in ref.params if n.split(".")[0] in names]
+        top = max(float(rm["m"][n].abs().max()) for n in leaves)
+        updates = 2 * k if field == "disc_opt" else 1
+        for n in leaves:
+            p_ref, p_got = ref.params[n], got.params[n]
+            e = float((p_got - p_ref).abs().max())
+            rep["param_max_abs_err"][n] = e
+            if not e <= SIGN_FLIP * updates:
+                bad.append(f"{n} param")
+            for slot in ("m", "v"):
+                want = rm[slot][n]
+                em = float((gm[slot][n] - want).abs().max())
+                top_n = float(want.abs().max())
+                rep["moment_max_abs_err"][f"{field}|{slot}|{n}"] = em
+                rep["moment_err_of_max"][f"{field}|{slot}|{n}"] = \
+                    em / top_n if top_n else 0.0
+                floor = 1e-7 if slot == "m" else 1e-14
+                if not em <= MOMENT_RTOL * top_n + floor:
+                    bad.append(f"{n} {slot}")
+            if float(rm["m"][n].abs().max()) <= NOISE_REL * top:
+                continue  # a gradient of rounding noise only
+            moved = torch.linalg.vector_norm(p_ref - init[n])
+            r = float(torch.linalg.vector_norm(p_got - p_ref) / moved)
+            rep["update_rel_err"][n] = r
+            rep["ratio_held_leaves"].append(n)
+            if not r <= UPDATE_RTOL:
+                bad.append(f"{n} update")
+    return bad, rep
+
+
+def phase_train_repeat(data):
+    """Two runs from one seed give the same bits, and a run resumed from its
+    checkpoint gives the bits of an uninterrupted one, per compute dtype."""
+    import torch
+    from graphical_gan_tpu_torch.train.trainer import Trainer
+    base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
+                        "smoke_repeat")
+    shutil.rmtree(base, ignore_errors=True)
+    for dtype in ("float32", "bfloat16"):
+        model = _published(dtype)
+
+        def trainer(name):
+            return Trainer(model, data, os.path.join(base, dtype, name),
+                           seed=7, device="cuda", checkpoint_every=0)
+
+        a, b, c = trainer("a"), trainer("b"), trainer("c")
+        a.train(REPEAT_ITERS)
+        b.train(REPEAT_ITERS)
+        c.train(REPEAT_ITERS // 2)
+        resumed = trainer("c")
+        resumed.train(REPEAT_ITERS)
+        same = all(torch.equal(a.state.params[n], b.state.params[n])
+                   for n in a.state.params)
+        same_resumed = resumed._start_iter == REPEAT_ITERS // 2 and all(
+            torch.equal(a.state.params[n], resumed.state.params[n])
+            for n in a.state.params)
+        log({"phase": "train-repeat", "dtype": dtype,
+             "iters": REPEAT_ITERS, "two_runs_bit_identical": same,
+             "resumed_at": resumed._start_iter,
+             "resumed_bit_identical": same_resumed})
+        if not (same and same_resumed):
+            fail(f"train {dtype}: runs from one seed differ "
+                 f"(two runs {same}, resumed {same_resumed})")
+
+
 SOURCES = {
     "fused_conv2d_bias_act": (
         "graphical_gan_tpu_torch/csrc/fused_conv.cu",
@@ -719,15 +1294,26 @@ SOURCES = {
                  "graphical_gan_tpu/ops/pallas/fused_norm.py:143"),
     "bn_apply": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
                  "graphical_gan_tpu/ops/pallas/fused_norm.py:182"),
+    "bn_bwd_reduce": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
+                      "graphical_gan_tpu/ops/pallas/fused_norm.py:212"),
+    "bn_bwd_apply": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
+                     "graphical_gan_tpu/ops/pallas/fused_norm.py:223"),
 }
+SERVE_KERNELS = ("fused_conv2d_bias_act", "bn_stats", "bn_apply")
 
 
-def summary(errs, timings, launch_totals):
-    """One entry per kernel: times summed over the shapes of one
-    reconstructor dispatch at B=256 in f32."""
+def summary(errs, timings, train_launches, serve_launches):
+    """One entry per kernel. The forward kernels' times are summed over the
+    shapes of one reconstructor dispatch at B=256 in f32; K2c's and K2d's
+    over the 5 BN shapes one training iteration backpropagates through at
+    B=64 in f32 (their library time is one call that computes both).
+    ``launches`` counts the training runs, ``launches_serve`` the serving
+    run."""
     out = []
     for name, (src, replaces) in SOURCES.items():
-        rows = [r for r in timings if r["kernel"] == name and r["B"] == 256
+        backward = name not in SERVE_KERNELS
+        b = 64 if backward else 256
+        rows = [r for r in timings if r["kernel"] == name and r["B"] == b
                 and r["dtype"] == "float32"]
         if name == "bn_stats":  # E.BN2 and G.BN2 share one timed row
             rows = rows + [r for r in rows if r["shape"] == "E.BN2"]
@@ -738,14 +1324,28 @@ def summary(errs, timings, launch_totals):
         bytes_ms = sum(r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces,
-                    "launches": launch_totals[name],
+                    "launches": train_launches[name],
+                    "launches_serve": serve_launches[name],
                     "max_abs_err": errs[name],
                     "ms": total("ms"), "plain_ms": total("plain_ms"),
                     "bound_ms": total("bound_ms"),
                     "bound_by": ("operations" if ops_ms >= bytes_ms
                                  else "bytes"),
-                    "library_ms": total("library_ms")})
+                    "library_ms": total("library_ms"),
+                    "summed_over": (f"one training iteration's 5 BN shapes, "
+                                    f"B=64, f32 (library: one call for "
+                                    f"K2c+K2d)" if backward else
+                                    "one reconstructor dispatch, B=256, "
+                                    "f32")})
     return {"kernels": out}
+
+
+def _timed(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log({"phase_seconds": name, "seconds": round(time.perf_counter() - t0,
+                                                 3)})
+    return out
 
 
 def main(argv=None) -> int:
@@ -772,23 +1372,33 @@ def main(argv=None) -> int:
         if os.path.dirname(pkg_dir) != ROOT:
             fail(f"graphical_gan_tpu_torch was imported from {pkg_dir}, not "
                  f"from this checkout")
+        import numpy as np
+        from graphical_gan_tpu_torch.core.device import set_numerics
+        from graphical_gan_tpu_torch.data.synthetic import images_int
         card = phase_device()
-        # full-f32 products and convolutions for the plain versions and the
-        # library calls (cuDNN defaults to TF32 for f32 convolutions)
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        errs, timings, launch_totals = {}, [], {}
-        phase_build()
-        phase_check(errs)
-        phase_time(timings)
-        run_dirs = phase_serve(launch_totals)
-        missing = [k for k in SOURCES if not launch_totals.get(k)]
+        # the port's numerics for the kernels, the plain versions and the
+        # library calls alike: no TF32 (cuDNN's default for f32
+        # convolutions), deterministic cuDNN
+        set_numerics()
+        errs, timings, serve_launches, train_launches = {}, [], {}, {}
+        _timed("build", phase_build)
+        _timed("check", phase_check, errs)
+        _timed("time", phase_time, timings)
+        run_dirs = _timed("serve", phase_serve, serve_launches)
+        missing = [k for k in SERVE_KERNELS if not serve_launches.get(k)]
         if missing:
-            fail(f"kernels never launched on the main path: {missing}")
-        phase_dispatch(run_dirs)
+            fail(f"kernels never launched on the serving path: {missing}")
+        _timed("dispatch", phase_dispatch, run_dirs)
+        data = images_int(50_000, 3072, seed=0).astype(np.uint8)
+        _timed("train", phase_train, train_launches, data)
+        missing = [k for k in SOURCES if not train_launches.get(k)]
+        if missing:
+            fail(f"kernels never launched on the training path: {missing}")
+        _timed("train-parity", phase_train_parity)
+        _timed("train-repeat", phase_train_repeat, data)
         if "jax" in sys.modules or "graphical_gan_tpu" in sys.modules:
             fail("JAX or the JAX package was imported")
-        log(summary(errs, timings, launch_totals))
+        log(summary(errs, timings, train_launches, serve_launches))
         log({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                                1)})
         print(card, flush=True)

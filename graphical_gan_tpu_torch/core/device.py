@@ -1,4 +1,4 @@
-"""Device resolution for the port's entry points.
+"""Device resolution and numerics for the port's entry points.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; a missing
 card is an error, never a silent fall back to the CPU.
@@ -23,11 +23,13 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     return dev
 
 
-def set_serving_numerics() -> None:
-    """Full f32 products and convolutions (cuDNN runs f32 convolutions in
-    TF32 by default, which keeps about three decimal digits), and
-    deterministic cuDNN algorithms for the transpose convolutions, so that
-    exact-mode requests are bit-reproducible as in the JAX server."""
+def set_numerics() -> None:
+    """The numerics the server and the trainer both run with: full f32
+    products and convolutions (cuDNN runs f32 convolutions, and their
+    gradients, in TF32 by default, which keeps about three decimal digits),
+    and deterministic cuDNN algorithms, so that the same inputs give the
+    same bits: exact-mode requests as in the JAX server, and training steps
+    from one seed, as ``tools/determinism.py`` audits for the JAX step."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True

@@ -1,17 +1,24 @@
-"""Model family 1, GAN inference: the serving forwards
-(``graphical_gan_tpu/models/gan_inference.py:57-64, 210-224``).
+"""Model family 1, GAN inference (``graphical_gan_tpu/models/
+gan_inference.py``): the serving forwards and the wali-gp losses.
 
-``sample``, ``encode`` and ``reconstruct`` are pure functions of a
-``{name: tensor}`` params dict with the JAX package's names and shapes, so
-parameters come either from :meth:`GanInferenceModel.init` or from a JAX
-checkpoint (``train/checkpoint.py: params_from_jax``). The losses and the
-discriminator forward come with the training slice; ``init`` still makes the
-discriminator's parameters, so its key set equals the JAX ``init``'s.
+``sample``, ``encode``, ``reconstruct``, ``gen_loss`` and ``disc_loss`` are
+functions of a ``{name: tensor}`` params dict with the JAX package's names
+and shapes, so parameters come either from :meth:`GanInferenceModel.init`
+or from a JAX checkpoint (``train/checkpoint.py: params_from_jax``).
+
+The losses compute only what the mode's costs read, which is what XLA keeps
+of the JAX graph after dead-code elimination: no ``rec_x`` or ``rec_z``,
+and no gradient penalty inside ``gen_loss``. In ``disc_loss`` the extractor
+and generator run under ``torch.no_grad()`` (their outputs are constants
+of the discriminator's loss). The random draws (``p_z`` in the compute
+dtype, the penalty's ``alpha`` in f32) come from a ``torch.Generator``
+unless the caller passes them in, as the parity tests do. This slice trains
+wali-gp; the other modes raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -19,6 +26,9 @@ from graphical_gan_tpu_torch.core.config import (
     VEGAN_CODE_MODES, GanInferenceConfig)
 from graphical_gan_tpu_torch.models import networks
 from graphical_gan_tpu_torch.models.common import normalize_input
+from graphical_gan_tpu_torch.objectives import gan_inference as objs
+from graphical_gan_tpu_torch.objectives import penalties
+from graphical_gan_tpu_torch.objectives.common import OptSpec, optimizer_for
 from graphical_gan_tpu_torch.ops import initializers as inits
 
 Params = Dict[str, torch.Tensor]
@@ -148,3 +158,83 @@ class GanInferenceModel:
     def encode(self, params: Params, raw_x: torch.Tensor) -> torch.Tensor:
         q_z, _, _ = networks.extractor(self.cfg, params, self.normalize(raw_x))
         return q_z
+
+    # -- training losses (wali-gp) --------------------------------------------
+
+    def _check_trainable(self) -> None:
+        if self.cfg.mode != "wali-gp":
+            raise NotImplementedError(
+                f"mode {self.cfg.mode!r}: the port trains wali-gp; the other "
+                "modes come with the rest of family 1 (slice 3 of the port)")
+
+    def draw_p_z(self, batch: int, device, generator=None) -> torch.Tensor:
+        """The prior codes, N(0, I) in the compute dtype
+        (``gan_inference.py:73-75``)."""
+        return torch.randn((batch, self.cfg.dim_latent), generator=generator,
+                           device=device, dtype=self.compute_dtype)
+
+    def _players(self, params: Params, raw_x: torch.Tensor,
+                 p_z: Optional[torch.Tensor], generator=None):
+        """(real_x, q_z, p_z, fake_x): E on the data, G on the prior."""
+        real_x = self.normalize(raw_x)
+        q_z, _, _ = networks.extractor(self.cfg, params, real_x)
+        if p_z is None:
+            p_z = self.draw_p_z(raw_x.shape[0], raw_x.device, generator)
+        fake_x, _, _ = networks.generator(self.cfg, params, p_z)
+        return real_x, q_z, p_z, fake_x
+
+    def _graph(self, params: Params, raw_x: torch.Tensor,
+               p_z: Optional[torch.Tensor] = None, generator=None,
+               players_grad: bool = True) -> Dict[str, torch.Tensor]:
+        """The tensors wali-gp's costs read (``gan_inference.py:68-101``
+        without ``rec_x`` / ``rec_z``); E and G run under ``no_grad`` when
+        ``players_grad`` is False."""
+        self._check_trainable()
+        with torch.set_grad_enabled(players_grad and torch.is_grad_enabled()):
+            real_x, q_z, p_z, fake_x = self._players(params, raw_x, p_z,
+                                                     generator)
+        d = self.discriminator(params)
+        return dict(real_x=real_x, q_z=q_z, p_z=p_z, fake_x=fake_x,
+                    disc_real=d(real_x, q_z), disc_fake=d(fake_x, p_z))
+
+    def discriminator(self, params: Params):
+        return lambda x, z: networks.discriminator_xz(self.cfg, params, x, z)
+
+    def gradient_penalty(self, params: Params, t: Dict[str, torch.Tensor],
+                         alpha: Optional[torch.Tensor] = None,
+                         generator=None) -> torch.Tensor:
+        """wali-gp's penalty on interpolates of (x, z); ``alpha`` [B, 1]
+        f32, drawn from ``generator`` when not given."""
+        if alpha is None:
+            alpha = torch.rand((t["real_x"].shape[0], 1), generator=generator,
+                               device=t["real_x"].device)
+        return penalties.gradient_penalty_xz(
+            self.discriminator(params), t["real_x"], t["fake_x"], t["q_z"],
+            t["p_z"], alpha, self.cfg.gp_lambda)
+
+    def gen_loss(self, params: Params, raw_x: torch.Tensor,
+                 p_z: Optional[torch.Tensor] = None, generator=None
+                 ) -> Tuple[torch.Tensor, Dict]:
+        """The G+E player's loss: ``-mean(D(fake)) + mean(D(real))``."""
+        t = self._graph(params, raw_x, p_z, generator)
+        g, _ = objs.wali_gp(t["disc_fake"], t["disc_real"], 0.0)
+        return g, {"gen_cost": g}
+
+    def disc_loss(self, params: Params, raw_x: torch.Tensor,
+                  p_z: Optional[torch.Tensor] = None,
+                  alpha: Optional[torch.Tensor] = None, generator=None
+                  ) -> Tuple[torch.Tensor, Dict]:
+        """The D player's loss: ``mean(D(fake)) - mean(D(real)) + GP``."""
+        t = self._graph(params, raw_x, p_z, generator, players_grad=False)
+        gp = self.gradient_penalty(params, t, alpha, generator)
+        _, d = objs.wali_gp(t["disc_fake"], t["disc_real"], gp)
+        return d, {"disc_cost": d, "gp": gp}
+
+    # -- optimizer presets ----------------------------------------------------
+
+    def opt_specs(self) -> Tuple[OptSpec, Optional[OptSpec]]:
+        """(G+E player's, D player's) optimizer (``gan_inference.py:
+        242-255``): wali-gp trains both with the same Adam preset."""
+        self._check_trainable()
+        spec = optimizer_for("wali_gp")
+        return spec, spec

@@ -1,5 +1,6 @@
-"""Generator and extractor of the GAN-inference family, 32x32 datasets
-(``graphical_gan_tpu/models/networks.py:66-81, 101-163``), forward only.
+"""Generator, extractor and joint discriminator of the GAN-inference
+family, 32x32 datasets (``graphical_gan_tpu/models/networks.py:66-81,
+101-163, 205-264``).
 
 Layer names, widths, BN placement and activations are the JAX package's.
 Images are NHWC inside; the flatten before ``Extractor.Output`` and the
@@ -8,7 +9,9 @@ vectors are flat NCHW (``ops/layout.py``).
 
 This slice ports the cifar10/svhn networks with ``type_q='no_std'`` (what
 wali-gp uses); the other datasets and posterior heads raise
-``NotImplementedError``.
+``NotImplementedError``. Dropout is the identity, as in the reference's
+graphs (``ops/activations.py: dropout``), so the discriminator draws no
+random numbers.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch
 
 from graphical_gan_tpu_torch.models.common import bn_act
 from graphical_gan_tpu_torch.ops import (
-    conv2d, deconv2d, flatten_image, linear, unflatten_image)
+    conv2d, deconv2d, dropout, flatten_image, leaky_relu, linear,
+    unflatten_image)
 
 Params = Dict[str, torch.Tensor]
 DATASETS = ("cifar10", "svhn")
@@ -86,3 +90,37 @@ def extractor_back(cfg, params: Params, h: torch.Tensor):
     h = bn_act(cfg.bn, params, "Extractor.BN3", h, "leaky_relu")
     h = h.reshape(-1, 4 * 4 * 4 * cfg.dim)
     return linear(params, "Extractor.Output", h), None, None
+
+
+def discriminator_xz(cfg, params: Params, x_flat: torch.Tensor,
+                     z: torch.Tensor) -> torch.Tensor:
+    """Joint discriminator on (data, code) pairs: [B] scores
+    (``gan_inference_cifar10.py:232-259``)."""
+    check_supported(cfg)
+    hgt, wdt = cfg.data.image_hw
+    x = unflatten_image(x_flat, cfg.data.channels, hgt, wdt)
+    h = discriminator_x_trunk(cfg, params, x)
+    return discriminator_xz_head(cfg, params, h, z)
+
+
+def discriminator_x_trunk(cfg, params: Params, x: torch.Tensor
+                          ) -> torch.Tensor:
+    """Three k5 s2 convs with leaky ReLU (K1) and dropout; the flattened
+    [B, 4*4*4*dim] feature."""
+    dr = cfg.dropout_rate
+    h = x
+    for i in (1, 2, 3):
+        h = conv2d(params, f"Discriminator.{i}", h, stride=2,
+                   act="leaky_relu")
+        h = dropout(h, dr)
+    return h.reshape(-1, 4 * 4 * 4 * cfg.dim)
+
+
+def discriminator_xz_head(cfg, params: Params, h_feat: torch.Tensor,
+                          z: torch.Tensor) -> torch.Tensor:
+    """The z branch, the concat, the zx layer and the output."""
+    dr = cfg.dropout_rate
+    hz = dropout(leaky_relu(linear(params, "Discriminator.z1", z)), dr)
+    h = torch.cat([h_feat, hz], dim=1)
+    h = dropout(leaky_relu(linear(params, "Discriminator.zx1", h)), dr)
+    return linear(params, "Discriminator.Output", h).reshape(-1)

@@ -33,6 +33,19 @@ def activation(name: Optional[str]):
     raise ValueError(name)
 
 
+def activation_grad(name: Optional[str], y: torch.Tensor) -> torch.Tensor:
+    """d act(u)/du from the pre-activation (or the output: the activations
+    are monotone and keep the sign), in y's dtype, as the JAX package's
+    ``ops/pallas/fused_norm.py:_act_grad``: y > 0 picks the slope."""
+    if name is None:
+        return torch.ones_like(y)
+    if name == "relu":
+        return (y > 0).to(y.dtype)
+    if name == "leaky_relu":
+        return torch.where(y > 0, 1.0, LEAKY_ALPHA).to(y.dtype)
+    raise ValueError(name)
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool = False,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Inverted dropout; the identity unless ``training=True``. The reference

@@ -1,20 +1,21 @@
 """2-D convolution and transpose convolution over NHWC
-(``graphical_gan_tpu/ops/conv.py``), forward only.
+(``graphical_gan_tpu/ops/conv.py``), with gradients.
 
 Filters keep the JAX package's TF layouts: conv HWIO ``[K, K, in, out]``,
 transpose conv ``[K, K, out, in]``. Each casts the filter to the activation
 dtype, as ``ops/conv.py:72`` does.
 
-- ``conv2d`` goes through the K1 kernel (``ops/kernels/
-  fused_conv.py``), bias and activation fused into its epilogue. On a CPU
-  tensor that wrapper computes its plain version.
+- ``conv2d`` goes through ``conv2d_bias_act`` (``ops/kernels/
+  fused_conv.py``): the K1 kernel forward, bias and activation fused into
+  its epilogue, and a differentiable backward. On a CPU tensor the forward
+  is its plain version.
 - ``deconv2d`` is ``F.conv_transpose2d``: the JAX package computes it outside
   any Pallas kernel (``ops/conv.py:181-184``). It runs on the NHWC tensor
   viewed as channels-last NCHW, so nothing is copied to change layout. TF's
   SAME transpose conv is the input-gradient of the asymmetrically padded
   forward conv (pads ``(lo, hi)``, ``lo <= hi``), while torch's ``padding``
   is symmetric, so it runs with ``padding=0`` and crops ``lo`` from the low
-  side.
+  side. Its gradients are autograd's (cuDNN on the card).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from graphical_gan_tpu_torch.ops.kernels.fused_conv import (
-    fused_conv2d_bias_act, same_pads)
+    conv2d_bias_act, same_pads)
 
 
 def conv2d(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
@@ -34,9 +35,8 @@ def conv2d(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
     """act(conv2d(x) + bias); x [B, H, W, Cin] NHWC, ``name.Filters`` HWIO,
     ``name.Biases`` [Cout]. Every conv of the ported networks has a bias;
     the JAX ``biases=False`` form comes when a caller needs it."""
-    return fused_conv2d_bias_act(x.contiguous(), params[name + ".Filters"],
-                                 params[name + ".Biases"], stride, padding,
-                                 act)
+    return conv2d_bias_act(x.contiguous(), params[name + ".Filters"],
+                           params[name + ".Biases"], stride, padding, act)
 
 
 def deconv2d(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,

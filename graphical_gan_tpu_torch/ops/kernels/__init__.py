@@ -6,15 +6,17 @@ integer attribute, ``launches``.
 """
 
 from graphical_gan_tpu_torch.ops.kernels.fused_conv import (  # noqa: F401
-    fused_conv2d_bias_act)
+    conv2d_bias_act, fused_conv2d_bias_act)
 from graphical_gan_tpu_torch.ops.kernels.fused_norm import (  # noqa: F401
-    bn_apply, bn_stats, fused_batchnorm_act)
+    bn_apply, bn_bwd_apply, bn_bwd_reduce, bn_stats, fused_batchnorm_act)
 
 #: every kernel wrapper, by the name chip_smoke.py reports
 WRAPPERS = {
     "fused_conv2d_bias_act": fused_conv2d_bias_act,
     "bn_stats": bn_stats,
     "bn_apply": bn_apply,
+    "bn_bwd_reduce": bn_bwd_reduce,
+    "bn_bwd_apply": bn_bwd_apply,
 }
 
 

@@ -47,6 +47,13 @@ _SIGNATURES = {
     "ggan_bn_stats": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P],
     # x, mean, inv, scale, offset, y, dtype, numel, C, act, vec, stream
     "ggan_bn_apply": [_P] * 6 + [_I, ctypes.c_longlong, _I, _I, _I, _P],
+    # g, x, mean, inv, scale, offset, part_sum, part_dot, red_sum, red_dot,
+    # dtype, R, C, rows_per_block, n_row_blocks, act, stream
+    "ggan_bn_bwd_reduce": [_P] * 10 + [_I] * 6 + [_P],
+    # g, x, mean, inv, scale, offset, red_sum, red_dot, dx, dtype, numel, C,
+    # R, act, vec, stream
+    "ggan_bn_bwd_apply": [_P] * 9 + [_I, ctypes.c_longlong] + [_I] * 4
+    + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,19 +1,23 @@
 """K2: batch-statistics batch norm + activation over channels-last data.
 
-Two kernels in ``csrc/fused_norm.cu``, each behind its own wrapper:
+Four kernels in ``csrc/fused_norm.cu``, each behind its own wrapper:
 
 - K2a :func:`bn_stats` replaces ``graphical_gan_tpu/ops/pallas/
   fused_norm.py:_stats``: per-channel mean, biased variance and
   ``inv = 1/sqrt(var + eps)`` of ``[R, C]``, in two deterministic stages
   (per-block Welford partials, then a fixed-order merge by Chan's formula);
 - K2b :func:`bn_apply` replaces ``fused_norm.py:_fwd``'s apply pass:
-  ``act((x - mean) * (inv * scale) + offset)`` in x's dtype.
+  ``act((x - mean) * (inv * scale) + offset)`` in x's dtype;
+- K2c :func:`bn_bwd_reduce` replaces ``fused_norm.py:_bwd``'s reduce pass:
+  per channel ``[Σgz, Σgz·xhat]`` in f32, ``gz = g·act'(y)``, with xhat and
+  y recomputed from x; two deterministic stages like K2a;
+- K2d :func:`bn_bwd_apply` replaces ``_bwd``'s apply pass:
+  ``dx = (gz - Σgz/R - xhat·Σ(gz·xhat)/R)·inv·scale`` in x's dtype.
 
-Both are bound by bytes (see the source). :func:`fused_batchnorm_act` is the
-forward of the JAX ``fused_batchnorm_act``: stats then apply over ``x``
-reshaped to ``[R, C]``. On a CUDA tensor each wrapper launches its kernel or
-raises; on a CPU tensor it computes its plain PyTorch version. Forward only:
-the backward kernels (``_bwd``) come with the training slice.
+All four are bound by bytes (see the source). :class:`FusedBatchNormAct` is
+the JAX ``fused_batchnorm_act`` with its custom VJP: K2a then K2b forward,
+K2c then K2d backward. On a CUDA tensor each wrapper launches its kernel or
+raises; on a CPU tensor it computes its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -21,8 +25,10 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from graphical_gan_tpu_torch.ops.activations import activation
+from graphical_gan_tpu_torch.ops.activations import (
+    activation, activation_grad)
 from graphical_gan_tpu_torch.ops.kernels import build
 
 EPS = 1e-5
@@ -122,8 +128,147 @@ def bn_apply(x2d: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
     return y
 
 
+def _gz_xhat(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
+             inv: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
+             act: Optional[str]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gz, xhat) in f32: xhat = (x - mean) * inv, and gz = g * act'(y) with
+    y recomputed as K2b computes it, so the mask matches the forward."""
+    d = x2d.float() - mean
+    y = d * (inv * scale.float()) + offset.float()
+    return g2d.float() * activation_grad(act, y), d * inv
+
+
+def bn_bwd_reduce_plain(g2d: torch.Tensor, x2d: torch.Tensor,
+                        mean: torch.Tensor, inv: torch.Tensor,
+                        scale: torch.Tensor, offset: torch.Tensor,
+                        act: Optional[str] = None) -> torch.Tensor:
+    """[Σgz, Σgz·xhat] per column, f32 [2, C]."""
+    gz, xhat = _gz_xhat(g2d, x2d, mean, inv, scale, offset, act)
+    return torch.stack([gz.sum(dim=0), (gz * xhat).sum(dim=0)])
+
+
+def bn_bwd_apply_plain(g2d: torch.Tensor, x2d: torch.Tensor,
+                       mean: torch.Tensor, inv: torch.Tensor,
+                       scale: torch.Tensor, offset: torch.Tensor,
+                       red: torch.Tensor, act: Optional[str] = None
+                       ) -> torch.Tensor:
+    """dx = (gz - Σgz/R - xhat·Σ(gz·xhat)/R)·inv·scale, in x's dtype."""
+    gz, xhat = _gz_xhat(g2d, x2d, mean, inv, scale, offset, act)
+    r = x2d.shape[0]
+    dx = (gz - red[0] / r - xhat * (red[1] / r)) * inv * scale.float()
+    return dx.to(x2d.dtype)
+
+
+def _chan_f32(x2d: torch.Tensor, *vecs: torch.Tensor):
+    c = x2d.shape[1]
+    out = [t.to(device=x2d.device, dtype=torch.float32).contiguous()
+           for t in vecs]
+    if any(t.shape != (c,) for t in out):
+        raise ValueError(f"per-channel vectors must be [{c}]")
+    return out
+
+
+def _same_layout(g2d: torch.Tensor, x2d: torch.Tensor, name: str):
+    if g2d.shape != x2d.shape:
+        raise ValueError(f"{name}: g {tuple(g2d.shape)} and x "
+                         f"{tuple(x2d.shape)} differ")
+    return g2d.to(x2d.dtype).contiguous()
+
+
+def bn_bwd_reduce(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
+                  inv: torch.Tensor, scale: torch.Tensor,
+                  offset: torch.Tensor, act: Optional[str] = None
+                  ) -> torch.Tensor:
+    """K2c: [Σgz, Σgz·xhat] per column of [R, C], f32 [2, C]."""
+    if x2d.device.type == "cpu":
+        return bn_bwd_reduce_plain(g2d, x2d, mean, inv, scale, offset, act)
+    _check_2d(x2d, "bn_bwd_reduce")
+    if act not in build.ACT_CODES:
+        raise ValueError(f"unknown activation {act!r}")
+    g2d = _same_layout(g2d, x2d, "bn_bwd_reduce")
+    chan = _chan_f32(x2d, mean, inv, scale, offset)
+    r, c = x2d.shape
+    rows, nrb = stats_split(r, c)
+    f32 = dict(dtype=torch.float32, device=x2d.device)
+    part = torch.empty((2, nrb, c), **f32)
+    red = torch.empty((2, c), **f32)
+    code = build.lib().ggan_bn_bwd_reduce(
+        g2d.data_ptr(), x2d.data_ptr(), *[t.data_ptr() for t in chan],
+        part[0].data_ptr(), part[1].data_ptr(), red[0].data_ptr(),
+        red[1].data_ptr(), build.DTYPE_CODES[_DTYPES[x2d.dtype]], r, c, rows,
+        nrb, build.ACT_CODES[act], build.stream_ptr(x2d.device))
+    build.check(code, "ggan_bn_bwd_reduce")
+    bn_bwd_reduce.launches += 1
+    return red
+
+
+def bn_bwd_apply(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
+                 inv: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
+                 red: torch.Tensor, act: Optional[str] = None
+                 ) -> torch.Tensor:
+    """K2d: dx of [R, C] from K2c's sums ``red``, output in x's dtype."""
+    if x2d.device.type == "cpu":
+        return bn_bwd_apply_plain(g2d, x2d, mean, inv, scale, offset, red,
+                                  act)
+    _check_2d(x2d, "bn_bwd_apply")
+    if act not in build.ACT_CODES:
+        raise ValueError(f"unknown activation {act!r}")
+    g2d = _same_layout(g2d, x2d, "bn_bwd_apply")
+    r, c = x2d.shape
+    red = red.to(device=x2d.device, dtype=torch.float32).contiguous()
+    if red.shape != (2, c):
+        raise ValueError(f"bn_bwd_apply: red must be [2, {c}]")
+    chan = _chan_f32(x2d, mean, inv, scale, offset)
+    dx = torch.empty_like(x2d)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (g2d, x2d, dx))
+    vec = 4 if c % 4 == 0 and aligned else 1
+    code = build.lib().ggan_bn_bwd_apply(
+        g2d.data_ptr(), x2d.data_ptr(), *[t.data_ptr() for t in chan],
+        red[0].data_ptr(), red[1].data_ptr(), dx.data_ptr(),
+        build.DTYPE_CODES[_DTYPES[x2d.dtype]], x2d.numel(), c, r,
+        build.ACT_CODES[act], vec, build.stream_ptr(x2d.device))
+    build.check(code, "ggan_bn_bwd_apply")
+    bn_bwd_apply.launches += 1
+    return dx
+
+
 bn_stats.launches = 0
 bn_apply.launches = 0
+bn_bwd_reduce.launches = 0
+bn_bwd_apply.launches = 0
+
+
+class FusedBatchNormAct(torch.autograd.Function):
+    """act(batchnorm(x)) over channels-last x with batch statistics, with the
+    JAX package's custom VJP (``fused_norm.py:174-236``).
+
+    Forward: K2a then K2b; saves ``(x, scale, offset, mean, inv)`` as
+    ``_fwd`` does. Backward: K2c then K2d; ``dx`` in x's dtype, ``dscale =
+    Σgz·xhat`` and ``doffset = Σgz`` in f32, cast to the parameters'
+    dtypes. The backward is not differentiable again: no path of this
+    slice takes a second-order gradient through BN (the cifar10/svhn
+    discriminator has none)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, offset, act, eps):
+        c = x.shape[-1]
+        x2d = x.reshape(-1, c)
+        mean, _, inv = bn_stats(x2d, eps)
+        y = bn_apply(x2d, mean, inv, scale, offset, act)
+        ctx.save_for_backward(x, scale, offset, mean, inv)
+        ctx.act = act
+        return y.reshape(x.shape)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, scale, offset, mean, inv = ctx.saved_tensors
+        c = x.shape[-1]
+        x2d, g2d = x.reshape(-1, c), g.reshape(-1, c)
+        red = bn_bwd_reduce(g2d, x2d, mean, inv, scale, offset, ctx.act)
+        dx = bn_bwd_apply(g2d, x2d, mean, inv, scale, offset, red, ctx.act)
+        return (dx.reshape(x.shape), red[1].to(scale.dtype),
+                red[0].to(offset.dtype), None, None)
 
 
 def fused_batchnorm_act(x: torch.Tensor, scale: torch.Tensor,
@@ -132,7 +277,4 @@ def fused_batchnorm_act(x: torch.Tensor, scale: torch.Tensor,
     """act(batchnorm(x)) over channels-last x with batch statistics.
 
     x: [..., C] contiguous; scale/offset: [C]. Output in x's dtype."""
-    c = x.shape[-1]
-    x2d = x.reshape(-1, c)
-    mean, _, inv = bn_stats(x2d, eps)
-    return bn_apply(x2d, mean, inv, scale, offset, act).reshape(x.shape)
+    return FusedBatchNormAct.apply(x, scale, offset, act, eps)

@@ -1,4 +1,4 @@
-"""Dense layer (``graphical_gan_tpu/ops/linear.py``), forward only.
+"""Dense layer (``graphical_gan_tpu/ops/linear.py``).
 
 ``W`` is stored ``[in, out]`` as in the JAX package and cast to the
 activation dtype before the product, as ``linear.py:64`` does. The product

@@ -1,11 +1,12 @@
 """Batch normalization with batch statistics (``graphical_gan_tpu/ops/
-norm.py:45-101``), forward only; eps 1e-5.
+norm.py:45-101``); eps 1e-5.
 
 The "every axis but the last" form (the conv case, and the dense case
-``axes=[0]`` on ``[B, F]``) goes through the K2 kernels
-(``ops/kernels/fused_norm.py``): statistics in f32, output back in x's
-dtype, as ``ops/norm.py:84-89``. Other reduction axes keep the reference's
-keepdims parameter shapes and run as plain tensor math.
+``axes=[0]`` on ``[B, F]``) goes through ``FusedBatchNormAct``
+(``ops/kernels/fused_norm.py``): the K2a/K2b kernels forward and K2c/K2d
+backward, statistics in f32, output back in x's dtype, as
+``ops/norm.py:84-89``. Other reduction axes keep the reference's keepdims
+parameter shapes and run as plain tensor math (autograd's gradients).
 """
 
 from __future__ import annotations

@@ -351,13 +351,13 @@ def sampler_from_run_dir(run_dir: str, entry: str = "sampler",
     raises) and returns a float32 numpy array. Calls are serialized.
     """
     from graphical_gan_tpu_torch.core.device import (
-        resolve_device, set_serving_numerics)
+        resolve_device, set_numerics)
     from graphical_gan_tpu_torch.serve.export import ENTRY_OUTPUT, make_entry
     from graphical_gan_tpu_torch.tools.generate import rebuild, restore_params
     from graphical_gan_tpu_torch.train import checkpoint as ckpt_lib
 
     dev = resolve_device(device)
-    set_serving_numerics()
+    set_numerics()
     family, cfg, model = rebuild(run_dir)
     path = ckpt or ckpt_lib.latest(run_dir)
     if path is None:

@@ -2,13 +2,17 @@
 checkpoint.py``), numpy only.
 
 A checkpoint is one ``.npz`` of keypath-flattened arrays plus a
-``__header__`` JSON string ``{"extra": {...}, "keys": [...]}``. The JAX
-trainer saves its whole ``TrainState``; the parameters are the keys
-``n:params|k:<name>``. This module reads any such file, lists and picks the
-checkpoints of a run directory, writes a params-only checkpoint in the same
-format (so a run directory can be made without JAX), and carries JAX
-parameters into the port (:func:`params_from_jax`). Optimizer state and the
-orbax and pipeline-parallel layouts come with the training slice.
+``__header__`` JSON string ``{"extra": {...}, "keys": [...]}``. Both
+trainers save their whole ``TrainState`` under the JAX keypaths
+(``checkpoint.py:28-43``): ``n:params|k:<name>``, ``n:gen_opt|k:m|k:<name>``,
+``n:gen_opt|k:t``, ``n:gen_opt|k:master|k:<name>``, ``n:disc_opt|...`` and
+``n:step``; so a JAX run directory resumes in the port and a port
+checkpoint restores in JAX. This module reads any such file, lists and
+picks the checkpoints of a run directory, writes a params-only checkpoint
+(so a run directory can be made without a trainer) or a whole state, and
+carries JAX parameters or a whole JAX state into the port
+(:func:`params_from_jax`, :func:`state_from_jax`). The orbax and
+pipeline-parallel layouts come in a later slice.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from __future__ import annotations
 import json
 import os
 import tempfile
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,7 +39,7 @@ def load_raw(path: str) -> Tuple[Dict[str, np.ndarray], Dict]:
     if is_orbax(path):
         raise NotImplementedError(
             f"{path!r} is an orbax checkpoint; the port reads the npz format "
-            "(orbax comes with the training slice)")
+            "(orbax comes in a later slice)")
     with np.load(path, allow_pickle=False) as data:
         header = json.loads(str(data["__header__"]))
         flat = {k: data[k] for k in data.files if k != "__header__"}
@@ -68,13 +72,21 @@ def params_from_jax(np_params: Dict[str, np.ndarray],
             for name, arr in np_params.items()}
 
 
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
 def save_params(path: str, params: Dict[str, torch.Tensor],
                 extra: Optional[Dict] = None) -> str:
     """Atomically write a params-only checkpoint in the npz format."""
+    return _save_flat(path, {PARAMS_PREFIX + name: _to_numpy(t)
+                             for name, t in params.items()}, extra)
+
+
+def _save_flat(path: str, flat: Dict[str, np.ndarray],
+               extra: Optional[Dict]) -> str:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    flat = {PARAMS_PREFIX + name: t.detach().float().cpu().numpy()
-            if t.dtype == torch.bfloat16 else t.detach().cpu().numpy()
-            for name, t in params.items()}
     header = {"extra": extra or {}, "keys": sorted(flat)}
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)),
                                suffix=".tmp")
@@ -117,3 +129,86 @@ def latest(dirpath: str, prefix: str = "ckpt_") -> Optional[str]:
     """Path of the highest-step checkpoint in ``dirpath`` (or None)."""
     ckpts = list_checkpoints(dirpath, prefix)
     return ckpts[-1][1] if ckpts else None
+
+
+# -- the whole TrainState ------------------------------------------------------
+
+_FIELDS = ("params", "gen_opt", "disc_opt", "step")
+
+
+def _flatten(tree: Any, prefix: str, out: Dict[str, Any]) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}{SEP}k:{k}", out)
+    else:
+        out[prefix] = tree
+
+
+def state_leaves(state) -> Dict[str, Any]:
+    """``{keypath: leaf}`` of a TrainState (``step`` as an int32 scalar)."""
+    out: Dict[str, Any] = {}
+    for field in _FIELDS:
+        value = getattr(state, field)
+        if field == "step":
+            value = torch.tensor(int(value), dtype=torch.int32)
+        _flatten(value, f"n:{field}", out)
+    return out
+
+
+def _unflatten(leaves: Dict[str, Any]):
+    from graphical_gan_tpu_torch.train.step import TrainState
+    top: Dict[str, Any] = {"disc_opt": {}}
+    for key, leaf in leaves.items():
+        parts = key.split(SEP)
+        field = parts[0][len("n:"):]
+        if len(parts) == 1:
+            top[field] = leaf
+            continue
+        node = top.setdefault(field, {})
+        for p in parts[1:-1]:
+            node = node.setdefault(p[len("k:"):], {})
+        node[parts[-1][len("k:"):]] = leaf
+    top["step"] = int(top["step"])
+    return TrainState(**top)
+
+
+def save_state(path: str, state, extra: Optional[Dict] = None) -> str:
+    """Atomically write a whole TrainState in the JAX npz format."""
+    return _save_flat(path, {k: _to_numpy(t)
+                             for k, t in state_leaves(state).items()}, extra)
+
+
+def restore_state(path: str, like) -> Tuple[Any, Dict]:
+    """(TrainState, extra) from an npz checkpoint of either trainer, into
+    the structure of ``like``: every leaf of ``like`` must be there with its
+    shape; each comes back on the device and in the dtype of ``like``'s."""
+    flat, extra = load_raw(path)
+    leaves = {}
+    for key, ref in state_leaves(like).items():
+        if key not in flat:
+            raise KeyError(f"checkpoint {path!r} missing leaf {key!r}")
+        arr = np.asarray(flat[key])
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f"shape mismatch for {key!r}: checkpoint "
+                             f"{arr.shape} vs state {tuple(ref.shape)}")
+        leaves[key] = _to_tensor(arr, ref.device).to(ref.dtype)
+    return _unflatten(leaves), extra
+
+
+def state_from_jax(jax_state, device: Union[str, torch.device] = "cuda"):
+    """A JAX ``TrainState`` whose leaves are numpy arrays (e.g.
+    ``jax.tree.map(np.asarray, state)``) as the port's TrainState: params,
+    moments and masters on ``device``, Adam's ``t`` on the CPU (where the
+    port's optimizer keeps it), ``step`` an int."""
+    from graphical_gan_tpu_torch.core.device import resolve_device
+    dev = resolve_device(device)
+    leaves: Dict[str, Any] = {}
+    for field in _FIELDS:
+        value = getattr(jax_state, field)
+        if isinstance(value, tuple) and not value:  # JAX's empty disc_opt
+            value = {}
+        _flatten(value, f"n:{field}", leaves)
+    for key, arr in leaves.items():
+        on = "cpu" if key.endswith(SEP + "k:t") or key == "n:step" else dev
+        leaves[key] = _to_tensor(np.asarray(arr), on)
+    return _unflatten(leaves)
