@@ -7,6 +7,11 @@ from __future__ import annotations
 import numpy as np
 
 
+def images_unit(n: int, output_dim: int, seed: int = 0) -> np.ndarray:
+    """float32 in [0,1]: mnist-like flat images."""
+    return np.random.RandomState(seed).rand(n, output_dim).astype("float32")
+
+
 def images_int(n: int, output_dim: int, seed: int = 0) -> np.ndarray:
     """int32 pixel values in [0,255]: cifar/svhn-like flat images."""
     return np.random.RandomState(seed).randint(

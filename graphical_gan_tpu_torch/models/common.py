@@ -1,8 +1,10 @@
-"""Shared model utilities (``graphical_gan_tpu/models/common.py``)."""
+"""Shared model utilities (``graphical_gan_tpu/models/common.py``): input
+normalization, the BN + activation dispatch, and :class:`Draws`, the source
+of a loss's random numbers."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -10,14 +12,64 @@ from graphical_gan_tpu_torch.ops.activations import activation
 from graphical_gan_tpu_torch.ops.norm import batchnorm_act
 
 
+class Draws:
+    """The random numbers of one model call, by name.
+
+    A name the caller passed in (``given``; the parity tests pass the JAX
+    package's draws) is used as it is, cast to the asked dtype and moved to
+    the asked device; any other is drawn from ``generator`` (the global
+    stream when it is None). The JAX package draws each from its own key of
+    the registry's stream, so the names stand where the keys stood there."""
+
+    def __init__(self, given: Optional[Dict[str, torch.Tensor]] = None,
+                 generator: Optional[torch.Generator] = None):
+        self.given = dict(given or {})
+        self.generator = generator
+
+    def _given(self, name, shape, dtype, device):
+        t = self.given.get(name)
+        if t is None:
+            return None
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"draw {name!r}: given {tuple(t.shape)}, the "
+                             f"model needs {tuple(shape)}")
+        return t.to(device=device, dtype=dtype)
+
+    def normal(self, name: str, shape: Sequence[int], dtype: torch.dtype,
+               device) -> torch.Tensor:
+        t = self._given(name, shape, dtype, device)
+        if t is None:
+            t = torch.randn(tuple(shape), generator=self.generator,
+                            device=device, dtype=dtype)
+        return t
+
+    def uniform(self, name: str, shape: Sequence[int], device
+                ) -> torch.Tensor:
+        """U[0, 1) in f32."""
+        t = self._given(name, shape, torch.float32, device)
+        if t is None:
+            t = torch.rand(tuple(shape), generator=self.generator,
+                           device=device)
+        return t
+
+    def randint(self, name: str, high: int, shape: Sequence[int], device
+                ) -> torch.Tensor:
+        """Integers in [0, high), int64."""
+        t = self._given(name, shape, torch.int64, device)
+        if t is None:
+            t = torch.randint(0, high, tuple(shape), generator=self.generator,
+                              device=device)
+        return t
+
+
 def normalize_input(cfg, raw: torch.Tensor, compute_dtype: torch.dtype,
-                    generator: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
+                    draws: Optional[Draws] = None) -> torch.Tensor:
     """Per-dataset raw -> network-input mapping (``config.DataSpec``):
     mnist [0,1] passthrough; cifar/svhn int -> [-1,1] via /255; celebA
-    int -> [-1,1] via /256 plus U(0, 1/128) dequantization noise (drawn from
-    ``generator``); video float [0,1] -> [-1,1]; chairs int /256. The result
-    is cast to the compute dtype, as ``models/common.py:34``."""
+    int -> [-1,1] via /256 plus U(0, 1/128) dequantization noise (the
+    uniform draw ``dequant``, [B, D] f32); video float [0,1] -> [-1,1];
+    chairs int /256. The result is cast to the compute dtype, as
+    ``models/common.py:34``."""
     norm = cfg.data.normalization
     x = raw.float()
     if norm == "unit":
@@ -26,8 +78,8 @@ def normalize_input(cfg, raw: torch.Tensor, compute_dtype: torch.dtype,
         x = 2.0 * (x / 255.0 - 0.5)
     elif norm == "dequant":
         x = 2.0 * (x / 256.0 - 0.5)
-        x = x + torch.rand(x.shape, generator=generator,
-                           device=x.device) / 128.0
+        u = (draws or Draws()).uniform("dequant", x.shape, x.device)
+        x = x + u * (1.0 / 128.0)
     elif norm == "unit_pm1":
         x = 2.0 * (x - 0.5)
     elif norm == "int256_pm1":

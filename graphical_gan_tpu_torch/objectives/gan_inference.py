@@ -1,7 +1,9 @@
 """Adversarial-inference losses over (data, code) pairs
 (``graphical_gan_tpu/objectives/gan_inference.py``). Each returns
-``(gen_cost, disc_cost)``. This slice ports wali-gp; the other objectives
-come with the rest of family 1.
+``(gen_cost, disc_cost)``. The sigmoid-CE losses train the generator with
+both labels flipped (fake -> 1 and real -> 0), as the reference does; the
+means are taken in the scores' dtype, as ``jnp.mean`` does. The
+``local_ep*`` losses come with family 3.
 """
 
 from __future__ import annotations
@@ -10,12 +12,58 @@ from typing import Tuple
 
 import torch
 
+from graphical_gan_tpu_torch.objectives.common import sigmoid_ce
+
+Pair = Tuple[torch.Tensor, torch.Tensor]
+
+
+def wali(disc_fake: torch.Tensor, disc_real: torch.Tensor) -> Pair:
+    """Wasserstein ALI (``gan_inference.py:4-26``); the reference's
+    generator cost is ``-E[f] - E[r]``, both negative, reproduced."""
+    gen_cost = -disc_fake.mean() - disc_real.mean()
+    disc_cost = disc_fake.mean() - disc_real.mean()
+    return gen_cost, disc_cost
+
 
 def wali_gp(disc_fake: torch.Tensor, disc_real: torch.Tensor,
-            gradient_penalty: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Wasserstein ALI + gradient penalty (``gan_inference.py:28-45``).
-    The means are taken in the scores' dtype, as ``jnp.mean`` does."""
+            gradient_penalty: torch.Tensor) -> Pair:
+    """Wasserstein ALI + gradient penalty (``gan_inference.py:28-45``)."""
     gen_cost = -disc_fake.mean() + disc_real.mean()
     disc_cost = disc_fake.mean() - disc_real.mean() + gradient_penalty
+    return gen_cost, disc_cost
+
+
+def ali(disc_fake: torch.Tensor, disc_real: torch.Tensor) -> Pair:
+    """Sigmoid-CE ALI with one joint discriminator
+    (``gan_inference.py:47-79``)."""
+    gen_cost = sigmoid_ce(disc_fake, 1.0) + sigmoid_ce(disc_real, 0.0)
+    disc_cost = sigmoid_ce(disc_fake, 0.0) + sigmoid_ce(disc_real, 1.0)
+    return gen_cost, disc_cost
+
+
+def alice(disc_fake: torch.Tensor, disc_real: torch.Tensor,
+          rec_penalty: torch.Tensor) -> Pair:
+    """ALI + reconstruction penalty on the generator
+    (``gan_inference.py:161-192``)."""
+    gen_cost, disc_cost = ali(disc_fake, disc_real)
+    return gen_cost + rec_penalty, disc_cost
+
+
+def vegan(disc_fake: torch.Tensor, disc_real: torch.Tensor,
+          rec_penalty: torch.Tensor, lamb: float) -> Pair:
+    """VEEGAN-style code-space objective (``gan_inference.py:194-223``):
+    gen = lamb·CE(fake -> 1) + rec; disc = (lamb/2)·(CE of both)."""
+    gen_cost = sigmoid_ce(disc_fake, 1.0) * lamb + rec_penalty
+    disc_cost = (sigmoid_ce(disc_fake, 0.0) + sigmoid_ce(disc_real, 1.0)) \
+        * (lamb / 2.0)
+    return gen_cost, disc_cost
+
+
+def vegan_wgan_gp(disc_fake: torch.Tensor, disc_real: torch.Tensor,
+                  rec_penalty: torch.Tensor, gradient_penalty: torch.Tensor,
+                  lamb: float) -> Pair:
+    """Wasserstein vegan + gradient penalty (``gan_inference.py:225-244``)."""
+    gen_cost = (-disc_fake.mean() + disc_real.mean()) * lamb + rec_penalty
+    disc_cost = (disc_fake.mean() - disc_real.mean()) * lamb \
+        + gradient_penalty
     return gen_cost, disc_cost

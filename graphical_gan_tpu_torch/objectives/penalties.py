@@ -1,15 +1,49 @@
-"""Gradient penalties (``graphical_gan_tpu/objectives/penalties.py``).
+"""Gradient penalties and reconstruction distances
+(``graphical_gan_tpu/objectives/penalties.py``).
 
-The penalty differentiates the discriminator's input-gradient again, so
-every op on D's path has a differentiable backward (``torch.autograd.grad``
-with ``create_graph=True``).
+A penalty differentiates the discriminator's input-gradient again, so every
+op on D's path has a differentiable backward (``torch.autograd.grad`` with
+``create_graph=True``). Each takes its interpolation weights ``alpha``
+([B, 1], f32) from the caller, who draws them.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
+
+
+def l2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return (x - y).square().mean()
+
+
+def l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return (x - y).abs().mean()
+
+
+def distance(x: torch.Tensor, y: torch.Tensor, d_type: str) -> torch.Tensor:
+    """``tflib/utils/distance.py:3-17``."""
+    if d_type == "l1":
+        return l1(x, y)
+    if d_type == "l2":
+        return l2(x, y)
+    raise ValueError(f"unknown distance {d_type!r}")
+
+
+def _input_grads(d_fn, hats: Sequence[torch.Tensor], wrt: Sequence[int]):
+    for i in wrt:
+        if not hats[i].requires_grad:  # inputs made under no_grad
+            hats[i].requires_grad_(True)
+    return torch.autograd.grad(d_fn(*hats).sum(), [hats[i] for i in wrt],
+                               create_graph=True)
+
+
+def _penalty(grads: Sequence[torch.Tensor], lamb: float) -> torch.Tensor:
+    b = grads[0].shape[0]
+    flat = torch.cat([g.reshape(b, -1) for g in grads], dim=1)
+    slopes = torch.sqrt(flat.square().sum(dim=1))
+    return lamb * (slopes - 1.0).square().mean()
 
 
 def gradient_penalty_xz(d_fn: Callable[[torch.Tensor, torch.Tensor],
@@ -19,14 +53,34 @@ def gradient_penalty_xz(d_fn: Callable[[torch.Tensor, torch.Tensor],
                         alpha: torch.Tensor,
                         lamb: float = 10.0) -> torch.Tensor:
     """wali-gp penalty (``penalties.py:74-93``): one per-example ``alpha``
-    ([B, 1], f32) interpolates both x and z; the slope comes from the
-    x-gradient only, in that gradient's dtype. As in JAX, the f32 alpha
-    promotes bf16 inputs, so D runs in f32 on the interpolates."""
+    interpolates both x and z; the slope comes from the x-gradient only, in
+    that gradient's dtype. As in JAX, the f32 alpha promotes bf16 inputs,
+    so D runs in f32 on the interpolates."""
     x_hat = real_x + alpha * (fake_x - real_x)
     z_hat = q_z + alpha * (p_z - q_z)
-    if not x_hat.requires_grad:  # inputs made under no_grad
-        x_hat.requires_grad_(True)
-    (grads_x,) = torch.autograd.grad(d_fn(x_hat, z_hat).sum(), x_hat,
-                                     create_graph=True)
-    slopes = torch.sqrt(grads_x.square().sum(dim=1))
-    return lamb * (slopes - 1.0).square().mean()
+    return _penalty(_input_grads(d_fn, [x_hat, z_hat], [0]), lamb)
+
+
+def gradient_penalty_z(d_fn: Callable[[torch.Tensor], torch.Tensor],
+                       q_z: torch.Tensor, p_z: torch.Tensor,
+                       alpha: torch.Tensor, lamb: float = 10.0
+                       ) -> torch.Tensor:
+    """vegan-wgan-gp penalty in code space (``penalties.py:95-110``):
+    interpolates from p_z toward q_z."""
+    z_hat = p_z + alpha * (q_z - p_z)
+    return _penalty(_input_grads(d_fn, [z_hat], [0]), lamb)
+
+
+def gradient_penalty(d_fn: Callable[..., torch.Tensor],
+                     reals: Sequence[torch.Tensor],
+                     fakes: Sequence[torch.Tensor], alpha: torch.Tensor,
+                     lamb: float = 10.0,
+                     slope_argnums: Sequence[int] = (0,)) -> torch.Tensor:
+    """General WGAN-GP over any tuple of interpolated inputs with one
+    shared ``alpha`` ([B] plus ones to the first input's rank), on the L2
+    slope of the gradients with respect to the ``slope_argnums`` inputs,
+    concatenated (``penalties.py:113-133``)."""
+    b = reals[0].shape[0]
+    hats = [r + alpha.reshape((b,) + (1,) * (r.ndim - 1)) * (f - r)
+            for r, f in zip(reals, fakes)]
+    return _penalty(_input_grads(d_fn, hats, tuple(slope_argnums)), lamb)

@@ -1,7 +1,7 @@
 """Tensor ops of the port, over NHWC tensors and ``{name: tensor}`` params."""
 
 from graphical_gan_tpu_torch.ops.activations import (  # noqa: F401
-    LEAKY_ALPHA, activation, dropout, leaky_relu, relu)
+    LEAKY_ALPHA, activation, dropout, gaussian_noise, leaky_relu, relu)
 from graphical_gan_tpu_torch.ops.conv import conv2d, deconv2d  # noqa: F401
 from graphical_gan_tpu_torch.ops.layout import (  # noqa: F401
     flatten_image, unflatten_image)

@@ -1,4 +1,5 @@
-"""Elementwise activations and dropout (``graphical_gan_tpu/ops/activations.py``)."""
+"""Elementwise activations and stochastic layers
+(``graphical_gan_tpu/ops/activations.py``)."""
 
 from __future__ import annotations
 
@@ -56,3 +57,17 @@ def dropout(x: torch.Tensor, rate: float, training: bool = False,
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def gaussian_noise(x: torch.Tensor, std: float,
+                   noise: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+    """Additive Gaussian noise layer, ``x + std·N(0, 1)``
+    (``gan_inference_mnist.py:118-120``). The standard normal draw is
+    ``noise`` when given (the parity tests pass JAX's), else drawn from
+    ``generator`` in x's dtype."""
+    if noise is None:
+        noise = torch.randn(x.shape, generator=generator, device=x.device,
+                            dtype=x.dtype)
+    return x + std * noise.to(x.dtype)

@@ -5,6 +5,10 @@ plain PyTorch version on a CPU tensor, and counts its launches in a plain
 integer attribute, ``launches``.
 """
 
+# (the module conv_gemm keeps its name here: its function of that name is
+# imported from the module)
+from graphical_gan_tpu_torch.ops.kernels.conv_gemm import (  # noqa: F401
+    conv_gemm_im2col, conv_gemm_taps)
 from graphical_gan_tpu_torch.ops.kernels.fused_conv import (  # noqa: F401
     conv2d_bias_act, fused_conv2d_bias_act)
 from graphical_gan_tpu_torch.ops.kernels.fused_norm import (  # noqa: F401
@@ -17,6 +21,8 @@ WRAPPERS = {
     "bn_apply": bn_apply,
     "bn_bwd_reduce": bn_bwd_reduce,
     "bn_bwd_apply": bn_bwd_apply,
+    "conv_gemm_taps": conv_gemm_taps,
+    "conv_gemm_im2col": conv_gemm_im2col,
 }
 
 

@@ -54,6 +54,9 @@ _SIGNATURES = {
     # R, act, vec, stream
     "ggan_bn_bwd_apply": [_P] * 9 + [_I, ctypes.c_longlong] + [_I] * 4
     + [_P],
+    # x, w, bias, y, dtype, variant, B, H, W, Cin, K, Cout, OH, OW, stride,
+    # pad_h, pad_w, has_leak, leak, vec_a, vec_w, stream
+    "ggan_conv_gemm": [_P] * 4 + [_I] * 14 + [ctypes.c_float, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -238,16 +238,74 @@ bn_bwd_reduce.launches = 0
 bn_bwd_apply.launches = 0
 
 
+def bn_act_backward_plain(g: torch.Tensor, x: torch.Tensor,
+                          scale: torch.Tensor, offset: torch.Tensor,
+                          act: Optional[str] = None, eps: float = EPS):
+    """(dx, dscale, doffset) of ``act(batchnorm(x))`` at cotangent g, from
+    the statistics up, in plain differentiable PyTorch: what autograd
+    differentiates for the second-order term, as JAX differentiates its
+    ``jnp`` BN twice (``ops/norm.py:84-89``). act' is piecewise constant,
+    so its mask carries no gradient."""
+    c = x.shape[-1]
+    x2d, g2d = x.reshape(-1, c).float(), g.reshape(-1, c).float()
+    mean = x2d.mean(dim=0)
+    d = x2d - mean
+    inv = torch.rsqrt(d.square().mean(dim=0) + eps)
+    xhat = d * inv
+    y = xhat * scale.float() + offset.float()
+    gz = g2d * activation_grad(act, y.detach())
+    dgx = (gz * xhat).mean(dim=0)
+    dx = (gz - gz.mean(dim=0) - xhat * dgx) * inv * scale.float()
+    return (dx.to(x.dtype).reshape(x.shape),
+            (gz * xhat).sum(dim=0).to(scale.dtype),
+            gz.sum(dim=0).to(offset.dtype))
+
+
+class _BatchNormActBackward(torch.autograd.Function):
+    """The first-order backward of :class:`FusedBatchNormAct` as a function
+    of (g, x, scale, offset): K2c then K2d forward. Its own backward, the
+    second-order term, differentiates :func:`bn_act_backward_plain` (plain
+    PyTorch on both devices; the JAX package has no Pallas kernel for it
+    either). A third order raises."""
+
+    @staticmethod
+    def forward(ctx, g, x, scale, offset, mean, inv, act, eps):
+        c = x.shape[-1]
+        x2d, g2d = x.reshape(-1, c), g.reshape(-1, c)
+        red = bn_bwd_reduce(g2d, x2d, mean, inv, scale, offset, act)
+        dx = bn_bwd_apply(g2d, x2d, mean, inv, scale, offset, red, act)
+        ctx.save_for_backward(g, x, scale, offset)
+        ctx.conf = (act, eps)
+        return (dx.reshape(x.shape), red[1].to(scale.dtype),
+                red[0].to(offset.dtype))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gdx, gdscale, gdoffset):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in
+                      zip(ctx.saved_tensors, ctx.needs_input_grad[:4])]
+            outs = bn_act_backward_plain(*leaves, *ctx.conf)
+            pairs = [(o, go) for o, go in zip(outs, (gdx, gdscale, gdoffset))
+                     if go is not None and o.requires_grad]
+            wrt = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in pairs], wrt, [go for _, go in pairs],
+                allow_unused=True) if wrt else ())
+        out = [next(grads) if t.requires_grad else None for t in leaves]
+        return (*out, None, None, None, None)
+
+
 class FusedBatchNormAct(torch.autograd.Function):
     """act(batchnorm(x)) over channels-last x with batch statistics, with the
     JAX package's custom VJP (``fused_norm.py:174-236``).
 
     Forward: K2a then K2b; saves ``(x, scale, offset, mean, inv)`` as
-    ``_fwd`` does. Backward: K2c then K2d; ``dx`` in x's dtype, ``dscale =
-    Σgz·xhat`` and ``doffset = Σgz`` in f32, cast to the parameters'
-    dtypes. The backward is not differentiable again: no path of this
-    slice takes a second-order gradient through BN (the cifar10/svhn
-    discriminator has none)."""
+    ``_fwd`` does. Backward: K2c then K2d (:class:`_BatchNormActBackward`);
+    ``dx`` in x's dtype, ``dscale = Σgz·xhat`` and ``doffset = Σgz`` in f32,
+    cast to the parameters' dtypes. The backward can be differentiated once
+    more, as the mnist discriminator's gradient penalty needs: the
+    second-order term is plain PyTorch."""
 
     @staticmethod
     def forward(ctx, x, scale, offset, act, eps):
@@ -256,19 +314,15 @@ class FusedBatchNormAct(torch.autograd.Function):
         mean, _, inv = bn_stats(x2d, eps)
         y = bn_apply(x2d, mean, inv, scale, offset, act)
         ctx.save_for_backward(x, scale, offset, mean, inv)
-        ctx.act = act
+        ctx.conf = (act, eps)
         return y.reshape(x.shape)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
         x, scale, offset, mean, inv = ctx.saved_tensors
-        c = x.shape[-1]
-        x2d, g2d = x.reshape(-1, c), g.reshape(-1, c)
-        red = bn_bwd_reduce(g2d, x2d, mean, inv, scale, offset, ctx.act)
-        dx = bn_bwd_apply(g2d, x2d, mean, inv, scale, offset, red, ctx.act)
-        return (dx.reshape(x.shape), red[1].to(scale.dtype),
-                red[0].to(offset.dtype), None, None)
+        dx, dscale, doffset = _BatchNormActBackward.apply(
+            g, x, scale, offset, mean, inv, *ctx.conf)
+        return dx, dscale, doffset, None, None
 
 
 def fused_batchnorm_act(x: torch.Tensor, scale: torch.Tensor,

@@ -2,10 +2,10 @@
 
 Each entry is ``fn(params, seed, *inputs) -> output`` over tensors, with
 ``example`` inputs (numpy zeros at the config's batch size) that give the
-input shapes. ``seed`` is the request's seed; the gan_inference entries of
-this slice draw nothing from it (no_std posterior, deterministic inputs),
-and it is kept so the server's calling convention matches the JAX
-package's ``call(key, *inputs)``.
+input shapes. ``seed`` is the request's seed: the image entries draw what the model
+draws (celeba's dequantization noise, a learn/fix_std posterior's eps) from
+a ``torch.Generator`` seeded with it, on the inputs' device, so an exact
+request is reproducible, as the JAX package's ``call(key, *inputs)`` is.
 
 The artifact export (``torch.export``) waits for a later slice.
 """
@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 #: deployable entries per family ported so far
 ENTRIES = {
@@ -58,7 +59,9 @@ def make_entry(family: str, model, entry: str = "sampler") -> Tuple:
     method = {"encoder": model.encode, "reconstructor": model.reconstruct}[entry]
 
     def fn(params, seed, raw_x):
-        return method(params, raw_x)
+        gen = torch.Generator(device=raw_x.device)
+        gen.manual_seed(int(seed))
+        return method(params, raw_x, generator=gen)
     cfg = model.cfg
     example = (np.zeros((cfg.batch_size, cfg.data.output_dim), np.float32),)
     return fn, example, ["image"]

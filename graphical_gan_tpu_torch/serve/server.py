@@ -18,7 +18,10 @@ batcher and a stdlib HTTP front, around an entry of a trained run directory
 - **Seeds.** Prior draws come from ``numpy.random.Generator`` seeded by the
   request seed (pad rows: by the server's base seed and the dispatch
   counter), so a seed gives other latents than the JAX server's
-  ``jax.random`` draws. Outputs are returned as float32.
+  ``jax.random`` draws; what an image entry's model draws (celeba's
+  dequantization noise, a stochastic posterior's eps) comes from a
+  ``torch.Generator`` seeded with the dispatch's seed. Outputs are returned
+  as float32.
 
 CLI::
 

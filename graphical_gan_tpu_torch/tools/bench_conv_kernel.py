@@ -1,0 +1,140 @@
+"""A/B of the K3 conv kernels (``ops/kernels/conv_gemm.py``, K3a taps and
+K3b im2col) against the library conv, at the discriminator-stack shapes of
+``graphical_gan_tpu/tools/bench_conv_kernel.py``.
+
+    python -m graphical_gan_tpu_torch.tools.bench_conv_kernel [--dtype bfloat16]
+
+Three arms compute one function, a SAME 5x5 stride-2 conv + bias +
+LeakyReLU(0.2): ``library`` (cuDNN's ``F.conv2d`` on channels-last input
+padded beforehand, + leaky), ``k3_taps`` and ``k3_im2col``. Each arm is
+timed with CUDA events over inputs rotated out of L2 (``tools/timing.py``)
+and held against ``conv_gemm_plain`` (f32 accumulation) by its largest
+error relative to max(1, max |ref|). One JSON line per shape, with the
+card's ``nvidia-smi --query-gpu=name,power.limit`` line. Runs on the card;
+without one it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from graphical_gan_tpu_torch.core.device import resolve_device, set_numerics
+from graphical_gan_tpu_torch.ops.activations import leaky_relu
+from graphical_gan_tpu_torch.ops.kernels.conv_gemm import (
+    conv_gemm, conv_gemm_plain)
+from graphical_gan_tpu_torch.ops.kernels.fused_conv import same_pads
+
+# (name, B, H=W, Cin, Cout): the cifar10 wali-gp discriminator's convs 2
+# and 3 at the published batch 64, and at batch 512
+SHAPES = [
+    ("disc2", 64, 16, 64, 128),
+    ("disc3", 64, 8, 128, 256),
+    ("disc2_b512", 512, 16, 64, 128),
+    ("disc3_b512", 512, 8, 128, 256),
+]
+ARMS = ("library", "k3_taps", "k3_im2col")
+
+
+def card_line() -> str:
+    """``nvidia-smi``'s name and power limit of the card, or why not."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi unavailable: {e}"
+    return out[0] if out else "nvidia-smi printed nothing"
+
+
+def _arms(x, w, bias) -> Dict[str, Tuple[Callable, tuple]]:
+    """Per arm, (fn, args): fn(*args) gives the NHWC output."""
+    k = w.shape[0]
+    lo, hi = same_pads(x.shape[1], k, 2)
+    lw, hw = same_pads(x.shape[2], k, 2)
+    xpad = F.pad(x.permute(0, 3, 1, 2), (lw, hw, lo, hi)).contiguous(
+        memory_format=torch.channels_last)
+    wlib = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+    def library(xp, wl, b):
+        return leaky_relu(F.conv2d(xp, wl, b, stride=2)).permute(0, 2, 3, 1)
+
+    def taps(*a):
+        return conv_gemm(*a, variant="taps")
+
+    def im2col(*a):
+        return conv_gemm(*a, variant="im2col")
+    return {"library": (library, (xpad, wlib, bias)),
+            "k3_taps": (taps, (x, w, bias)),
+            "k3_im2col": (im2col, (x, w, bias))}
+
+
+def bench_shape(name: str, b: int, h: int, cin: int, cout: int,
+                dtype: torch.dtype, device: torch.device, timer: Callable,
+                seed: int = 0) -> Dict:
+    """The record of one shape: each arm's error against the plain
+    reference, its µs and TFLOP/s, the best arm, and how many times faster
+    the better K3 variant is than the library."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, h, h, cin), np.float32)
+                         ).to(device=device, dtype=dtype)
+    w = torch.from_numpy(rng.standard_normal((5, 5, cin, cout), np.float32)
+                         * 0.05).to(device=device, dtype=dtype)
+    bias = torch.from_numpy(rng.standard_normal((cout,), np.float32)).to(
+        device=device, dtype=dtype)
+    oh = -(-h // 2)
+    flops = 2 * b * oh * oh * cout * 25 * cin
+    ref = conv_gemm_plain(x, w, bias).float()
+    scale = max(1.0, float(ref.abs().max()))
+    rec = {"shape": name, "B": b, "H": h, "Cin": cin, "Cout": cout,
+           "dtype": str(dtype).split(".")[1], "flops": flops}
+    times = {}
+    for arm, (fn, args) in _arms(x, w, bias).items():
+        got = fn(*args).float()
+        rec[f"{arm}_rel_maxerr"] = float((got - ref).abs().max()) / scale
+        t_ms = timer(fn, args)
+        times[arm] = t_ms
+        rec[f"{arm}_us"] = t_ms * 1e3
+        rec[f"{arm}_tflops"] = flops / (t_ms * 1e-3) / 1e12
+    rec["best"] = min(times, key=times.get)
+    rec["best_k3_vs_library"] = times["library"] / min(times["k3_taps"],
+                                                       times["k3_im2col"])
+    return rec
+
+
+def run(shapes: Sequence = SHAPES, dtype: str = "bfloat16",
+        device: str = "cuda", timer: Optional[Callable] = None
+        ) -> List[Dict]:
+    """One record per shape, each printed as a JSON line."""
+    dev = resolve_device(device)
+    set_numerics()
+    if timer is None:
+        from graphical_gan_tpu_torch.tools.timing import time_ms as timer
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    card = card_line() if dev.type == "cuda" else "no card"
+    out = []
+    for shape in shapes:
+        rec = bench_shape(*shape, getattr(torch, dtype), dev, timer)
+        rec.update(device_kind=kind, card=card)
+        print(json.dumps(rec), flush=True)
+        out.append(rec)
+    return out
+
+
+def main(argv=None) -> List[Dict]:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    args = p.parse_args(argv)
+    return run(SHAPES, args.dtype)
+
+
+if __name__ == "__main__":
+    main()

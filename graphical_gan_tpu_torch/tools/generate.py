@@ -1,10 +1,10 @@
 """Rebuild a model from a run directory and restore its parameters
 (``graphical_gan_tpu/tools/generate.py:60-121``).
 
-This slice restores family-1 (gan_inference) run directories from npz
-checkpoints; the GMGAN and SSGAN families, the orbax format and the
-pipeline-parallel packed layout come in later slices. Sample grids (the
-``generate`` tool itself) come with the report tools.
+The port restores family-1 (gan_inference) run directories, every
+dataset and mode, from npz checkpoints; the GMGAN and SSGAN families, the
+orbax format and the pipeline-parallel packed layout come in later slices.
+Sample grids (the ``generate`` tool itself) come with the report tools.
 """
 
 from __future__ import annotations
@@ -39,8 +39,8 @@ def rebuild(run_dir: str) -> Tuple[str, GanInferenceConfig,
     family = detect_family(cfg_dict)
     if family != "gan_inference":
         raise NotImplementedError(
-            f"family {family!r}: the port's first slice serves gan_inference "
-            "runs; gmgan and ssgan come in later slices")
+            f"family {family!r}: the port serves gan_inference runs; gmgan "
+            "and ssgan come in later slices")
     names = {f.name for f in dc_fields(GanInferenceConfig)}
     # JSON turns tuples into lists; restore them so the config is the same
     kw = {k: tuple(v) if isinstance(v, list) else v

@@ -123,14 +123,19 @@ def test_function_gradients_match_jax_grad(shape, act, dtype):
 
 
 def test_backward_is_not_differentiable_again():
-    """No path of this slice takes a second-order gradient through BN; the
-    backward says so instead of returning a wrong one."""
+    """The backward differentiates once more (the mnist D's BNs sit inside
+    wali-gp's penalty; test_torch_fused_norm_double_bwd.py holds that
+    second order against JAX), and the second order's own backward is not
+    differentiable again: a third order raises instead of returning a
+    wrong one."""
     x = torch.randn(8, 4, requires_grad=True)
     y = fused_norm.fused_batchnorm_act(x, torch.ones(4), torch.zeros(4),
                                        "relu")
     (dx,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
+    (d2x,) = torch.autograd.grad(dx.square().sum(), x, create_graph=True)
+    assert torch.isfinite(d2x).all()
     with pytest.raises(RuntimeError, match="once_differentiable"):
-        dx.sum().backward()
+        d2x.sum().backward()
 
 
 def test_cpu_backward_launches_no_kernel():

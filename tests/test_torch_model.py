@@ -35,6 +35,8 @@ def _models(dataset, mode, dtype):
     those of ``GanInferenceModel.init`` without tracing its losses. They do
     not depend on the compute dtype, so each (dataset, mode) inits once."""
     kw = dict(dim=8, batch_size=B, compute_dtype=dtype)
+    if dataset == "celeba":  # the face script's widths are dim_g / dim_d
+        kw.update(dim_g=8, dim_d=8)
     jm = JaxM(jax_cfg(dataset, mode, **kw))
     tm = GanInferenceModel(gan_inference_defaults(dataset, mode, **kw))
     if (dataset, mode) not in _JAX_PARAMS:
@@ -136,9 +138,21 @@ def test_batch_statistics_couple_rows():
                                           ("celeba", "ali"),
                                           ("cifar10", "vegan-kl"),
                                           ("svhn", "vae")])
-def test_later_slices_raise(dataset, mode):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        GanInferenceModel(gan_inference_defaults(dataset, mode))
+def test_later_slices_match_jax(dataset, mode):
+    """The datasets and posterior heads of the rest of family 1 (mnist's
+    crop and sigmoid, celeba's four stages and input noise, learn_std):
+    the serving forwards against JAX's in f32, with JAX's draws (celeba's
+    dequantization noise, the posterior's eps) handed to the port."""
+    from _torch_family1 import jax_draws, to_torch
+    jm, tm, jp, tp = _models(dataset, mode, "float32")
+    raw, noise = _inputs(tm.cfg)
+    want = _forwards(jm, tm, jp, tp, raw, noise, "float32")
+    draws = to_torch(jax_draws(tm.cfg, KEY))
+    got = {"encode": tm.encode(tp, torch.from_numpy(raw), draws=draws),
+           "reconstruct": tm.reconstruct(tp, torch.from_numpy(raw),
+                                         draws=draws)}
+    for name, (ref, first) in want.items():
+        _close(got.get(name, first), ref, "float32")
 
 
 def test_init_refuses_missing_cuda():

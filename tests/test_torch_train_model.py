@@ -145,29 +145,46 @@ def test_draws_come_from_the_generator(setup):
 
 
 @pytest.mark.parametrize("mode", ["ali", "wali", "alice"])
-def test_other_modes_raise_and_name_the_slice(mode):
-    tm = GanInferenceModel(gan_inference_defaults("cifar10", mode, **KW))
-    raw = torch.zeros(B, 3072)
-    params = tm.init(0, "cpu")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tm.gen_loss(params, raw)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tm.disc_loss(params, raw)
+def test_other_modes_match_jax(mode):
+    """The cifar10 modes this file's wali-gp cases stand beside: gen_cost
+    and disc_cost against JAX's from the same params, batch and draws
+    (atol 1e-4 of max(1, |ref|)); their gradients are held in
+    ``test_torch_family1_model_cifar10_*``."""
+    from _torch_family1 import jax_draws, models, to_torch
+    jm, tm, jp, tp = models("cifar10", mode)
+    raw = np.random.default_rng(0).integers(0, 256, (B, 3072)).astype(
+        np.float32)
+    key = jax.random.fold_in(STEP_KEY, 3)
+
+    @jax.jit
+    def costs(params, r):
+        return registry.apply(lambda: jm._costs(jm._graph(r))[:2], params,
+                              key)
+
+    g_ref, d_ref = costs(jp, jnp.asarray(raw))
+    draws = to_torch(jax_draws(tm.cfg, key))
+    g, _ = tm.gen_loss(tp, torch.from_numpy(raw), draws=draws)
+    d, _ = tm.disc_loss(tp, torch.from_numpy(raw), draws=draws)
+    for got, want in ((g, g_ref), (d, d_ref)):
+        assert abs(float(got) - float(want)) <= 1e-4 * max(
+            1.0, abs(float(want)))
 
 
-def test_opt_specs_match_jax():
-    """wali-gp's presets equal JAX's; the modes this slice does not train
-    raise, as their losses do."""
-    jspecs = JaxM(jax_cfg("cifar10", "wali-gp")).opt_specs()
-    tspecs = GanInferenceModel(
-        gan_inference_defaults("cifar10", "wali-gp")).opt_specs()
-    for j, t in zip(jspecs, tspecs):
-        assert (j.kind, j.lr, j.beta1, j.beta2, j.eps, j.weight_clip) \
-            == (t.kind, t.lr, t.beta1, t.beta2, t.eps, t.weight_clip)
-    for mode in ("wali", "ali", "alice"):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            GanInferenceModel(
-                gan_inference_defaults("cifar10", mode)).opt_specs()
+@pytest.mark.parametrize("dataset", ["mnist", "cifar10"])
+def test_opt_specs_match_jax(dataset):
+    """Every mode's presets equal JAX's: (G+E, D), D None for the modes
+    without a discriminator (k = 0); ali passes beta2."""
+    from graphical_gan_tpu_torch.core.config import GAN_INFERENCE_MODES
+    for mode in GAN_INFERENCE_MODES:
+        jspecs = JaxM(jax_cfg(dataset, mode)).opt_specs()
+        tspecs = GanInferenceModel(
+            gan_inference_defaults(dataset, mode)).opt_specs()
+        for j, t in zip(jspecs, tspecs):
+            assert (j is None) == (t is None), mode
+            if j is not None:
+                assert (j.kind, j.lr, j.beta1, j.beta2, j.eps,
+                        j.weight_clip) == (t.kind, t.lr, t.beta1, t.beta2,
+                                           t.eps, t.weight_clip), mode
 
 
 @pytest.mark.parametrize("objective", ["wali", "wgan", "wali_gp", "wgan-gp",
