@@ -5,7 +5,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It imports
 nothing of JAX or of the JAX package, and does in order:
 
 1. device: requires CUDA, prints the card's name and power limit;
-2. build: compiles ``graphical_gan_tpu_torch/csrc/*.cu`` with nvcc;
+2. build: compiles ``graphical_gan_tpu_torch/csrc/*.cu`` with nvcc and
+   requires ``HGMMA`` (``wgmma``) instructions in the library's SASS;
 3. check: holds each kernel (K1 conv+bias+act, K2a BN stats, K2b BN apply,
    K2c BN backward reduce, K2d BN backward apply, K3a/K3b conv_gemm taps
    and im2col) against its plain PyTorch version at every serving and
@@ -14,7 +15,8 @@ nothing of JAX or of the JAX package, and does in order:
    shapes, the JAX tests' shapes and a non-square input, with and without
    the leaky epilogue; the K1 autograd Function's first- and second-order
    gradients, and the BN + act double backward (mnist D.BN2/D.BN3),
-   against plain autograd;
+   against plain autograd; every K1 kernel and every path of K1's plan
+   with one split and with several, each called twice for the same bits;
 4. time: per kernel and shape, the kernel's median time from CUDA events
    on inputs that are not in L2 (``tools/timing.py``), its plain
    version's, one PyTorch library call's, and the bound (bytes over
@@ -211,12 +213,29 @@ def phase_build():
     secs = time.perf_counter() - t0
     build.lib()
     ptxas = [ln.strip() for ln in build.build_log.splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+             if any(k in ln for k in ("registers", "spill", "Compiling entry",
+                                      "wgmma", "Performance"))]
+    hgmma = _sass_count(path, "HGMMA")
     log({"phase": "build", "seconds": round(secs, 3),
          "library": os.path.relpath(path, ROOT),
-         "sources": [os.path.relpath(s, ROOT) for s in build.sources()]})
+         "sources": [os.path.relpath(s, ROOT) for s in build.sources()],
+         "sass_hgmma_instructions": hgmma})
     for ln in ptxas:
         log("ptxas: " + ln)
+    if not hgmma:
+        fail("no HGMMA instruction in the library's SASS: K1's bf16 path "
+             "does not run on wgmma")
+
+
+def _sass_count(lib_path: str, opcode: str) -> int:
+    """Instructions of ``opcode`` in the SASS of ``lib_path``
+    (``cuobjdump -sass``, from the CUDA toolkit)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass failed: {res.stderr.strip()[:500]}")
+    return sum(1 for ln in res.stdout.splitlines() if opcode in ln)
 
 
 def _conv_inputs(shape, cout, dtype, gen, k=5):
@@ -261,6 +280,18 @@ EDGE_CONV = [("odd7", (2, 7, 7, 8), 16, 5, 2, "SAME", "relu"),
              ("valid", (2, 12, 12, 8), 8, 5, 2, "VALID", None),
              ("1x1", (2, 8, 8, 8), 24, 1, 1, "SAME", None),
              ("cin1", (3, 5, 5, 1), 70, 3, 1, "SAME", "leaky_relu")]
+# shapes that give K1's plan the kernels and splits no model shape picks:
+# fma's 128 x 128 tile with element gathers, a split mma (Cin 6) in bf16,
+# and a split whose last step is ragged (R = 800, 12.5 steps of 64)
+K1_COVER = [("cin3 to 128", (128, 32, 32, 3), 128, 5, 2, "SAME",
+             "leaky_relu"),
+            ("split 64x64", (2, 9, 9, 32), 64, 5, 2, "SAME", "relu"),
+            ("cin6 k7", (2, 9, 9, 6), 16, 7, 1, "SAME", "leaky_relu")]
+# every kernel of csrc/fused_conv*.cu: (path, 16-byte gathers, BM, BN)
+K1_KERNELS = ({("wgmma", True, bm, bn) for bm in (64, 128) for bn in (64, 128)}
+              | {("mma", False, 64, 64)}
+              | {("fma", v, bm, bn) for v in (True, False)
+                 for bm, bn in ((128, 128), (64, 64), (32, 64))})
 EDGE_BN = [("r196", (196, 16), "relu"), ("c5", (3, 5), "leaky_relu"),
            ("c130", (1000, 130), None), ("c4100", (7, 4100), "relu")]
 
@@ -361,14 +392,15 @@ def _check_bn_double_bwd(label, rc, act, gen, errs, misses):
         misses.append(f"K2 double backward {label}")
 
 
-def _check_family1(gen, errs, misses):
+def _check_family1(gen, errs, misses, seen):
     """K1 and K2a-d at the mnist and celeba shapes, K3a/K3b at theirs, and
     the BN double backward at mnist D.BN2 / D.BN3."""
     import torch
     for dtype in (torch.float32, torch.bfloat16):
         for name, shape, cout, act in MNIST_CONV + CELEBA_CONV:
             x, w, bias = _conv_inputs(shape, cout, dtype, gen)
-            _check_conv(name, x, w, bias, 2, "SAME", act, errs, misses)
+            _check_conv(name, x, w, bias, 2, "SAME", act, errs, misses,
+                        seen)
         for name, rc, act in MNIST_BN:
             x, scale, offset = _bn_inputs(rc, dtype, gen)
             _check_bn(name, x, scale, offset, act, 0.0, errs, misses)
@@ -389,22 +421,70 @@ def _check_family1(gen, errs, misses):
                              misses)
 
 
-def _check_conv(label, x, w, bias, stride, padding, act, errs, misses):
+def _plan_of(x, w, stride, padding):
+    from graphical_gan_tpu_torch.ops.kernels import fused_conv
+    return fused_conv.plan(tuple(x.shape), tuple(w.shape), stride, padding,
+                           x.dtype)
+
+
+def _check_conv(label, x, w, bias, stride, padding, act, errs, misses,
+                seen):
+    """K1 against its plain version, and a second call on the same inputs
+    for the same bits; ``seen`` collects the plans' kernels and paths."""
     import torch
     from graphical_gan_tpu_torch.ops.kernels import fused_conv
     dn = str(x.dtype).split(".")[1]
     got = fused_conv.fused_conv2d_bias_act(x, w, bias, stride, padding, act)
+    again = fused_conv.fused_conv2d_bias_act(x, w, bias, stride, padding,
+                                             act)
     want = fused_conv.fused_conv2d_bias_act_plain(x, w, bias, stride,
                                                   padding, act)
     torch.cuda.synchronize()
+    p = _plan_of(x, w, stride, padding)
+    seen.add((p.path, p.vec, p.bm, p.bn))
+    seen.add((p.path, p.vec, p.splits > 1))
     atol, rtol = TOL[("conv", dn)]
     e, bad = max_err(got, want, atol, rtol)
+    same = torch.equal(got, again)
     errs["fused_conv2d_bias_act"] = max(
         errs.get("fused_conv2d_bias_act", 0.0), e)
     log({"check": "K1", "shape": label, "dtype": dn, "max_abs_err": e,
-         "atol": atol, "rtol": rtol, "ok": not bad})
+         "atol": atol, "rtol": rtol, "path": p.path, "vec": p.vec,
+         "tile": [p.bm, p.bn], "splits": p.splits,
+         "two_calls_bit_identical": same, "ok": not bad and same})
     if bad or got.dtype != x.dtype or got.shape != want.shape:
         misses.append(f"K1 {label} {dn}")
+    if not same:
+        misses.append(f"K1 {label} {dn} differs between two calls")
+
+
+def _check_f32_against_cpu():
+    """The share of K1's f32 outputs equal bit for bit to the plain version
+    on this host's CPU, at the cifar10 training shapes and mnist's: f32 K1
+    sums each output in the order of PyTorch's CPU convolution at Cin >= 2
+    (1.0 there; mnist's Cin = 1 takes another CPU algorithm), and the f32
+    card-against-CPU parity phases lean on that (logged, not held: the CPU
+    library's order is not K1's to set)."""
+    import torch
+    from graphical_gan_tpu_torch.ops.kernels import fused_conv
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    share = {}
+    for name, shape, cout, act in conv_shapes(64) + MNIST_CONV:
+        x, w, bias = _conv_inputs(shape, cout, torch.float32, gen)
+        got = fused_conv.fused_conv2d_bias_act(x, w, bias, 2, "SAME", act)
+        want = fused_conv.fused_conv2d_bias_act_plain(
+            x.cpu(), w.cpu(), bias.cpu(), 2, "SAME", act)
+        share[name] = float((got.cpu() == want).float().mean())
+    log({"check": "K1 f32 against the CPU", "bit_equal_share": share})
+
+
+def _k1_coverage_misses(seen):
+    """The K1 kernels and the (path, gathers, split) kinds no check ran; f32
+    (``fma``) is never split."""
+    kinds = {(path, vec, split) for path, vec, _, _ in K1_KERNELS
+             for split in (False, path != "fma")}
+    return sorted(str(k) for k in (K1_KERNELS | kinds) - seen)
 
 
 def _check_bn(label, x, scale, offset, act, mean, errs, misses):
@@ -526,12 +606,13 @@ def phase_check(errs):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     misses = []
+    seen = set()  # K1's kernels and paths that ran
     for dtype in (torch.float32, torch.bfloat16):
         for b in BUCKETS:
             for name, shape, cout, act in conv_shapes(b):
                 x, w, bias = _conv_inputs(shape, cout, dtype, gen)
                 _check_conv(f"{name} B={b}", x, w, bias, 2, "SAME", act,
-                            errs, misses)
+                            errs, misses, seen)
             for name, rc, act in bn_shapes(b):
                 for mean in (0.0, 1e3):
                     x, scale, offset = _bn_inputs(rc, dtype, gen, mean)
@@ -549,16 +630,22 @@ def phase_check(errs):
             x, w, bias = _conv_inputs(shape, cout, dtype, gen)
             _check_conv_bwd(name.replace("E", "D") + " B=64", x, w, bias,
                             errs, misses)
-        for name, shape, cout, k, s, pad, act in EDGE_CONV:
+        for name, shape, cout, k, s, pad, act in EDGE_CONV + K1_COVER:
             x, w, bias = _conv_inputs(shape, cout, dtype, gen, k)
-            _check_conv(name, x, w, bias, s, pad, act, errs, misses)
+            _check_conv(name, x, w, bias, s, pad, act, errs, misses, seen)
         for name, rc, act in EDGE_BN:
             x, scale, offset = _bn_inputs(rc, dtype, gen)
             _check_bn(name, x, scale, offset, act, 0.0, errs, misses)
             for kind, g in _bn_cotangents(x, gen):
                 _check_bn_bwd(name + kind, x, g, scale, offset, act, errs,
                               misses)
-    _check_family1(gen, errs, misses)
+    _check_family1(gen, errs, misses, seen)
+    _check_f32_against_cpu()
+    missed = _k1_coverage_misses(seen)
+    log({"check": "K1 plan coverage", "kernels_and_paths_run": len(seen),
+         "missed": missed})
+    if missed:
+        misses.append(f"K1 kernels or paths never checked: {missed}")
     if misses:
         fail("kernels disagree with their plain versions: "
              + ", ".join(misses))
@@ -595,8 +682,10 @@ def phase_time(timings):
                 nbytes = (x.numel() + bb * oh * ow * cout + w.numel()
                           + cout) * size
                 t_b, by = bound(flops, nbytes, dn)
+                p = _plan_of(x, w, 2, "SAME")
                 row = {"kernel": "fused_conv2d_bias_act", "shape": name,
-                       "B": b, "dtype": dn, "card": card,
+                       "B": b, "dtype": dn, "card": card, "path": p.path,
+                       "tile": [p.bm, p.bn], "splits": p.splits,
                        "ms": time_ms(
                            lambda *a: fused_conv.fused_conv2d_bias_act(
                                *a, 2, "SAME", act), (x, w, bias)),
@@ -849,10 +938,11 @@ def _drive_entry(run_dir, entry, raw, dims, device="cuda"):
     return outs
 
 
-def phase_serve(launch_totals):
+def phase_serve(launch_totals, k1_counts):
     """The port's main path: the HTTP server over a full-width cifar10
     wali-gp run directory. ``launch_totals`` receives the counts read right
-    after the run (all counts were set to 0 right before it)."""
+    after the run (all counts were set to 0 right before it), ``k1_counts``
+    K1's launches per compute dtype."""
     import numpy as np
     import torch
     from graphical_gan_tpu_torch.core.config import (
@@ -885,8 +975,12 @@ def phase_serve(launch_totals):
     for entry, dims in (("sampler", 3072), ("encoder", 128),
                         ("reconstructor", 3072)):
         outs[entry] = _drive_entry(run_dirs["float32"], entry, raw, dims)
+    f32_k1 = kernels.launches()["fused_conv2d_bias_act"]
     bf16 = _drive_entry(run_dirs["bfloat16"], "reconstructor", raw, 3072)
     launch_totals.update(kernels.launches())
+    k1_counts[("float32", "serve")] = f32_k1
+    k1_counts[("bfloat16", "serve")] = \
+        launch_totals["fused_conv2d_bias_act"] - f32_k1
 
     # the same model on the CPU (plain versions), one 64-row dispatch per
     # entry; the generator half is fed the CPU's codes on both sides
@@ -924,7 +1018,7 @@ def phase_serve(launch_totals):
 
 
 # device-time groups of a dispatch, by substrings of the kernel's name
-GROUPS = (("K1 fused_conv", ("conv2d_bias_act_kernel",)),
+GROUPS = (("K1 fused_conv", ("conv_k1_",)),
           ("K2a bn_stats", ("bn_stats_partial_kernel",
                             "bn_stats_merge_kernel")),
           ("K2b bn_apply", ("bn_apply_kernel",)),
@@ -1044,7 +1138,7 @@ PER_ITER = {"fused_conv2d_bias_act": (9 + 12 * 5, 0),
 # device-time groups of a training iteration: the kernel's name first, then
 # the autograd node or op that launched it
 TRAIN_GROUPS = (
-    ("K1 forward", ("conv2d_bias_act_kernel",), ()),
+    ("K1 forward", ("conv_k1_",), ()),
     ("K2a-b BN forward", ("bn_stats_partial_kernel", "bn_stats_merge_kernel",
                           "bn_apply_kernel"), ()),
     ("K2c-d BN backward", ("bn_bwd_reduce_partial_kernel",
@@ -1199,11 +1293,11 @@ def _finite_state(tr, label):
         fail(f"{label}: non-finite parameters {bad[:5]}")
 
 
-def phase_train(launch_totals, data):
+def phase_train(launch_totals, data, k1_counts):
     """The training main path: per compute dtype, the counts are set to 0,
     the Trainer runs TRAIN_ITERS iterations, and the counts are read; then
     the steady state is timed and profiled. ``launch_totals`` receives the
-    counts summed over both dtypes."""
+    counts summed over both dtypes, ``k1_counts`` K1's per dtype."""
     from graphical_gan_tpu_torch.ops import kernels
     from graphical_gan_tpu_torch.train.trainer import Trainer
     base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
@@ -1220,6 +1314,7 @@ def phase_train(launch_totals, data):
         secs = time.perf_counter() - t0
         for k, v in got.items():
             launch_totals[k] = launch_totals.get(k, 0) + v
+        k1_counts[(dtype, "train")] = got["fused_conv2d_bias_act"]
         want = {k: a * TRAIN_ITERS + b for k, (a, b) in PER_ITER.items()}
         if not all(math.isfinite(v) for v in metrics.values()):
             fail(f"train {dtype}: non-finite costs {metrics}")
@@ -1651,15 +1746,45 @@ TRAIN_KERNELS = SERVE_KERNELS + ("bn_bwd_reduce", "bn_bwd_apply")
 K3_KERNELS = ("conv_gemm_taps", "conv_gemm_im2col")
 
 
+# K1's summary rows: (dtype, B, the run whose launches they count)
+K1_ROWS = (("float32", 64, "train"), ("bfloat16", 64, "train"),
+           ("float32", 256, "serve"), ("bfloat16", 256, "serve"))
+
+
+def _k1_rows(timings, k1_counts):
+    """K1 per dtype at the training batch (B=64) and the serving dispatch's
+    (B=256): times summed over E.1-3 (the shapes of D.1-3 too), with the
+    launches of that dtype's training run (TRAIN_ITERS iterations) or
+    serving run."""
+    out = []
+    for dn, b, run in K1_ROWS:
+        rows = [r for r in timings if r["kernel"] == "fused_conv2d_bias_act"
+                and r["dtype"] == dn and r["B"] == b]
+        ops_ms = sum(r["bound_ms"] for r in rows
+                     if r["bound_by"] == "operations")
+        bytes_ms = sum(r["bound_ms"] for r in rows
+                       if r["bound_by"] == "bytes")
+        out.append({
+            "dtype": dn, "B": b, "launches": k1_counts[(dn, run)],
+            "launches_of": run,
+            **{k: sum(r[k] for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "per_shape": [{k: r[k] for k in (
+                "shape", "path", "tile", "splits", "ms", "library_ms",
+                "bound_ms", "bound_by")} for r in rows]})
+    return out
+
+
 def summary(errs, timings, launches):
     """One entry per kernel. The forward kernels' times are summed over the
-    shapes of one reconstructor dispatch at B=256 in f32; K2c's and K2d's
-    over the 5 BN shapes one training iteration backpropagates through at
-    B=64 in f32 (their library time is one call that computes both); K3's
-    over the four bench shapes in bf16. ``launches`` counts each kernel's
-    main path (the cifar10 training runs; for K3 the bench-conv run),
-    ``launches_serve`` the serving run and ``launches_family1`` the family1
-    runs."""
+    shapes of one reconstructor dispatch at B=256 in f32 (K1 adds ``rows``:
+    f32 and bf16 at B=64 and 256); K2c's and K2d's over the 5 BN shapes one
+    training iteration backpropagates through at B=64 in f32 (their library
+    time is one call that computes both); K3's over the four bench shapes
+    in bf16. ``launches`` counts each kernel's main path (the cifar10
+    training runs; for K3 the bench-conv run), ``launches_serve`` the
+    serving run and ``launches_family1`` the family1 runs."""
     out = []
     for name, (src, replaces) in SOURCES.items():
         k3 = name in K3_KERNELS
@@ -1694,6 +1819,8 @@ def summary(errs, timings, launches):
                                  else "bytes"),
                     "library_ms": total("library_ms"),
                     "summed_over": over})
+        if name == "fused_conv2d_bias_act":
+            out[-1]["rows"] = _k1_rows(timings, launches["k1"])
     return {"kernels": out}
 
 
@@ -1738,17 +1865,20 @@ def main(argv=None) -> int:
         # convolutions), deterministic cuDNN
         set_numerics()
         errs, timings = {}, []
-        launches = {"serve": {}, "train": {}, "bench": {}, "family1": {}}
+        launches = {"serve": {}, "train": {}, "bench": {}, "family1": {},
+                    "k1": {}}
         _timed("build", phase_build)
         _timed("check", phase_check, errs)
         _timed("time", phase_time, timings)
-        run_dirs = _timed("serve", phase_serve, launches["serve"])
+        run_dirs = _timed("serve", phase_serve, launches["serve"],
+                          launches["k1"])
         missing = [k for k in SERVE_KERNELS if not launches["serve"].get(k)]
         if missing:
             fail(f"kernels never launched on the serving path: {missing}")
         _timed("dispatch", phase_dispatch, run_dirs)
         data = images_int(50_000, 3072, seed=0).astype(np.uint8)
-        _timed("train", phase_train, launches["train"], data)
+        _timed("train", phase_train, launches["train"], data,
+               launches["k1"])
         missing = [k for k in TRAIN_KERNELS if not launches["train"].get(k)]
         if missing:
             fail(f"kernels never launched on the training path: {missing}")

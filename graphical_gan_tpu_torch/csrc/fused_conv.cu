@@ -4,189 +4,311 @@
 // Replaces graphical_gan_tpu/ops/pallas/fused_conv.py:_forward_pallas (the
 // Pallas implicit GEMM behind fused_conv2d_bias_act).
 //
-// Design. A direct implicit GEMM: C[M, N] = A[M, R] @ W[R, N] with
+// The function. An implicit GEMM C[M, N] = A[M, R] @ W[R, N] with
 // M = B*OH*OW output pixels, N = Cout and R = KH*KW*Cin in HWIO order, so the
-// weight is already the row-major [R, N] matrix. The TPU kernel split the
-// padded input by stride phase because Mosaic needs static slices; here each
-// A element's input coordinate ih = oh*s - pad_lo + kh is computed directly
-// and masked when it falls in the padding, so no padded or phase-split copy
-// is ever written to device memory. The grid tiles M x N in 64 x 64 blocks
-// (not one batch item per program: E.3 has only 16 pixels per item); each
-// k-step stages a 64 x 16 input patch and a 16 x 64 weight tile in shared
-// memory (double-buffered, with the next tile prefetched into registers while
-// the current one is multiplied), and each of the 256 threads accumulates a
-// 4 x 4 output tile in f32 registers with FMAs. Bias and activation run in
-// the epilogue and the NHWC output is written once.
+// weight is already the row-major [R, N] matrix. A's element (m, r) is
+// x[b, oh*s - pad_h + kh, ow*s - pad_w + kw, ci] for r = (kh*KW + kw)*Cin + ci,
+// and zero where that falls in the padding: the TPU kernel's padded,
+// phase-split copy is never written to device memory. The products
+// accumulate in f32, bias and activation are applied in f32, and the result
+// is rounded once to x's dtype, as the Pallas kernel does
+// (fused_conv.py:89-102).
 //
-// Bound on the H100. The kernel issues 2*M*N*R FLOPs, but taps that land in
-// the padding multiply zeros: the function needs only the in-bounds taps,
-// 93%, 86% and 72% of them at E.1, E.2 and E.3 (SAME pads (1, 2), k5 s2).
-// In f32 at those shapes that is about 29, 220 and 305 needed FLOPs per byte
-// moved, all above the f32 ridge of 67 TFLOP/s / 3.35 TB/s = 20, so f32 is
-// bound by the operations. In bf16 (989 TFLOP/s on the tensor cores, ridge
-// 295) E.1 is bound by its bytes. This kernel uses plain FMAs (no wgmma/TMA
-// yet), so its ceiling is the 67 TFLOP/s non-tensor f32 rate, and bf16
-// inputs are widened to f32 before the FMAs; the tensor-core path is later
-// work.
+// Bound on the H100, counting only the taps inside the input (as
+// chip_smoke.py does). f32 is bound by its operations at every model shape:
+// 29-305 needed FLOPs per byte, above the FMA ridge of 67 TFLOP/s /
+// 3.35 TB/s = 20. bf16 on the tensor cores (ridge 989 / 3.35 = 295) is bound
+// by its operations at Cin >= 64 and by its bytes at Cin = 1 or 3 (the first
+// stage of every encoder and critic), where writing the output dominates.
+//
+// Design. The wrapper's plan() (ops/kernels/fused_conv.py) picks from the
+// shape alone one of three mainloops, the tile BM x BN, the depth BK of one
+// K step and the number of K splits, and passes them here. The tile is the
+// largest whose count fills 9/10 of the 132 SMs (a sweep on the H100 found
+// it fastest). Every gather walks its reduction column by BK with adds
+// (fused_conv.cuh: TapWalk): the K loops issue no integer division.
+//   wgmma (fused_conv_wgmma.cu; bf16, Cin % 8 == 0 and Cout % 8 == 0): one
+//     (BM = 64) or two (BM = 128) warpgroups issue wgmma.mma_async
+//     m64nBNk16 from shared memory. BK = 64 bf16 = 128 bytes, one 128-byte
+//     swizzle row. Each 8-channel run of an input pixel is one 16-byte
+//     cp.async that writes straight into the swizzled K-major A tile the
+//     descriptor names (src-size 0 zero-fills padding taps and rows past
+//     M). The [BK, BN] tile of the row-major weight is copied the same way
+//     into 64-column swizzled atoms that wgmma reads MN-major (its transpose
+//     bit), so W is never transposed in device memory. A ring of 4 stages
+//     of cp.async groups keeps 3 K steps of loads in flight under the
+//     products.
+//   mma (this file; bf16 otherwise: Cin 1 or 3, R = 25 or 75): element
+//     gathers into a K tile padded with zeros to BK = 32, mma.sync
+//     m16n8k16. These shapes are bound by their bytes, not the tensor cores.
+//   fma (fused_conv_fma.cu; f32): plain FMAs, no TF32, from a 3-stage
+//     cp.async ring (16-byte copies when Cin % 4 == 0 and Cout % 4 == 0,
+//     4-byte ones otherwise). Each output is one fmaf chain over
+//     r = 0..R-1 in order: the order of PyTorch's f32 CPU convolution at
+//     Cin >= 2, so there the card's f32 outputs equal the CPU's bit for bit
+//     (Cin = 1 takes another CPU algorithm), which the f32 card-against-CPU
+//     training checks lean on: a split sum is more accurate but agrees with
+//     the CPU on only ~4% of the outputs, and a mask or sign that flips
+//     between the two devices then shows up in the trained state (mnist
+//     wali-gp's Adam moments moved 5.4% of a leaf's largest where the check
+//     allows 5%). So f32 is never split over K; small M gets small tiles
+//     instead, 256 threads each: 8 x 8 outputs per thread on 128 x 128
+//     tiles, 4 x 4 on 64 x 64, 2 x 4 on 32 x 64.
+// Split K (bf16). Where even 64 x 64 tiles would not fill a wave (E.3 at
+// B <= 64: 64 tiles for a K loop of 50 steps), the K steps are cut into
+// equal ranges on multiples of BK, enough for three blocks per SM where
+// each range keeps 4 steps or more: block z accumulates its range and
+// writes the f32 partial tile to the workspace [splits, M, N];
+// conv_k1_splitk_reduce_kernel then sums splits 0..S-1 in that fixed order,
+// adds the bias, applies the activation and rounds once. No atomics, so the
+// same inputs give the same bits. With one split the epilogue stays in the
+// mainloop kernel.
 
-#include "common.cuh"
+#include <algorithm>
+
+#include "fused_conv.cuh"
 
 namespace ggan {
+namespace k1 {
 namespace {
 
-constexpr int BM = 64;       // output pixels per block
-constexpr int BN = 64;       // output channels per block
-constexpr int BK = 16;       // reduction depth per k-step
-constexpr int THREADS = 256; // 16 x 16 threads, 4 x 4 outputs each
-constexpr int APAD = 4;      // keeps As rows 16-byte aligned, halves bank conflicts
+enum Path : int { kPathFma = 0, kPathMma = 1, kPathWgmma = 2 };
 
-struct ConvShape {
-  int B, H, W, Cin, KH, KW, Cout, OH, OW, stride, pad_h, pad_w;
-};
+// ---------------------------------------------------------------------------
+// mma: bf16 with element gathers (Cin or Cout not a multiple of 8)
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-conv2d_bias_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                       const T* __restrict__ bias, T* __restrict__ y,
-                       ConvShape s, int act) {
-  __shared__ __align__(16) float As[2][BK][BM + APAD];
-  __shared__ __align__(16) float Bs[2][BK][BN];
+constexpr int MMA_BM = 64;
+constexpr int MMA_BN = 64;
+constexpr int MMA_BK = 32;
+constexpr int MMA_THREADS = 128;  // 2 x 2 warps of 32 x 32 outputs
+constexpr int MMA_PAD = 8;        // row padding (bf16) against bank conflicts
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__global__ void __launch_bounds__(MMA_THREADS)
+conv_k1_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ w,
+                   const __nv_bfloat16* __restrict__ bias,
+                   __nv_bfloat16* __restrict__ y, float* __restrict__ ws,
+                   Conv s, int act, int per) {
+  using T = __nv_bfloat16;
+  // As[m][k] and Bs[n][k]: k contiguous, the layouts the fragments read
+  __shared__ __align__(16) T As[2][MMA_BM][MMA_BK + MMA_PAD];
+  __shared__ __align__(16) T Bs[2][MMA_BN][MMA_BK + MMA_PAD];
+  __shared__ RowInfo rows[MMA_BM];
+  constexpr int NE = MMA_BM * MMA_BK / MMA_THREADS;  // elements per thread: 16
 
   const int tid = threadIdx.x;
-  const int M = s.B * s.OH * s.OW;
-  const int R = s.KH * s.KW * s.Cin;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  const int m0 = blockIdx.x * MMA_BM;
+  const int n0 = blockIdx.y * MMA_BN;
+  fill_rows(rows, s, m0, MMA_BM);
+  __syncthreads();
+  const KRange kr = k_range(s, MMA_BK, per);
 
-  // A loads: each thread owns one reduction column (a_k) and four pixels
-  // (a_m + 16*i); the pixel decomposition is fixed for the whole k loop.
-  const int a_k = tid % BK;
-  const int a_m = tid / BK;
-  int a_b[4], a_ih0[4], a_iw0[4];
-  bool a_ok[4];
+  // A: column a_k, rows a_m + 4*i; W: output channel w_n, rows w_k + 2*i
+  const int a_k = tid % MMA_BK;
+  const int a_m = tid / MMA_BK;
+  const int w_n = tid % MMA_BN;
+  const int w_k = tid / MMA_BN;
+  const T zero = __float2bfloat16(0.0f);
+  T av[NE], wv[NE];
+  TapWalk walk;
+  walk.init(s, kr.step0 * MMA_BK + a_k);
+  // each call loads the next K step of the block's range
+  auto load = [&]() {
+    const int toff = walk.toff(s);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + a_m + 16 * i;
-    a_ok[i] = m < M;
-    const int mm = a_ok[i] ? m : 0;
-    const int ow = mm % s.OW;
-    const int t = mm / s.OW;
-    const int oh = t % s.OH;
-    a_b[i] = t / s.OH;
-    a_ih0[i] = oh * s.stride - s.pad_h;
-    a_iw0[i] = ow * s.stride - s.pad_w;
-  }
-  // W loads: each thread owns one output channel and four reduction rows.
-  const int b_n = tid % BN;
-  const int b_k = tid / BN;
-  const bool b_ok = n0 + b_n < s.Cout;
-
-  float a_reg[4], b_reg[4];
-  auto load = [&](int k0) {
-    const int r = k0 + a_k;
-    const bool rk = r < R;
-    int ci = 0, kw = 0, kh = 0;
-    if (rk) {
-      ci = r % s.Cin;
-      const int t = r / s.Cin;
-      kw = t % s.KW;
-      kh = t / s.KW;
+    for (int i = 0; i < NE; ++i) {
+      const int off = x_offset(s, rows[a_m + 4 * i], walk, toff, kr.kend);
+      av[i] = off >= 0 ? x[off] : zero;
     }
+    const int n = n0 + w_n;
+    const int k0 = walk.r - a_k;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int ih = a_ih0[i] + kh;
-      const int iw = a_iw0[i] + kw;
-      const bool ok = rk && a_ok[i] && ih >= 0 && ih < s.H && iw >= 0 && iw < s.W;
-      a_reg[i] = ok ? to_f32(x[((int64_t(a_b[i]) * s.H + ih) * s.W + iw) * s.Cin + ci])
-                    : 0.0f;
+    for (int i = 0; i < NE; ++i) {
+      const int rr = k0 + w_k + 2 * i;
+      wv[i] = (rr < kr.kend && n < s.Cout) ? w[int64_t(rr) * s.Cout + n] : zero;
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int rr = k0 + b_k + 4 * j;
-      b_reg[j] = (b_ok && rr < R) ? to_f32(w[int64_t(rr) * s.Cout + n0 + b_n]) : 0.0f;
-    }
+    walk.advance(s, MMA_BK);
   };
   auto store = [&](int buf) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) As[buf][a_k][a_m + 16 * i] = a_reg[i];
+    for (int i = 0; i < NE; ++i) As[buf][a_m + 4 * i][a_k] = av[i];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) Bs[buf][b_k + 4 * j][b_n] = b_reg[j];
+    for (int i = 0; i < NE; ++i) Bs[buf][w_n][w_k + 2 * i] = wv[i];
   };
 
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  float acc[4][4];
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int wm = (warp / 2) * 32;
+  const int wn = (warp % 2) * 32;
+  const int gr = lane / 4;        // fragment row / column group
+  const int gc = (lane % 4) * 2;  // fragment k pair
+  float acc[2][4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
 
-  const int nk = (R + BK - 1) / BK;
-  load(0);
-  store(0);
+  if (kr.steps > 0) {
+    load();
+    store(0);
+  }
   __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
+  for (int kt = 0; kt < kr.steps; ++kt) {
     const int cur = kt & 1;
-    if (kt + 1 < nk) load((kt + 1) * BK);
+    if (kt + 1 < kr.steps) load();
 #pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+    for (int k16 = 0; k16 < MMA_BK; k16 += 16) {
+      uint32_t a[2][4], b[4][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 2; ++i) {
+        const T* r0 = &As[cur][wm + 16 * i + gr][k16 + gc];
+        const T* r8 = &As[cur][wm + 16 * i + gr + 8][k16 + gc];
+        a[i][0] = *reinterpret_cast<const uint32_t*>(r0);
+        a[i][1] = *reinterpret_cast<const uint32_t*>(r8);
+        a[i][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
+        a[i][3] = *reinterpret_cast<const uint32_t*>(r8 + 8);
+      }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < 4; ++j) {
+        const T* c0 = &Bs[cur][wn + 8 * j + gr][k16 + gc];
+        b[j][0] = *reinterpret_cast<const uint32_t*>(c0);
+        b[j][1] = *reinterpret_cast<const uint32_t*>(c0 + 8);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j]);
     }
-    // The other buffer was last read in iteration kt-1, which every thread
-    // finished before the barrier that closed it.
-    if (kt + 1 < nk) store(cur ^ 1);
+    // the other buffer was last read in step kt-1, which every thread
+    // finished before the barrier that closed it
+    if (kt + 1 < kr.steps) store(cur ^ 1);
     __syncthreads();
   }
 
+  // c0,c1: row gr, columns gc, gc+1; c2,c3: row gr+8, the same columns
+  const bool split = gridDim.z > 1;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const int n = n0 + tx * 4 + j;
-    if (n >= s.Cout) continue;
-    const float bj = to_f32(bias[n]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = m0 + ty * 4 + i;
-      if (m < M) y[int64_t(m) * s.Cout + n] = from_f32<T>(apply_act(acc[i][j] + bj, act));
+    for (int q = 0; q < 2; ++q) {
+      const int n = n0 + wn + 8 * j + gc + q;
+      if (n >= s.Cout) continue;
+      const float bn = split ? 0.0f : to_f32(bias[n]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + wm + 16 * i + gr + 8 * h;
+          if (m >= s.M) continue;
+          const float v = acc[i][j][2 * h + q];
+          if (split)
+            ws[(int64_t(blockIdx.z) * s.M + m) * s.Cout + n] = v;
+          else
+            y[int64_t(m) * s.Cout + n] = from_f32<T>(apply_act(v + bn, act));
+        }
+      }
     }
   }
 }
 
-template <typename T>
-void launch(const void* x, const void* w, const void* bias, void* y,
-            const ConvShape& s, int act, cudaStream_t stream) {
-  const int M = s.B * s.OH * s.OW;
-  dim3 grid((M + BM - 1) / BM, (s.Cout + BN - 1) / BN);
-  conv2d_bias_act_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w),
-      static_cast<const T*>(bias), static_cast<T*>(y), s, act);
+// ---------------------------------------------------------------------------
+// split-K reduce (bf16): splits 0..S-1 summed in that order, + bias, act,
+// one rounding
+
+__global__ void __launch_bounds__(256)
+conv_k1_splitk_reduce_kernel(const float* __restrict__ ws, int splits,
+                             int64_t mn, int cout,
+                             const __nv_bfloat16* __restrict__ bias,
+                             __nv_bfloat16* __restrict__ y, int act) {
+  for (int64_t i = int64_t(blockIdx.x) * 256 + threadIdx.x; i < mn;
+       i += int64_t(gridDim.x) * 256) {
+    float v = ws[i];
+    for (int z = 1; z < splits; ++z) v += ws[z * mn + i];
+    y[i] = __float2bfloat16(apply_act(v + to_f32(bias[i % cout]), act));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+
+cudaError_t launch_main(const Args& a, int dtype, int path, int bm, int bn,
+                        int bk, int stages, int vec) {
+  const Conv& s = a.s;
+  if (path == kPathWgmma) {
+    if (dtype != kBFloat16 || !vec || bk != WG_BK || stages != WG_STAGES ||
+        s.Cin % 8 != 0 || s.Cout % 8 != 0)
+      return cudaErrorInvalidValue;
+    return launch_wgmma_tile(a, bm, bn);
+  }
+  if (path == kPathMma) {
+    if (dtype != kBFloat16 || vec || bm != MMA_BM || bn != MMA_BN ||
+        bk != MMA_BK || stages != 2)
+      return cudaErrorInvalidValue;
+    using T = __nv_bfloat16;
+    conv_k1_mma_kernel<<<a.grid, MMA_THREADS, 0, a.stream>>>(
+        static_cast<const T*>(a.x), static_cast<const T*>(a.w),
+        static_cast<const T*>(a.bias), static_cast<T*>(a.y), a.ws, a.s, a.act,
+        a.per);
+    return cudaGetLastError();
+  }
+  if (path == kPathFma) {
+    if (dtype != kFloat32 || bk != FMA_BK || stages != FMA_STAGES ||
+        a.grid.z != 1)
+      return cudaErrorInvalidValue;
+    if (vec && (s.Cin % 4 != 0 || s.Cout % 4 != 0)) return cudaErrorInvalidValue;
+    return launch_fma_tile(a, bm, bn, vec);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
+}  // namespace k1
 }  // namespace ggan
 
-// pad_h / pad_w are the low-side pads (TF SAME puts the extra pad on the high
-// side, which the bounds mask covers). Returns cudaGetLastError() after the
-// launch; the Python wrapper raises when it is not cudaSuccess.
+// One K1 call as the wrapper's plan() chose it: path (0 fma, 1 mma,
+// 2 wgmma), tile bm x bn, depth bk, ring stages, 16-byte copies (vec), and
+// `splits` K ranges of `per` steps each. With splits > 1, ws is the f32
+// workspace [splits, M, Cout] and a reduce kernel follows the mainloop.
+// pad_h / pad_w are the low-side pads (TF SAME puts the extra pad on the
+// high side, which the bounds mask covers). Returns cudaGetLastError()
+// after the launches, or cudaErrorInvalidValue for a plan K1 has no kernel
+// for; the Python wrapper raises when it is not cudaSuccess.
 extern "C" int ggan_conv2d_bias_act(const void* x, const void* w, const void* bias,
-                                    void* y, int dtype, int B, int H, int W,
-                                    int Cin, int KH, int KW, int Cout, int OH,
-                                    int OW, int stride, int pad_h, int pad_w,
-                                    int act, void* stream) {
-  const ggan::ConvShape s{B, H, W, Cin, KH, KW, Cout, OH, OW, stride, pad_h, pad_w};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == ggan::kFloat32) {
-    ggan::launch<float>(x, w, bias, y, s, act, st);
-  } else if (dtype == ggan::kBFloat16) {
-    ggan::launch<__nv_bfloat16>(x, w, bias, y, s, act, st);
-  } else {
+                                    void* y, void* ws, int dtype, int B, int H,
+                                    int W, int Cin, int KH, int KW, int Cout,
+                                    int OH, int OW, int stride, int pad_h,
+                                    int pad_w, int act, int path, int bm, int bn,
+                                    int bk, int stages, int vec, int splits,
+                                    int per, void* stream) {
+  const ggan::k1::Conv s{B,  H,  W,      Cin,   KH,    KW,          Cout,
+                         OH, OW, stride, pad_h, pad_w, B * OH * OW, KH * KW * Cin};
+  const int nk = bk > 0 ? (s.R + bk - 1) / bk : 0;
+  // a tile, and every K step in exactly one split, none empty
+  if (bm <= 0 || bn <= 0 || bk <= 0 || splits < 1 || per < 1 ||
+      int64_t(splits) * per < nk || int64_t(splits - 1) * per >= (nk > 0 ? nk : 1) ||
+      (splits > 1 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ggan::k1::Args a{x,  w,   bias, y, splits > 1 ? static_cast<float*>(ws) : nullptr,
+                         s,  act, per,
+                         dim3((s.M + bm - 1) / bm, (Cout + bn - 1) / bn, splits), st};
+  cudaError_t e = ggan::k1::launch_main(a, dtype, path, bm, bn, bk, stages, vec);
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  const int64_t mn = int64_t(s.M) * Cout;
+  const int blocks = static_cast<int>(std::min<int64_t>((mn + 255) / 256, 132 * 8));
+  ggan::k1::conv_k1_splitk_reduce_kernel<<<blocks, 256, 0, st>>>(
+      static_cast<const float*>(ws), splits, mn, Cout,
+      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(y), act);
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,9 +39,9 @@ ACT_CODES = {None: 0, "relu": 1, "leaky_relu": 2}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, w, bias, y, dtype, B, H, W, Cin, KH, KW, Cout, OH, OW, stride,
-    # pad_h, pad_w, act, stream
-    "ggan_conv2d_bias_act": [_P, _P, _P, _P] + [_I] * 14 + [_P],
+    # x, w, bias, y, ws, dtype, B, H, W, Cin, KH, KW, Cout, OH, OW, stride,
+    # pad_h, pad_w, act, path, bm, bn, bk, stages, vec, splits, per, stream
+    "ggan_conv2d_bias_act": [_P] * 5 + [_I] * 22 + [_P],
     # x, part_mean, part_m2, mean, var, inv, dtype, R, C, rows_per_block,
     # n_row_blocks, eps, stream
     "ggan_bn_stats": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P],

@@ -1,23 +1,32 @@
 """K1: ``act(conv2d(x, w, stride, SAME|VALID) + bias)`` over NHWC/HWIO.
 
 Replaces ``graphical_gan_tpu/ops/pallas/fused_conv.py:_forward_pallas``
-(the Pallas implicit GEMM behind ``fused_conv2d_bias_act``). The CUDA kernel
-is ``csrc/fused_conv.cu``: a direct implicit GEMM over M = B*OH*OW pixels x
-Cout that computes each input coordinate and masks the padding, with no
-padded or phase-split copy in device memory; it is bound by the operations
-(plain f32 FMAs) at the serving shapes. See the source for the design.
+(the Pallas implicit GEMM behind ``fused_conv2d_bias_act``). The CUDA
+kernels are in ``csrc/fused_conv*.cu`` (the design is in
+``fused_conv.cu``): an implicit GEMM over M = B*OH*OW
+pixels x Cout that computes each input coordinate and masks the padding,
+with no padded or phase-split copy in device memory. :func:`plan` picks,
+from the shape alone, its mainloop (bf16 on ``wgmma`` tensor cores with
+16-byte gathers, bf16 on ``mma.sync`` with element gathers where Cin or
+Cout is not a multiple of 8, f32 on FMAs), its tile and, in bf16, how many
+ways the K loop is split; the split partials are summed in a fixed order
+by a second kernel, so a call is deterministic. See the source for the
+design.
 
-On a CUDA tensor :func:`fused_conv2d_bias_act` launches the kernel or
-raises; on a CPU tensor it computes :func:`fused_conv2d_bias_act_plain`, the
-same function in plain PyTorch (the CPU tests and ``chip_smoke.py`` compare
-against it). :func:`conv2d_bias_act` is the JAX ``fused_conv2d_bias_act``
-with its custom VJP (:class:`FusedConv2dBiasAct`): the forward is that
-kernel, the backward is PyTorch code on both devices, as the JAX package
-leaves the conv gradients to XLA (``fused_conv.py:183-190``).
+On a CUDA tensor :func:`fused_conv2d_bias_act` launches the plan's kernels
+or raises; on a CPU tensor it computes :func:`fused_conv2d_bias_act_plain`,
+the same function in plain PyTorch (the CPU tests and ``chip_smoke.py``
+compare against it). :func:`conv2d_bias_act` is the JAX
+``fused_conv2d_bias_act`` with its custom VJP (:class:`FusedConv2dBiasAct`):
+the forward is that kernel, the backward is PyTorch code on both devices,
+as the JAX package leaves the conv gradients to XLA
+(``fused_conv.py:183-190``).
 """
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -52,6 +61,130 @@ def _pads(h: int, w: int, kh: int, kw: int, stride: int, padding: str):
     return (0, 0), (0, 0)
 
 
+SMS = 132              # streaming multiprocessors of an H100 SXM: one wave
+MIN_SPLIT_STEPS = 4    # K steps a split keeps at least
+PATH_CODES = {"fma": 0, "mma": 1, "wgmma": 2}  # csrc/fused_conv.cu: Path
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one K1 call runs: the mainloop (``path``), 16-byte gathers
+    (``vec``), the tile ``bm`` x ``bn``, the K depth ``bk`` of one step,
+    the ring's ``stages``, and the K loop cut into ``splits`` ranges of
+    ``steps_per_split`` steps (the last may be shorter)."""
+    path: str
+    vec: bool
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    splits: int
+    steps_per_split: int
+    m: int
+    n: int
+    r: int
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.m // self.bm) * -(-self.n // self.bn)
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    def k_ranges(self):
+        """The reduction columns [lo, hi) of each split, in the order the
+        partials are summed."""
+        step = self.steps_per_split * self.bk
+        return [(z * step, min(self.r, (z + 1) * step))
+                for z in range(self.splits)]
+
+
+# tiles (BM, BN), largest first (csrc/fused_conv_fma.cu: launch_fma_vec,
+# fused_conv_wgmma.cu: launch_wgmma_tile); f32: 8 x 8, 4 x 4 and 2 x 4
+# outputs per thread, 256 threads each
+F32_TILES = ((128, 128), (64, 64), (32, 64))
+WGMMA_TILES = ((128, 128), (64, 128), (128, 64), (64, 64))
+
+
+def fills_wave(blocks: int, waves: int = 1) -> bool:
+    """Blocks on at least 9 in 10 of the card's SMs, ``waves`` deep
+    (measured on the H100: 128 tiles of 64 x 64 beat 256 smaller ones or a
+    split K)."""
+    return 10 * blocks >= 9 * SMS * waves
+
+
+# the waves a split K fills where its floor allows: once a shape pays for
+# the reduce, 3 blocks of 64 x 64 per SM (as many as its shared memory
+# holds) hide each other's gathers; tools/sweep_k1_plan.py on the H100
+# found bf16 E.3 at B=64 19% faster at 6 splits than at the 2 that fill
+# one wave
+SPLIT_WAVES = 3
+
+
+@functools.lru_cache(maxsize=None)
+def plan(x_shape: Tuple[int, ...], w_shape: Tuple[int, ...], stride: int,
+         padding: str, dtype: torch.dtype) -> Plan:
+    """K1's plan for x [B, H, W, Cin] and w [KH, KW, Cin, Cout], a pure
+    function of the shapes.
+
+    - f32: ``fma`` (BK = 32, 3 stages; 16-byte gathers when Cin and Cout
+      are multiples of 4), never on the tensor cores (no TF32) and never
+      split: each output is one FMA chain over the reduction in HWIO order,
+      the order of PyTorch's f32 CPU convolution at Cin >= 2, whose results
+      the card's f32 results then equal bit for bit (the f32 card-against-
+      CPU training checks lean on it; Cin = 1 takes another CPU algorithm).
+    - bf16 with Cin and Cout multiples of 8: ``wgmma`` (BK = 64, 4 stages);
+      other bf16 (Cin 1 or 3): ``mma`` with element gathers (BK = 32, 64 x
+      64 tiles).
+    - The tile is the largest (of those with BN = 64 when Cout <= 64) whose
+      tiles fill a wave (:func:`fills_wave`), else the smallest. Where that
+      is short of a wave in bf16, the K loop is split: the fewest splits of
+      at least MIN_SPLIT_STEPS steps that fill SPLIT_WAVES waves, or as
+      many as that floor allows; then balanced, so every split but the
+      last has the same whole number of steps and none is empty.
+    """
+    b, h, wd, cin = x_shape
+    kh, kw, _, cout = w_shape
+    m = b * out_size(h, kh, stride, padding) * out_size(wd, kw, stride,
+                                                        padding)
+    r = kh * kw * cin
+
+    def pick(tiles):
+        tiles = [t for t in tiles if cout > 64 or t[1] == 64]
+        return next((t for t in tiles if fills_wave(n_tiles(*t))),
+                    tiles[-1])
+
+    def n_tiles(bm, bn):
+        return max(1, -(-m // bm) * -(-cout // bn))
+
+    if dtype == torch.float32:
+        bm, bn = pick(F32_TILES)
+        steps = max(1, -(-r // 32))
+        return Plan("fma", cin % 4 == 0 and cout % 4 == 0, bm, bn, 32, 3, 1,
+                    steps, m, cout, r)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"K1 takes f32 or bf16, got {dtype}")
+    if cin % 8 == 0 and cout % 8 == 0:
+        path, vec, bk, stages = "wgmma", True, 64, 4
+        bm, bn = pick(WGMMA_TILES)
+    else:
+        path, vec, bk, stages = "mma", False, 32, 2
+        bm, bn = 64, 64
+    tiles = n_tiles(bm, bn)
+    steps = max(1, -(-r // bk))
+    per = steps
+    if not fills_wave(tiles) and steps >= 2 * MIN_SPLIT_STEPS:
+        per = MIN_SPLIT_STEPS
+        for cand in range(steps, MIN_SPLIT_STEPS - 1, -1):
+            if fills_wave(-(-steps // cand) * tiles, SPLIT_WAVES):
+                per = cand
+                break
+    splits = -(-steps // per)
+    per = -(-steps // splits)
+    return Plan(path, vec, bm, bn, bk, stages, splits, per, m, cout, r)
+
+
 def fused_conv2d_bias_act_plain(x: torch.Tensor, w: torch.Tensor,
                                 bias: torch.Tensor, stride: int = 1,
                                 padding: str = "SAME",
@@ -73,8 +206,9 @@ def fused_conv2d_bias_act(x: torch.Tensor, w: torch.Tensor,
                           bias: torch.Tensor, stride: int = 1,
                           padding: str = "SAME",
                           act: Optional[str] = None) -> torch.Tensor:
-    """K1: act(conv2d(x, w, stride, padding) + bias), one kernel launch on
-    CUDA.
+    """K1: act(conv2d(x, w, stride, padding) + bias): on CUDA the
+    :func:`plan`'s mainloop kernel, and its split-K reduce where the plan
+    splits K; one count in ``launches`` per call.
 
     x: [B, H, W, Cin] contiguous NHWC; w: [KH, KW, Cin, Cout] (HWIO);
     bias: [Cout]. f32 or bf16; f32 accumulation; output in x's dtype.
@@ -95,6 +229,17 @@ def fused_conv2d_bias_act(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("fused_conv2d_bias_act needs a contiguous NHWC x")
     if act not in build.ACT_CODES:
         raise ValueError(f"unknown activation {act!r}")
+    return run_plan(x, w, bias, stride, padding, act,
+                    plan(tuple(x.shape), tuple(w.shape), stride, padding,
+                         x.dtype))
+
+
+def run_plan(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+             stride: int, padding: str, act: Optional[str],
+             p: Plan) -> torch.Tensor:
+    """K1 on CUDA tensors that :func:`fused_conv2d_bias_act` has checked,
+    run as plan ``p`` says (``tools/sweep_k1_plan.py`` passes the other
+    plans it times); the C entry rejects a plan it has no kernel for."""
     b, h, wd, cin = x.shape
     kh, kw, _, cout = w.shape
     oh = out_size(h, kh, stride, padding)
@@ -108,10 +253,17 @@ def fused_conv2d_bias_act(x: torch.Tensor, w: torch.Tensor,
     if max(x.numel(), y.numel()) >= 2 ** 31:
         raise ValueError("fused_conv2d_bias_act indexes pixels with 32-bit "
                          "ints; split the batch")
+    if p.vec:  # 16-byte copies need 16-byte aligned rows
+        x = x if x.data_ptr() % 16 == 0 else x.clone()
+        w = w if w.data_ptr() % 16 == 0 else w.clone()
+    ws = (torch.empty((p.splits, p.m, cout), dtype=torch.float32,
+                      device=x.device) if p.splits > 1 else None)
     code = build.lib().ggan_conv2d_bias_act(
         x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        None if ws is None else ws.data_ptr(),
         build.DTYPE_CODES[_DTYPES[x.dtype]], b, h, wd, cin, kh, kw, cout, oh,
-        ow, stride, plo, qlo, build.ACT_CODES[act],
+        ow, stride, plo, qlo, build.ACT_CODES[act], PATH_CODES[p.path], p.bm,
+        p.bn, p.bk, p.stages, int(p.vec), p.splits, p.steps_per_split,
         build.stream_ptr(x.device))
     build.check(code, "ggan_conv2d_bias_act")
     fused_conv2d_bias_act.launches += 1
