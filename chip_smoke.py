@@ -6,14 +6,18 @@ nothing of JAX or of the JAX package, and does in order:
 
 1. device: requires CUDA, prints the card's name and power limit;
 2. build: compiles ``graphical_gan_tpu_torch/csrc/*.cu`` with nvcc and
-   requires ``HGMMA`` (``wgmma``) instructions in the library's SASS;
+   requires ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA load) instructions
+   in the library's SASS;
 3. check: holds each kernel (K1 conv+bias+act, K2a BN stats, K2b BN apply,
    K2c BN backward reduce, K2d BN backward apply, K3a/K3b conv_gemm taps
    and im2col) against its plain PyTorch version at every serving and
    training shape, B in {8, 64, 256}, f32 and bf16, plus BN inputs with a
-   large mean; K1 and K2 at the mnist and celeba shapes; K3 at its bench
-   shapes, the JAX tests' shapes and a non-square input, with and without
-   the leaky epilogue; the K1 autograd Function's first- and second-order
+   large mean; K1 and K2 at the mnist and celeba shapes; K3a and K3b at
+   their bench shapes, the JAX tests' shapes and a non-square input, f32
+   and bf16, with and without the leaky epilogue, each called twice for the
+   same bits, and bit-equal to each other and to K1 where one plan runs
+   them (every f32 shape, bf16 at Cin % 64 == 0); the K1 autograd
+   Function's first- and second-order
    gradients, and the BN + act double backward (mnist D.BN2/D.BN3),
    against plain autograd; every K1 kernel and every path of K1's plan
    with one split and with several, each called twice for the same bits;
@@ -21,8 +25,8 @@ nothing of JAX or of the JAX package, and does in order:
    on inputs that are not in L2 (``tools/timing.py``), its plain
    version's, one PyTorch library call's, and the bound (bytes over
    3.35 TB/s or the operations the function needs, taps in the padding
-   left out, over 67 TFLOP/s f32 / 989 TFLOP/s bf16); K3 in bf16 at the
-   bench shapes;
+   left out, over 67 TFLOP/s f32 / 989 TFLOP/s bf16); K3 in f32 and bf16
+   at the bench shapes, with each variant's route;
 5. serve: writes a full-width cifar10 wali-gp run directory (random
    weights from a seed), serves the sampler, encoder and reconstructor
    entries over HTTP on localhost through the port's server, checks the
@@ -37,7 +41,8 @@ nothing of JAX or of the JAX package, and does in order:
    against the CPU from the same params, batches and noise, two runs from
    one seed bit for bit, and a resumed run against an uninterrupted one;
 8. bench-conv: K3's own path, ``tools/bench_conv_kernel.main()`` (four
-   bf16 shapes, the library arm beside K3a and K3b);
+   bf16 shapes, the library arm beside K3a and K3b); K3a must run its TMA
+   mainloop there, and K1's counter must not count K3's calls;
 9. family1: 3 Trainer iterations of each of the 13 modes on mnist (B=50,
    DIM=64) and of celeba ali (B=128, dim 32) at published widths on
    resident synthetic data: finite costs, each mode's kernels launched,
@@ -216,15 +221,20 @@ def phase_build():
              if any(k in ln for k in ("registers", "spill", "Compiling entry",
                                       "wgmma", "Performance"))]
     hgmma = _sass_count(path, "HGMMA")
+    utmaldg = _sass_count(path, "UTMALDG")
     log({"phase": "build", "seconds": round(secs, 3),
          "library": os.path.relpath(path, ROOT),
          "sources": [os.path.relpath(s, ROOT) for s in build.sources()],
-         "sass_hgmma_instructions": hgmma})
+         "sass_hgmma_instructions": hgmma,
+         "sass_utmaldg_instructions": utmaldg})
     for ln in ptxas:
         log("ptxas: " + ln)
     if not hgmma:
         fail("no HGMMA instruction in the library's SASS: K1's bf16 path "
              "does not run on wgmma")
+    if not utmaldg:
+        fail("no UTMALDG instruction in the library's SASS: K3a's mainloop "
+             "issues no TMA load")
 
 
 def _sass_count(lib_path: str, opcode: str) -> int:
@@ -316,38 +326,70 @@ MNIST_BN = [("mnist E/D.BN2", (49 * 50, 128), "leaky_relu"),
 K3_SHAPES = [("disc2", 64, 16, 64, 128), ("disc3", 64, 8, 128, 256),
              ("disc2_b512", 512, 16, 64, 128),
              ("disc3_b512", 512, 8, 128, 256)]
-# K3 checks: the bench shapes, tests/test_conv_gemm.py's shapes, and a
-# non-square input: (name, B, H, W, Cin, Cout)
+# K3 checks: the bench shapes, tests/test_conv_gemm.py's shapes, a
+# non-square input, and one whose axes have other SAME pads (H 16: 1 and 2,
+# W 13: 2 and 2), which tells the im2col map's W and H corners apart:
+# (name, B, H, W, Cin, Cout)
 K3_CHECK = [(n, b, h, h, ci, co) for n, b, h, ci, co in K3_SHAPES] + [
     ("jax disc2-like", 4, 16, 16, 128, 256),
     ("jax disc3-like", 4, 8, 8, 256, 512),
     ("jax stem-like", 2, 32, 32, 8, 128),
     ("jax odd H", 6, 12, 12, 16, 128),
-    ("non-square", 4, 16, 12, 64, 128)]
+    ("non-square", 4, 16, 12, 64, 128),
+    ("pads differ", 4, 16, 13, 64, 128)]
 # the BN double backward against plain autograd: f32 sums in other orders
 # through the statistics, atol scaled by max(1, max |ref|)
 DOUBLE_BWD_ATOL = 1e-4
 
 
+def _route_of(x, w, variant):
+    from graphical_gan_tpu_torch.ops.kernels import conv_gemm as k3
+    p = k3.route(tuple(x.shape), tuple(w.shape), 2, x.dtype, variant)
+    return {"path": p.path, "tile": [p.bm, p.bn], "splits": p.splits}
+
+
 def _check_k3(label, x, w, bias, leak, errs, misses):
-    """K3a and K3b against conv_gemm_plain on the same inputs."""
+    """K3a and K3b against conv_gemm_plain on the same inputs, each called
+    twice for the same bits. Where one plan runs both (f32: K1's ``fma``;
+    bf16 at Cin % 64 == 0: K3a's TMA steps are K1's flattened steps on the
+    same tile and splits) K3a, K3b and K1 (slope 0.2 or no activation) must
+    agree bit for bit."""
     import torch
     from graphical_gan_tpu_torch.ops.kernels import conv_gemm as k3
+    from graphical_gan_tpu_torch.ops.kernels import fused_conv
     dn = str(x.dtype).split(".")[1]
     want = k3.conv_gemm_plain(x, w, bias, 2, leak)
     atol, rtol = TOL[("conv", dn)]
-    out = {}
+    out, routes, repeat, got = {}, {}, {}, {}
     for variant in k3.VARIANTS:
-        got = k3.conv_gemm(x, w, bias, 2, leak, variant=variant)
+        got[variant] = k3.conv_gemm(x, w, bias, 2, leak, variant=variant)
+        again = k3.conv_gemm(x, w, bias, 2, leak, variant=variant)
         torch.cuda.synchronize()
+        routes[variant] = _route_of(x, w, variant)
         name = f"conv_gemm_{variant}"
-        e, bad = max_err(got, want, atol, rtol)
+        e, bad = max_err(got[variant], want, atol, rtol)
         out[variant] = e
+        repeat[variant] = torch.equal(got[variant], again)
         errs[name] = max(errs.get(name, 0.0), e)
-        if bad or got.dtype != x.dtype or got.shape != want.shape:
+        if bad or got[variant].dtype != x.dtype or \
+                got[variant].shape != want.shape:
             misses.append(f"K3 {variant} {label} {dn} leak={leak}")
+        if not repeat[variant]:
+            misses.append(f"K3 {variant} {label} {dn} leak={leak} differs "
+                          "between two calls")
+    one_plan = x.dtype == torch.float32 or x.shape[3] % 64 == 0
+    same_as_k1 = None
+    if one_plan:
+        k1 = fused_conv.fused_conv2d_bias_act(
+            x, w, bias, 2, "SAME", None if leak is None else "leaky_relu")
+        same_as_k1 = all(torch.equal(got[v], k1) for v in k3.VARIANTS)
+        if not same_as_k1:
+            misses.append(f"K3 {label} {dn} leak={leak}: K3a, K3b and K1 "
+                          "differ under one plan")
     log({"check": "K3", "shape": label, "dtype": dn, "leak": leak,
-         "max_abs_err": out, "atol": atol, "rtol": rtol})
+         "routes": routes, "max_abs_err": out, "atol": atol, "rtol": rtol,
+         "two_calls_bit_identical": repeat,
+         "k3a_k3b_k1_bit_identical": same_as_k1})
 
 
 def _check_bn_double_bwd(label, rc, act, gen, errs, misses):
@@ -413,9 +455,8 @@ def _check_family1(gen, errs, misses, seen):
                             device="cuda") * 0.05
             bias = torch.randn((cout,), generator=gen, device="cuda")
             args = [t.to(dtype) for t in (x, w, bias)]
-            _check_k3(name, *args, 0.2, errs, misses)
-            if name in ("disc2", "non-square"):
-                _check_k3(name, *args, None, errs, misses)
+            for leak in (0.2, None):
+                _check_k3(name, *args, leak, errs, misses)
     for name, rc, act in MNIST_BN[:2]:
         _check_bn_double_bwd(name.replace("E/", ""), rc, act, gen, errs,
                              misses)
@@ -798,41 +839,44 @@ def _time_bn_bwd(timings, b, dtype, gen, card):
 
 
 def _time_k3(timings, card):
-    """K3a and K3b at the bench shapes in bf16: each kernel's time, the
-    plain version's (conv_gemm_plain, f32 F.conv2d), the library's
-    (F.conv2d + bias + leaky in bf16, cuDNN, channels-last, on input padded
-    beforehand) and the bound (in-bounds taps only)."""
+    """K3a and K3b at the bench shapes in f32 and bf16: each kernel's time
+    and route, the plain version's (conv_gemm_plain, f32 F.conv2d), the
+    library's (F.conv2d + bias + leaky in the same dtype, cuDNN with TF32
+    off, channels-last, on input padded beforehand) and the bound (in-bounds
+    taps only)."""
     import torch
     import torch.nn.functional as F
     from graphical_gan_tpu_torch.ops.activations import leaky_relu
     from graphical_gan_tpu_torch.ops.kernels import conv_gemm as k3
     from graphical_gan_tpu_torch.ops.kernels.fused_conv import same_pads
-    bf16 = torch.bfloat16
-    for name, b, h, cin, cout in K3_SHAPES:
-        lo, hi = same_pads(h, 5, 2)
-        x = torch.randn((b, h, h, cin), device="cuda", dtype=bf16)
-        w = (torch.randn((5, 5, cin, cout), device="cuda") * 0.05).to(bf16)
-        bias = torch.randn((cout,), device="cuda", dtype=bf16)
-        xlib = F.pad(x.permute(0, 3, 1, 2), (lo, hi, lo, hi)).contiguous(
-            memory_format=torch.channels_last)
-        wlib = w.permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        taps = conv_valid_taps(h, 5, 2, lo) ** 2
-        oh = -(-h // 2)
-        t_b, by = bound(2.0 * b * cout * cin * taps,
-                        (b * h * h * cin + b * oh * oh * cout
-                         + 25 * cin * cout + cout) * 2, "bfloat16")
-        lib = time_ms(lambda *a: leaky_relu(F.conv2d(*a, stride=2)),
-                      (xlib, wlib, bias))
-        plain = time_ms(k3.conv_gemm_plain, (x, w, bias))
-        for variant in k3.VARIANTS:
-            fn = getattr(k3, f"conv_gemm_{variant}")
-            row = {"kernel": fn.__name__, "shape": name, "B": b,
-                   "dtype": "bfloat16", "card": card,
-                   "ms": time_ms(fn, (x, w, bias)), "plain_ms": plain,
-                   "library_ms": lib, "bound_ms": t_b, "bound_by": by}
-            timings.append(row)
-            log({"timing": row})
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for name, b, h, cin, cout in K3_SHAPES:
+            lo, hi = same_pads(h, 5, 2)
+            x = torch.randn((b, h, h, cin), device="cuda", dtype=dtype)
+            w = (torch.randn((5, 5, cin, cout), device="cuda") * 0.05).to(
+                dtype)
+            bias = torch.randn((cout,), device="cuda", dtype=dtype)
+            xlib = F.pad(x.permute(0, 3, 1, 2), (lo, hi, lo, hi)).contiguous(
+                memory_format=torch.channels_last)
+            wlib = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            taps = conv_valid_taps(h, 5, 2, lo) ** 2
+            oh = -(-h // 2)
+            t_b, by = bound(2.0 * b * cout * cin * taps,
+                            (b * h * h * cin + b * oh * oh * cout
+                             + 25 * cin * cout + cout) * dtype.itemsize, dn)
+            lib = time_ms(lambda *a: leaky_relu(F.conv2d(*a, stride=2)),
+                          (xlib, wlib, bias))
+            plain = time_ms(k3.conv_gemm_plain, (x, w, bias))
+            for variant in k3.VARIANTS:
+                fn = getattr(k3, f"conv_gemm_{variant}")
+                row = {"kernel": fn.__name__, "shape": name, "B": b,
+                       "dtype": dn, "card": card, **_route_of(x, w, variant),
+                       "ms": time_ms(fn, (x, w, bias)), "plain_ms": plain,
+                       "library_ms": lib, "bound_ms": t_b, "bound_by": by}
+                timings.append(row)
+                log({"timing": row})
 
 
 def _post_concurrent(cl, payloads):
@@ -1554,6 +1598,14 @@ def phase_bench_conv(launch_totals):
            if not (r[f"{arm}_rel_maxerr"] < 2e-2 and r[f"{arm}_us"] > 0)]
     if bad:
         fail(f"bench-conv: arms off the reference or not timed: {bad}")
+    # the bench's bf16 shapes route K3a to its TMA mainloop, whose launches
+    # are conv_gemm_taps's; K3b runs K1's kernels but not K1's counter
+    not_tma = [r["shape"] for r in recs if r["k3_taps_route"]["path"] != "tma"]
+    if not_tma:
+        fail(f"bench-conv: K3a did not run its TMA mainloop at {not_tma}")
+    if launch_totals.get("fused_conv2d_bias_act"):
+        fail(f"bench-conv: K1's counter counted "
+             f"{launch_totals['fused_conv2d_bias_act']} of K3's calls")
 
 
 FAMILY1_ITERS = 3
@@ -1736,9 +1788,11 @@ SOURCES = {
                       "graphical_gan_tpu/ops/pallas/fused_norm.py:212"),
     "bn_bwd_apply": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
                      "graphical_gan_tpu/ops/pallas/fused_norm.py:223"),
-    "conv_gemm_taps": ("graphical_gan_tpu_torch/csrc/conv_gemm.cu",
+    # K3a's bf16 mainloop at the bench shapes (other shapes route to K1's)
+    "conv_gemm_taps": ("graphical_gan_tpu_torch/csrc/conv_gemm_tma.cu",
                        "graphical_gan_tpu/ops/pallas/conv_gemm.py:206"),
-    "conv_gemm_im2col": ("graphical_gan_tpu_torch/csrc/conv_gemm.cu",
+    # K3b runs K1's mainloops; bf16 at the bench shapes takes wgmma
+    "conv_gemm_im2col": ("graphical_gan_tpu_torch/csrc/fused_conv_wgmma.cu",
                          "graphical_gan_tpu/ops/pallas/conv_gemm.py:186"),
 }
 SERVE_KERNELS = ("fused_conv2d_bias_act", "bn_stats", "bn_apply")
@@ -1776,13 +1830,36 @@ def _k1_rows(timings, k1_counts):
     return out
 
 
+def _k3_rows(timings, name):
+    """K3a's or K3b's rows per dtype over the four bench shapes, with each
+    shape's route (path, tile, splits)."""
+    out = []
+    for dn in ("bfloat16", "float32"):
+        rows = [r for r in timings if r["kernel"] == name
+                and r["dtype"] == dn]
+        ops_ms = sum(r["bound_ms"] for r in rows
+                     if r["bound_by"] == "operations")
+        bytes_ms = sum(r["bound_ms"] for r in rows
+                       if r["bound_by"] == "bytes")
+        out.append({
+            "dtype": dn,
+            **{k: sum(r[k] for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "per_shape": [{k: r[k] for k in (
+                "shape", "B", "path", "tile", "splits", "ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by")} for r in rows]})
+    return out
+
+
 def summary(errs, timings, launches):
     """One entry per kernel. The forward kernels' times are summed over the
     shapes of one reconstructor dispatch at B=256 in f32 (K1 adds ``rows``:
     f32 and bf16 at B=64 and 256); K2c's and K2d's over the 5 BN shapes one
     training iteration backpropagates through at B=64 in f32 (their library
     time is one call that computes both); K3's over the four bench shapes
-    in bf16. ``launches`` counts each kernel's main path (the cifar10
+    in bf16 (K3 adds ``rows``: bf16 and f32, per shape with its route).
+    ``launches`` counts each kernel's main path (the cifar10
     training runs; for K3 the bench-conv run), ``launches_serve`` the
     serving run and ``launches_family1`` the family1 runs."""
     out = []
@@ -1821,6 +1898,8 @@ def summary(errs, timings, launches):
                     "summed_over": over})
         if name == "fused_conv2d_bias_act":
             out[-1]["rows"] = _k1_rows(timings, launches["k1"])
+        if k3:
+            out[-1]["rows"] = _k3_rows(timings, name)
     return {"kernels": out}
 
 

@@ -1,6 +1,6 @@
 // Shared device helpers for the port's kernels: dtype conversion through the
 // bf16 intrinsics and the activation epilogue (codes match
-// graphical_gan_tpu_torch/ops/kernels/build.py: 0 none, 1 relu, 2 leaky 0.2).
+// graphical_gan_tpu_torch/ops/kernels/build.py: 0 none, 1 relu, 2 leaky).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -21,12 +21,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
 }
 
-// relu is max(v, 0) and leaky is max(0.2*v, v), the reference's LeakyReLU
-// (LEAKY_ALPHA = 0.2); written as selects so that a NaN passes through as it
-// does in jnp.maximum and torch.
-__device__ __forceinline__ float apply_act(float v, int act) {
+// relu is max(v, 0) and leaky is where(v >= 0, v, leak*v), the reference's
+// LeakyReLU (LEAKY_ALPHA = 0.2 unless the caller gives K3's `leak`); written
+// as selects so that a NaN passes through as it does in jnp.maximum and
+// torch. v < 0 ? leak*v : v agrees with the where() on every input: a NaN
+// fails both comparisons and leak*NaN is NaN; -0.0 is not < 0 and is >= 0,
+// so both return it unchanged.
+__device__ __forceinline__ float apply_act(float v, int act, float leak = 0.2f) {
   if (act == kActRelu) return v < 0.0f ? 0.0f : v;
-  if (act == kActLeaky) return v < 0.0f ? 0.2f * v : v;
+  if (act == kActLeaky) return v < 0.0f ? leak * v : v;
   return v;
 }
 

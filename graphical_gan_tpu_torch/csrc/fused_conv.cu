@@ -97,7 +97,7 @@ conv_k1_mma_kernel(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ w,
                    const __nv_bfloat16* __restrict__ bias,
                    __nv_bfloat16* __restrict__ y, float* __restrict__ ws,
-                   Conv s, int act, int per) {
+                   Conv s, int act, float leak, int per) {
   using T = __nv_bfloat16;
   // As[m][k] and Bs[n][k]: k contiguous, the layouts the fragments read
   __shared__ __align__(16) T As[2][MMA_BM][MMA_BK + MMA_PAD];
@@ -215,7 +215,7 @@ conv_k1_mma_kernel(const __nv_bfloat16* __restrict__ x,
           if (split)
             ws[(int64_t(blockIdx.z) * s.M + m) * s.Cout + n] = v;
           else
-            y[int64_t(m) * s.Cout + n] = from_f32<T>(apply_act(v + bn, act));
+            y[int64_t(m) * s.Cout + n] = from_f32<T>(apply_act(v + bn, act, leak));
         }
       }
     }
@@ -230,12 +230,12 @@ __global__ void __launch_bounds__(256)
 conv_k1_splitk_reduce_kernel(const float* __restrict__ ws, int splits,
                              int64_t mn, int cout,
                              const __nv_bfloat16* __restrict__ bias,
-                             __nv_bfloat16* __restrict__ y, int act) {
+                             __nv_bfloat16* __restrict__ y, int act, float leak) {
   for (int64_t i = int64_t(blockIdx.x) * 256 + threadIdx.x; i < mn;
        i += int64_t(gridDim.x) * 256) {
     float v = ws[i];
     for (int z = 1; z < splits; ++z) v += ws[z * mn + i];
-    y[i] = __float2bfloat16(apply_act(v + to_f32(bias[i % cout]), act));
+    y[i] = __float2bfloat16(apply_act(v + to_f32(bias[i % cout]), act, leak));
   }
 }
 
@@ -259,7 +259,7 @@ cudaError_t launch_main(const Args& a, int dtype, int path, int bm, int bn,
     conv_k1_mma_kernel<<<a.grid, MMA_THREADS, 0, a.stream>>>(
         static_cast<const T*>(a.x), static_cast<const T*>(a.w),
         static_cast<const T*>(a.bias), static_cast<T*>(a.y), a.ws, a.s, a.act,
-        a.per);
+        a.leak, a.per);
     return cudaGetLastError();
   }
   if (path == kPathFma) {
@@ -273,12 +273,23 @@ cudaError_t launch_main(const Args& a, int dtype, int path, int bm, int bn,
 }
 
 }  // namespace
+
+cudaError_t launch_splitk_reduce(const Args& a, int splits) {
+  const int64_t mn = int64_t(a.s.M) * a.s.Cout;
+  const int blocks = static_cast<int>(std::min<int64_t>((mn + 255) / 256, 132 * 8));
+  conv_k1_splitk_reduce_kernel<<<blocks, 256, 0, a.stream>>>(
+      a.ws, splits, mn, a.s.Cout, static_cast<const __nv_bfloat16*>(a.bias),
+      static_cast<__nv_bfloat16*>(a.y), a.act, a.leak);
+  return cudaGetLastError();
+}
+
 }  // namespace k1
 }  // namespace ggan
 
 // One K1 call as the wrapper's plan() chose it: path (0 fma, 1 mma,
 // 2 wgmma), tile bm x bn, depth bk, ring stages, 16-byte copies (vec), and
-// `splits` K ranges of `per` steps each. With splits > 1, ws is the f32
+// `splits` K ranges of `per` steps each; act's slope is `leak` (K1 passes
+// 0.2 for leaky_relu, K3b its own). With splits > 1, ws is the f32
 // workspace [splits, M, Cout] and a reduce kernel follows the mainloop.
 // pad_h / pad_w are the low-side pads (TF SAME puts the extra pad on the
 // high side, which the bounds mask covers). Returns cudaGetLastError()
@@ -288,9 +299,9 @@ extern "C" int ggan_conv2d_bias_act(const void* x, const void* w, const void* bi
                                     void* y, void* ws, int dtype, int B, int H,
                                     int W, int Cin, int KH, int KW, int Cout,
                                     int OH, int OW, int stride, int pad_h,
-                                    int pad_w, int act, int path, int bm, int bn,
-                                    int bk, int stages, int vec, int splits,
-                                    int per, void* stream) {
+                                    int pad_w, int act, float leak, int path,
+                                    int bm, int bn, int bk, int stages, int vec,
+                                    int splits, int per, void* stream) {
   const ggan::k1::Conv s{B,  H,  W,      Cin,   KH,    KW,          Cout,
                          OH, OW, stride, pad_h, pad_w, B * OH * OW, KH * KW * Cin};
   const int nk = bk > 0 ? (s.R + bk - 1) / bk : 0;
@@ -301,14 +312,9 @@ extern "C" int ggan_conv2d_bias_act(const void* x, const void* w, const void* bi
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ggan::k1::Args a{x,  w,   bias, y, splits > 1 ? static_cast<float*>(ws) : nullptr,
-                         s,  act, per,
+                         s,  act, per,  leak,
                          dim3((s.M + bm - 1) / bm, (Cout + bn - 1) / bn, splits), st};
   cudaError_t e = ggan::k1::launch_main(a, dtype, path, bm, bn, bk, stages, vec);
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
-  const int64_t mn = int64_t(s.M) * Cout;
-  const int blocks = static_cast<int>(std::min<int64_t>((mn + 255) / 256, 132 * 8));
-  ggan::k1::conv_k1_splitk_reduce_kernel<<<blocks, 256, 0, st>>>(
-      static_cast<const float*>(ws), splits, mn, Cout,
-      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(y), act);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(ggan::k1::launch_splitk_reduce(a, splits));
 }

@@ -1,6 +1,7 @@
 // Shared by K1's sources (fused_conv.cu, fused_conv_wgmma.cu,
-// fused_conv_fma.cu, compiled in parallel): the conv geometry, the row table
-// and tap walk behind every gather, cp.async, and the launch arguments.
+// fused_conv_fma.cu, compiled in parallel) and K3a's (conv_gemm_tma.cu): the
+// conv geometry, the row table and tap walk behind every gather, cp.async,
+// and the launch arguments.
 #pragma once
 
 #include "common.cuh"
@@ -134,6 +135,7 @@ struct Args {
   float* ws;
   Conv s;
   int act, per;
+  float leak;  // the slope of act == kActLeaky: 0.2 for K1, K3's `leak`
   dim3 grid;
   cudaStream_t stream;
 };
@@ -142,6 +144,9 @@ struct Args {
 // cudaErrorInvalidValue for a tile they have no kernel for
 cudaError_t launch_wgmma_tile(const Args& a, int bm, int bn);
 cudaError_t launch_fma_tile(const Args& a, int bm, int bn, bool vec);
+// split K's second kernel (fused_conv.cu): the partials of a.ws summed in
+// split order, + bias, act, one rounding to bf16
+cudaError_t launch_splitk_reduce(const Args& a, int splits);
 
 }  // namespace k1
 }  // namespace ggan

@@ -29,7 +29,7 @@ template <int BM, int BN, int TM, int TN, bool VEC>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 conv_k1_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ bias, float* __restrict__ y,
-                   Conv s, int act) {
+                   Conv s, int act, float leak) {
   constexpr int THREADS = (BM / TM) * (BN / TN);
   constexpr int CH = TN / 4;  // float4 column chunks per thread
   static_assert((TM == 2 || TM == 4 || TM == 8) && (TN == 4 || TN == 8),
@@ -161,8 +161,9 @@ conv_k1_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
       float v[4];
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
-        v[jj] = n + jj < s.Cout ? apply_act(acc[i][4 * c + jj] + bias[n + jj], act)
-                                : 0.0f;
+        v[jj] = n + jj < s.Cout
+                    ? apply_act(acc[i][4 * c + jj] + bias[n + jj], act, leak)
+                    : 0.0f;
       float* dst = y + int64_t(m) * s.Cout + n;
       if (VEC) {  // Cout % 4 == 0: all four in range, 16-byte aligned
         *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
@@ -183,7 +184,8 @@ cudaError_t launch_fma(const Args& a) {
   conv_k1_fma_kernel<BM, BN, TM, TN, VEC>
       <<<a.grid, (BM / TM) * (BN / TN), bytes, a.stream>>>(
           static_cast<const float*>(a.x), static_cast<const float*>(a.w),
-          static_cast<const float*>(a.bias), static_cast<float*>(a.y), a.s, a.act);
+          static_cast<const float*>(a.bias), static_cast<float*>(a.y), a.s, a.act,
+          a.leak);
   return cudaGetLastError();
 }
 

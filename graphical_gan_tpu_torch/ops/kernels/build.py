@@ -40,8 +40,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # x, w, bias, y, ws, dtype, B, H, W, Cin, KH, KW, Cout, OH, OW, stride,
-    # pad_h, pad_w, act, path, bm, bn, bk, stages, vec, splits, per, stream
-    "ggan_conv2d_bias_act": [_P] * 5 + [_I] * 22 + [_P],
+    # pad_h, pad_w, act, leak, path, bm, bn, bk, stages, vec, splits, per,
+    # stream
+    "ggan_conv2d_bias_act": [_P] * 5 + [_I] * 14 + [ctypes.c_float]
+    + [_I] * 8 + [_P],
     # x, part_mean, part_m2, mean, var, inv, dtype, R, C, rows_per_block,
     # n_row_blocks, eps, stream
     "ggan_bn_stats": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P],
@@ -54,9 +56,10 @@ _SIGNATURES = {
     # R, act, vec, stream
     "ggan_bn_bwd_apply": [_P] * 9 + [_I, ctypes.c_longlong] + [_I] * 4
     + [_P],
-    # x, w, bias, y, dtype, variant, B, H, W, Cin, K, Cout, OH, OW, stride,
-    # pad_h, pad_w, has_leak, leak, vec_a, vec_w, stream
-    "ggan_conv_gemm": [_P] * 4 + [_I] * 14 + [ctypes.c_float, _I, _I, _P],
+    # x, w, bias, y, ws, geo (int64[25]), B, H, W, Cin, K, Cout, OH, OW,
+    # stride, pad_h, pad_w, act, leak, bm, bn, splits, per, stream
+    "ggan_conv_gemm_tma": [_P] * 6 + [_I] * 12 + [ctypes.c_float]
+    + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

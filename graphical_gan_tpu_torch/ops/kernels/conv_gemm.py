@@ -2,33 +2,60 @@
 
 Replaces ``graphical_gan_tpu/ops/pallas/conv_gemm.py:conv_gemm``, the
 shape-specialised implicit GEMM of the discriminator stack, in both of its
-variants: K3a :func:`conv_gemm_taps` (``variant="taps"``, the 25 taps'
-products accumulate into one f32 tile) and K3b :func:`conv_gemm_im2col`
-(``variant="im2col"``, one contraction over the flattened K·K·Cin axis).
-The CUDA kernels are ``csrc/conv_gemm.cu``: bf16 on the tensor cores
-(``mma.sync``), f32 on plain FMAs; see the source for the design and bound.
-Its only caller outside the tests is ``tools/bench_conv_kernel.py``, as in
-the JAX package.
+variants: K3a :func:`conv_gemm_taps` (``variant="taps"``, the K loop runs
+tap by tap, each tap a run of one tap's channels) and K3b
+:func:`conv_gemm_im2col` (``variant="im2col"``, one contraction over the
+flattened K·K·Cin axis). On the card the two are two ways of producing the
+A tile (:func:`route`, a pure function of the shapes):
 
-On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
-it computes :func:`conv_gemm_plain`, the counterpart of the JAX
+- K3b runs K1's kernels (``fused_conv.py: plan`` and ``run_plan``,
+  ``csrc/fused_conv*.cu``) with SAME padding and the slope ``leak``: K1's
+  flattened HWIO walk *is* K3b's K loop. bf16 with Cin and Cout multiples
+  of 8 takes the ``wgmma`` mainloop (16-byte ``cp.async`` gathers), other
+  bf16 the ``mma`` one, f32 the ``fma`` one.
+- K3a in bf16 with Cin and Cout multiples of 8 runs
+  ``csrc/conv_gemm_tma.cu``: ``wgmma`` fed by the Tensor Memory
+  Accelerator, an im2col tensor map over x whose loads take a tap as their
+  im2col offsets (:func:`tma_geometry` gives both maps' parameters), on
+  K1's tiles and K splits over k·k·ceil(Cin/64) steps. Other shapes run
+  K1's kernels as K3b does: there the taps order (kh, kw, ci) is the
+  flattened order, so the two variants are one function run in one order.
+
+Each wrapper counts its own launches; K1's counter does not see them. Its
+only caller outside the tests is ``tools/bench_conv_kernel.py``, as in the
+JAX package.
+
+On a CUDA tensor each wrapper launches its routed kernel or raises; on a
+CPU tensor it computes :func:`conv_gemm_plain`, the counterpart of the JAX
 ``conv_gemm_reference``. :func:`phase_stack` is the TPU kernel's input
 layout in plain PyTorch, with a span per spatial axis, for the geometry
-test; the CUDA kernels index the input directly and never build it.
+tests; the CUDA kernels never build it.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from graphical_gan_tpu_torch.ops.kernels import build
-from graphical_gan_tpu_torch.ops.kernels.fused_conv import same_pads
+from graphical_gan_tpu_torch.ops.kernels.fused_conv import (
+    WGMMA_TILES, Plan, n_tiles, pick_tile, plan, run_plan, same_pads,
+    split_steps)
 
 _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 VARIANTS = ("taps", "im2col")
+
+TMA_BK = 64        # channels per K3a step: 64 bf16, one 128-byte row
+TMA_STAGES = 4
+# the range of a 4-D im2col map's bounding-box corners (cuda.h,
+# cuTensorMapEncodeIm2col), and of its traversal strides
+IM2COL_CORNER = (-128, 127)
+MAX_TRAVERSAL_STRIDE = 8
 
 
 def conv_gemm_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -69,7 +96,143 @@ def phase_stack(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
     return torch.stack(slabs)
 
 
-def _launch(wrapper, variant: int, x, w, bias, stride, leak):
+@dataclass(frozen=True)
+class TmaGeometry:
+    """K3a's two tensor maps (``csrc/conv_gemm_tma.cu``), innermost
+    dimension first.
+
+    x: an im2col map over [B, H, W, Cin] bf16: ``x_dims`` (Cin, W, H, B),
+    ``x_strides`` the byte strides of dims 1-3, the bounding box's
+    ``lower`` and ``upper`` corners (W, H), ``channels`` per pixel and
+    ``pixels`` per column (the tile's BM), ``elem_strides`` the traversal
+    strides (1, s, s, 1). w: a tiled map over [k·k, Cin, Cout]:
+    ``w_dims`` (Cout, Cin, k·k), ``w_strides`` in bytes, ``w_box``."""
+    x_dims: Tuple[int, int, int, int]
+    x_strides: Tuple[int, int, int]
+    lower: Tuple[int, int]
+    upper: Tuple[int, int]
+    channels: int
+    pixels: int
+    elem_strides: Tuple[int, int, int, int]
+    w_dims: Tuple[int, int, int]
+    w_strides: Tuple[int, int]
+    w_box: Tuple[int, int, int]
+    k: int
+    stride: int
+    out_hw: Tuple[int, int]
+
+    def packed(self) -> Tuple[int, ...]:
+        """The 25 parameters in the order ``ggan_conv_gemm_tma`` reads."""
+        return (*self.x_dims, *self.x_strides, *self.lower, *self.upper,
+                self.channels, self.pixels, *self.elem_strides,
+                *self.w_dims, *self.w_strides, *self.w_box)
+
+    def a_load(self, m0: int, tap: int, c0: int):
+        """The im2col load of the A tile of rows m0.. at K step (tap, c0):
+        its coordinates (c0, w, h, n), the tile's first output pixel as its
+        window's input coordinate (the lower corner is -pad), and its
+        im2col offsets (kw, kh)."""
+        oh, ow = self.out_hw
+        t = m0 // ow
+        coords = (c0, (m0 % ow) * self.stride + self.lower[0],
+                  (t % oh) * self.stride + self.lower[1], t // oh)
+        return coords, (tap % self.k, tap // self.k)
+
+
+def tma_geometry(x_shape: Tuple[int, ...], w_shape: Tuple[int, ...],
+                 stride: int, bm: int) -> TmaGeometry:
+    """The maps of K3a's TMA path for x [B, H, W, Cin] and w [k, k, Cin,
+    Cout] bf16 at stride s and tile rows ``bm``: per spatial axis the
+    lower corner is -pad_lo and the upper pad_hi - (k - 1), so the box's
+    traversal at stride s visits exactly the SAME windows' top-left
+    corners. Raises where the 4-D map cannot express the shape."""
+    b, h, wd, cin = x_shape
+    k, _, _, cout = w_shape
+    if cin % 8 or cout % 8:
+        raise ValueError(f"K3a's TMA path needs Cin and Cout multiples of 8 "
+                         f"(16-byte rows), got {cin}, {cout}")
+    if not 1 <= stride <= MAX_TRAVERSAL_STRIDE:
+        raise ValueError(f"K3a's im2col map takes strides 1-"
+                         f"{MAX_TRAVERSAL_STRIDE}, got {stride}")
+    (plo, phi), (qlo, qhi) = same_pads(h, k, stride), same_pads(wd, k, stride)
+    lower, upper = (-qlo, -plo), (qhi - (k - 1), phi - (k - 1))
+    lo, hi = IM2COL_CORNER
+    if not all(lo <= c <= hi for c in lower + upper):
+        raise ValueError(f"K3a's im2col corners {lower}, {upper} fall outside "
+                         f"[{lo}, {hi}], the range of a 4-D map")
+    return TmaGeometry(
+        x_dims=(cin, wd, h, b), x_strides=(cin * 2, wd * cin * 2,
+                                           h * wd * cin * 2),
+        lower=lower, upper=upper, channels=TMA_BK, pixels=bm,
+        elem_strides=(1, stride, stride, 1),
+        w_dims=(cout, cin, k * k), w_strides=(cout * 2, cin * cout * 2),
+        w_box=(64, TMA_BK, 1), k=k, stride=stride,
+        out_hw=(-(-h // stride), -(-wd // stride)))
+
+
+def k3a_steps(k: int, cin: int) -> List[Tuple[int, int]]:
+    """K3a's K steps in order: (tap kh·k + kw, first channel c0), each
+    tap's channels in blocks of 64, as the JAX ``_kernel`` runs its taps."""
+    return [(t, c * TMA_BK) for t in range(k * k)
+            for c in range(-(-cin // TMA_BK))]
+
+
+@functools.lru_cache(maxsize=None)
+def route(x_shape: Tuple[int, ...], w_shape: Tuple[int, ...], stride: int,
+          dtype: torch.dtype, variant: str) -> Plan:
+    """How one K3 call runs on the card, a pure function of the shapes.
+
+    K3a in bf16 with Cin and Cout multiples of 8: path ``tma``, K1's tile
+    and split rules (``fused_conv.pick_tile``, ``split_steps``) over
+    k·k·ceil(Cin/64) steps (``r`` counts those steps' 64 columns each).
+    Everything else: K1's :func:`plan` with SAME padding (K3b always; K3a
+    in f32 and where Cin or Cout is not a multiple of 8)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    b, h, wd, cin = x_shape
+    k, _, _, cout = w_shape
+    if variant == "taps" and dtype == torch.bfloat16 and cin % 8 == 0 \
+            and cout % 8 == 0:
+        m = b * -(-h // stride) * -(-wd // stride)
+        bm, bn = pick_tile(WGMMA_TILES, m, cout)
+        steps = len(k3a_steps(k, cin))
+        splits, per = split_steps(steps, n_tiles(m, cout, bm, bn))
+        return Plan("tma", True, bm, bn, TMA_BK, TMA_STAGES, splits, per, m,
+                    cout, steps * TMA_BK)
+    return plan(x_shape, w_shape, stride, "SAME", dtype)
+
+
+def _run_tma(x, w, bias, stride, leak, p: Plan) -> torch.Tensor:
+    """K3a's TMA mainloop (and K1's split-K reduce) as route ``p`` says."""
+    b, h, wd, cin = x.shape
+    k, cout = w.shape[0], w.shape[3]
+    geo = tma_geometry(tuple(x.shape), tuple(w.shape), stride, p.bm)
+    oh, ow = geo.out_hw
+    y = torch.empty((b, oh, ow, cout), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    if max(x.numel(), y.numel()) >= 2 ** 31:
+        raise ValueError("conv_gemm_taps indexes pixels with 32-bit ints; "
+                         "split the batch")
+    # tensor maps need 16-byte aligned bases
+    x = x if x.data_ptr() % 16 == 0 else x.clone()
+    w = w if w.data_ptr() % 16 == 0 else w.clone()
+    ws = (torch.empty((p.splits, p.m, cout), dtype=torch.float32,
+                      device=x.device) if p.splits > 1 else None)
+    packed = geo.packed()
+    params = (ctypes.c_longlong * len(packed))(*packed)
+    code = build.lib().ggan_conv_gemm_tma(
+        x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        None if ws is None else ws.data_ptr(), ctypes.addressof(params), b, h,
+        wd, cin, k, cout, oh, ow, stride, -geo.lower[1], -geo.lower[0],
+        build.ACT_CODES[None if leak is None else "leaky_relu"],
+        float(leak or 0.0), p.bm, p.bn, p.splits, p.steps_per_split,
+        build.stream_ptr(x.device))
+    build.check(code, "ggan_conv_gemm_tma")
+    return y
+
+
+def _launch(wrapper, variant: str, x, w, bias, stride, leak):
     name = wrapper.__name__
     if x.ndim != 4 or w.ndim != 4 or w.shape[0] != w.shape[1] \
             or w.shape[2] != x.shape[3] or bias.shape != (w.shape[3],):
@@ -87,25 +250,14 @@ def _launch(wrapper, variant: int, x, w, bias, stride, leak):
                         f"{x.dtype}, {w.dtype}, {bias.dtype}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError(f"{name} needs contiguous NHWC x and HWIO w")
-    b, h, wd, cin = x.shape
-    k, cout = w.shape[0], w.shape[3]
-    oh, ow = -(-h // stride), -(-wd // stride)
-    pad_h, pad_w = same_pads(h, k, stride)[0], same_pads(wd, k, stride)[0]
+    p = route(tuple(x.shape), tuple(w.shape), stride, x.dtype, variant)
     bias = bias.contiguous()
-    y = torch.empty((b, oh, ow, cout), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
-        return y
-    if max(x.numel(), y.numel(), w.numel()) >= 2 ** 31:
-        raise ValueError(f"{name} indexes rows with 32-bit ints; split the "
-                         "batch")
-    vec_a = int(cin % 8 == 0 and x.data_ptr() % 16 == 0)
-    vec_w = int(cout % 8 == 0 and w.data_ptr() % 16 == 0)
-    code = build.lib().ggan_conv_gemm(
-        x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        build.DTYPE_CODES[_DTYPES[x.dtype]], variant, b, h, wd, cin, k, cout,
-        oh, ow, stride, pad_h, pad_w, int(leak is not None),
-        float(leak or 0.0), vec_a, vec_w, build.stream_ptr(x.device))
-    build.check(code, "ggan_conv_gemm")
+    if p.path == "tma":
+        y = _run_tma(x, w, bias, stride, leak, p)
+    else:
+        y = run_plan(x, w, bias, stride, "SAME",
+                     None if leak is None else "leaky_relu", p,
+                     0.0 if leak is None else leak)
     wrapper.launches += 1
     return y
 
@@ -114,14 +266,14 @@ def conv_gemm_taps(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                    stride: int = 2, leak: Optional[float] = 0.2
                    ) -> torch.Tensor:
     """K3a: the K loop runs tap by tap, each a Cin-deep product."""
-    return _launch(conv_gemm_taps, 0, x, w, bias, stride, leak)
+    return _launch(conv_gemm_taps, "taps", x, w, bias, stride, leak)
 
 
 def conv_gemm_im2col(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                      stride: int = 2, leak: Optional[float] = 0.2
                      ) -> torch.Tensor:
     """K3b: the K loop runs over the flattened K·K·Cin axis."""
-    return _launch(conv_gemm_im2col, 1, x, w, bias, stride, leak)
+    return _launch(conv_gemm_im2col, "im2col", x, w, bias, stride, leak)
 
 
 conv_gemm_taps.launches = 0
@@ -137,7 +289,7 @@ def conv_gemm(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
     ``n_block`` and ``b_block`` are the TPU kernel's VMEM tiling hints
     (Cout block, batch block); they are accepted and change nothing here,
-    where the whole batch always rides M and Cout is masked, not blocked."""
+    where :func:`route` tiles M and Cout from the shapes."""
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if n_block < 1 or b_block < 1:

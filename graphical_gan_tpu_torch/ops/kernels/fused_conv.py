@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from graphical_gan_tpu_torch.ops.activations import (
-    activation, activation_grad)
+    LEAKY_ALPHA, activation, activation_grad)
 from graphical_gan_tpu_torch.ops.kernels import build
 
 _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -149,17 +149,8 @@ def plan(x_shape: Tuple[int, ...], w_shape: Tuple[int, ...], stride: int,
     m = b * out_size(h, kh, stride, padding) * out_size(wd, kw, stride,
                                                         padding)
     r = kh * kw * cin
-
-    def pick(tiles):
-        tiles = [t for t in tiles if cout > 64 or t[1] == 64]
-        return next((t for t in tiles if fills_wave(n_tiles(*t))),
-                    tiles[-1])
-
-    def n_tiles(bm, bn):
-        return max(1, -(-m // bm) * -(-cout // bn))
-
     if dtype == torch.float32:
-        bm, bn = pick(F32_TILES)
+        bm, bn = pick_tile(F32_TILES, m, cout)
         steps = max(1, -(-r // 32))
         return Plan("fma", cin % 4 == 0 and cout % 4 == 0, bm, bn, 32, 3, 1,
                     steps, m, cout, r)
@@ -167,12 +158,34 @@ def plan(x_shape: Tuple[int, ...], w_shape: Tuple[int, ...], stride: int,
         raise TypeError(f"K1 takes f32 or bf16, got {dtype}")
     if cin % 8 == 0 and cout % 8 == 0:
         path, vec, bk, stages = "wgmma", True, 64, 4
-        bm, bn = pick(WGMMA_TILES)
+        bm, bn = pick_tile(WGMMA_TILES, m, cout)
     else:
         path, vec, bk, stages = "mma", False, 32, 2
         bm, bn = 64, 64
-    tiles = n_tiles(bm, bn)
     steps = max(1, -(-r // bk))
+    splits, per = split_steps(steps, n_tiles(m, cout, bm, bn))
+    return Plan(path, vec, bm, bn, bk, stages, splits, per, m, cout, r)
+
+
+def n_tiles(m: int, cout: int, bm: int, bn: int) -> int:
+    return max(1, -(-m // bm) * -(-cout // bn))
+
+
+def pick_tile(tiles, m: int, cout: int) -> Tuple[int, int]:
+    """The largest tile (of those with BN = 64 when Cout <= 64) whose
+    tiles fill a wave, else the smallest."""
+    tiles = [t for t in tiles if cout > 64 or t[1] == 64]
+    return next((t for t in tiles if fills_wave(n_tiles(m, cout, *t))),
+                tiles[-1])
+
+
+def split_steps(steps: int, tiles: int) -> Tuple[int, int]:
+    """(splits, steps per split) of a bf16 K loop of ``steps`` steps over
+    ``tiles`` tiles: unsplit where the tiles fill a wave or the loop is
+    short; else the fewest splits of at least MIN_SPLIT_STEPS steps that
+    fill SPLIT_WAVES waves, or as many as that floor allows; balanced, so
+    every split but the last has the same whole number of steps and none is
+    empty."""
     per = steps
     if not fills_wave(tiles) and steps >= 2 * MIN_SPLIT_STEPS:
         per = MIN_SPLIT_STEPS
@@ -181,8 +194,7 @@ def plan(x_shape: Tuple[int, ...], w_shape: Tuple[int, ...], stride: int,
                 per = cand
                 break
     splits = -(-steps // per)
-    per = -(-steps // splits)
-    return Plan(path, vec, bm, bn, bk, stages, splits, per, m, cout, r)
+    return splits, -(-steps // splits)
 
 
 def fused_conv2d_bias_act_plain(x: torch.Tensor, w: torch.Tensor,
@@ -229,17 +241,22 @@ def fused_conv2d_bias_act(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("fused_conv2d_bias_act needs a contiguous NHWC x")
     if act not in build.ACT_CODES:
         raise ValueError(f"unknown activation {act!r}")
-    return run_plan(x, w, bias, stride, padding, act,
-                    plan(tuple(x.shape), tuple(w.shape), stride, padding,
-                         x.dtype))
+    y = run_plan(x, w, bias, stride, padding, act,
+                 plan(tuple(x.shape), tuple(w.shape), stride, padding,
+                      x.dtype))
+    fused_conv2d_bias_act.launches += 1
+    return y
 
 
 def run_plan(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-             stride: int, padding: str, act: Optional[str],
-             p: Plan) -> torch.Tensor:
-    """K1 on CUDA tensors that :func:`fused_conv2d_bias_act` has checked,
-    run as plan ``p`` says (``tools/sweep_k1_plan.py`` passes the other
-    plans it times); the C entry rejects a plan it has no kernel for."""
+             stride: int, padding: str, act: Optional[str], p: Plan,
+             leak: float = LEAKY_ALPHA) -> torch.Tensor:
+    """K1's kernels on CUDA tensors that the caller has checked, run as
+    plan ``p`` says, with ``leak`` the slope of ``leaky_relu``; counts no
+    launch: :func:`fused_conv2d_bias_act` and K3b's wrapper
+    (``conv_gemm.py``) each count their own calls, and
+    ``tools/sweep_k1_plan.py`` passes the other plans it times. The C entry
+    rejects a plan it has no kernel for."""
     b, h, wd, cin = x.shape
     kh, kw, _, cout = w.shape
     oh = out_size(h, kh, stride, padding)
@@ -262,11 +279,10 @@ def run_plan(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(),
         None if ws is None else ws.data_ptr(),
         build.DTYPE_CODES[_DTYPES[x.dtype]], b, h, wd, cin, kh, kw, cout, oh,
-        ow, stride, plo, qlo, build.ACT_CODES[act], PATH_CODES[p.path], p.bm,
-        p.bn, p.bk, p.stages, int(p.vec), p.splits, p.steps_per_split,
-        build.stream_ptr(x.device))
+        ow, stride, plo, qlo, build.ACT_CODES[act], float(leak),
+        PATH_CODES[p.path], p.bm, p.bn, p.bk, p.stages, int(p.vec), p.splits,
+        p.steps_per_split, build.stream_ptr(x.device))
     build.check(code, "ggan_conv2d_bias_act")
-    fused_conv2d_bias_act.launches += 1
     return y
 
 

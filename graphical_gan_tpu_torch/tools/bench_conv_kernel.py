@@ -9,9 +9,11 @@ LeakyReLU(0.2): ``library`` (cuDNN's ``F.conv2d`` on channels-last input
 padded beforehand, + leaky), ``k3_taps`` and ``k3_im2col``. Each arm is
 timed with CUDA events over inputs rotated out of L2 (``tools/timing.py``)
 and held against ``conv_gemm_plain`` (f32 accumulation) by its largest
-error relative to max(1, max |ref|). One JSON line per shape, with the
-card's ``nvidia-smi --query-gpu=name,power.limit`` line. Runs on the card;
-without one it raises.
+error relative to max(1, max |ref|). Each K3 arm records its route
+(``conv_gemm.route``: the mainloop ``path``, the ``tile`` and the K
+``splits``). One JSON line per shape, with the card's ``nvidia-smi
+--query-gpu=name,power.limit`` line. Runs on the card; without one it
+raises.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch.nn.functional as F
 from graphical_gan_tpu_torch.core.device import resolve_device, set_numerics
 from graphical_gan_tpu_torch.ops.activations import leaky_relu
 from graphical_gan_tpu_torch.ops.kernels.conv_gemm import (
-    conv_gemm, conv_gemm_plain)
+    conv_gemm, conv_gemm_plain, route)
 from graphical_gan_tpu_torch.ops.kernels.fused_conv import same_pads
 
 # (name, B, H=W, Cin, Cout): the cifar10 wali-gp discriminator's convs 2
@@ -95,6 +97,10 @@ def bench_shape(name: str, b: int, h: int, cin: int, cout: int,
     scale = max(1.0, float(ref.abs().max()))
     rec = {"shape": name, "B": b, "H": h, "Cin": cin, "Cout": cout,
            "dtype": str(dtype).split(".")[1], "flops": flops}
+    for variant in ("taps", "im2col"):
+        p = route(tuple(x.shape), tuple(w.shape), 2, dtype, variant)
+        rec[f"k3_{variant}_route"] = {"path": p.path, "tile": [p.bm, p.bn],
+                                      "splits": p.splits}
     times = {}
     for arm, (fn, args) in _arms(x, w, bias).items():
         got = fn(*args).float()

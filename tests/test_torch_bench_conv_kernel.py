@@ -1,8 +1,9 @@
 """The port's K3 bench tool (``graphical_gan_tpu_torch/tools/
 bench_conv_kernel.py``) and its timer's input rotation (``tools/timing.py``)
 on the CPU: the record of one small shape with a stub timer (its fields,
-the JAX tool's renamed, and each arm's relative error, exactly 0 here where
-all three arms compute the plain version), the tool's refusal without a
+the JAX tool's renamed, each arm's relative error, exactly 0 here where
+all three arms compute the plain version, and the route each K3 arm would
+take on the card), the tool's refusal without a
 card, and how many argument copies the timer rotates over for a given L2.
 """
 
@@ -15,7 +16,8 @@ from graphical_gan_tpu_torch.tools import bench_conv_kernel as bench
 from graphical_gan_tpu_torch.tools.timing import rotation_copies, time_ms
 
 FIELDS = {"shape", "B", "H", "Cin", "Cout", "dtype", "flops", "best",
-          "best_k3_vs_library", "device_kind", "card"} | {
+          "best_k3_vs_library", "device_kind", "card", "k3_taps_route",
+          "k3_im2col_route"} | {
     f"{arm}_{f}" for arm in bench.ARMS for f in ("rel_maxerr", "us",
                                                  "tflops")}
 
@@ -40,6 +42,12 @@ def test_record_of_one_shape(dtype, capsys):
     assert rec["k3_im2col_us"] == 1000.0
     assert rec["k3_taps_tflops"] == pytest.approx(rec["flops"] / 4e-3 / 1e12)
     assert rec["best"] == "k3_im2col" and rec["best_k3_vs_library"] == 2.0
+    # the routes the card would take: K3a's TMA mainloop in bf16 (Cin 16,
+    # Cout 24 are multiples of 8), K1's kernels otherwise
+    taps_path = "tma" if dtype == "bfloat16" else "fma"
+    im2col_path = "wgmma" if dtype == "bfloat16" else "fma"
+    assert rec["k3_taps_route"]["path"] == taps_path
+    assert rec["k3_im2col_route"]["path"] == im2col_path
     # bf16: the library arm rounds after its own bias add; f32: all equal
     tol = 0.0 if dtype == "float32" else 2e-2
     for arm in bench.ARMS:
