@@ -9,10 +9,12 @@ nothing of JAX or of the JAX package, and does in order:
    requires ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA load) instructions
    in the library's SASS;
 3. check: holds each kernel (K1 conv+bias+act, K2a BN stats, K2b BN apply,
-   K2c BN backward reduce, K2d BN backward apply, K3a/K3b conv_gemm taps
-   and im2col) against its plain PyTorch version at every serving and
+   K2c+K2d the BN backward in one launch, K3a/K3b conv_gemm taps and
+   im2col) against its plain PyTorch version at every serving and
    training shape, B in {8, 64, 256}, f32 and bf16, plus BN inputs with a
-   large mean; K1 and K2 at the mnist and celeba shapes; K3a and K3b at
+   large mean; the BN backward with every activation, at edge shapes (R
+   under one unit, C 3 and 4096, ragged row blocks, one shape whose g and x
+   do not fit in shared memory), each call made twice for the same bits; K1 and K2 at the mnist and celeba shapes; K3a and K3b at
    their bench shapes, the JAX tests' shapes and a non-square input, f32
    and bf16, with and without the leaky epilogue, each called twice for the
    same bits, and bit-equal to each other and to K1 where one plan runs
@@ -46,7 +48,7 @@ nothing of JAX or of the JAX package, and does in order:
 9. family1: 3 Trainer iterations of each of the 13 modes on mnist (B=50,
    DIM=64) and of celeba ali (B=128, dim 32) at published widths on
    resident synthetic data: finite costs, each mode's kernels launched,
-   K2c/K2d inside the mnist wali-gp penalty's backward; then mnist ali and
+   K2c+K2d inside the mnist wali-gp penalty's backward; then mnist ali and
    wali-gp (k = 2) 2 iterations on the card against the CPU (the same
    checks and controls as train-parity) and one mnist reconstructor
    dispatch;
@@ -88,8 +90,9 @@ TOL = {
     # apply: one fused multiply-add vs two roundings; bf16 output rounding
     ("apply", "float32"): (1e-5, 1e-5),
     ("apply", "bfloat16"): (1e-2, 1e-2),
-    # K2d: the plain formula with other fused multiply-adds, terms of order
-    # |g|·inv·scale; bf16 output rounding
+    # K2c+K2d's dx: the plain formula with other fused multiply-adds and
+    # sums in another order, terms of order |g|·inv·scale; bf16 output
+    # rounding
     ("bwd_apply", "float32"): (1e-5, 1e-5),
     ("bwd_apply", "bfloat16"): (1e-2, 1e-2),
     # K1's gradients: the same cuDNN gradient calls on both sides, fed by
@@ -98,8 +101,8 @@ TOL = {
     ("conv_bwd", "float32"): (1e-4, 1e-4),
     ("conv_bwd", "bfloat16"): (1e-2, 1e-2),
 }
-# K2c: f32 sums of R terms in another order; |Δ| <= 1e-5 of the sum of the
-# terms' magnitudes per channel
+# K2c+K2d's red: f32 sums of R terms in another order; |Δ| <= 1e-5 of the
+# sum of the terms' magnitudes per channel
 RED_RTOL = 1e-5
 # each half of the model on the card vs on the CPU (plain versions), f32,
 # one 64-row dispatch at full width: the encoder's codes, and the
@@ -269,7 +272,7 @@ def _bn_inputs(rc, dtype, gen, mean=0.0):
 
 
 def _bn_cotangents(x, gen):
-    """Two cotangents for K2c/K2d: one drawn apart from x, and one that
+    """Two cotangents for K2c+K2d: one drawn apart from x, and one that
     follows x per channel (g = c·x + d + noise), so that the centring terms
     Σgz/R and xhat·Σ(gz·xhat)/R are of the order of gz itself in both
     dtypes, not O(1/√R) of it."""
@@ -303,7 +306,12 @@ K1_KERNELS = ({("wgmma", True, bm, bn) for bm in (64, 128) for bn in (64, 128)}
               | {("fma", v, bm, bn) for v in (True, False)
                  for bm, bn in ((128, 128), (64, 64), (32, 64))})
 EDGE_BN = [("r196", (196, 16), "relu"), ("c5", (3, 5), "leaky_relu"),
-           ("c130", (1000, 130), None), ("c4100", (7, 4100), "relu")]
+           ("c130", (1000, 130), None), ("c4100", (7, 4100), "relu"),
+           ("r5 one unit", (5, 16), "leaky_relu"),
+           ("c3", (777, 3), "relu"), ("c4096", (33, 4096), None),
+           ("l2 reread", (90000, 96), "leaky_relu"),
+           # 133 channel tiles: a block takes two units, in its second slot
+           ("two units a block", (9, 67590), "relu")]
 
 
 # the rest of family 1 at its published widths: mnist (B=50, DIM=64; E and
@@ -568,19 +576,18 @@ def _check_bn(label, x, scale, offset, act, mean, errs, misses):
 
 
 def _check_bn_bwd(label, x, g, scale, offset, act, errs, misses):
-    """K2c against its plain version, and K2d against its plain version
-    given the plain sums (so each kernel is held alone)."""
+    """K2c+K2d (``bn_bwd``, one launch) against ``bn_bwd_plain``: red
+    within RED_RTOL of each channel's mass, dx within the bwd_apply
+    tolerance; called twice, both calls must give the same bits."""
     import torch
     from graphical_gan_tpu_torch.ops.kernels import fused_norm
     dn = str(x.dtype).split(".")[1]
     mean, _, inv = fused_norm.bn_stats_plain(x)
-    red = fused_norm.bn_bwd_reduce(g, x, mean, inv, scale, offset, act)
-    pred = fused_norm.bn_bwd_reduce_plain(g, x, mean, inv, scale, offset,
-                                          act)
-    dx = fused_norm.bn_bwd_apply(g, x, mean, inv, scale, offset, pred, act)
-    pdx = fused_norm.bn_bwd_apply_plain(g, x, mean, inv, scale, offset, pred,
-                                        act)
+    dx, red = fused_norm.bn_bwd(g, x, mean, inv, scale, offset, act)
+    dx2, red2 = fused_norm.bn_bwd(g, x, mean, inv, scale, offset, act)
+    pdx, pred = fused_norm.bn_bwd_plain(g, x, mean, inv, scale, offset, act)
     torch.cuda.synchronize()
+    same = torch.equal(dx, dx2) and torch.equal(red, red2)
     gz, xhat = fused_norm._gz_xhat(g, x, mean, inv, scale, offset, act)
     mass = torch.stack([gz.abs().sum(0), (gz * xhat).abs().sum(0)])
     e_red = float((red - pred).abs().max())
@@ -589,16 +596,22 @@ def _check_bn_bwd(label, x, g, scale, offset, act, errs, misses):
     atol, rtol = TOL[("bwd_apply", dn)]
     e_dx, bad_dx = max_err(dx, pdx, atol * max(1.0, float(pdx.float().abs()
                                                           .max())), rtol)
-    errs["bn_bwd_reduce"] = max(errs.get("bn_bwd_reduce", 0.0), e_red)
-    errs["bn_bwd_apply"] = max(errs.get("bn_bwd_apply", 0.0), e_dx)
-    log({"check": "K2c/K2d", "shape": label, "dtype": dn, "act": act,
-         "R": x.shape[0], "C": x.shape[1], "reduce_max_abs_err": e_red,
-         "reduce_rtol_of_mass": RED_RTOL, "apply_max_abs_err": e_dx,
-         "ok": not (bad_red or bad_dx)})
+    errs["bn_bwd"] = max(errs.get("bn_bwd", 0.0), e_dx)
+    errs["bn_bwd_red"] = max(errs.get("bn_bwd_red", 0.0), e_red)
+    p = fused_norm.bn_bwd_plan(*x.shape, x.dtype)
+    log({"check": "K2c+K2d", "shape": label, "dtype": dn, "act": act,
+         "R": x.shape[0], "C": x.shape[1], "units": p.units,
+         "onchip": p.onchip, "grid": p.grid, "slots": p.slots,
+         "red_max_abs_err": e_red,
+         "red_rtol_of_mass": RED_RTOL, "dx_max_abs_err": e_dx,
+         "same_bits_twice": same,
+         "ok": not (bad_red or bad_dx) and same})
     if bad_red:
-        misses.append(f"K2c {label} {dn} {act}")
+        misses.append(f"K2c+K2d red {label} {dn} {act}")
     if bad_dx or dx.dtype != x.dtype:
-        misses.append(f"K2d {label} {dn} {act}")
+        misses.append(f"K2c+K2d dx {label} {dn} {act}")
+    if not same:
+        misses.append(f"K2c+K2d not bit-identical {label} {dn} {act}")
 
 
 def _check_conv_bwd(label, x, w, bias, errs, misses):
@@ -662,7 +675,7 @@ def phase_check(errs):
                               misses)
         for b in (64, 256):  # the training shapes
             for name, rc, _ in bn_shapes(b):
-                for act in ("relu", "leaky_relu"):
+                for act in ("relu", "leaky_relu", None):
                     x, scale, offset = _bn_inputs(rc, dtype, gen)
                     for kind, g in _bn_cotangents(x, gen):
                         _check_bn_bwd(f"{name}{kind} B={b}", x, g, scale,
@@ -788,52 +801,39 @@ def phase_time(timings):
     _time_k3(timings, card)
 
 
+def bn_bwd_bound(r: int, c: int, itemsize: int):
+    """(bound ms, what bounds it) of K2c+K2d on [r, c]: g and x read once
+    and dx written once, mean, inv, scale and offset read once (4·C f32) and
+    the two sums written once (2·C f32); about 24 f32 operations per element
+    (10 for the sums, 14 for dx)."""
+    return bound(24.0 * r * c, 3 * r * c * itemsize + 6 * c * 4, "float32")
+
+
 def _time_bn_bwd(timings, b, dtype, gen, card):
-    """K2c and K2d at the training BN shapes; the library yardstick is
-    ``native_batch_norm_backward`` on gz = g·act'(y), the one PyTorch call
-    that computes K2c+K2d's function (so both rows show that one call)."""
+    """K2c+K2d (``bn_bwd``) at the training BN shapes; the library yardstick
+    is ``native_batch_norm_backward`` on gz = g·act'(y), the one PyTorch
+    call that computes the same function given gz."""
     import torch
     from graphical_gan_tpu_torch.ops.kernels import fused_norm
     dn = str(dtype).split(".")[1]
-    size = dtype.itemsize
     for name, rc, act in bn_shapes(b):
         x, scale, offset = _bn_inputs(rc, dtype, gen)
         g = torch.randn(rc, generator=gen, device="cuda").to(dtype)
-        r, c = rc
         mean, _, inv = fused_norm.bn_stats_plain(x)
-        red = fused_norm.bn_bwd_reduce_plain(g, x, mean, inv, scale, offset,
-                                             act)
         gz = fused_norm._gz_xhat(g, x, mean, inv, scale, offset, act)[0].to(
             dtype)
         lib = time_ms(lambda *a: torch.ops.aten.native_batch_norm_backward(
             *a, None, None, mean, inv, True, 1e-5, [True, True, True]),
             (gz, x, scale))
         args = (g, x, mean, inv, scale, offset)
-        # K2c: ~10 f32 operations per element; reads g and x, writes 2·C
-        t_b, by = bound(10.0 * r * c, 2 * r * c * size + 6 * c * 4,
-                        "float32")
-        row = {"kernel": "bn_bwd_reduce", "shape": name, "B": b,
-               "dtype": dn, "card": card,
-               "ms": time_ms(lambda *a: fused_norm.bn_bwd_reduce(*a, act),
-                             args),
+        t_b, by = bn_bwd_bound(*rc, dtype.itemsize)
+        p = fused_norm.bn_bwd_plan(*rc, dtype)
+        row = {"kernel": "bn_bwd", "shape": name, "B": b, "dtype": dn,
+               "card": card, "units": p.units, "onchip": p.onchip,
+               "ms": time_ms(lambda *a: fused_norm.bn_bwd(*a, act), args),
                "plain_ms": time_ms(
-                   lambda *a: fused_norm.bn_bwd_reduce_plain(*a, act), args),
-               "library_ms": lib, "library_covers": "K2c+K2d",
-               "bound_ms": t_b, "bound_by": by}
-        timings.append(row)
-        log({"timing": row})
-        # K2d: ~14 f32 operations per element; reads g and x, writes dx
-        t_b, by = bound(14.0 * r * c, 3 * r * c * size + 8 * c * 4,
-                        "float32")
-        row = {"kernel": "bn_bwd_apply", "shape": name, "B": b,
-               "dtype": dn, "card": card,
-               "ms": time_ms(lambda *a: fused_norm.bn_bwd_apply(*a, act),
-                             args + (red,)),
-               "plain_ms": time_ms(
-                   lambda *a: fused_norm.bn_bwd_apply_plain(*a, act),
-                   args + (red,)),
-               "library_ms": lib, "library_covers": "K2c+K2d",
-               "bound_ms": t_b, "bound_by": by}
+                   lambda *a: fused_norm.bn_bwd_plain(*a, act), args),
+               "library_ms": lib, "bound_ms": t_b, "bound_by": by}
         timings.append(row)
         log({"timing": row})
 
@@ -1173,11 +1173,11 @@ PROFILE_ITERS = 5    # iterations under torch.profiler
 REPEAT_ITERS = 4     # iterations of the bit-identity and resume runs
 # kernel launches per training iteration: K1 runs E.1-3 and D.1-3 (9 in the
 # G update, 12 in each D update: D on real, fake and the interpolates),
-# K2a/K2b the 5 BNs of E and G once per update, K2c/K2d the 5 BNs in the
+# K2a/K2b the 5 BNs of E and G once per update, K2c+K2d the 5 BNs in the
 # G update's backward (none at iteration 0, which skips the G update)
 PER_ITER = {"fused_conv2d_bias_act": (9 + 12 * 5, 0),
             "bn_stats": (30, 0), "bn_apply": (30, 0),
-            "bn_bwd_reduce": (5, -5), "bn_bwd_apply": (5, -5),
+            "bn_bwd": (5, -5),
             "conv_gemm_taps": (0, 0), "conv_gemm_im2col": (0, 0)}
 # device-time groups of a training iteration: the kernel's name first, then
 # the autograd node or op that launched it
@@ -1185,9 +1185,7 @@ TRAIN_GROUPS = (
     ("K1 forward", ("conv_k1_",), ()),
     ("K2a-b BN forward", ("bn_stats_partial_kernel", "bn_stats_merge_kernel",
                           "bn_apply_kernel"), ()),
-    ("K2c-d BN backward", ("bn_bwd_reduce_partial_kernel",
-                           "bn_bwd_reduce_merge_kernel",
-                           "bn_bwd_apply_kernel"), ()),
+    ("K2c-d BN backward", ("bn_bwd_fused_kernel",), ()),
     ("BN second order (plain)", (), ("_BatchNormActBackwardBackward",)),
     ("memcpy", ("Memcpy", "Memset"), ()),
     ("optimizer", (), ("aten::_foreach",)),
@@ -1631,10 +1629,10 @@ def _family1_model(dataset, mode):
 def _expected_kernels(cfg):
     """The kernels a Trainer run of ``cfg`` must launch (iteration 0 skips
     the G update; iterations 1-2 run it): K1 for every E (and xz-D) conv,
-    K2a-d wherever BN is on."""
+    K2a, K2b and K2c+K2d wherever BN is on."""
     names = ["fused_conv2d_bias_act"]
     if cfg.bn:
-        names += ["bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_apply"]
+        names += ["bn_stats", "bn_apply", "bn_bwd"]
     return names
 
 
@@ -1642,7 +1640,7 @@ def phase_family1(launch_totals):
     """3 Trainer iterations of each of the 13 modes on mnist and of celeba
     ali, at published widths, on resident synthetic data; finite costs and
     parameters, and each mode's kernels launched. Then the mnist wali-gp
-    penalty: K2c/K2d launch inside its create-graph backward (D's BN2 and
+    penalty: K2c+K2d launches inside its create-graph backward (D's BN2 and
     BN3), and the penalty differentiates once more."""
     import torch
     from graphical_gan_tpu_torch.core.config import GAN_INFERENCE_MODES
@@ -1699,7 +1697,7 @@ def phase_family1(launch_totals):
 
 def _penalty_launches():
     """mnist wali-gp at published width: the penalty's create-graph
-    backward launches K2c and K2d once per BN of D (BN2, BN3), and the
+    backward launches K2c+K2d once per BN of D (BN2, BN3), and the
     penalty differentiates w.r.t. D's parameters with finite results."""
     import torch
     from graphical_gan_tpu_torch.core.registry import partition
@@ -1720,10 +1718,9 @@ def _penalty_launches():
     log({"phase": "family1-penalty", "model": "mnist wali-gp",
          "gp": float(gp), "launches_inside_penalty": inside,
          "second_order_grads_finite": finite})
-    # D's BN2 and BN3: one K2c and one K2d each in the create-graph backward
-    if not (inside["bn_bwd_reduce"] == inside["bn_bwd_apply"] == 2
-            and finite):
-        fail(f"mnist wali-gp penalty: K2c/K2d launches {inside}, "
+    # D's BN2 and BN3: one K2c+K2d launch each in the create-graph backward
+    if not (inside["bn_bwd"] == 2 and finite):
+        fail(f"mnist wali-gp penalty: K2c+K2d launches {inside}, "
              f"finite second order {finite}")
 
 
@@ -1784,10 +1781,10 @@ SOURCES = {
                  "graphical_gan_tpu/ops/pallas/fused_norm.py:143"),
     "bn_apply": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
                  "graphical_gan_tpu/ops/pallas/fused_norm.py:182"),
-    "bn_bwd_reduce": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
-                      "graphical_gan_tpu/ops/pallas/fused_norm.py:212"),
-    "bn_bwd_apply": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
-                     "graphical_gan_tpu/ops/pallas/fused_norm.py:223"),
+    # both pallas_calls of _bwd: the reduce (:212) and the apply (:223)
+    "bn_bwd": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
+               "graphical_gan_tpu/ops/pallas/fused_norm.py:212, "
+               "graphical_gan_tpu/ops/pallas/fused_norm.py:223"),
     # K3a's bf16 mainloop at the bench shapes (other shapes route to K1's)
     "conv_gemm_taps": ("graphical_gan_tpu_torch/csrc/conv_gemm_tma.cu",
                        "graphical_gan_tpu/ops/pallas/conv_gemm.py:206"),
@@ -1796,7 +1793,7 @@ SOURCES = {
                          "graphical_gan_tpu/ops/pallas/conv_gemm.py:186"),
 }
 SERVE_KERNELS = ("fused_conv2d_bias_act", "bn_stats", "bn_apply")
-TRAIN_KERNELS = SERVE_KERNELS + ("bn_bwd_reduce", "bn_bwd_apply")
+TRAIN_KERNELS = SERVE_KERNELS + ("bn_bwd",)
 K3_KERNELS = ("conv_gemm_taps", "conv_gemm_im2col")
 
 
@@ -1852,12 +1849,31 @@ def _k3_rows(timings, name):
     return out
 
 
+def _bn_bwd_rows(timings):
+    """K2c+K2d per dtype and B over the 5 BN shapes, each shape with its
+    times and whether its g and x stay in shared memory."""
+    out = []
+    for dn in ("float32", "bfloat16"):
+        for b in (64, 256):
+            rows = [r for r in timings if r["kernel"] == "bn_bwd"
+                    and r["dtype"] == dn and r["B"] == b]
+            out.append({
+                "dtype": dn, "B": b,
+                **{k: sum(r[k] for r in rows)
+                   for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                "per_shape": [{k: r[k] for k in (
+                    "shape", "units", "onchip", "ms", "plain_ms",
+                    "library_ms", "bound_ms")} for r in rows]})
+    return out
+
+
 def summary(errs, timings, launches):
     """One entry per kernel. The forward kernels' times are summed over the
     shapes of one reconstructor dispatch at B=256 in f32 (K1 adds ``rows``:
-    f32 and bf16 at B=64 and 256); K2c's and K2d's over the 5 BN shapes one
-    training iteration backpropagates through at B=64 in f32 (their library
-    time is one call that computes both); K3's over the four bench shapes
+    f32 and bf16 at B=64 and 256); K2c+K2d's over the 5 BN shapes one
+    training iteration backpropagates through at B=64 in f32 (it adds
+    ``rows``: f32 and bf16 at B=64 and 256, per shape with its on-chip
+    case); K3's over the four bench shapes
     in bf16 (K3 adds ``rows``: bf16 and f32, per shape with its route).
     ``launches`` counts each kernel's main path (the cifar10
     training runs; for K3 the bench-conv run), ``launches_serve`` the
@@ -1900,6 +1916,9 @@ def summary(errs, timings, launches):
             out[-1]["rows"] = _k1_rows(timings, launches["k1"])
         if k3:
             out[-1]["rows"] = _k3_rows(timings, name)
+        if name == "bn_bwd":  # max_abs_err is dx's; red sums R terms
+            out[-1]["red_max_abs_err"] = errs["bn_bwd_red"]
+            out[-1]["rows"] = _bn_bwd_rows(timings)
     return {"kernels": out}
 
 

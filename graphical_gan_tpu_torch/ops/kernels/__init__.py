@@ -12,15 +12,14 @@ from graphical_gan_tpu_torch.ops.kernels.conv_gemm import (  # noqa: F401
 from graphical_gan_tpu_torch.ops.kernels.fused_conv import (  # noqa: F401
     conv2d_bias_act, fused_conv2d_bias_act)
 from graphical_gan_tpu_torch.ops.kernels.fused_norm import (  # noqa: F401
-    bn_apply, bn_bwd_apply, bn_bwd_reduce, bn_stats, fused_batchnorm_act)
+    bn_apply, bn_bwd, bn_stats, fused_batchnorm_act)
 
 #: every kernel wrapper, by the name chip_smoke.py reports
 WRAPPERS = {
     "fused_conv2d_bias_act": fused_conv2d_bias_act,
     "bn_stats": bn_stats,
     "bn_apply": bn_apply,
-    "bn_bwd_reduce": bn_bwd_reduce,
-    "bn_bwd_apply": bn_bwd_apply,
+    "bn_bwd": bn_bwd,
     "conv_gemm_taps": conv_gemm_taps,
     "conv_gemm_im2col": conv_gemm_im2col,
 }

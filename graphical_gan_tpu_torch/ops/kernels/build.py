@@ -49,13 +49,9 @@ _SIGNATURES = {
     "ggan_bn_stats": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P],
     # x, mean, inv, scale, offset, y, dtype, numel, C, act, vec, stream
     "ggan_bn_apply": [_P] * 6 + [_I, ctypes.c_longlong, _I, _I, _I, _P],
-    # g, x, mean, inv, scale, offset, part_sum, part_dot, red_sum, red_dot,
-    # dtype, R, C, rows_per_block, n_row_blocks, act, stream
-    "ggan_bn_bwd_reduce": [_P] * 10 + [_I] * 6 + [_P],
-    # g, x, mean, inv, scale, offset, red_sum, red_dot, dx, dtype, numel, C,
-    # R, act, vec, stream
-    "ggan_bn_bwd_apply": [_P] * 9 + [_I, ctypes.c_longlong] + [_I] * 4
-    + [_P],
+    # g, x, mean, inv, scale, offset, part, red, dx, dtype, R, C, vec, tx,
+    # rows, n_rb, slots, cache_rows, smem, grid, act, stream
+    "ggan_bn_bwd": [_P] * 9 + [_I] * 9 + [ctypes.c_longlong, _I, _I, _P],
     # x, w, bias, y, ws, geo (int64[25]), B, H, W, Cin, K, Cout, OH, OW,
     # stride, pad_h, pad_w, act, leak, bm, bn, splits, per, stream
     "ggan_conv_gemm_tma": [_P] * 6 + [_I] * 12 + [ctypes.c_float]

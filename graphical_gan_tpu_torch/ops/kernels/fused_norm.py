@@ -1,6 +1,6 @@
 """K2: batch-statistics batch norm + activation over channels-last data.
 
-Four kernels in ``csrc/fused_norm.cu``, each behind its own wrapper:
+Three kernels in ``csrc/fused_norm.cu``, each behind its own wrapper:
 
 - K2a :func:`bn_stats` replaces ``graphical_gan_tpu/ops/pallas/
   fused_norm.py:_stats``: per-channel mean, biased variance and
@@ -8,21 +8,24 @@ Four kernels in ``csrc/fused_norm.cu``, each behind its own wrapper:
   (per-block Welford partials, then a fixed-order merge by Chan's formula);
 - K2b :func:`bn_apply` replaces ``fused_norm.py:_fwd``'s apply pass:
   ``act((x - mean) * (inv * scale) + offset)`` in x's dtype;
-- K2c :func:`bn_bwd_reduce` replaces ``fused_norm.py:_bwd``'s reduce pass:
-  per channel ``[Σgz, Σgz·xhat]`` in f32, ``gz = g·act'(y)``, with xhat and
-  y recomputed from x; two deterministic stages like K2a;
-- K2d :func:`bn_bwd_apply` replaces ``_bwd``'s apply pass:
-  ``dx = (gz - Σgz/R - xhat·Σ(gz·xhat)/R)·inv·scale`` in x's dtype.
+- K2c+K2d :func:`bn_bwd` replaces both passes of ``fused_norm.py:_bwd`` in
+  one cooperative launch: per channel ``red = [Σgz, Σgz·xhat]`` in f32
+  (``gz = g·act'(y)``, xhat and y recomputed from x), one grid-wide
+  barrier, then ``dx = (gz - Σgz/R - xhat·Σ(gz·xhat)/R)·inv·scale`` in x's
+  dtype from the g and x each block kept in shared memory. Its work units
+  come from :func:`bn_bwd_plan`, a function of the shape alone, and the
+  partials merge in a fixed order, so the bits do not depend on the grid.
 
-All four are bound by bytes (see the source). :class:`FusedBatchNormAct` is
-the JAX ``fused_batchnorm_act`` with its custom VJP: K2a then K2b forward,
-K2c then K2d backward. On a CUDA tensor each wrapper launches its kernel or
-raises; on a CPU tensor it computes its plain PyTorch version.
+All three are bound by bytes (see the source). :class:`FusedBatchNormAct`
+is the JAX ``fused_batchnorm_act`` with its custom VJP: K2a then K2b
+forward, K2c+K2d backward. On a CUDA tensor each wrapper launches its
+kernel or raises; on a CPU tensor it computes its plain PyTorch version.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -36,6 +39,11 @@ _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 _STATS_CT = 32      # channels per stats block (csrc ST_CT)
 _STATS_RY = 8       # row lanes per stats block (csrc ST_RY)
 _STATS_BLOCKS = 528  # stage-1 blocks to aim for: 4 per SM of the H100
+_BWD_THREADS = 512   # threads per backward block (csrc kBwdThreads), and
+_BWD_THREADS_VEC8 = 256  # where a thread holds 8 bf16 channels
+_SMS = 132           # SMs of the H100: the backward aims for a unit on each
+_SMEM_MAX = 232448   # dynamic shared memory a block may opt into (227 KB)
+_MIN_SEGMENT = 64    # bytes of a row a channel tile covers at the least
 
 
 def bn_stats_plain(x2d: torch.Tensor, eps: float = EPS
@@ -175,67 +183,109 @@ def _same_layout(g2d: torch.Tensor, x2d: torch.Tensor, name: str):
     return g2d.to(x2d.dtype).contiguous()
 
 
-def bn_bwd_reduce(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
-                  inv: torch.Tensor, scale: torch.Tensor,
-                  offset: torch.Tensor, act: Optional[str] = None
-                  ) -> torch.Tensor:
-    """K2c: [Σgz, Σgz·xhat] per column of [R, C], f32 [2, C]."""
-    if x2d.device.type == "cpu":
-        return bn_bwd_reduce_plain(g2d, x2d, mean, inv, scale, offset, act)
-    _check_2d(x2d, "bn_bwd_reduce")
-    if act not in build.ACT_CODES:
-        raise ValueError(f"unknown activation {act!r}")
-    g2d = _same_layout(g2d, x2d, "bn_bwd_reduce")
-    chan = _chan_f32(x2d, mean, inv, scale, offset)
-    r, c = x2d.shape
-    rows, nrb = stats_split(r, c)
-    f32 = dict(dtype=torch.float32, device=x2d.device)
-    part = torch.empty((2, nrb, c), **f32)
-    red = torch.empty((2, c), **f32)
-    code = build.lib().ggan_bn_bwd_reduce(
-        g2d.data_ptr(), x2d.data_ptr(), *[t.data_ptr() for t in chan],
-        part[0].data_ptr(), part[1].data_ptr(), red[0].data_ptr(),
-        red[1].data_ptr(), build.DTYPE_CODES[_DTYPES[x2d.dtype]], r, c, rows,
-        nrb, build.ACT_CODES[act], build.stream_ptr(x2d.device))
-    build.check(code, "ggan_bn_bwd_reduce")
-    bn_bwd_reduce.launches += 1
-    return red
-
-
-def bn_bwd_apply(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
+def bn_bwd_plain(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
                  inv: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
-                 red: torch.Tensor, act: Optional[str] = None
-                 ) -> torch.Tensor:
-    """K2d: dx of [R, C] from K2c's sums ``red``, output in x's dtype."""
+                 act: Optional[str] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, red): :func:`bn_bwd_reduce_plain`, then
+    :func:`bn_bwd_apply_plain` with its sums."""
+    red = bn_bwd_reduce_plain(g2d, x2d, mean, inv, scale, offset, act)
+    return bn_bwd_apply_plain(g2d, x2d, mean, inv, scale, offset, red,
+                              act), red
+
+
+class BwdPlan(NamedTuple):
+    """The backward's work units for one shape (:func:`bn_bwd_plan`)."""
+    vec: int         # channels per load: 16 bytes' worth, or 1
+    tx: int          # lanes across a channel tile (a power of two)
+    ty: int          # row lanes: the block's threads // tx
+    ct: int          # channels per tile: tx * vec
+    n_ct: int        # channel tiles
+    rows: int        # rows per row block (a multiple of ty)
+    n_rb: int        # row blocks; the last may be ragged
+    units: int       # n_rb * n_ct; unit u = (row block u // n_ct, tile u % n_ct)
+    grid: int        # blocks: one per SM, fewer where the units are fewer;
+                     # block b takes units b, b + grid, ...
+    slots: int       # units a block keeps in shared memory
+    cache_rows: int  # rows of a unit kept there; the rest is read again
+    smem: int        # dynamic shared memory per block, bytes
+    onchip: bool     # every row of every unit kept: g and x read once
+
+
+@functools.lru_cache(maxsize=None)
+def bn_bwd_plan(r: int, c: int, dtype: torch.dtype,
+                aligned: bool = True) -> BwdPlan:
+    """The backward's units for [r, c] in ``dtype``, a function of the shape
+    alone (``aligned``: g, x and dx start on 16 bytes, as the caching
+    allocator gives them). A block has 512 threads, 256 where each holds 8
+    bf16 channels. Channel tiles are the narrowest that still cover
+    ``_MIN_SEGMENT`` bytes of a row, widened while there would be more
+    tiles than SMs; row blocks then make about one unit per SM, so that
+    where there is more than one row block each block takes one unit. A
+    block keeps ``cache_rows`` rows of g and x per unit in what shared
+    memory is left after the block sums' scratch."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    full = 16 // size
+    vec = full if aligned and c % full == 0 else 1
+    threads = _BWD_THREADS_VEC8 if vec == 8 else _BWD_THREADS
+    lanes = -(-c // vec)
+    top = min(threads, 1 << (lanes - 1).bit_length())
+    tx = min(top, max(1, _MIN_SEGMENT // (vec * size)))
+    while tx < top and -(-c // (tx * vec)) > _SMS:
+        tx *= 2
+    ty = threads // tx
+    ct = tx * vec
+    n_ct = -(-c // ct)
+    want = max(1, min(_SMS // n_ct, -(-r // ty)))
+    rows = -(-r // want)
+    rows = -(-rows // ty) * ty
+    n_rb = -(-r // rows)
+    units = n_rb * n_ct
+    grid = min(units, _SMS)
+    slots = -(-units // grid)
+    groups = ty // (32 // tx if tx < 32 else 1)
+    scratch = (groups + 1) * 2 * ct * 4
+    row_bytes = 2 * ct * size  # g and x of one row of a unit
+    fit = (_SMEM_MAX - scratch) // (slots * row_bytes) // ty * ty
+    cache_rows = min(rows, fit)
+    smem = scratch + slots * cache_rows * row_bytes
+    return BwdPlan(vec, tx, ty, ct, n_ct, rows, n_rb, units, grid, slots,
+                   cache_rows, smem, cache_rows == rows)
+
+
+def bn_bwd(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
+           inv: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
+           act: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2c+K2d: (dx of [R, C] in x's dtype, red = [Σgz, Σgz·xhat] f32
+    [2, C]) in one launch."""
     if x2d.device.type == "cpu":
-        return bn_bwd_apply_plain(g2d, x2d, mean, inv, scale, offset, red,
-                                  act)
-    _check_2d(x2d, "bn_bwd_apply")
+        return bn_bwd_plain(g2d, x2d, mean, inv, scale, offset, act)
+    _check_2d(x2d, "bn_bwd")
     if act not in build.ACT_CODES:
         raise ValueError(f"unknown activation {act!r}")
-    g2d = _same_layout(g2d, x2d, "bn_bwd_apply")
-    r, c = x2d.shape
-    red = red.to(device=x2d.device, dtype=torch.float32).contiguous()
-    if red.shape != (2, c):
-        raise ValueError(f"bn_bwd_apply: red must be [2, {c}]")
+    g2d = _same_layout(g2d, x2d, "bn_bwd")
     chan = _chan_f32(x2d, mean, inv, scale, offset)
+    r, c = x2d.shape
     dx = torch.empty_like(x2d)
     aligned = all(t.data_ptr() % 16 == 0 for t in (g2d, x2d, dx))
-    vec = 4 if c % 4 == 0 and aligned else 1
-    code = build.lib().ggan_bn_bwd_apply(
+    p = bn_bwd_plan(r, c, x2d.dtype, aligned)
+    f32 = dict(dtype=torch.float32, device=x2d.device)
+    part = torch.empty((p.n_rb, 2, c), **f32)
+    red = torch.empty((2, c), **f32)
+    code = build.lib().ggan_bn_bwd(
         g2d.data_ptr(), x2d.data_ptr(), *[t.data_ptr() for t in chan],
-        red[0].data_ptr(), red[1].data_ptr(), dx.data_ptr(),
-        build.DTYPE_CODES[_DTYPES[x2d.dtype]], x2d.numel(), c, r,
-        build.ACT_CODES[act], vec, build.stream_ptr(x2d.device))
-    build.check(code, "ggan_bn_bwd_apply")
-    bn_bwd_apply.launches += 1
-    return dx
+        part.data_ptr(), red.data_ptr(), dx.data_ptr(),
+        build.DTYPE_CODES[_DTYPES[x2d.dtype]], r, c, p.vec, p.tx, p.rows,
+        p.n_rb, p.slots, p.cache_rows, p.smem, p.grid, build.ACT_CODES[act],
+        build.stream_ptr(x2d.device))
+    build.check(code, "ggan_bn_bwd")
+    bn_bwd.launches += 1
+    return dx, red
 
 
 bn_stats.launches = 0
 bn_apply.launches = 0
-bn_bwd_reduce.launches = 0
-bn_bwd_apply.launches = 0
+bn_bwd.launches = 0
 
 
 def bn_act_backward_plain(g: torch.Tensor, x: torch.Tensor,
@@ -263,7 +313,7 @@ def bn_act_backward_plain(g: torch.Tensor, x: torch.Tensor,
 
 class _BatchNormActBackward(torch.autograd.Function):
     """The first-order backward of :class:`FusedBatchNormAct` as a function
-    of (g, x, scale, offset): K2c then K2d forward. Its own backward, the
+    of (g, x, scale, offset): K2c+K2d forward. Its own backward, the
     second-order term, differentiates :func:`bn_act_backward_plain` (plain
     PyTorch on both devices; the JAX package has no Pallas kernel for it
     either). A third order raises."""
@@ -272,8 +322,7 @@ class _BatchNormActBackward(torch.autograd.Function):
     def forward(ctx, g, x, scale, offset, mean, inv, act, eps):
         c = x.shape[-1]
         x2d, g2d = x.reshape(-1, c), g.reshape(-1, c)
-        red = bn_bwd_reduce(g2d, x2d, mean, inv, scale, offset, act)
-        dx = bn_bwd_apply(g2d, x2d, mean, inv, scale, offset, red, act)
+        dx, red = bn_bwd(g2d, x2d, mean, inv, scale, offset, act)
         ctx.save_for_backward(g, x, scale, offset)
         ctx.conf = (act, eps)
         return (dx.reshape(x.shape), red[1].to(scale.dtype),
@@ -301,7 +350,7 @@ class FusedBatchNormAct(torch.autograd.Function):
     JAX package's custom VJP (``fused_norm.py:174-236``).
 
     Forward: K2a then K2b; saves ``(x, scale, offset, mean, inv)`` as
-    ``_fwd`` does. Backward: K2c then K2d (:class:`_BatchNormActBackward`);
+    ``_fwd`` does. Backward: K2c+K2d (:class:`_BatchNormActBackward`);
     ``dx`` in x's dtype, ``dscale = Σgz·xhat`` and ``doffset = Σgz`` in f32,
     cast to the parameters' dtypes. The backward can be differentiated once
     more, as the mnist discriminator's gradient penalty needs: the

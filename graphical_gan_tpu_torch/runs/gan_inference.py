@@ -4,18 +4,18 @@
     python -m graphical_gan_tpu_torch.runs.gan_inference \\
         --dataset mnist|cifar10|svhn|celeba --mode MODE --iters N --outdir D
 
-Every mode of the family trains (``core/config.py: GAN_INFERENCE_MODES``).
-Runs on the card unless ``--device cpu`` is given (the kernels' plain
-versions then run on the CPU). The data are the JAX loaders' synthetic
-fallbacks, resident on the device: without ``--data-dir``, mnist 50,000
-images of float32 pixels in [0, 1] (``data/mnist.py: images_unit``),
-cifar10 and svhn 50,000 random-pixel images (as ``bench.py`` uses), celeba
-``images_int(20000, 12288, 7)`` (``data/celeba.py``), the integer pixels as
-uint8; ``--data-dir structured``, the learnable structured family's
-20,000-image train pool in the dataset's own convention. Loaders of the
-real datasets (the dataset files are not in the repository), eval hooks,
-meshes, preemption and the other flags of the JAX entry point come in later
-slices.
+Every mode of the family trains (``core/config.py: GAN_INFERENCE_MODES``);
+with no flags it trains mnist ``ali``, as the JAX entry point does. Runs on
+the card unless ``--device cpu`` is given (the kernels' plain versions then
+run on the CPU). The data are resident on the device: without
+``--data-dir``, the train split of the JAX loader's synthetic fallback
+(mnist 50,000 float32 images in [0, 1], cifar10 50,000 and svhn 73,257
+random-pixel images, celeba 15,000 of 20,000 after its dev split), and
+with ``--data-dir structured`` the learnable structured family's
+20,000-image train pool, each through one epoch with the partial last
+batch dropped (``data/pools.py``). Loaders of the real datasets (the
+dataset files are not in the repository), eval hooks, meshes, preemption
+and the other flags of the JAX entry point come in later slices.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import numpy as np
 
 from graphical_gan_tpu_torch.core.config import (
     GAN_INFERENCE_MODES, gan_inference_defaults)
-from graphical_gan_tpu_torch.data import synthetic
+from graphical_gan_tpu_torch.data import pools
 from graphical_gan_tpu_torch.models.gan_inference import GanInferenceModel
 from graphical_gan_tpu_torch.train.trainer import Trainer, make_run_dir
 
@@ -35,28 +35,19 @@ from graphical_gan_tpu_torch.train.trainer import Trainer, make_run_dir
 def resident_data(cfg, data_dir: Optional[str]) -> np.ndarray:
     """The training images [N, C*H*W] (flat NCHW order): float32 in [0, 1]
     for mnist (``normalization == 'unit'``), uint8 pixels otherwise."""
-    unit = cfg.data.normalization == "unit"
     if data_dir is None:
-        if unit:
-            return synthetic.images_unit(50_000, cfg.data.output_dim, seed=0)
-        n, seed = (20_000, 7) if cfg.dataset == "celeba" else (50_000, 0)
-        flat = synthetic.images_int(n, cfg.data.output_dim, seed=seed)
-    elif data_dir == "structured":
-        # the JAX run's train pool: the first 20,000 of a 24,000-image draw
-        flat, _ = synthetic.structured_images_labeled(
-            24_000, cfg.data.image_hw, cfg.data.channels, 10, 0)
-        flat = flat[:20_000]
-        if unit:
-            return (flat / 255.0).astype(np.float32)
-    else:
-        raise NotImplementedError(
-            f"--data-dir {data_dir!r}: the port trains on synthetic data "
-            "(none, or 'structured'); the dataset loaders wait for the "
-            "dataset files")
-    return flat.astype(np.uint8)
+        return pools.SYNTHETIC[cfg.dataset](cfg.batch_size)
+    if data_dir == "structured":
+        return pools.structured(cfg.batch_size, cfg.data.image_hw,
+                                cfg.data.channels,
+                                cfg.data.normalization == "unit")
+    raise NotImplementedError(
+        f"--data-dir {data_dir!r}: the port trains on synthetic data "
+        "(none, or 'structured'); the dataset loaders wait for the "
+        "dataset files")
 
 
-def run(dataset: str = "cifar10", mode: str = "wali-gp",
+def run(dataset: str = "mnist", mode: str = "ali",
         iters: Optional[int] = None, data_dir: Optional[str] = None,
         outdir: str = "result", run_dir: Optional[str] = None,
         seed: int = 0, checkpoint_every: int = 5000, device: str = "cuda",
@@ -75,9 +66,9 @@ def run(dataset: str = "cifar10", mode: str = "wali-gp",
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--dataset", default="cifar10",
+    p.add_argument("--dataset", default="mnist",
                    choices=["mnist", "cifar10", "svhn", "celeba"])
-    p.add_argument("--mode", default="wali-gp", choices=GAN_INFERENCE_MODES)
+    p.add_argument("--mode", default="ali", choices=GAN_INFERENCE_MODES)
     p.add_argument("--iters", type=int, default=None)
     p.add_argument("--data-dir", default=None,
                    help="omit for random pixels; 'structured' for the "

@@ -1,9 +1,10 @@
-"""K2c/K2d (graphical_gan_tpu_torch/ops/kernels/fused_norm.py: the plain
-versions of bn_bwd_reduce and bn_bwd_apply, and FusedBatchNormAct's
+"""K2c+K2d (graphical_gan_tpu_torch/ops/kernels/fused_norm.py: the plain
+versions of the reduce and the apply, and FusedBatchNormAct's
 gradients) against ``jax.grad`` of the JAX ``fused_batchnorm_act``, whose
 custom VJP is the Pallas ``_bwd`` run in interpret mode on the CPU, as
 tests/test_pallas.py runs it. The CUDA kernels are held against these plain
-versions on the card by chip_smoke.py.
+versions on the card by chip_smoke.py; tests/test_torch_fused_norm_bwd_plan.py
+holds bn_bwd's CPU path and its plan.
 
 Tolerances. f32: the two sides sum the same f32 terms in another order and
 take the variance by another formula (the Pallas E[x²] - mean², the port
@@ -89,10 +90,10 @@ def test_plain_reduce_and_apply_match_pallas_bwd(shape, act, dtype):
     x2d = _torch(x, dtype).reshape(-1, c)
     g2d = _torch(g, dtype).reshape(-1, c)
     mean, _, inv = fused_norm.bn_stats(x2d)
-    red = fused_norm.bn_bwd_reduce(g2d, x2d, mean, inv, _torch(scale),
-                                   _torch(offset), act)
-    dx = fused_norm.bn_bwd_apply(g2d, x2d, mean, inv, _torch(scale),
-                                 _torch(offset), red, act)
+    red = fused_norm.bn_bwd_reduce_plain(g2d, x2d, mean, inv, _torch(scale),
+                                         _torch(offset), act)
+    dx = fused_norm.bn_bwd_apply_plain(g2d, x2d, mean, inv, _torch(scale),
+                                       _torch(offset), red, act)
     assert red.shape == (2, c) and red.dtype == torch.float32
     assert dx.dtype == x2d.dtype and dx.shape == x2d.shape
     rows = x2d.shape[0]
@@ -139,11 +140,9 @@ def test_backward_is_not_differentiable_again():
 
 
 def test_cpu_backward_launches_no_kernel():
-    before = (fused_norm.bn_bwd_reduce.launches,
-              fused_norm.bn_bwd_apply.launches)
+    before = fused_norm.bn_bwd.launches
     x = torch.randn(6, 3, requires_grad=True)
     fused_norm.fused_batchnorm_act(x, torch.ones(3), torch.zeros(3),
                                    "leaky_relu").sum().backward()
     assert x.grad is not None
-    assert (fused_norm.bn_bwd_reduce.launches,
-            fused_norm.bn_bwd_apply.launches) == before
+    assert fused_norm.bn_bwd.launches == before

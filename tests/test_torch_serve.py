@@ -346,8 +346,8 @@ def test_cpu_serving_launches_no_kernel(tmp_path):
     out = call(0, np.zeros((4, 3072), np.float32))
     assert out.shape == (4, 3072) and np.isfinite(out).all()
     assert kernels.launches() == {"fused_conv2d_bias_act": 0, "bn_stats": 0,
-                                  "bn_apply": 0, "bn_bwd_reduce": 0,
-                                  "bn_bwd_apply": 0, "conv_gemm_taps": 0,
+                                  "bn_apply": 0, "bn_bwd": 0,
+                                  "conv_gemm_taps": 0,
                                   "conv_gemm_im2col": 0}
 
 

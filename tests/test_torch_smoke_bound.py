@@ -31,3 +31,29 @@ def test_serving_shapes_need_fewer_taps_than_the_full_window():
              for n in (32, 16, 8)}
     assert share == pytest.approx({32: 0.92640625, 16: 0.855625,
                                    8: 0.7225})
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,name,rc", [
+    (b, name, rc) for b in (64, 256)
+    for name, rc, _ in chip_smoke.bn_shapes(b)],
+    ids=lambda v: str(v) if not isinstance(v, tuple) else "x".join(map(str, v)))
+def test_bn_backward_bound_reads_g_and_x_once_and_writes_dx(b, name, rc,
+                                                            itemsize):
+    """K2c+K2d's bound: each tensor the function reads (g, x, and mean,
+    inv, scale and offset in f32) read once and each it writes (dx, and
+    red = [2, C] f32) written once, over the card's memory rate; the
+    operations (24 f32 per element) bound it at none of the BN shapes."""
+    r, c = rc
+    dtype = {4: torch.float32, 2: torch.bfloat16}[itemsize]
+
+    def meta(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+    reads = [meta((r, c), dtype), meta((r, c), dtype)] + [
+        meta((c,), torch.float32) for _ in range(4)]
+    writes = [meta((r, c), dtype), meta((2, c), torch.float32)]
+    nbytes = sum(t.numel() * t.element_size() for t in reads + writes)
+    ms, by = chip_smoke.bn_bwd_bound(r, c, itemsize)
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_S * 1e3,
+                               rel=1e-12)

@@ -32,6 +32,7 @@ from graphical_gan_tpu_torch.train.step import make_train_step
 ARGS = ["--dataset", "cifar10", "--mode", "wali-gp", "--dim", "8",
         "--batch-size", "4", "--device", "cpu"]
 KW = dict(dim=8, batch_size=4)
+CIFAR = dict(dataset="cifar10", mode="wali-gp")
 
 
 @pytest.fixture(scope="module")
@@ -109,9 +110,11 @@ def test_port_restores_a_jax_checkpoint(tmp_path):
 
 def test_run_dir_resumes_and_draws_as_one_run(tmp_path):
     straight, _ = run(iters=4, outdir=str(tmp_path / "a"), device="cpu",
-                      checkpoint_every=2, **KW)
-    first, _ = run(iters=2, outdir=str(tmp_path / "b"), device="cpu", **KW)
-    resumed, _ = run(iters=4, run_dir=first.outf, device="cpu", **KW)
+                      checkpoint_every=2, **CIFAR, **KW)
+    first, _ = run(iters=2, outdir=str(tmp_path / "b"), device="cpu",
+                   **CIFAR, **KW)
+    resumed, _ = run(iters=4, run_dir=first.outf, device="cpu", **CIFAR,
+                     **KW)
     assert resumed._start_iter == 2 and resumed.state.step == 4
     for name, p in straight.state.params.items():
         assert torch.equal(resumed.state.params[name], p), name
@@ -134,7 +137,7 @@ def test_trainer_sets_the_numerics(tmp_path, monkeypatch):
                         (torch.backends.cuda.matmul, "allow_tf32")):
         monkeypatch.setattr(flag, value, True)
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
-    run(iters=1, outdir=str(tmp_path), device="cpu", **KW)
+    run(iters=1, outdir=str(tmp_path), device="cpu", **CIFAR, **KW)
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.deterministic is True
