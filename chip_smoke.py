@@ -8,13 +8,17 @@ nothing of JAX or of the JAX package, and does in order:
 2. build: compiles ``graphical_gan_tpu_torch/csrc/*.cu`` with nvcc and
    requires ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA load) instructions
    in the library's SASS;
-3. check: holds each kernel (K1 conv+bias+act, K2a BN stats, K2b BN apply,
-   K2c+K2d the BN backward in one launch, K3a/K3b conv_gemm taps and
-   im2col) against its plain PyTorch version at every serving and
-   training shape, B in {8, 64, 256}, f32 and bf16, plus BN inputs with a
-   large mean; the BN backward with every activation, at edge shapes (R
-   under one unit, C 3 and 4096, ragged row blocks, one shape whose g and x
-   do not fit in shared memory), each call made twice for the same bits; K1 and K2 at the mnist and celeba shapes; K3a and K3b at
+3. check: holds each kernel (K1 conv+bias+act, K2a BN stats in one
+   launch, K2b BN apply, K2c+K2d the BN backward in one launch, K3a/K3b
+   conv_gemm taps and im2col) against its plain PyTorch version at every
+   serving and training shape, B in {8, 64, 256}, f32 and bf16, plus BN
+   inputs with a large mean (K2a's variance also against f64); K2a and the
+   BN backward (with every activation) at edge shapes (R under one unit, C
+   3 and 4096, ragged row blocks, one shape whose g and x do not fit in
+   shared memory, one where a block takes two units), each K2a and BN
+   backward call made twice for the same bits, and K2a's kernels under
+   ``torch.profiler`` (one per call); K1 and K2 at the mnist and celeba
+   shapes; K3a and K3b at
    their bench shapes, the JAX tests' shapes and a non-square input, f32
    and bf16, with and without the leaky epilogue, each called twice for the
    same bits, and bit-equal to each other and to K1 where one plan runs
@@ -35,7 +39,8 @@ nothing of JAX or of the JAX package, and does in order:
    outputs and that every dispatch went through the kernels, and compares a
    64-row reconstruction with the same model on the CPU;
 6. dispatch: per dtype, entry and bucket, a dispatch's host and device
-   time, its device busy share and its device time by kernel group;
+   time, its device busy share, its device time and kernels by group (no
+   more than one K2a kernel per BN forward);
 7. train: the port's Trainer at the published cifar10 wali-gp config
    (B=64, DIM=64, z=128, k=5) on a resident synthetic 50k set, in f32 and
    bf16: finite costs, every kernel launched, ms per iteration, images/s,
@@ -84,7 +89,8 @@ TOL = {
     ("conv", "float32"): (1e-4, 1e-4),
     # bf16 output: one bf16 rounding (2^-8 relative) may flip
     ("conv", "bfloat16"): (1e-2, 1e-2),
-    # stats are f32 in both dtypes; Welford/Chan vs two-pass order
+    # stats are f32 in both dtypes; K2a's f64 sums against the plain
+    # version's f32 two-pass order
     ("stats", "float32"): (1e-5, 1e-4),
     ("stats", "bfloat16"): (1e-5, 1e-4),
     # apply: one fused multiply-add vs two roundings; bf16 output rounding
@@ -541,10 +547,12 @@ def _check_bn(label, x, scale, offset, act, mean, errs, misses):
     from graphical_gan_tpu_torch.ops.kernels import fused_norm
     dn = str(x.dtype).split(".")[1]
     m, v, inv = fused_norm.bn_stats(x)
+    m2, v2, inv2 = fused_norm.bn_stats(x)
     pm, pv, pinv = fused_norm.bn_stats_plain(x)
     y = fused_norm.bn_apply(x, pm, pinv, scale, offset, act)
     py = fused_norm.bn_apply_plain(x, pm, pinv, scale, offset, act)
     torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in ((m, m2), (v, v2), (inv, inv2)))
     atol, rtol = TOL[("stats", dn)]
     es = []
     bad_s = False
@@ -563,16 +571,50 @@ def _check_bn(label, x, scale, offset, act, mean, errs, misses):
     ea, bad_a = max_err(y, py, atol_a, rtol_a)
     errs["bn_stats"] = max(errs.get("bn_stats", 0.0), *es)
     errs["bn_apply"] = max(errs.get("bn_apply", 0.0), ea)
+    p = fused_norm.bn_stats_plan(*x.shape, x.dtype)
     log({"check": "K2", "shape": label, "dtype": dn, "R": x.shape[0],
-         "C": x.shape[1],
+         "C": x.shape[1], "stats_units": p.units, "stats_grid": p.grid,
          "stats_max_abs_err": {"mean": es[0], "var": es[1], "inv": es[2]},
          "var_rel_err_vs_f64": rel_var,
          "plain_var_rel_err_vs_f64": rel_var_plain,
-         "apply_max_abs_err": ea, "ok": not (bad_s or bad_a)})
+         "stats_same_bits_twice": same,
+         "apply_max_abs_err": ea, "ok": not (bad_s or bad_a) and same})
     if bad_s:
         misses.append(f"K2a {label} {dn}")
+    if not same:
+        misses.append(f"K2a not bit-identical {label} {dn}")
     if bad_a or y.dtype != x.dtype:
         misses.append(f"K2b {label} {dn}")
+
+
+def _check_bn_stats_launches(gen, misses):
+    """Each ``bn_stats`` call launches one kernel: ``torch.profiler``'s
+    kernel events over 10 calls at each BN shape of a B=256 dispatch, f32
+    and bf16, are all ``bn_stats_fused_kernel``, at most one per call (the
+    profiler may drop an event, never add one)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from graphical_gan_tpu_torch.ops.kernels import fused_norm
+    xs = [_bn_inputs(rc, dtype, gen)[0]
+          for dtype in (torch.float32, torch.bfloat16)
+          for _, rc, _ in bn_shapes(256)]
+    calls = 10 * len(xs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for x in xs:
+            for _ in range(10):
+                fused_norm.bn_stats(x)
+        torch.cuda.synchronize()
+    kernels = {ev.key[:90]: ev.count for ev in prof.key_averages()
+               if ev.device_type != DeviceType.CPU}
+    ok = (sum(kernels.values()) <= calls
+          and all("bn_stats_fused_kernel" in k for k in kernels))
+    log({"check": "K2a launches", "calls": calls, "kernel_events": kernels,
+         "ok": ok})
+    if not ok:
+        misses.append(f"K2a: {kernels} kernel events for {calls} calls")
 
 
 def _check_bn_bwd(label, x, g, scale, offset, act, errs, misses):
@@ -693,6 +735,7 @@ def phase_check(errs):
             for kind, g in _bn_cotangents(x, gen):
                 _check_bn_bwd(name + kind, x, g, scale, offset, act, errs,
                               misses)
+    _check_bn_stats_launches(gen, misses)
     _check_family1(gen, errs, misses, seen)
     _check_f32_against_cpu()
     missed = _k1_coverage_misses(seen)
@@ -753,32 +796,28 @@ def phase_time(timings):
                        "flops": flops, "bytes": nbytes}
                 timings.append(row)
                 log({"timing": row})
-            seen = set()
             for name, rc, act in bn_shapes(b):
                 x, scale, offset = _bn_inputs(rc, dtype, gen)
                 r, c = rc
                 mean, var, inv = fused_norm.bn_stats_plain(x)
                 act_fn = activation(act)
-                if rc not in seen:  # E.BN2 and G.BN2 share a shape
-                    seen.add(rc)
-                    t_b, by = bound(3.0 * r * c, r * c * size + 3 * c * 4,
-                                    "float32")
-                    row = {"kernel": "bn_stats", "shape": name, "B": b,
-                           "dtype": dn, "card": card,
-                           "ms": time_ms(fused_norm.bn_stats, (x,)),
-                           "plain_ms": time_ms(fused_norm.bn_stats_plain,
-                                               (x,)),
-                           "library_ms": time_ms(
-                               lambda a: torch.var_mean(a, dim=0,
-                                                        correction=0), (x,)),
-                           "bound_ms": t_b, "bound_by": by,
-                           "library_stats_and_apply_ms": time_ms(
-                               lambda *a: act_fn(F.batch_norm(
-                                   a[0], None, None, *a[1:], training=True,
-                                   eps=1e-5)),
-                               (x, scale.to(dtype), offset.to(dtype)))}
-                    timings.append(row)
-                    log({"timing": row})
+                t_b, by = bn_stats_bound(r, c, size)
+                p = fused_norm.bn_stats_plan(r, c, dtype)
+                row = {"kernel": "bn_stats", "shape": name, "B": b,
+                       "dtype": dn, "card": card, "units": p.units,
+                       "ms": time_ms(fused_norm.bn_stats, (x,)),
+                       "plain_ms": time_ms(fused_norm.bn_stats_plain, (x,)),
+                       "library_ms": time_ms(
+                           lambda a: torch.var_mean(a, dim=0, correction=0),
+                           (x,)),
+                       "bound_ms": t_b, "bound_by": by,
+                       "library_stats_and_apply_ms": time_ms(
+                           lambda *a: act_fn(F.batch_norm(
+                               a[0], None, None, *a[1:], training=True,
+                               eps=1e-5)),
+                           (x, scale.to(dtype), offset.to(dtype)))}
+                timings.append(row)
+                log({"timing": row})
                 t_b, by = bound(4.0 * r * c, 2 * r * c * size + 4 * c * 4,
                                 "float32")
                 row = {"kernel": "bn_apply", "shape": name, "B": b,
@@ -799,6 +838,15 @@ def phase_time(timings):
                 log({"timing": row})
             _time_bn_bwd(timings, b, dtype, gen, card)
     _time_k3(timings, card)
+
+
+def bn_stats_bound(r: int, c: int, itemsize: int):
+    """(bound ms, what bounds it) of K2a on [r, c]: x read once and mean,
+    var and inv (3·C f32) written once; about 3 operations per element (an
+    add for the sum, a subtract and a fused multiply-add for the squares),
+    far under the byte time at the f32 rate (and at the f64 rate the kernel
+    sums in)."""
+    return bound(3.0 * r * c, r * c * itemsize + 3 * c * 4, "float32")
 
 
 def bn_bwd_bound(r: int, c: int, itemsize: int):
@@ -1063,8 +1111,7 @@ def phase_serve(launch_totals, k1_counts):
 
 # device-time groups of a dispatch, by substrings of the kernel's name
 GROUPS = (("K1 fused_conv", ("conv_k1_",)),
-          ("K2a bn_stats", ("bn_stats_partial_kernel",
-                            "bn_stats_merge_kernel")),
+          ("K2a bn_stats", ("bn_stats_fused_kernel",)),
           ("K2b bn_apply", ("bn_apply_kernel",)),
           ("transpose conv (cuDNN)", ("dgrad", "conv", "xmma", "cudnn",
                                       "implicit_gemm", "sm90_")),
@@ -1083,9 +1130,9 @@ def _group(name: str) -> str:
 
 def _profile(call, x):
     """(device busy / wall time, device ms per call by group, the largest
-    kernels) of ``DISPATCH_REPS`` calls under ``torch.profiler``; the
-    profiler's own host cost lengthens the wall time, so the busy share is
-    a lower bound."""
+    kernels, kernel launches per call by group) of ``DISPATCH_REPS`` calls
+    under ``torch.profiler``; the profiler's own host cost lengthens the
+    wall time, so the busy share is a lower bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1095,8 +1142,8 @@ def _profile(call, x):
         for _ in range(DISPATCH_REPS):
             call(0, x)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    groups, top, busy_us = {}, [], 0.0
+        torch.cuda.synchronize()
+    groups, counts, top, busy_us = {}, {}, [], 0.0
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
@@ -1104,12 +1151,14 @@ def _profile(call, x):
             continue  # host-side ops, whose device time their kernels hold
         g = _group(ev.key)
         groups[g] = groups.get(g, 0.0) + dev_us
+        counts[g] = counts.get(g, 0) + ev.count
         top.append((dev_us, ev.key[:90]))
         busy_us += dev_us
     per_call = {k: v / 1e3 / DISPATCH_REPS for k, v in sorted(groups.items())}
     top = [[name, us / 1e3 / DISPATCH_REPS]
            for us, name in sorted(top)[::-1][:8]]
-    return busy_us / 1e3 / wall_ms, per_call, top
+    launches = {k: v / DISPATCH_REPS for k, v in sorted(counts.items())}
+    return busy_us / 1e3 / wall_ms, per_call, top, launches
 
 
 def phase_dispatch(run_dirs):
@@ -1147,7 +1196,14 @@ def phase_dispatch(run_dirs):
                     t0 = time.perf_counter()
                     call(0, x)
                     host.append((time.perf_counter() - t0) * 1e3)
-                busy, groups, top = _profile(call, x)
+                busy, groups, top, kernels = _profile(call, x)
+                # K2a is one kernel per BN forward (the profiler may drop
+                # an event, never add one)
+                k2a = kernels.get("K2a bn_stats", 0)
+                if k2a > PER_DISPATCH[entry]["bn_stats"]:
+                    fail(f"{entry} {dtype} B={b}: {k2a} K2a kernels per "
+                         f"dispatch, want one per BN "
+                         f"({PER_DISPATCH[entry]['bn_stats']})")
                 xd = torch.tensor(x, device="cuda")
                 with torch.inference_mode():
                     dev = time_ms(lambda a: fn(params, 0, a), (xd,))
@@ -1161,6 +1217,7 @@ def phase_dispatch(run_dirs):
                     "call_ms": statistics.median(host), "device_ms": dev,
                     "device_ms_cudnn_nondeterministic": dev_free,
                     "busy_share": busy, "device_ms_by_group": groups,
+                    "kernels_per_call_by_group": kernels,
                     "top_kernels_ms": top}})
 
 
@@ -1183,8 +1240,7 @@ PER_ITER = {"fused_conv2d_bias_act": (9 + 12 * 5, 0),
 # the autograd node or op that launched it
 TRAIN_GROUPS = (
     ("K1 forward", ("conv_k1_",), ()),
-    ("K2a-b BN forward", ("bn_stats_partial_kernel", "bn_stats_merge_kernel",
-                          "bn_apply_kernel"), ()),
+    ("K2a-b BN forward", ("bn_stats_fused_kernel", "bn_apply_kernel"), ()),
     ("K2c-d BN backward", ("bn_bwd_fused_kernel",), ()),
     ("BN second order (plain)", (), ("_BatchNormActBackwardBackward",)),
     ("memcpy", ("Memcpy", "Memset"), ()),
@@ -1849,31 +1905,33 @@ def _k3_rows(timings, name):
     return out
 
 
-def _bn_bwd_rows(timings):
-    """K2c+K2d per dtype and B over the 5 BN shapes, each shape with its
-    times and whether its g and x stay in shared memory."""
+def _bn_rows(timings, name):
+    """K2a's or K2c+K2d's rows per dtype and B over the 5 BN shapes, each
+    shape with its units and times (K2c+K2d's also with whether its g and
+    x stay in shared memory)."""
+    keys = ("shape", "units", "ms", "plain_ms", "library_ms", "bound_ms")
+    if name == "bn_bwd":
+        keys += ("onchip",)
     out = []
     for dn in ("float32", "bfloat16"):
         for b in (64, 256):
-            rows = [r for r in timings if r["kernel"] == "bn_bwd"
+            rows = [r for r in timings if r["kernel"] == name
                     and r["dtype"] == dn and r["B"] == b]
             out.append({
                 "dtype": dn, "B": b,
                 **{k: sum(r[k] for r in rows)
                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-                "per_shape": [{k: r[k] for k in (
-                    "shape", "units", "onchip", "ms", "plain_ms",
-                    "library_ms", "bound_ms")} for r in rows]})
+                "per_shape": [{k: r[k] for k in keys} for r in rows]})
     return out
 
 
 def summary(errs, timings, launches):
     """One entry per kernel. The forward kernels' times are summed over the
     shapes of one reconstructor dispatch at B=256 in f32 (K1 adds ``rows``:
-    f32 and bf16 at B=64 and 256); K2c+K2d's over the 5 BN shapes one
-    training iteration backpropagates through at B=64 in f32 (it adds
-    ``rows``: f32 and bf16 at B=64 and 256, per shape with its on-chip
-    case); K3's over the four bench shapes
+    f32 and bf16 at B=64 and 256; K2a too, per shape with its units);
+    K2c+K2d's over the 5 BN shapes one training iteration
+    backpropagates through at B=64 in f32 (it adds ``rows`` as K2a, with
+    each shape's on-chip case); K3's over the four bench shapes
     in bf16 (K3 adds ``rows``: bf16 and f32, per shape with its route).
     ``launches`` counts each kernel's main path (the cifar10
     training runs; for K3 the bench-conv run), ``launches_serve`` the
@@ -1886,8 +1944,6 @@ def summary(errs, timings, launches):
         rows = [r for r in timings if r["kernel"] == name and (
             r["dtype"] == "bfloat16" if k3
             else r["B"] == b and r["dtype"] == "float32")]
-        if name == "bn_stats":  # E.BN2 and G.BN2 share one timed row
-            rows = rows + [r for r in rows if r["shape"] == "E.BN2"]
 
         def total(key):
             return sum(r[key] for r in rows)
@@ -1916,9 +1972,11 @@ def summary(errs, timings, launches):
             out[-1]["rows"] = _k1_rows(timings, launches["k1"])
         if k3:
             out[-1]["rows"] = _k3_rows(timings, name)
+        if name == "bn_stats":
+            out[-1]["rows"] = _bn_rows(timings, name)
         if name == "bn_bwd":  # max_abs_err is dx's; red sums R terms
             out[-1]["red_max_abs_err"] = errs["bn_bwd_red"]
-            out[-1]["rows"] = _bn_bwd_rows(timings)
+            out[-1]["rows"] = _bn_rows(timings, name)
     return {"kernels": out}
 
 

@@ -3,7 +3,7 @@
 // in and out. Three kernels, each behind its own C entry point:
 //
 // K2a ggan_bn_stats: per-channel mean, biased variance and
-//     inv = 1 / sqrt(var + eps). Replaces
+//     inv = 1 / sqrt(var + eps), in one launch. Replaces
 //     graphical_gan_tpu/ops/pallas/fused_norm.py:_stats (_stats_kernel).
 // K2b ggan_bn_apply: y = act((x - mean) * (inv * scale) + offset) in x's
 //     dtype. Replaces fused_norm.py:_fwd (_apply_kernel).
@@ -14,63 +14,69 @@
 //     Replaces both pallas_calls of fused_norm.py:_bwd (_bwd_reduce_kernel
 //     and _bwd_apply_kernel).
 //
-// Forward design. The TPU kernel carries Σx and Σx² across its sequential
-// grid in a VMEM scratch; blocks on the GPU run in no order, so the
-// statistics run in two stages and no atomics (the JAX package audits
-// bit-identity, and a fixed reduction order keeps this kernel
-// deterministic too):
-//   stage 1: block (channel tile of 32, row block) walks its rows with
-//            Welford's update per thread, merges its 8 row lanes in a fixed
-//            order with Chan's formula and writes (mean, M2) to a scratch
-//            that the wrapper allocates with torch.empty;
-//   stage 2: one warp per channel merges the row blocks' partials in a fixed
-//            order (Chan's formula again) into mean, var and inv.
-// The (mean, M2) form avoids the E[x²] - mean² cancellation of the TPU
-// kernel for inputs whose mean is large against their spread, and follows
-// the JAX default path (jnp.var) more closely. Both stages work on
-// x - x[0, c], the column shifted by its first value, so that the rounding
-// of a large running mean does not leak into M2 either. The row split
-// depends only on the shape, so a given input always gives the same bits.
+// K2a and K2c+K2d share one plan of work units (fused_norm.py:_unit_tiling,
+// a function of the shape alone) and one block shape:
+//   - [R, C] is cut into units (row block x channel tile): about one unit
+//     per SM, channel tiles 64 bytes wide or more, so that the row blocks,
+//     and with them the partials a merge reads, stay few;
+//   - blocks take units in a fixed assignment (unit blockIdx.x + k * grid);
+//     the grid is one block per SM (132 on the H100) or one per unit where
+//     the units are fewer; where there is more than one row block, the
+//     units are no more than the SMs, and a block takes one;
+//   - a block has 512 threads (256 where a thread holds 8 bf16 channels); a
+//     thread walks rows ty, ty + TY, ... of its unit with 16-byte loads (4
+//     f32 or 8 bf16 channels; scalar where C or a pointer is not aligned
+//     for that) and sums in row order;
+//   - the block adds its row lanes in a fixed order (block_sum: a butterfly
+//     in the warp, then the warps in order) and writes the unit's partials;
+//   - one grid-wide barrier (cooperative_groups::this_grid().sync()), then a
+//     merge of a channel tile's partials in row-block order. A plan with one
+//     row block (G.BN1's [B, 4096]) needs no merge: the units' sums are the
+//     totals, and no block waits at the barrier.
+// No float atomics: every output is bit-identical from call to call and
+// does not depend on the grid size.
+//
+// K2a design. The TPU kernel carries Σx and Σx² across its sequential grid
+// in a VMEM scratch and takes var = E[x²] - mean², which cancels where the
+// mean is large against the spread. Here x is read once, 64 KB of packs a
+// block in flight (8 rows a thread, 16 at 256 threads), and each thread
+// sums d = x - x[0, c] and d² in f64: d is exact there, and the sums keep
+// about 16 digits, so Σd² - (Σd)²/n loses nothing that shows in f32 for any
+// mean up to some 10^4 spreads (the shift takes the mean out first). Each
+// unit's (mean, M2) of d goes to a partials buffer; after the barrier the
+// block of row block 0 of each channel tile stages the tile's partials in
+// shared memory and merges them per channel in row-block order with Chan's
+// formula in f64, weighted by each row block's rows (the last may be
+// ragged; the weights depend on the plan alone, so the block computes them
+// side by side first and the chain of dependent merges holds no divide).
+// mean and var are then rounded once to f32: they are the f32 roundings of
+// the exact statistics up to an f64 rounding, so the bits hardly depend on
+// the summation order (a two-pass f32 variance in the same kernel, and
+// PyTorch's own f32 reductions, put near-zero pre-activations of mnist
+// wali-gp on the other side of 0 from the CPU's; see PERF.md, PR 7). inv =
+// 1 / sqrt(var + eps) in f32 from the rounded var. A block sum of f64
+// values costs twice the shuffles of f32 ones; the f64 arithmetic (a
+// conversion, a subtract, an add and a fused multiply-add a value) stays
+// under the byte time.
+//
+// K2c+K2d design. The TPU runs a reduce pass and an apply pass, each
+// reading g and x from HBM. Here phase 1 sums gz and gz·xhat per unit in
+// f32, 4 rows in flight, keeping the g and x it reads in the unit's
+// shared-memory slot (rows past the plan's cache_rows are read again,
+// mostly from the 50 MB L2), and after the barrier every block merges its
+// unit's channel tile (every block of a tile merges the same partials in
+// the same order, so all agree to the bit, and the block of row block 0
+// writes red), then writes dx from the g and x it kept.
+//
 // Apply is one elementwise pass; when C is a multiple of 4 each thread moves
 // 4 contiguous channels with one vector load and one vector store.
-//
-// Backward design. The TPU runs a reduce pass and an apply pass, each
-// reading g and x from HBM. Here one cooperative launch does both, with one
-// grid-wide barrier between them, and reads g and x from HBM once:
-//   - [R, C] is cut into units (row block x channel tile) by a plan that
-//     depends on the shape alone (fused_norm.py:bn_bwd_plan): about one
-//     unit per SM, channel tiles 64 bytes wide or more, so that the row
-//     blocks, and with them the partials each block merges, stay few;
-//   - blocks take units in a fixed assignment (unit blockIdx.x + k * grid);
-//     the plan's grid is one block per SM (132 on the H100) or one per
-//     unit where the units are fewer, so a block takes at most the plan's
-//     `slots` units; where there is more than one row block, the plan's
-//     units are no more than the SMs, and a block takes one;
-//   - a block has 512 threads (256 where a thread holds 8 bf16 channels);
-//   - phase 1: a thread walks rows ty, ty + TY, ... of its unit with
-//     16-byte loads of g and x (4 f32 or 8 bf16 channels; scalar where C or
-//     a pointer is not aligned for that), 4 rows in flight, sums gz and
-//     gz·xhat in f32 in row order, and stores the packs it read into shared
-//     memory; the block adds its row lanes in a fixed order (a butterfly in
-//     the warp, then the warps in order) and writes the unit's partials;
-//   - barrier (cooperative_groups::this_grid().sync());
-//   - phase 2: each block merges the partials of its unit's channel tile
-//     in row-block order, coalesced across channels (every block of a tile
-//     merges the same values in the same order, so all agree to the bit,
-//     and the block of row block 0 writes red), then writes dx from the
-//     g and x it kept. Where a unit's rows do not fit in shared memory the
-//     rest is read again, mostly from the 50 MB L2 (the plan's `onchip`).
-//     A plan with one row block (G.BN1's [B, 4096]) needs no merge: each
-//     block writes dx right after phase 1, and the barrier is skipped.
-// No float atomics: red and dx are bit-identical from call to call and do
-// not depend on the grid size.
 //
 // Bound on the H100. All three kernels do a few operations per element, far
 // below the ridge, so they are bound by bytes: stats reads x once, apply
 // reads x and writes y once, and the backward reads g and x once and writes
-// dx once (K2d's bytes alone; the fused kernel's floor). The backward at the
-// cifar10 shapes moves 1-16 MB, so its launch and barrier are a large part
-// of its time; one launch in place of three is what the design buys there.
+// dx once. The cifar10 shapes move 1-16 MB a call, so a launch and a
+// barrier are a large part of the time; one launch per call, x or g and x
+// read from HBM once, is what the shared design buys.
 
 #include <cooperative_groups.h>
 
@@ -79,86 +85,14 @@
 namespace ggan {
 namespace {
 
-constexpr int ST_CT = 32;  // channels per stats block (one warp wide)
-constexpr int ST_RY = 8;   // row lanes per stats block
-
-// Chan et al.: merge (nb, mb, Mb) into (na, ma, Ma).
-__device__ __forceinline__ void chan_merge(float& na, float& ma, float& Ma,
-                                           float nb, float mb, float Mb) {
-  if (nb == 0.0f) return;
-  const float n = na + nb;
-  const float d = mb - ma;
-  const float fb = nb / n;
+// Chan et al.: merge (mb, Mb) of nb rows into (ma, Ma) of na rows, given
+// fb = nb / (na + nb) and nafb = na * fb (they depend on the plan alone, so
+// they stay out of the chain of dependent merges).
+__device__ __forceinline__ void chan_merge(double& ma, double& Ma, double mb, double Mb,
+                                           double fb, double nafb) {
+  const double d = mb - ma;
   ma = ma + d * fb;
-  Ma = Ma + Mb + d * d * na * fb;
-  na = n;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(ST_CT * ST_RY)
-bn_stats_partial_kernel(const T* __restrict__ x, float* __restrict__ pmean,
-                        float* __restrict__ pm2, int R, int C, int rows_per_block) {
-  __shared__ float sn[ST_RY][ST_CT];
-  __shared__ float sm[ST_RY][ST_CT];
-  __shared__ float s2[ST_RY][ST_CT];
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int c = blockIdx.x * ST_CT + tx;
-  const int rb = blockIdx.y;
-  const int r0 = rb * rows_per_block;
-  const int r1 = min(r0 + rows_per_block, R);
-
-  float n = 0.0f, mean = 0.0f, m2 = 0.0f;
-  if (c < C) {
-    const float shift = to_f32(x[c]);
-    for (int r = r0 + ty; r < r1; r += ST_RY) {
-      const float v = to_f32(x[int64_t(r) * C + c]) - shift;
-      n += 1.0f;
-      const float d = v - mean;
-      mean += d / n;
-      m2 = fmaf(d, v - mean, m2);
-    }
-  }
-  sn[ty][tx] = n;
-  sm[ty][tx] = mean;
-  s2[ty][tx] = m2;
-  __syncthreads();
-  if (ty == 0 && c < C) {
-    for (int k = 1; k < ST_RY; ++k) chan_merge(n, mean, m2, sn[k][tx], sm[k][tx], s2[k][tx]);
-    pmean[int64_t(rb) * C + c] = mean;
-    pm2[int64_t(rb) * C + c] = m2;
-  }
-}
-
-template <typename T>
-__global__ void bn_stats_merge_kernel(const T* __restrict__ x,
-                                      const float* __restrict__ pmean,
-                                      const float* __restrict__ pm2,
-                                      float* __restrict__ mean_out,
-                                      float* __restrict__ var_out,
-                                      float* __restrict__ inv_out, int R, int C,
-                                      int rows_per_block, int n_row_blocks, float eps) {
-  const int lane = threadIdx.x % 32;
-  const int c = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  if (c >= C) return;  // whole warps leave together: c is uniform in a warp
-  float n = 0.0f, mean = 0.0f, m2 = 0.0f;
-  for (int rb = lane; rb < n_row_blocks; rb += 32) {
-    const float nb = float(min(rows_per_block, R - rb * rows_per_block));
-    chan_merge(n, mean, m2, nb, pmean[int64_t(rb) * C + c], pm2[int64_t(rb) * C + c]);
-  }
-  // fixed-shape tree over the lanes: lane 0 ends with the total
-  for (int off = 16; off > 0; off >>= 1) {
-    const float nb = __shfl_down_sync(0xffffffffu, n, off);
-    const float mb = __shfl_down_sync(0xffffffffu, mean, off);
-    const float Mb = __shfl_down_sync(0xffffffffu, m2, off);
-    chan_merge(n, mean, m2, nb, mb, Mb);
-  }
-  if (lane == 0) {
-    const float var = m2 / float(R);
-    mean_out[c] = to_f32(x[c]) + mean;  // undo stage 1's shift
-    var_out[c] = var;
-    inv_out[c] = 1.0f / sqrtf(var + eps);
-  }
+  Ma = Ma + Mb + d * d * nafb;
 }
 
 template <typename T, int VEC>
@@ -195,20 +129,6 @@ int apply_grid(int64_t n_packs) {
   return int(blocks < 132 * 32 ? (blocks > 0 ? blocks : 1) : 132 * 32);
 }
 
-template <typename T>
-void launch_stats(const void* x, float* pmean, float* pm2, float* mean, float* var,
-                  float* inv, int R, int C, int rows_per_block, int n_row_blocks,
-                  float eps, cudaStream_t st) {
-  dim3 grid1((C + ST_CT - 1) / ST_CT, n_row_blocks);
-  dim3 block1(ST_CT, ST_RY);
-  bn_stats_partial_kernel<T><<<grid1, block1, 0, st>>>(static_cast<const T*>(x), pmean,
-                                                       pm2, R, C, rows_per_block);
-  constexpr int kWarps = 8;
-  bn_stats_merge_kernel<T><<<(C + kWarps - 1) / kWarps, kWarps * 32, 0, st>>>(
-      static_cast<const T*>(x), pmean, pm2, mean, var, inv, R, C, rows_per_block,
-      n_row_blocks, eps);
-}
-
 template <typename T, int VEC>
 void launch_apply(const void* x, const float* mean, const float* inv, const float* scale,
                   const float* offset, void* y, int64_t numel, int C, int act,
@@ -227,12 +147,273 @@ __device__ __forceinline__ float act_grad(float y, int act) {
   return 1.0f;
 }
 
-// threads per block (ops/kernels/fused_norm.py: bn_bwd_plan): 256 where a
-// thread holds 8 bf16 channels, 512 otherwise (at 512 a thread has at most
-// 128 registers, and 8 channels' sums, statistics and packs spill there)
+// threads per block of K2a and K2c+K2d (ops/kernels/fused_norm.py:
+// _unit_tiling): 256 where a thread holds 8 bf16 channels, 512 otherwise (at
+// 512 a thread has at most 128 registers, and the backward's 8 channels'
+// sums, statistics and packs spill there)
 template <int VEC>
-constexpr int kBwdThreads = VEC > 4 ? 256 : 512;
-constexpr int BWD_UNROLL = 4;  // rows a thread has in flight per step
+constexpr int kThreads = VEC > 4 ? 256 : 512;
+constexpr int BWD_UNROLL = 4;  // rows a K2c+K2d thread has in flight per step
+// and a K2a thread, which loads x alone: 64 KB of packs a block at 16 bytes
+// a pack (8 rows at 512 threads, 16 at 256)
+template <int VEC>
+constexpr int STATS_UNROLL = VEC > 4 ? 16 : 8;
+constexpr int STAGE_LOADS = 16;  // partials a K2a thread stages per trip
+
+// Row lanes in one warp for TX lanes across a channel tile.
+__host__ __device__ constexpr int warp_rows(int tx) { return tx < 32 ? 32 / tx : 1; }
+
+// Sums s[j][k] of the threads that share tx over the block's row lanes, in
+// a fixed order: a butterfly over the row lanes of a warp, then the warps'
+// totals in warp order. Afterwards value j of channel k of the tile is at
+// total[j·CT + k], where total is the last row of `scratch`
+// ([groups + 1][NS·CT] values; f32 in K2c+K2d, f64 in K2a).
+template <int VEC, int NS, typename A>
+__device__ __forceinline__ void block_sum(A (&s)[NS][VEC], A* scratch, int tx, int ty, int TX) {
+  const int TY = kThreads<VEC> / TX;
+  const int CT = TX * VEC;
+  const int wy = warp_rows(TX);
+  const int groups = TY / wy;
+  for (int off = 16; off >= TX; off >>= 1) {
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) s[j][k] += __shfl_xor_sync(0xffffffffu, s[j][k], off);
+    }
+  }
+  if (ty % wy == 0) {
+    A* row = scratch + (ty / wy) * NS * CT;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) row[j * CT + tx * VEC + k] = s[j][k];
+    }
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < NS * CT; t += kThreads<VEC>) {
+    A v = scratch[t];
+#pragma unroll 8
+    for (int q = 1; q < groups; ++q) v += scratch[q * NS * CT + t];
+    scratch[groups * NS * CT + t] = v;
+  }
+  __syncthreads();
+}
+
+// Launches a kernel of the shared plan as one cooperative launch. Where the
+// grid cannot be co-resident at this shared memory size, the launch returns
+// cudaErrorCooperativeLaunchTooLarge.
+template <typename Args>
+int launch_cooperative(void (*kern)(Args), Args a, int grid, int threads, size_t smem,
+                       cudaStream_t st) {
+  // asked at every launch, since the current device may change
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       int(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), dim3(grid),
+                                  dim3(threads), args, smem, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The plan's numbers that the kernels' C entry points check: rows and n_rb
+// cover R with no empty row block, the grid takes every unit, and with more
+// than one row block each block takes one unit.
+template <int VEC>
+bool plan_ok(int R, int C, int tx, int rows, int n_rb, int cache_rows, int grid, int units) {
+  return tx >= 1 && tx <= kThreads<VEC> && !(tx & (tx - 1)) && rows >= 1 &&
+         int64_t(rows) * n_rb >= R && int64_t(rows) * (n_rb - 1) < R && cache_rows >= 0 &&
+         cache_rows <= rows && grid >= 1 && grid <= units && (n_rb == 1 || grid == units) &&
+         !(VEC > 1 && C % VEC);
+}
+
+// ---------------------------------------------------------------------------
+// K2a
+
+// The kernel's tensors and the plan of ops/kernels/fused_norm.py:bn_stats_plan.
+template <typename T>
+struct StatsArgs {
+  const T* x;
+  double* part;  // [n_rb, 2, C]: each unit's (mean, M2) of x - x[0, c]
+  float* out;    // [3, C]: mean, var, inv
+  int R, C;
+  int tx;          // lanes across a unit's channels (a power of two)
+  int n_ct;        // channel tiles of tx * VEC channels
+  int rows, n_rb;  // rows per row block, row blocks
+  int units;       // n_ct * n_rb; unit u is (row block u / n_ct, tile u % n_ct)
+  float eps;
+};
+
+// Shared memory of a K2a launch: the block sum's scratch (two f64 values a
+// channel) and, where there is more than one row block, the staged
+// partials of one channel tile and the merge's weights. Must equal
+// bn_stats_plan's `smem`.
+template <int VEC>
+size_t stats_smem(int tx, int n_rb) {
+  const int ct = tx * VEC;
+  const int groups = (kThreads<VEC> / tx) / warp_rows(tx);
+  return (size_t(groups + 1) * 2 * ct + (n_rb > 1 ? size_t(n_rb) * 2 * (ct + 1) : 0)) *
+         sizeof(double);
+}
+
+// mean, var and inv of channel c from the shift (x[0, c]), the mean of
+// x - shift and M2 over all R rows, each rounded once to f32; inv in f32
+// from the rounded var.
+__device__ __forceinline__ void stats_write(float* out, int64_t C, int c, int R, double shift,
+                                            double mean_d, double m2, float eps) {
+  const float var = float(m2 / double(R));
+  out[c] = float(shift + mean_d);
+  out[C + c] = var;
+  out[2 * C + c] = 1.0f / sqrtf(var + eps);
+}
+
+// K2a in one cooperative launch. Phase 1, per unit of the block: each
+// thread sums d = x - x[0, c] and d² over its rows in row order, in f64 (d
+// is exact there); a block sum gives the unit's n, Σd, Σd², and so its
+// (mean, M2) of d, written to `part` (or, with one row block, mean, var and
+// inv to `out`). One grid-wide barrier. Phase 2: the block of row block 0
+// of each channel tile merges the tile's partials in row-block order
+// (Chan's formula, in f64) and writes mean, var and inv.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads<VEC>, 1) bn_stats_fused_kernel(const StatsArgs<T> a) {
+  using P = Pack<T, VEC>;
+  constexpr int U = STATS_UNROLL<VEC>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int TX = a.tx;
+  const int TY = kThreads<VEC> / TX;
+  const int CT = TX * VEC;
+  const int groups = TY / warp_rows(TX);
+  const int tx = threadIdx.x % TX;
+  const int ty = threadIdx.x / TX;
+  double* scratch = reinterpret_cast<double*>(smem);
+  const double* total = scratch + groups * 2 * CT;
+  // where n_rb > 1: [n_rb][2][CT] partials, then [n_rb][2] weights
+  double* staged = scratch + (groups + 1) * 2 * CT;
+  double* weights = staged + a.n_rb * 2 * CT;
+  const int64_t C = a.C;
+
+  for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
+    const int ct = u % a.n_ct;
+    const int rb = u / a.n_ct;
+    const int c0 = ct * CT + tx * VEC;
+    const int r0 = rb * a.rows;
+    const int r1 = min(r0 + a.rows, a.R);
+    double s[2][VEC], shift[VEC];
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) s[0][q] = s[1][q] = shift[q] = 0.0;
+    if (c0 < a.C) {
+      const P first = *reinterpret_cast<const P*>(a.x + c0);
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) shift[q] = to_f32(first.v[q]);
+      for (int r = r0 + ty; r < r1; r += TY * U) {
+        P xp[U];
+#pragma unroll
+        for (int j = 0; j < U; ++j) {
+          const int rr = r + j * TY;
+          if (rr < r1) xp[j] = *reinterpret_cast<const P*>(a.x + rr * C + c0);
+        }
+#pragma unroll
+        for (int j = 0; j < U; ++j) {
+          if (r + j * TY >= r1) break;
+#pragma unroll
+          for (int q = 0; q < VEC; ++q) {
+            const double d = double(to_f32(xp[j].v[q])) - shift[q];
+            s[0][q] += d;
+            s[1][q] = fma(d, d, s[1][q]);
+          }
+        }
+      }
+    }
+    block_sum<VEC, 2>(s, scratch, tx, ty, TX);
+    if (ty == 0 && c0 < a.C) {
+      const double n_u = double(r1 - r0);
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) {
+        const double sd = total[tx * VEC + q];
+        const double mean_d = sd / n_u;
+        const double m2 = fmax(total[CT + tx * VEC + q] - sd * mean_d, 0.0);
+        if (a.n_rb == 1) {
+          stats_write(a.out, C, c0 + q, a.R, shift[q], mean_d, m2, a.eps);
+        } else {
+          a.part[int64_t(rb) * 2 * C + c0 + q] = mean_d;
+          a.part[(int64_t(rb) * 2 + 1) * C + c0 + q] = m2;
+        }
+      }
+    }
+    // the next unit's block sum overwrites `total` only after a barrier
+    // that the writers above reach once they are done
+  }
+  if (a.n_rb == 1) return;  // the same for every block: none reaches the barrier
+
+  cooperative_groups::this_grid().sync();
+
+  // units == grid here (run_stats checks it): the block's unit is
+  // blockIdx.x, and the blocks of row block 0 (units 0 .. n_ct - 1) merge
+  const int ct = blockIdx.x;
+  if (ct >= a.n_ct) return;
+  // the partials were written in this launch: read them through L2
+  // (__ldcg), not the read-only path, coalesced across channels, STAGE_LOADS
+  // a thread in flight. The block's threads are a multiple of CT here
+  // (run_stats checks it): thread t stages channel t % CT of rows
+  // t / CT, t / CT + dq, ... of the [2 n_rb][CT] partials.
+  {
+    const int k = threadIdx.x % CT;
+    const int dq = kThreads<VEC> / CT;
+    const int c = ct * CT + k;
+    for (int q0 = threadIdx.x / CT; q0 < 2 * a.n_rb; q0 += dq * STAGE_LOADS) {
+      double v[STAGE_LOADS];
+#pragma unroll
+      for (int j = 0; j < STAGE_LOADS; ++j) {
+        const int q = q0 + j * dq;
+        v[j] = q < 2 * a.n_rb && c < a.C ? __ldcg(a.part + int64_t(q) * C + c) : 0.0;
+      }
+#pragma unroll
+      for (int j = 0; j < STAGE_LOADS; ++j) {
+        const int q = q0 + j * dq;
+        if (q < 2 * a.n_rb) staged[q * CT + k] = v[j];
+      }
+    }
+  }
+  // row block p merges its rows (nb, the last row block's may be ragged)
+  // into the p * rows before it
+  for (int p = threadIdx.x; p < a.n_rb; p += kThreads<VEC>) {
+    const double na = double(p) * a.rows;
+    const double nb = double(min(a.rows, a.R - p * a.rows));
+    const double fb = nb / (na + nb);
+    weights[2 * p] = fb;
+    weights[2 * p + 1] = na * fb;
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < CT; k += kThreads<VEC>) {
+    const int c = ct * CT + k;
+    if (c >= a.C) break;
+    double mean_d = staged[k], m2 = staged[CT + k];
+#pragma unroll 8
+    for (int p = 1; p < a.n_rb; ++p) {
+      chan_merge(mean_d, m2, staged[p * 2 * CT + k], staged[(p * 2 + 1) * CT + k],
+                 weights[2 * p], weights[2 * p + 1]);
+    }
+    stats_write(a.out, C, c, a.R, to_f32(a.x[c]), mean_d, m2, a.eps);
+  }
+}
+
+template <typename T, int VEC>
+int run_stats(const void* x, double* part, float* out, int R, int C, int tx, int rows,
+              int n_rb, long long smem, int grid, float eps, cudaStream_t st) {
+  const int n_ct = (C + tx * VEC - 1) / (tx * VEC);
+  const int units = n_ct * n_rb;
+  // the merge stages a channel tile's partials with threads that keep one
+  // channel each
+  if (!plan_ok<VEC>(R, C, tx, rows, n_rb, 0, grid, units) ||
+      (n_rb > 1 && kThreads<VEC> % (tx * VEC)) || stats_smem<VEC>(tx, n_rb) != size_t(smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  StatsArgs<T> a{static_cast<const T*>(x), part, out, R, C, tx, n_ct, rows, n_rb, units, eps};
+  return launch_cooperative(bn_stats_fused_kernel<T, VEC>, a, grid, kThreads<VEC>,
+                            size_t(smem), st);
+}
+
+// ---------------------------------------------------------------------------
+// K2c+K2d
 
 // The kernel's tensors and the plan of ops/kernels/fused_norm.py:bn_bwd_plan.
 template <typename T>
@@ -255,43 +436,6 @@ struct BwdArgs {
   int cache_rows;  // rows of a unit kept on chip (the rest is read again)
   int act;
 };
-
-// Sums s0[k], s1[k] of the threads that share tx over the block's row lanes,
-// in a fixed order: a butterfly over the row lanes of a warp, then the
-// warps' totals in warp order. Thread t < 2·CT ends with out[t] (Σgz for
-// t < CT, Σgz·xhat for t >= CT, channel t % CT of the tile). `scratch` is
-// [groups + 1][2·CT] floats; the last row receives `out`.
-template <int VEC>
-__device__ __forceinline__ void bwd_block_sum(float (&s0)[VEC], float (&s1)[VEC],
-                                              float* scratch, int tx, int ty, int TX) {
-  const int TY = kBwdThreads<VEC> / TX;
-  const int CT = TX * VEC;
-  const int wy = TX < 32 ? 32 / TX : 1;  // row lanes in one warp
-  const int groups = TY / wy;
-  for (int off = 16; off >= TX; off >>= 1) {
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      s0[k] += __shfl_xor_sync(0xffffffffu, s0[k], off);
-      s1[k] += __shfl_xor_sync(0xffffffffu, s1[k], off);
-    }
-  }
-  if (ty % wy == 0) {
-    float* row = scratch + (ty / wy) * 2 * CT;
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      row[tx * VEC + k] = s0[k];
-      row[CT + tx * VEC + k] = s1[k];
-    }
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < 2 * CT; t += kBwdThreads<VEC>) {
-    float v = scratch[t];
-#pragma unroll 8
-    for (int q = 1; q < groups; ++q) v += scratch[q * 2 * CT + t];
-    scratch[groups * 2 * CT + t] = v;
-  }
-  __syncthreads();
-}
 
 // A channel's mean, inv, sa = inv * scale (K2b's slope, so that y and its
 // activation mask are the forward's) and offset.
@@ -319,11 +463,11 @@ __device__ __forceinline__ void bwd_finish_unit(const BwdArgs<T>& a, const Pack<
                                                 const float (&sa)[VEC],
                                                 const float (&of)[VEC]) {
   using P = Pack<T, VEC>;
-  const int TY = kBwdThreads<VEC> / TX;
+  const int TY = kThreads<VEC> / TX;
   const int CT = TX * VEC;
   const int64_t C = a.C;
   if (rb == 0) {
-    for (int t = threadIdx.x; t < 2 * CT; t += kBwdThreads<VEC>) {
+    for (int t = threadIdx.x; t < 2 * CT; t += kThreads<VEC>) {
       const int c = ct * CT + t % CT;
       if (c < a.C) a.red[(t / CT) * C + c] = block_red[t];
     }
@@ -381,14 +525,14 @@ __device__ __forceinline__ void bwd_finish_unit(const BwdArgs<T>& a, const Pack<
 // channels' totals already: the block writes dx right after phase 1, and no
 // block waits at the barrier.
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kBwdThreads<VEC>, 1) bn_bwd_fused_kernel(const BwdArgs<T> a) {
+__global__ void __launch_bounds__(kThreads<VEC>, 1) bn_bwd_fused_kernel(const BwdArgs<T> a) {
   using P = Pack<T, VEC>;
   constexpr int UNROLL = BWD_UNROLL;
   extern __shared__ __align__(16) unsigned char smem[];
   const int TX = a.tx;
-  const int TY = kBwdThreads<VEC> / TX;
+  const int TY = kThreads<VEC> / TX;
   const int CT = TX * VEC;
-  const int groups = TY / (TX < 32 ? 32 / TX : 1);
+  const int groups = TY / warp_rows(TX);
   const int tx = threadIdx.x % TX;
   const int ty = threadIdx.x / TX;
   float* scratch = reinterpret_cast<float*>(smem);
@@ -403,9 +547,9 @@ __global__ void __launch_bounds__(kBwdThreads<VEC>, 1) bn_bwd_fused_kernel(const
     const int r0 = rb * a.rows;
     const int r1 = min(r0 + a.rows, a.R);
     P* slot = cache + int64_t(k) * a.cache_rows * 2 * TX;
-    float s0[VEC], s1[VEC], m[VEC], iv[VEC], sa[VEC], of[VEC];
+    float s[2][VEC], m[VEC], iv[VEC], sa[VEC], of[VEC];
 #pragma unroll
-    for (int q = 0; q < VEC; ++q) s0[q] = s1[q] = 0.0f;
+    for (int q = 0; q < VEC; ++q) s[0][q] = s[1][q] = 0.0f;
     if (c0 < a.C) {
       bwd_load_params<T, VEC>(a, c0, m, iv, sa, of);
       for (int r = r0 + ty; r < r1; r += TY * UNROLL) {
@@ -430,18 +574,18 @@ __global__ void __launch_bounds__(kBwdThreads<VEC>, 1) bn_bwd_fused_kernel(const
           for (int q = 0; q < VEC; ++q) {
             const float d = to_f32(xp[j].v[q]) - m[q];
             const float gz = to_f32(gp[j].v[q]) * act_grad(d * sa[q] + of[q], a.act);
-            s0[q] += gz;
-            s1[q] = fmaf(gz, d * iv[q], s1[q]);
+            s[0][q] += gz;
+            s[1][q] = fmaf(gz, d * iv[q], s[1][q]);
           }
         }
       }
     }
-    bwd_block_sum<VEC>(s0, s1, scratch, tx, ty, TX);
+    block_sum<VEC, 2>(s, scratch, tx, ty, TX);
     if (a.n_rb == 1) {
       bwd_finish_unit<T, VEC, UNROLL>(a, slot, rb, ct, c0, r0, r1, tx, ty, TX, block_red, m, iv,
                                       sa, of);
     } else {
-      for (int t = threadIdx.x; t < 2 * CT; t += kBwdThreads<VEC>) {
+      for (int t = threadIdx.x; t < 2 * CT; t += kThreads<VEC>) {
         const int c = ct * CT + t % CT;
         if (c < a.C) a.part[(int64_t(rb) * 2 + t / CT) * C + c] = block_red[t];
       }
@@ -459,9 +603,9 @@ __global__ void __launch_bounds__(kBwdThreads<VEC>, 1) bn_bwd_fused_kernel(const
   const int c0 = ct * CT + tx * VEC;
   const int r0 = rb * a.rows;
   const int r1 = min(r0 + a.rows, a.R);
-  float s0[VEC], s1[VEC], m[VEC], iv[VEC], sa[VEC], of[VEC];
+  float s[2][VEC], m[VEC], iv[VEC], sa[VEC], of[VEC];
 #pragma unroll
-  for (int q = 0; q < VEC; ++q) s0[q] = s1[q] = 0.0f;
+  for (int q = 0; q < VEC; ++q) s[0][q] = s[1][q] = 0.0f;
   if (c0 < a.C) {
     // issued with the partials' loads, so that both wait on one trip
     bwd_load_params<T, VEC>(a, c0, m, iv, sa, of);
@@ -470,40 +614,23 @@ __global__ void __launch_bounds__(kBwdThreads<VEC>, 1) bn_bwd_fused_kernel(const
     for (int p = ty; p < a.n_rb; p += TY) {
 #pragma unroll
       for (int q = 0; q < VEC; ++q) {
-        s0[q] += __ldcg(a.part + (int64_t(p) * 2) * C + c0 + q);
-        s1[q] += __ldcg(a.part + (int64_t(p) * 2 + 1) * C + c0 + q);
+        s[0][q] += __ldcg(a.part + (int64_t(p) * 2) * C + c0 + q);
+        s[1][q] += __ldcg(a.part + (int64_t(p) * 2 + 1) * C + c0 + q);
       }
     }
   }
-  bwd_block_sum<VEC>(s0, s1, scratch, tx, ty, TX);
+  block_sum<VEC, 2>(s, scratch, tx, ty, TX);
   bwd_finish_unit<T, VEC, UNROLL>(a, cache, rb, ct, c0, r0, r1, tx, ty, TX, block_red, m, iv,
                                   sa, of);
 }
 
-// Shared memory of a launch: the block sums' scratch, then `slots` units of
-// cache_rows rows of g and x. Must equal the plan's `smem`.
+// Shared memory of a K2c+K2d launch: the block sums' scratch, then `slots`
+// units of cache_rows rows of g and x. Must equal bn_bwd_plan's `smem`.
 template <typename T, int VEC>
 size_t bwd_smem(int tx, int slots, int cache_rows) {
-  const int groups = (kBwdThreads<VEC> / tx) / (tx < 32 ? 32 / tx : 1);
+  const int groups = (kThreads<VEC> / tx) / warp_rows(tx);
   return size_t(groups + 1) * 2 * tx * VEC * sizeof(float) +
          size_t(slots) * cache_rows * 2 * tx * sizeof(Pack<T, VEC>);
-}
-
-// One cooperative launch of the plan's grid. Where the grid cannot be
-// co-resident at this shared memory size, the launch returns
-// cudaErrorCooperativeLaunchTooLarge.
-template <typename T, int VEC>
-int launch_bwd(BwdArgs<T> a, int grid, size_t smem, cudaStream_t st) {
-  auto kern = bn_bwd_fused_kernel<T, VEC>;
-  // asked at every launch, since the current device may change
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       int(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), dim3(grid),
-                                  dim3(kBwdThreads<VEC>), args, smem, st);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int VEC>
@@ -514,44 +641,43 @@ int run_bwd(const void* g, const void* x, const float* mean, const float* inv,
   const int CT = tx * VEC;
   const int n_ct = (C + CT - 1) / CT;
   const int units = n_ct * n_rb;
-  // every block keeps its units in `slots` slots; with more than one row
-  // block, phase 2 takes one unit per block
-  if (tx < 1 || tx > kBwdThreads<VEC> || (tx & (tx - 1)) || int64_t(rows) * n_rb < R ||
-      int64_t(rows) * (n_rb - 1) >= R || cache_rows > rows || grid < 1 || grid > units ||
-      int64_t(grid) * slots < units || (n_rb > 1 && grid != units) ||
-      (VEC > 1 && C % VEC) || bwd_smem<T, VEC>(tx, slots, cache_rows) != size_t(smem))
+  // every block keeps its units in `slots` slots
+  if (!plan_ok<VEC>(R, C, tx, rows, n_rb, cache_rows, grid, units) ||
+      int64_t(grid) * slots < units || bwd_smem<T, VEC>(tx, slots, cache_rows) != size_t(smem))
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs<T> a{static_cast<const T*>(g), static_cast<const T*>(x), mean, inv, scale,
                offset, part, red, static_cast<T*>(dx), R, C, tx, n_ct, rows, n_rb,
                units, slots, cache_rows, act};
-  return launch_bwd<T, VEC>(a, grid, size_t(smem), st);
+  return launch_cooperative(bn_bwd_fused_kernel<T, VEC>, a, grid, kThreads<VEC>, size_t(smem),
+                            st);
 }
 
 }  // namespace
 }  // namespace ggan
 
-// K2a. part_mean / part_m2 are [n_row_blocks, C] f32 scratch; mean, var and
-// inv are [C] f32 outputs. rows_per_block * n_row_blocks must cover R.
-extern "C" int ggan_bn_stats(const void* x, void* part_mean, void* part_m2, void* mean,
-                             void* var, void* inv, int dtype, int R, int C,
-                             int rows_per_block, int n_row_blocks, float eps,
-                             void* stream) {
+// K2a. x is [R, C]; part is [n_rb, 2, C] f64 scratch; out is [3, C] f32:
+// mean, var and inv. vec is 16 / sizeof(dtype) (C a multiple of it, x
+// 16-byte aligned) or 1; tx, rows, n_rb, smem and grid come from
+// ops/kernels/fused_norm.py:bn_stats_plan. A grid that cannot be co-resident
+// returns cudaErrorCooperativeLaunchTooLarge.
+extern "C" int ggan_bn_stats(const void* x, void* part, void* out, int dtype, int R, int C,
+                             int vec, int tx, int rows, int n_rb, long long smem, int grid,
+                             float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* pm = static_cast<float*>(part_mean);
-  float* p2 = static_cast<float*>(part_m2);
-  float* mo = static_cast<float*>(mean);
-  float* vo = static_cast<float*>(var);
-  float* io = static_cast<float*>(inv);
-  if (dtype == ggan::kFloat32) {
-    ggan::launch_stats<float>(x, pm, p2, mo, vo, io, R, C, rows_per_block, n_row_blocks,
-                              eps, st);
-  } else if (dtype == ggan::kBFloat16) {
-    ggan::launch_stats<__nv_bfloat16>(x, pm, p2, mo, vo, io, R, C, rows_per_block,
-                                      n_row_blocks, eps, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  double* pt = static_cast<double*>(part);
+  float* o = static_cast<float*>(out);
+  if (dtype == ggan::kFloat32 && vec == 4) {
+    return ggan::run_stats<float, 4>(x, pt, o, R, C, tx, rows, n_rb, smem, grid, eps, st);
+  } else if (dtype == ggan::kFloat32 && vec == 1) {
+    return ggan::run_stats<float, 1>(x, pt, o, R, C, tx, rows, n_rb, smem, grid, eps, st);
+  } else if (dtype == ggan::kBFloat16 && vec == 8) {
+    return ggan::run_stats<__nv_bfloat16, 8>(x, pt, o, R, C, tx, rows, n_rb, smem, grid, eps,
+                                             st);
+  } else if (dtype == ggan::kBFloat16 && vec == 1) {
+    return ggan::run_stats<__nv_bfloat16, 1>(x, pt, o, R, C, tx, rows, n_rb, smem, grid, eps,
+                                             st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K2b. mean, inv, scale and offset are [C] f32; y has x's dtype and shape.

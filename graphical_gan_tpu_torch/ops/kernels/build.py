@@ -44,9 +44,10 @@ _SIGNATURES = {
     # stream
     "ggan_conv2d_bias_act": [_P] * 5 + [_I] * 14 + [ctypes.c_float]
     + [_I] * 8 + [_P],
-    # x, part_mean, part_m2, mean, var, inv, dtype, R, C, rows_per_block,
-    # n_row_blocks, eps, stream
-    "ggan_bn_stats": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P],
+    # x, part, out, dtype, R, C, vec, tx, rows, n_rb, smem, grid, eps,
+    # stream
+    "ggan_bn_stats": [_P] * 3 + [_I] * 7 + [ctypes.c_longlong, _I,
+                                            ctypes.c_float, _P],
     # x, mean, inv, scale, offset, y, dtype, numel, C, act, vec, stream
     "ggan_bn_apply": [_P] * 6 + [_I, ctypes.c_longlong, _I, _I, _I, _P],
     # g, x, mean, inv, scale, offset, part, red, dx, dtype, R, C, vec, tx,

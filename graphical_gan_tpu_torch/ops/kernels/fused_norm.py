@@ -3,23 +3,29 @@
 Three kernels in ``csrc/fused_norm.cu``, each behind its own wrapper:
 
 - K2a :func:`bn_stats` replaces ``graphical_gan_tpu/ops/pallas/
-  fused_norm.py:_stats``: per-channel mean, biased variance and
-  ``inv = 1/sqrt(var + eps)`` of ``[R, C]``, in two deterministic stages
-  (per-block Welford partials, then a fixed-order merge by Chan's formula);
+  fused_norm.py:_stats`` in one cooperative launch: per-channel mean,
+  biased variance and ``inv = 1/sqrt(var + eps)`` of ``[R, C]``. x is read
+  once; each unit sums ``d = x - x[0, c]`` and ``d²`` in f64, writes its
+  ``(mean, M2)``, and after one grid-wide barrier the partials merge per
+  channel in row-block order by Chan's formula, in f64, so that mean and
+  var are the f32 roundings of the exact statistics up to an f64
+  rounding;
 - K2b :func:`bn_apply` replaces ``fused_norm.py:_fwd``'s apply pass:
   ``act((x - mean) * (inv * scale) + offset)`` in x's dtype;
 - K2c+K2d :func:`bn_bwd` replaces both passes of ``fused_norm.py:_bwd`` in
   one cooperative launch: per channel ``red = [Σgz, Σgz·xhat]`` in f32
   (``gz = g·act'(y)``, xhat and y recomputed from x), one grid-wide
   barrier, then ``dx = (gz - Σgz/R - xhat·Σ(gz·xhat)/R)·inv·scale`` in x's
-  dtype from the g and x each block kept in shared memory. Its work units
-  come from :func:`bn_bwd_plan`, a function of the shape alone, and the
-  partials merge in a fixed order, so the bits do not depend on the grid.
+  dtype from the g and x each block kept in shared memory.
 
-All three are bound by bytes (see the source). :class:`FusedBatchNormAct`
-is the JAX ``fused_batchnorm_act`` with its custom VJP: K2a then K2b
-forward, K2c+K2d backward. On a CUDA tensor each wrapper launches its
-kernel or raises; on a CPU tensor it computes its plain PyTorch version.
+K2a's and K2c+K2d's work units come from one tiling (:func:`_unit_tiling`,
+a function of the shape alone; :func:`bn_stats_plan`, :func:`bn_bwd_plan`)
+and their partials merge in a fixed order, so the bits do not depend on
+the grid. All three are bound by bytes (see the source).
+:class:`FusedBatchNormAct` is the JAX ``fused_batchnorm_act`` with its
+custom VJP: K2a then K2b forward, K2c+K2d backward. On a CUDA tensor each
+wrapper launches its kernel or raises; on a CPU tensor it computes its
+plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -36,12 +42,9 @@ from graphical_gan_tpu_torch.ops.kernels import build
 
 EPS = 1e-5
 _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
-_STATS_CT = 32      # channels per stats block (csrc ST_CT)
-_STATS_RY = 8       # row lanes per stats block (csrc ST_RY)
-_STATS_BLOCKS = 528  # stage-1 blocks to aim for: 4 per SM of the H100
-_BWD_THREADS = 512   # threads per backward block (csrc kBwdThreads), and
-_BWD_THREADS_VEC8 = 256  # where a thread holds 8 bf16 channels
-_SMS = 132           # SMs of the H100: the backward aims for a unit on each
+_THREADS = 512       # threads per K2a and K2c+K2d block (csrc kThreads),
+_THREADS_VEC8 = 256  # and where a thread holds 8 bf16 channels
+_SMS = 132           # SMs of the H100: the plans aim for a unit on each
 _SMEM_MAX = 232448   # dynamic shared memory a block may opt into (227 KB)
 _MIN_SEGMENT = 64    # bytes of a row a channel tile covers at the least
 
@@ -78,33 +81,116 @@ def _check_2d(x2d: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} indexes rows with 32-bit ints")
 
 
-def stats_split(r: int, c: int) -> Tuple[int, int]:
-    """(rows_per_block, n_row_blocks) for stage 1: about ``_STATS_BLOCKS``
-    blocks in all, rows a multiple of the row lanes. Depends on the shape
-    alone, so the reduction order (and the result's bits) is fixed."""
-    ctiles = -(-c // _STATS_CT)
-    want = max(1, min(-(-_STATS_BLOCKS // ctiles), -(-r // _STATS_RY)))
+class UnitPlan(NamedTuple):
+    """K2a's or K2c+K2d's work units for one shape (:func:`bn_stats_plan`,
+    :func:`bn_bwd_plan`)."""
+    vec: int         # channels per load: 16 bytes' worth, or 1
+    tx: int          # lanes across a channel tile (a power of two)
+    ty: int          # row lanes: the block's threads // tx
+    ct: int          # channels per tile: tx * vec
+    n_ct: int        # channel tiles
+    rows: int        # rows per row block (a multiple of ty)
+    n_rb: int        # row blocks; the last may be ragged
+    units: int       # n_rb * n_ct; unit u = (row block u // n_ct, tile u % n_ct)
+    grid: int        # blocks: one per SM, fewer where the units are fewer;
+                     # block b takes units b, b + grid, ...
+    slots: int       # units a block takes
+    cache_rows: int  # K2c+K2d: rows of a unit kept in shared memory (the
+                     # rest is read again); K2a keeps none
+    smem: int        # dynamic shared memory per block, bytes
+    onchip: bool     # K2c+K2d: every row of every unit kept, g and x read
+                     # once
+
+
+def _unit_tiling(r: int, c: int, dtype: torch.dtype,
+                 aligned: bool) -> UnitPlan:
+    """The units of [r, c] in ``dtype`` that K2a and K2c+K2d share, a
+    function of the shape alone (``aligned``: the tensors start on 16
+    bytes, as the caching allocator gives them), with nothing kept in
+    shared memory yet. A block has 512 threads, 256 where each holds 8
+    bf16 channels. Channel tiles are the narrowest that still cover
+    ``_MIN_SEGMENT`` bytes of a row, widened while there would be more
+    tiles than SMs; row blocks then make about one unit per SM, so that
+    where there is more than one row block each block takes one unit."""
+    size = dtype.itemsize
+    full = 16 // size
+    vec = full if aligned and c % full == 0 else 1
+    threads = _THREADS_VEC8 if vec == 8 else _THREADS
+    lanes = -(-c // vec)
+    top = min(threads, 1 << (lanes - 1).bit_length())
+    tx = min(top, max(1, _MIN_SEGMENT // (vec * size)))
+    while tx < top and -(-c // (tx * vec)) > _SMS:
+        tx *= 2
+    ty = threads // tx
+    ct = tx * vec
+    n_ct = -(-c // ct)
+    want = max(1, min(_SMS // n_ct, -(-r // ty)))
     rows = -(-r // want)
-    rows = -(-rows // _STATS_RY) * _STATS_RY
-    return rows, -(-r // rows)
+    rows = -(-rows // ty) * ty
+    n_rb = -(-r // rows)
+    units = n_rb * n_ct
+    grid = min(units, _SMS)
+    return UnitPlan(vec, tx, ty, ct, n_ct, rows, n_rb, units, grid,
+                    -(-units // grid), 0, 0, False)
+
+
+def _block_sum_bytes(p: UnitPlan, values: int, size: int) -> int:
+    """The scratch of csrc block_sum over ``values`` per channel of
+    ``size`` bytes: a row per warp's group of row lanes, and one for the
+    totals."""
+    groups = p.ty // (32 // p.tx if p.tx < 32 else 1)
+    return (groups + 1) * values * p.ct * size
+
+
+@functools.lru_cache(maxsize=None)
+def bn_stats_plan(r: int, c: int, dtype: torch.dtype,
+                  aligned: bool = True) -> UnitPlan:
+    """K2a's units for [r, c] in ``dtype`` (``aligned``: x starts on 16
+    bytes). K2a reads each row once and keeps none: its shared memory
+    holds the block sum's scratch (two f64 values a channel) and, where
+    there is more than one row block, the staged f64 partials of one
+    channel tile ((mean, M2) of each row block) with the merge's two
+    weights per row block."""
+    p = _unit_tiling(r, c, dtype, aligned)
+    staged = p.n_rb * 2 * (p.ct + 1) * 8 if p.n_rb > 1 else 0
+    return p._replace(smem=_block_sum_bytes(p, 2, 8) + staged)
+
+
+@functools.lru_cache(maxsize=None)
+def bn_bwd_plan(r: int, c: int, dtype: torch.dtype,
+                aligned: bool = True) -> UnitPlan:
+    """K2c+K2d's units for [r, c] in ``dtype`` (``aligned``: g, x and dx
+    start on 16 bytes). A block keeps every unit it takes (``slots``),
+    ``cache_rows`` rows of g and x each, in what shared memory is left
+    after the block sum's scratch (two values a channel)."""
+    p = _unit_tiling(r, c, dtype, aligned)
+    scratch = _block_sum_bytes(p, 2, 4)
+    row_bytes = 2 * p.ct * dtype.itemsize  # g and x of one row of a unit
+    fit = (_SMEM_MAX - scratch) // (p.slots * row_bytes) // p.ty * p.ty
+    cache_rows = min(p.rows, fit)
+    return p._replace(cache_rows=cache_rows,
+                      smem=scratch + p.slots * cache_rows * row_bytes,
+                      onchip=cache_rows == p.rows)
 
 
 def bn_stats(x2d: torch.Tensor, eps: float = EPS
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2a: (mean, var, inv) per column of [R, C], f32 [C] each."""
+    """K2a: (mean, var, inv) per column of [R, C], f32 [C] each, views of
+    one [3, C] tensor, in one launch."""
     if x2d.device.type == "cpu":
         return bn_stats_plain(x2d, eps)
     _check_2d(x2d, "bn_stats")
     r, c = x2d.shape
-    rows, nrb = stats_split(r, c)
-    f32 = dict(dtype=torch.float32, device=x2d.device)
-    part = torch.empty((2, nrb, c), **f32)
-    out = torch.empty((3, c), **f32)
+    p = bn_stats_plan(r, c, x2d.dtype, x2d.data_ptr() % 16 == 0)
+    # one allocation: the units' (mean, M2) partials in f64, [n_rb, 2, C]
+    # (written where n_rb > 1), then mean, var and inv
+    buf = torch.empty((4 * p.n_rb + 3) * c, dtype=torch.float32,
+                      device=x2d.device)
+    out = buf[4 * p.n_rb * c:].view(3, c)
     code = build.lib().ggan_bn_stats(
-        x2d.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-        build.DTYPE_CODES[_DTYPES[x2d.dtype]], r, c, rows, nrb, float(eps),
-        build.stream_ptr(x2d.device))
+        x2d.data_ptr(), buf.data_ptr(), out.data_ptr(),
+        build.DTYPE_CODES[_DTYPES[x2d.dtype]], r, c, p.vec, p.tx, p.rows,
+        p.n_rb, p.smem, p.grid, float(eps), build.stream_ptr(x2d.device))
     build.check(code, "ggan_bn_stats")
     bn_stats.launches += 1
     return out[0], out[1], out[2]
@@ -192,65 +278,6 @@ def bn_bwd_plain(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
     red = bn_bwd_reduce_plain(g2d, x2d, mean, inv, scale, offset, act)
     return bn_bwd_apply_plain(g2d, x2d, mean, inv, scale, offset, red,
                               act), red
-
-
-class BwdPlan(NamedTuple):
-    """The backward's work units for one shape (:func:`bn_bwd_plan`)."""
-    vec: int         # channels per load: 16 bytes' worth, or 1
-    tx: int          # lanes across a channel tile (a power of two)
-    ty: int          # row lanes: the block's threads // tx
-    ct: int          # channels per tile: tx * vec
-    n_ct: int        # channel tiles
-    rows: int        # rows per row block (a multiple of ty)
-    n_rb: int        # row blocks; the last may be ragged
-    units: int       # n_rb * n_ct; unit u = (row block u // n_ct, tile u % n_ct)
-    grid: int        # blocks: one per SM, fewer where the units are fewer;
-                     # block b takes units b, b + grid, ...
-    slots: int       # units a block keeps in shared memory
-    cache_rows: int  # rows of a unit kept there; the rest is read again
-    smem: int        # dynamic shared memory per block, bytes
-    onchip: bool     # every row of every unit kept: g and x read once
-
-
-@functools.lru_cache(maxsize=None)
-def bn_bwd_plan(r: int, c: int, dtype: torch.dtype,
-                aligned: bool = True) -> BwdPlan:
-    """The backward's units for [r, c] in ``dtype``, a function of the shape
-    alone (``aligned``: g, x and dx start on 16 bytes, as the caching
-    allocator gives them). A block has 512 threads, 256 where each holds 8
-    bf16 channels. Channel tiles are the narrowest that still cover
-    ``_MIN_SEGMENT`` bytes of a row, widened while there would be more
-    tiles than SMs; row blocks then make about one unit per SM, so that
-    where there is more than one row block each block takes one unit. A
-    block keeps ``cache_rows`` rows of g and x per unit in what shared
-    memory is left after the block sums' scratch."""
-    size = torch.tensor([], dtype=dtype).element_size()
-    full = 16 // size
-    vec = full if aligned and c % full == 0 else 1
-    threads = _BWD_THREADS_VEC8 if vec == 8 else _BWD_THREADS
-    lanes = -(-c // vec)
-    top = min(threads, 1 << (lanes - 1).bit_length())
-    tx = min(top, max(1, _MIN_SEGMENT // (vec * size)))
-    while tx < top and -(-c // (tx * vec)) > _SMS:
-        tx *= 2
-    ty = threads // tx
-    ct = tx * vec
-    n_ct = -(-c // ct)
-    want = max(1, min(_SMS // n_ct, -(-r // ty)))
-    rows = -(-r // want)
-    rows = -(-rows // ty) * ty
-    n_rb = -(-r // rows)
-    units = n_rb * n_ct
-    grid = min(units, _SMS)
-    slots = -(-units // grid)
-    groups = ty // (32 // tx if tx < 32 else 1)
-    scratch = (groups + 1) * 2 * ct * 4
-    row_bytes = 2 * ct * size  # g and x of one row of a unit
-    fit = (_SMEM_MAX - scratch) // (slots * row_bytes) // ty * ty
-    cache_rows = min(rows, fit)
-    smem = scratch + slots * cache_rows * row_bytes
-    return BwdPlan(vec, tx, ty, ct, n_ct, rows, n_rb, units, grid, slots,
-                   cache_rows, smem, cache_rows == rows)
 
 
 def bn_bwd(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,

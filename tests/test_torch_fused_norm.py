@@ -115,15 +115,6 @@ def test_stats_and_apply_compose_to_fused():
         y, fused_norm.fused_batchnorm_act(x, scale, offset, "relu"))
 
 
-@pytest.mark.parametrize("r,c", [(256, 4096), (65536, 64), (512, 128),
-                                 (8, 4096), (3, 5), (1, 1)])
-def test_stats_split_covers_rows(r, c):
-    rows, nrb = fused_norm.stats_split(r, c)
-    assert rows % 8 == 0 and rows * nrb >= r and rows * (nrb - 1) < r
-    blocks = nrb * -(-c // 32)
-    assert blocks <= 528 + -(-c // 32)
-
-
 def test_cpu_wrappers_do_not_count():
     before = (fused_norm.bn_stats.launches, fused_norm.bn_apply.launches)
     fused_norm.fused_batchnorm_act(torch.randn(4, 3), torch.ones(3),

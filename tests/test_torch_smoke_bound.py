@@ -57,3 +57,28 @@ def test_bn_backward_bound_reads_g_and_x_once_and_writes_dx(b, name, rc,
     assert by == "bytes"
     assert ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_S * 1e3,
                                rel=1e-12)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,name,rc", [
+    (b, name, rc) for b in (64, 256)
+    for name, rc, _ in chip_smoke.bn_shapes(b)],
+    ids=lambda v: str(v) if not isinstance(v, tuple) else "x".join(map(str, v)))
+def test_bn_stats_bound_reads_x_once_and_writes_the_statistics(b, name, rc,
+                                                               itemsize):
+    """K2a's bound: the tensor the function reads (x) read once and each it
+    writes (mean, var and inv, f32 [C]) written once, over the card's
+    memory rate; the operations (3 f32 per element) bound it at none of
+    the BN shapes."""
+    r, c = rc
+    dtype = {4: torch.float32, 2: torch.bfloat16}[itemsize]
+
+    def meta(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+    reads = [meta((r, c), dtype)]
+    writes = [meta((c,), torch.float32) for _ in range(3)]
+    nbytes = sum(t.numel() * t.element_size() for t in reads + writes)
+    ms, by = chip_smoke.bn_stats_bound(r, c, itemsize)
+    assert by == "bytes"
+    assert ms == pytest.approx(nbytes / chip_smoke.HBM_BYTES_S * 1e3,
+                               rel=1e-12)
