@@ -18,7 +18,11 @@ nothing of JAX or of the JAX package, and does in order:
    shared memory, one where a block takes two units), each K2a and BN
    backward call made twice for the same bits, and K2a's kernels under
    ``torch.profiler`` (one per call); K1 and K2 at the mnist and celeba
-   shapes; K3a and K3b at
+   shapes and at the metric classifier's (3x3 stride 2, f32, cifar10 and
+   mnist, at every batch size the eval and learn phases and the sensitivity
+   tool run it at: 96 / 100 / 256 / 464 / 512 / 4096 / 5000 / 10000,
+   ``classifier_batches``), and K2a/K2b at G's BN shapes where G samples
+   from f32 codes (B 100 and 128); K3a and K3b at
    their bench shapes, the JAX tests' shapes and a non-square input, f32
    and bf16, with and without the leaky epilogue, each called twice for the
    same bits, and bit-equal to each other and to K1 where one plan runs
@@ -57,7 +61,19 @@ nothing of JAX or of the JAX package, and does in order:
    wali-gp (k = 2) 2 iterations on the card against the CPU (the same
    checks and controls as train-parity) and one mnist reconstructor
    dispatch;
-10. prints one JSON line per kernel summary, the card line, and last
+10. loaders: cifar10 wali-gp at the published config, 3 iterations
+   through ``runs/gan_inference.run`` on CIFAR-10 pickle batches written
+   here, resident (the pool is the written train rows) and host-fed (every
+   batch through the prefetcher's side stream);
+11. eval: 100 iterations of cifar10 wali-gp in bf16 on the structured
+   family with the sample grids every 50 and the quality hook at 100: the
+   grid PNGs at their sizes (read from their IHDR), the dev cost at
+   iteration 99, finite IS / FID / classifier accuracy, no TSNE line;
+12. learn: ``tools/sensitivity.py --checkpoints 0,500 --n-score 5000``
+   (bf16, published width): classifier held-out accuracy >= 0.95, real IS
+   >= 8.0, noise IS <= 2.0, IS up and FID down from iteration 0 to 500;
+   and PIL, matplotlib and sklearn never imported;
+13. prints one JSON line per kernel summary, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line. ``--log PATH`` also
@@ -335,6 +351,99 @@ MNIST_BN = [("mnist E/D.BN2", (49 * 50, 128), "leaky_relu"),
             ("mnist G.BN1", (50, 4096), "relu"),
             ("mnist G.BN2", (64 * 50, 128), "relu"),
             ("mnist G.BN3", (196 * 50, 64), "relu")]
+# the metric classifier (metrics/classifier.py) at its widths in the quality
+# hook and tools/sensitivity.py (dim 32): three 3x3 stride-2 SAME convs,
+# f32, the first with the leaky ReLU in K1's epilogue, and BN2 / BN3 with
+# the leaky ReLU, on cifar10 (32x32, Cin 3) and mnist (28x28, Cin 1), at
+# the batch sizes of classifier_batches()
+
+
+def _default(fn, name):
+    import inspect
+    return inspect.signature(fn).parameters[name].default
+
+
+def _batches_of(n: int, b: int) -> set:
+    """The batch sizes of a pass over n rows in batches of b."""
+    return {min(n, b), n % b} - {0}
+
+
+def _clf_batch_sizes():
+    """(fit's, accuracy's, the IS pass's) batch sizes, their defaults."""
+    from graphical_gan_tpu_torch.metrics.classifier import MetricClassifier
+    from graphical_gan_tpu_torch.metrics.inception import get_inception_score
+    return (_default(MetricClassifier.fit, "batch_size"),
+            _default(MetricClassifier.accuracy, "batch_size"),
+            _default(get_inception_score, "batch_size"))
+
+
+def quality_hook_batches(n_score: int, n_train: int, n_eval: int) -> set:
+    """The classifier's batch sizes in runs/gan_inference.py:
+    make_structured_quality_hook: fit, accuracy over the n_eval held-out
+    rows, the real pool's feature pass (at most n_score rows), and the
+    samples' IS batches and feature pass."""
+    fit_b, acc_b, is_b = _clf_batch_sizes()
+    return ({fit_b, min(n_score, n_train), n_score}
+            | _batches_of(n_eval, acc_b) | _batches_of(n_score, is_b))
+
+
+def sensitivity_batches(argv) -> set:
+    """The classifier's batch sizes in tools/sensitivity.py with ``argv``:
+    fit, accuracy over the held-out rows, the train rows' feature pass, and
+    IS batches and a feature pass over each of the held-out anchor, the
+    noise anchor and the samples."""
+    from graphical_gan_tpu_torch.tools import sensitivity
+    args = sensitivity.parse_args(argv)
+    fit_b, acc_b, is_b = _clf_batch_sizes()
+    n_anchor = min(args.n_score, sensitivity.N_HELDOUT)
+    out = {fit_b, min(args.n_score, args.n_data)}
+    out |= _batches_of(sensitivity.N_HELDOUT, acc_b)
+    for n in (n_anchor, args.n_score):
+        out |= {n} | _batches_of(n, is_b)
+    return out
+
+
+def classifier_batches() -> tuple:
+    """Every batch size the classifier runs at in the eval phase (the
+    quality hook at its defaults on the structured pool), the learn phase
+    (LEARN_ARGS) and tools/sensitivity.py at its defaults."""
+    from graphical_gan_tpu_torch.data import pools
+    from graphical_gan_tpu_torch.runs.gan_inference import (
+        make_structured_quality_hook)
+    hook = quality_hook_batches(
+        _default(make_structured_quality_hook, "n_score"),
+        _default(pools.structured_loaders, "n_train"),
+        _default(pools.structured_loaders, "n_eval"))
+    return tuple(sorted(hook | sensitivity_batches(LEARN_ARGS)
+                        | sensitivity_batches([])))
+
+
+def generator_sample_batches() -> tuple:
+    """The batch sizes G samples at from f32 codes in the eval and learn
+    phases: the quality hook's and tools/sensitivity.py's sample batches,
+    and cifar10's sample grid (n_vis)."""
+    from graphical_gan_tpu_torch.core.config import gan_inference_defaults
+    from graphical_gan_tpu_torch.runs.gan_inference import (
+        make_structured_quality_hook)
+    from graphical_gan_tpu_torch.tools.sensitivity import draw_gan_samples
+    return tuple(sorted({
+        _default(make_structured_quality_hook, "sample_batch"),
+        _default(draw_gan_samples, "batch"),
+        gan_inference_defaults("cifar10", "wali-gp").n_vis}))
+
+
+def classifier_shapes(b: int, hw: int, cin: int, dim: int = 32):
+    """(conv rows: name, x NHWC, Cout, act; BN rows: name, (R, C), act)."""
+    h2, h4, h8 = -(-hw // 2), -(-hw // 4), -(-hw // 8)
+    tag = "cifar10" if cin == 3 else "mnist"
+    conv = [(f"clf {tag} 1", (b, hw, hw, cin), dim, "leaky_relu"),
+            (f"clf {tag} 2", (b, h2, h2, dim), 2 * dim, None),
+            (f"clf {tag} 3", (b, h4, h4, 2 * dim), 4 * dim, None)]
+    bn = [(f"clf {tag} BN2", (b * h4 * h4, 2 * dim), "leaky_relu"),
+          (f"clf {tag} BN3", (b * h8 * h8, 4 * dim), "leaky_relu")]
+    return conv, bn
+
+
 # tools/bench_conv_kernel.py's shapes of K3 (conv_gemm): (name, B, H=W,
 # Cin, Cout), 5x5 stride 2 SAME, bias, leaky, bf16 in the bench
 K3_SHAPES = [("disc2", 64, 16, 64, 128), ("disc3", 64, 8, 128, 256),
@@ -474,6 +583,36 @@ def _check_family1(gen, errs, misses, seen):
     for name, rc, act in MNIST_BN[:2]:
         _check_bn_double_bwd(name.replace("E/", ""), rc, act, gen, errs,
                              misses)
+
+
+def _check_classifier(gen, errs, misses, seen):
+    """K1, K2a/K2b and K2c+K2d at the metric classifier's shapes, f32 (its
+    dtype, as in JAX), at every batch size the eval and learn phases run
+    it at; then K2a/K2b at G's BN shapes where G samples from f32 codes."""
+    import torch
+    batches = classifier_batches()
+    log({"check": "classifier batches", "B": list(batches),
+         "G_sample_B": list(generator_sample_batches())})
+    for b in generator_sample_batches():
+        for name, rc, act in bn_shapes(b):
+            if name.startswith("G."):
+                x, scale, offset = _bn_inputs(rc, torch.float32, gen)
+                _check_bn(f"{name} sample B={b}", x, scale, offset, act, 0.0,
+                          errs, misses)
+    for hw, cin in ((32, 3), (28, 1)):
+        for b in batches:
+            conv, bn = classifier_shapes(b, hw, cin)
+            for name, shape, cout, act in conv:
+                x, w, bias = _conv_inputs(shape, cout, torch.float32, gen, 3)
+                _check_conv(f"{name} B={b}", x, w, bias, 2, "SAME", act,
+                            errs, misses, seen)
+            for name, rc, act in bn:
+                x, scale, offset = _bn_inputs(rc, torch.float32, gen)
+                _check_bn(f"{name} B={b}", x, scale, offset, act, 0.0, errs,
+                          misses)
+                for kind, g in _bn_cotangents(x, gen):
+                    _check_bn_bwd(f"{name}{kind} B={b}", x, g, scale, offset,
+                                  act, errs, misses)
 
 
 def _plan_of(x, w, stride, padding):
@@ -737,6 +876,7 @@ def phase_check(errs):
                               misses)
     _check_bn_stats_launches(gen, misses)
     _check_family1(gen, errs, misses, seen)
+    _check_classifier(gen, errs, misses, seen)
     _check_f32_against_cpu()
     missed = _k1_coverage_misses(seen)
     log({"check": "K1 plan coverage", "kernels_and_paths_run": len(seen),
@@ -1701,7 +1841,8 @@ def phase_family1(launch_totals):
     import torch
     from graphical_gan_tpu_torch.core.config import GAN_INFERENCE_MODES
     from graphical_gan_tpu_torch.ops import kernels
-    from graphical_gan_tpu_torch.runs.gan_inference import resident_data
+    from graphical_gan_tpu_torch.runs.gan_inference import (
+        _loaders, resident_data)
     from graphical_gan_tpu_torch.train.trainer import Trainer
     base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
                         "smoke_family1")
@@ -1712,7 +1853,8 @@ def phase_family1(launch_totals):
         model = _family1_model(dataset, mode)
         cfg = model.cfg
         if dataset not in data:
-            data[dataset] = resident_data(cfg, None)
+            # run()'s path: the loader's train factory, one epoch
+            data[dataset] = resident_data(cfg, None, _loaders(cfg, None)[0])
         tr = Trainer(model, data[dataset],
                      os.path.join(base, f"{dataset}_{mode}"), seed=0,
                      device="cuda", checkpoint_every=0)
@@ -1829,6 +1971,255 @@ def _mnist_dispatch_parity():
         fail(f"mnist reconstructor launches {got}, want {want}")
 
 
+# ---------------------------------------------------------------------------
+# the dataset loaders, the eval hooks and the learning check
+
+LOADER_ROWS = 640   # rows per CIFAR-10 pickle batch the loaders phase writes
+LOADER_ITERS = 3
+
+
+def write_cifar10_batches(data_dir: str):
+    """Five ``data_batch_*`` pickles and a ``test_batch`` in CIFAR-10's
+    format (a dict of uint8 ``data`` [N, 3072] and a ``labels`` list) from
+    the structured family; returns the train rows [5 * LOADER_ROWS,
+    3072]."""
+    import pickle
+    import numpy as np
+    from graphical_gan_tpu_torch.data.synthetic import (
+        structured_images_labeled)
+    flat, y = structured_images_labeled(6 * LOADER_ROWS, (32, 32), 3, 10,
+                                        seed=3)
+    flat = flat.astype(np.uint8)
+    os.makedirs(data_dir, exist_ok=True)
+    names = [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]
+    for i, name in enumerate(names):
+        sl = slice(i * LOADER_ROWS, (i + 1) * LOADER_ROWS)
+        with open(os.path.join(data_dir, name), "wb") as f:
+            pickle.dump({"data": flat[sl], "labels": y[sl].tolist()}, f,
+                        protocol=2)
+    return flat[:5 * LOADER_ROWS]
+
+
+def _rows(a):
+    import numpy as np
+    return sorted(bytes(r) for r in np.ascontiguousarray(a))
+
+
+def _path_launches(fn, *args, **kwargs):
+    """(fn's result, the kernels' launches in it: counts set to 0 just
+    before and read just after)."""
+    from graphical_gan_tpu_torch.ops import kernels
+    kernels.reset_launches()
+    out = fn(*args, **kwargs)
+    return out, kernels.launches()
+
+
+def _add(totals, got):
+    for k, v in got.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def phase_loaders(launch_totals):
+    """cifar10 wali-gp at the published config (B=64, DIM=64, k=5) for 3
+    iterations through ``runs/gan_inference.run(data_dir=...)`` on CIFAR-10
+    pickle batches written here: resident (the pool must hold the written
+    train rows) and host-fed (each iteration's batches through the
+    prefetcher's side stream); finite costs, the training kernels
+    launched."""
+    import numpy as np
+    from graphical_gan_tpu_torch.data import prefetch
+    from graphical_gan_tpu_torch.runs.gan_inference import run
+    base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
+                        "smoke_loaders")
+    shutil.rmtree(base, ignore_errors=True)
+    data_dir = os.path.join(base, "cifar-10-batches-py")
+    train_rows = write_cifar10_batches(data_dir)
+    rows = {}
+    for pipeline in ("resident", "host"):
+        prefetch.side_stream_batches = 0
+        (tr, metrics), got = _path_launches(
+            run, "cifar10", "wali-gp", iters=LOADER_ITERS,
+            data_dir=data_dir, outdir=os.path.join(base, pipeline),
+            data_pipeline=pipeline, checkpoint_every=0, device="cuda")
+        _add(launch_totals, got)
+        row = {"phase": "loaders", "pipeline": pipeline,
+               "iters": LOADER_ITERS, "last_metrics": metrics,
+               "launches": got,
+               "side_stream_batches": prefetch.side_stream_batches}
+        if pipeline == "resident":
+            pool = tr.data.cpu().numpy()
+            row["pool_rows"] = int(pool.shape[0])
+            row["pool_is_the_written_rows"] = (
+                pool.dtype == np.uint8 and _rows(pool) == _rows(train_rows))
+            if not row["pool_is_the_written_rows"]:
+                fail("loaders: the resident pool is not the written "
+                     "CIFAR-10 train rows")
+        elif prefetch.side_stream_batches != LOADER_ITERS:
+            fail(f"loaders: {prefetch.side_stream_batches} host batches came "
+                 f"through the prefetcher's side stream, not {LOADER_ITERS}")
+        log(row)
+        if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"loaders {pipeline}: costs {metrics}")
+        missing = [k for k in TRAIN_KERNELS if not got.get(k)]
+        if missing:
+            fail(f"loaders {pipeline}: kernels never launched {missing}")
+        rows[pipeline] = row
+    return rows
+
+
+EVAL_ITERS = 100
+EVAL_SAMPLE_EVERY = 50
+
+
+def grid_misses(path: str, n: int, image_hw, channels: int):
+    """What is wrong with a grid PNG of ``n`` images: its IHDR must give
+    the size ``report/save_images.py``'s montage of n images makes, gray
+    for one channel and RGB for three."""
+    from graphical_gan_tpu_torch.report.save_images import (
+        _grid_shape, png_size)
+    if not os.path.isfile(path):
+        return [f"{os.path.basename(path)} missing"]
+    try:
+        w, h, color = png_size(path)
+    except ValueError as e:
+        return [str(e)]
+    nh, nw = _grid_shape(n, None)
+    want = (nw * image_hw[1], nh * image_hw[0], 0 if channels == 1 else 2)
+    if (w, h, color) != want:
+        return [f"{os.path.basename(path)}: (width, height, color) "
+                f"{(w, h, color)}, not {want}"]
+    return []
+
+
+def _log_values(text: str, name: str):
+    """{iteration: value} of ``name`` in a trainer's logfile lines."""
+    out = {}
+    for line in text.splitlines():
+        parts = line.split("\t")
+        if not parts[0].startswith("iter ") or name not in parts:
+            continue
+        i = parts.index(name)
+        out[int(parts[0][5:])] = float(parts[i + 1])
+    return out
+
+
+def eval_log_misses(text: str, last_iter: int):
+    """What is missing from an eval run's logfile: a finite dev cost at
+    ``last_iter``, and finite ``fid``, ``inception score`` and ``metric
+    classifier heldout acc`` values; and no TSNE line (its cadence is
+    50,000)."""
+    misses = []
+    dev = {**_log_values(text, "dev gen cost"),
+           **_log_values(text, "dev rec cost")}
+    if not (last_iter in dev and math.isfinite(dev[last_iter])):
+        misses.append(f"no finite dev cost at iteration {last_iter}")
+    for name in ("fid", "inception score", "metric classifier heldout acc"):
+        vals = list(_log_values(text, name).values())
+        if not vals or not all(math.isfinite(v) for v in vals):
+            misses.append(f"no finite {name!r} line")
+    if "tsne" in text:
+        misses.append("a tsne line before its 50,000-iteration cadence")
+    return misses
+
+
+def phase_eval(launch_totals):
+    """cifar10 wali-gp at the published config in bf16 on the structured
+    family, 100 iterations through ``run()`` with the sample grids every
+    50 and the quality hook at 100 (its classifier trained at the first
+    firing, 10,000 samples scored): the four grid PNGs at their sizes, the
+    dev cost at iteration 99, finite IS / FID / classifier accuracy lines,
+    no TSNE (and sklearn not imported), the training kernels launched."""
+    from graphical_gan_tpu_torch.runs.gan_inference import run
+    base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
+                        "smoke_eval")
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    (tr, metrics), got = _path_launches(
+        run, "cifar10", "wali-gp", iters=EVAL_ITERS, data_dir="structured",
+        compute_dtype="bfloat16", outdir=base,
+        sample_every=EVAL_SAMPLE_EVERY, inception_every=EVAL_ITERS,
+        checkpoint_every=0, device="cuda")
+    _add(launch_totals, got)
+    cfg = tr.cfg
+    hw, c = cfg.data.image_hw, cfg.data.channels
+    misses = []
+    for it in range(EVAL_SAMPLE_EVERY - 1, EVAL_ITERS, EVAL_SAMPLE_EVERY):
+        stem = os.path.join(tr.outf, f"{cfg.mode}_{cfg.dataset}_")
+        misses += grid_misses(f"{stem}samples_{it}.png", cfg.n_vis, hw, c)
+        misses += grid_misses(f"{stem}reconstruction_{it}.png",
+                              2 * cfg.batch_size, hw, c)
+    with open(tr.logfile) as f:
+        text = f.read()
+    misses += eval_log_misses(text, EVAL_ITERS - 1)
+    if "sklearn" in sys.modules:
+        misses.append("sklearn was imported")
+    missing = [k for k in TRAIN_KERNELS if not got.get(k)]
+    if missing:
+        misses.append(f"kernels never launched {missing}")
+    log({"phase": "eval", "iters": EVAL_ITERS, "dtype": cfg.compute_dtype,
+         "seconds": round(time.perf_counter() - t0, 3),
+         "pngs": sorted(f for f in os.listdir(tr.outf) if f.endswith(".png")),
+         "quality": {name: _log_values(text, name) for name in (
+             "dev gen cost", "inception score", "fid",
+             "metric classifier heldout acc")},
+         "last_metrics": metrics, "launches": got, "misses": misses})
+    if misses:
+        fail(f"eval: {misses}")
+
+
+LEARN_ARGS = ["--checkpoints", "0,500", "--n-score", "5000"]
+# the learning check's bounds: the instrument separates its anchors, and
+# 500 iterations move IS up and FID down (BASELINE.md's JAX curve: IS 1.24
+# -> 1.99, FID 43.2 -> 33.0 from iteration 0 to 500; anchors 9.90 / 1.26)
+LEARN_MIN_ACC = 0.95
+LEARN_MIN_REAL_IS = 8.0
+LEARN_MAX_NOISE_IS = 2.0
+
+
+def learn_misses(doc) -> list:
+    """Which of the learning check's bounds a ``tools/sensitivity.py``
+    document breaks: held-out accuracy, the real-data anchor's IS, the
+    noise anchor's IS, and IS rising and FID falling from the ladder's
+    first point to its last."""
+    misses = []
+    acc = doc["classifier_heldout_accuracy"]
+    if not acc >= LEARN_MIN_ACC:
+        misses.append(f"classifier held-out accuracy {acc} < {LEARN_MIN_ACC}")
+    real = doc["anchors"]["heldout_real"]["is_mean"]
+    if not real >= LEARN_MIN_REAL_IS:
+        misses.append(f"held-out real IS {real} < {LEARN_MIN_REAL_IS}")
+    noise = doc["anchors"]["uniform_noise"]["is_mean"]
+    if not noise <= LEARN_MAX_NOISE_IS:
+        misses.append(f"uniform-noise IS {noise} > {LEARN_MAX_NOISE_IS}")
+    curve = sorted(doc["curve"], key=lambda e: e["iter"])
+    if len(curve) < 2:
+        return misses + [f"a curve of {len(curve)} points"]
+    first, last = curve[0], curve[-1]
+    if not last["is_mean"] > first["is_mean"]:
+        misses.append(f"IS did not rise: {first['is_mean']} at "
+                      f"{first['iter']}, {last['is_mean']} at {last['iter']}")
+    if not last["fid"] < first["fid"]:
+        misses.append(f"FID did not fall: {first['fid']} at {first['iter']}, "
+                      f"{last['fid']} at {last['iter']}")
+    return misses
+
+
+def phase_learn(launch_totals):
+    """``tools/sensitivity.py`` on the card (bf16, published width) with
+    ``LEARN_ARGS``; the document is logged whole and held to
+    ``learn_misses``."""
+    from graphical_gan_tpu_torch.tools import sensitivity
+    doc, got = _path_launches(sensitivity.main, LEARN_ARGS)
+    _add(launch_totals, got)
+    log({"learn": doc, "launches": got})
+    misses = learn_misses(doc)
+    missing = [k for k in TRAIN_KERNELS if not got.get(k)]
+    if missing:
+        misses.append(f"kernels never launched {missing}")
+    if misses:
+        fail(f"learn: {misses}")
+
+
 SOURCES = {
     "fused_conv2d_bias_act": (
         "graphical_gan_tpu_torch/csrc/fused_conv.cu",
@@ -1935,7 +2326,8 @@ def summary(errs, timings, launches):
     in bf16 (K3 adds ``rows``: bf16 and f32, per shape with its route).
     ``launches`` counts each kernel's main path (the cifar10
     training runs; for K3 the bench-conv run), ``launches_serve`` the
-    serving run and ``launches_family1`` the family1 runs."""
+    serving run, ``launches_family1`` the family1 runs and
+    ``launches_loaders`` / ``_eval`` / ``_learn`` those phases' runs."""
     out = []
     for name, (src, replaces) in SOURCES.items():
         k3 = name in K3_KERNELS
@@ -1961,6 +2353,8 @@ def summary(errs, timings, launches):
                     "launches": launches["bench" if k3 else "train"][name],
                     "launches_serve": launches["serve"][name],
                     "launches_family1": launches["family1"][name],
+                    **{f"launches_{path}": launches[path].get(name, 0)
+                       for path in ("loaders", "eval", "learn")},
                     "max_abs_err": errs[name],
                     "ms": total("ms"), "plain_ms": total("plain_ms"),
                     "bound_ms": total("bound_ms"),
@@ -2022,7 +2416,7 @@ def main(argv=None) -> int:
         set_numerics()
         errs, timings = {}, []
         launches = {"serve": {}, "train": {}, "bench": {}, "family1": {},
-                    "k1": {}}
+                    "loaders": {}, "eval": {}, "learn": {}, "k1": {}}
         _timed("build", phase_build)
         _timed("check", phase_check, errs)
         _timed("time", phase_time, timings)
@@ -2046,8 +2440,15 @@ def main(argv=None) -> int:
             fail(f"kernels never launched on the bench-conv path: {missing}")
         _timed("family1", phase_family1, launches["family1"])
         _timed("family1-parity", phase_family1_parity)
+        _timed("loaders", phase_loaders, launches["loaders"])
+        _timed("eval", phase_eval, launches["eval"])
+        _timed("learn", phase_learn, launches["learn"])
         if "jax" in sys.modules or "graphical_gan_tpu" in sys.modules:
             fail("JAX or the JAX package was imported")
+        imported = [m for m in ("PIL", "matplotlib", "sklearn")
+                    if m in sys.modules]
+        if imported:
+            fail(f"imported {imported}, which the card's machine lacks")
         log(summary(errs, timings, launches))
         log({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                                1)})

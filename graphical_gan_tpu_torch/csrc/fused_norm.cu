@@ -100,6 +100,15 @@ struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
 
+// The pre-activation y = (x - mean)·(inv·scale) + offset from d = x - mean
+// and a = inv·scale, rounded after the product and again after the sum, as
+// the plain versions round it, and not contracted into one FMA: at a y
+// within rounding of 0 the activation's side (and in K2c+K2d its slope)
+// then agrees with theirs.
+__device__ __forceinline__ float pre_act(float d, float a, float offset) {
+  return __fadd_rn(__fmul_rn(d, a), offset);
+}
+
 template <typename T, int VEC>
 __global__ void __launch_bounds__(256)
 bn_apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
@@ -117,7 +126,7 @@ bn_apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
     for (int k = 0; k < VEC; ++k) {
       const int c = c0 + k;
       const float a = inv[c] * scale[c];
-      const float v = (to_f32(in.v[k]) - mean[c]) * a + offset[c];
+      const float v = pre_act(to_f32(in.v[k]) - mean[c], a, offset[c]);
       out.v[k] = from_f32<T>(apply_act(v, act));
     }
     yp[i] = out;
@@ -504,7 +513,7 @@ __device__ __forceinline__ void bwd_finish_unit(const BwdArgs<T>& a, const Pack<
 #pragma unroll
       for (int q = 0; q < VEC; ++q) {
         const float d = to_f32(xp[j].v[q]) - m[q];
-        const float gz = to_f32(gp[j].v[q]) * act_grad(d * sa[q] + of[q], a.act);
+        const float gz = to_f32(gp[j].v[q]) * act_grad(pre_act(d, sa[q], of[q]), a.act);
         const float v = (gz - mg[q] - d * ivm[q]) * sa[q];
         out.v[q] = from_f32<T>(v);
       }
@@ -573,7 +582,7 @@ __global__ void __launch_bounds__(kThreads<VEC>, 1) bn_bwd_fused_kernel(const Bw
 #pragma unroll
           for (int q = 0; q < VEC; ++q) {
             const float d = to_f32(xp[j].v[q]) - m[q];
-            const float gz = to_f32(gp[j].v[q]) * act_grad(d * sa[q] + of[q], a.act);
+            const float gz = to_f32(gp[j].v[q]) * act_grad(pre_act(d, sa[q], of[q]), a.act);
             s[0][q] += gz;
             s[1][q] = fmaf(gz, d * iv[q], s[1][q]);
           }

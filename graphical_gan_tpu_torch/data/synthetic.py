@@ -18,6 +18,11 @@ def images_int(n: int, output_dim: int, seed: int = 0) -> np.ndarray:
         0, 256, size=(n, output_dim)).astype("int32")
 
 
+def labels(n: int, n_classes: int, seed: int = 1) -> np.ndarray:
+    return np.random.RandomState(seed).randint(
+        0, n_classes, size=(n,)).astype("int64")
+
+
 def structured_images_labeled(n: int, image_hw=(32, 32), channels: int = 3,
                               n_classes: int = 10, seed: int = 0):
     """A learnable K-class image family: class k is a 2-D sinusoid whose

@@ -184,27 +184,7 @@ class GanInferenceModel:
         """Fresh parameters with the JAX names, shapes and init statistics,
         drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``
         (so the values differ from JAX's for the same seed)."""
-        from graphical_gan_tpu_torch.core.device import resolve_device
-        dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
-        params: Params = {}
-        for name, (kind, shape, fan) in self.param_specs().items():
-            if kind == "zeros":
-                params[name] = torch.zeros(shape, device=dev)
-            elif kind == "ones":
-                params[name] = torch.ones(shape, device=dev)
-            else:
-                if kind == "conv":
-                    stdev = inits.he_or_glorot_stdev(
-                        *inits.conv_fans(*fan), he_init=True)
-                elif kind == "deconv":
-                    stdev = inits.he_or_glorot_stdev(
-                        *inits.deconv_fans(*fan), he_init=True)
-                else:
-                    stdev = inits.linear_stdev(None, *fan)
-                params[name] = inits.scaled_uniform(stdev, shape, gen)
-        return params
+        return inits.init_params(self.param_specs(), seed, device)
 
     # -- serving forwards -----------------------------------------------------
 

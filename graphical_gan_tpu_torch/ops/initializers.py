@@ -10,7 +10,7 @@ seed; the statistics are the same.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple, Union
 
 import torch
 
@@ -70,3 +70,33 @@ def he_or_glorot_stdev(fan_in: float, fan_out: float, he_init: bool) -> float:
     if he_init:
         return math.sqrt(4.0 / (fan_in + fan_out))
     return math.sqrt(2.0 / (fan_in + fan_out))
+
+
+def init_params(specs: Dict[str, Tuple[str, Tuple[int, ...], Tuple]],
+                seed: int = 0,
+                device: Union[str, torch.device] = "cuda"
+                ) -> Dict[str, torch.Tensor]:
+    """Fresh parameters from ``{name: (kind, shape, fan arguments)}``, drawn
+    in the specs' order from a ``torch.Generator`` seeded with ``seed`` on
+    ``device``: 'conv' / 'deconv' filters (He: ``conv_fans`` /
+    ``deconv_fans`` of (in, out, k, stride)) and 'linear' weights (Glorot:
+    (in, out)) scaled-uniform, 'zeros' and 'ones' constants."""
+    from graphical_gan_tpu_torch.core.device import resolve_device
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    params: Dict[str, torch.Tensor] = {}
+    for name, (kind, shape, fan) in specs.items():
+        if kind == "zeros":
+            params[name] = torch.zeros(shape, device=dev)
+        elif kind == "ones":
+            params[name] = torch.ones(shape, device=dev)
+        else:
+            if kind == "conv":
+                stdev = he_or_glorot_stdev(*conv_fans(*fan), he_init=True)
+            elif kind == "deconv":
+                stdev = he_or_glorot_stdev(*deconv_fans(*fan), he_init=True)
+            else:
+                stdev = linear_stdev(None, *fan)
+            params[name] = scaled_uniform(stdev, shape, gen)
+    return params

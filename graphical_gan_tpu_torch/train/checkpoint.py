@@ -9,7 +9,8 @@ trainers save their whole ``TrainState`` under the JAX keypaths
 ``n:step``; so a JAX run directory resumes in the port and a port
 checkpoint restores in JAX. This module reads any such file, lists and
 picks the checkpoints of a run directory, writes a params-only checkpoint
-(so a run directory can be made without a trainer) or a whole state, and
+(so a run directory can be made without a trainer), a plain dict (the
+metric classifier's parameters, keys ``k:<name>``) or a whole state, and
 carries JAX parameters or a whole JAX state into the port
 (:func:`params_from_jax`, :func:`state_from_jax`). The orbax and
 pipeline-parallel layouts come in a later slice.
@@ -72,6 +73,14 @@ def params_from_jax(np_params: Dict[str, np.ndarray],
             for name, arr in np_params.items()}
 
 
+def dict_of(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The ``{name: array}`` of a checkpoint of a plain dict, which the JAX
+    ``checkpoint.save`` writes under keys ``k:<name>`` (e.g. a
+    ``MetricClassifier``'s parameters)."""
+    return {k[len("k:"):]: v for k, v in flat.items()
+            if k.startswith("k:") and SEP not in k}
+
+
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach()
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
@@ -81,6 +90,15 @@ def save_params(path: str, params: Dict[str, torch.Tensor],
                 extra: Optional[Dict] = None) -> str:
     """Atomically write a params-only checkpoint in the npz format."""
     return _save_flat(path, {PARAMS_PREFIX + name: _to_numpy(t)
+                             for name, t in params.items()}, extra)
+
+
+def save_dict(path: str, params: Dict[str, torch.Tensor],
+              extra: Optional[Dict] = None) -> str:
+    """Atomically write a plain ``{name: tensor}`` dict as the JAX
+    ``checkpoint.save`` writes one (keys ``k:<name>``): its
+    ``checkpoint.restore`` reads it into the same dict structure."""
+    return _save_flat(path, {"k:" + name: _to_numpy(t)
                              for name, t in params.items()}, extra)
 
 
