@@ -31,6 +31,11 @@ nothing of JAX or of the JAX package, and does in order:
    gradients, and the BN + act double backward (mnist D.BN2/D.BN3),
    against plain autograd; every K1 kernel and every path of K1's plan
    with one split and with several, each called twice for the same bits;
+   K1 and K2 at the shapes family 2 and the step options add
+   (``family2_batches``: G's BNs at the per-component grid's 300 rows, E,
+   D and the BNs at the microbatches 25 and 32 of ``accum_steps=2``,
+   GMGAN's D trunk with the leaky ReLU in K1's epilogue, E at the accuracy
+   hook's and the cluster entry's batches, the fused penalty's D at 192);
 4. time: per kernel and shape, the kernel's median time from CUDA events
    on inputs that are not in L2 (``tools/timing.py``), its plain
    version's, one PyTorch library call's, and the bound (bytes over
@@ -73,7 +78,27 @@ nothing of JAX or of the JAX package, and does in order:
    (bf16, published width): classifier held-out accuracy >= 0.95, real IS
    >= 8.0, noise IS <= 2.0, IS up and FID down from iteration 0 to 500;
    and PIL, matplotlib and sklearn never imported;
-13. prints one JSON line per kernel summary, the card line, and last
+13. step-options: cifar10 wali-gp (B=64, k=5) 2 iterations on the card
+   against the CPU with ``accum_steps=2``, with ``remat`` and with
+   ``fused_gp`` (train-parity's checks and controls); remat on the card
+   bit-identical to no remat; a celeba ali run with ``decay`` whose Adam
+   step sizes are logged and held to the undecayed ones times
+   1 - t / iters;
+14. family2: 3 Trainer iterations of GMGAN's 5 modes under each of the 4
+   MODE_K on mnist (B=50, DIM=64, z=128, 30 components), and of cifar10
+   and svhn local_ep and celeba ali, at published widths: finite costs,
+   K1 launched, K2a-d where BN is on; mnist local_ep CONCRETE then timed
+   and profiled as the family1 runs are;
+15. family2-parity: mnist local_ep CONCRETE and ali REINFORCE, 2
+   iterations on the card against the CPU, the controls refused, q(k|x)'s
+   argmax flips between the devices logged with their margins;
+16. cluster: a gmgan mnist run directory served over HTTP, the sampler
+   from server-drawn one-hot and normal priors and the cluster entry,
+   whose rows sum to 1 within 1e-5 and equal the CPU's within 1e-4;
+17. family2-learn: ``runs/gmgan.run("mnist", "local_ep",
+   data_dir="structured")`` for 1,000 iterations, its clustering accuracy
+   held to ``LEARN2_MIN_ACC``;
+18. prints one JSON line per kernel summary, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line. ``--log PATH`` also
@@ -615,6 +640,101 @@ def _check_classifier(gen, errs, misses, seen):
                                   act, errs, misses)
 
 
+def mnist_shapes(b: int):
+    """(conv rows: name, x NHWC, Cout, act; BN rows: name, (R, C), act) of
+    the mnist E (D.2/D.3 of family 1 too) and G at batch ``b``."""
+    conv = [(n, (b,) + shape[1:], cout, act)
+            for n, shape, cout, act in MNIST_CONV]
+    bn = [(n, (rc[0] // 50 * b, rc[1]), act) for n, rc, act in MNIST_BN]
+    return conv, bn
+
+
+def d_trunk_shapes(b: int, hw: int, cin: int, dim: int = 64):
+    """GMGAN's data-side D trunk (and family 1's cifar10/svhn D): three k5
+    s2 convs with the leaky ReLU in K1's epilogue, no BN."""
+    h2, h4 = -(-hw // 2), -(-hw // 4)
+    tag = "mnist" if cin == 1 else "cifar10"
+    return [(f"{tag} D.1 leaky", (b, hw, hw, cin), dim, "leaky_relu"),
+            (f"{tag} D.2 leaky", (b, h2, h2, dim), 2 * dim, "leaky_relu"),
+            (f"{tag} D.3 leaky", (b, h4, h4, 2 * dim), 4 * dim,
+             "leaky_relu")]
+
+
+def family2_batches() -> dict:
+    """The batch sizes the new paths run K1 and K2 at, derived from the
+    code's own constants: G's BNs at the per-component grid's rows
+    (``runs/gmgan.py: grid_inputs``, mnist and cifar10, where G has BN);
+    the microbatches of ``STEP_ACCUM`` at each published batch; E at the
+    accuracy hook's test batches (the structured split over the batch
+    size) and at the cluster phase's dispatches (the server's buckets);
+    and the fused penalty's stacked D batch (3 B)."""
+    from graphical_gan_tpu_torch.core.config import (
+        gan_inference_defaults, gmgan_defaults)
+    from graphical_gan_tpu_torch.runs import gmgan as gm
+    cfgs = {ds: gmgan_defaults(ds) for ds in ("mnist", "cifar10")}
+    cifar = gan_inference_defaults("cifar10", "wali-gp")
+    n_eval = _default(gm._structured_loaders, "n_eval")
+    return {
+        "G_sample": {ds: sorted({len(gm.grid_inputs(c)[0])})
+                     for ds, c in cfgs.items()},
+        "micro": {"mnist": [cfgs["mnist"].batch_size // STEP_ACCUM],
+                  "cifar10": sorted({cifar.batch_size // STEP_ACCUM,
+                                     cfgs["cifar10"].batch_size
+                                     // STEP_ACCUM})},
+        "E": {"mnist": sorted(_batches_of(n_eval, cfgs["mnist"].batch_size)
+                              | set(BUCKETS))},
+        "fused": {"cifar10": [3 * cifar.batch_size]},
+    }
+
+
+def _check_family2(gen, errs, misses, seen):
+    """K1 and K2 at the shapes family 2 and the step options add
+    (``family2_batches``): G's BN forward at the grid's rows (f32, no
+    gradient); E, D and the BNs with their backward at the microbatches;
+    GMGAN's leaky D.1-3 at the published batches in both dtypes; E at the
+    accuracy hook's and the cluster entry's batches; the fused penalty's
+    D at 3 B (f32, its dtype in the step-options phase)."""
+    import torch
+    f32 = torch.float32
+    batches = family2_batches()
+    log({"check": "family2 batches", **batches})
+
+    def convs(rows, dtype):
+        for name, shape, cout, act in rows:
+            x, w, bias = _conv_inputs(shape, cout, dtype, gen)
+            _check_conv(f"{name} B={shape[0]}", x, w, bias, 2, "SAME", act,
+                        errs, misses, seen)
+
+    def bns(rows, dtype, backward):
+        for name, rc, act in rows:
+            x, scale, offset = _bn_inputs(rc, dtype, gen)
+            _check_bn(f"{name} R={rc[0]}", x, scale, offset, act, 0.0, errs,
+                      misses)
+            for kind, g in _bn_cotangents(x, gen) if backward else ():
+                _check_bn_bwd(f"{name}{kind} R={rc[0]}", x, g, scale, offset,
+                              act, errs, misses)
+
+    for b in batches["G_sample"]["mnist"]:
+        bns([r for r in mnist_shapes(b)[1] if "G." in r[0]], f32, False)
+    for b in batches["G_sample"]["cifar10"]:
+        bns([r for r in bn_shapes(b) if r[0].startswith("G.")], f32, False)
+    for b in batches["micro"]["mnist"]:
+        conv, bn = mnist_shapes(b)
+        convs(conv + d_trunk_shapes(b, 28, 1), f32)
+        bns(bn, f32, True)
+    for b in batches["micro"]["cifar10"]:
+        convs(conv_shapes(b) + d_trunk_shapes(b, 32, 3), f32)
+        bns(bn_shapes(b), f32, True)
+    for dtype in (f32, torch.bfloat16):
+        convs(d_trunk_shapes(50, 28, 1) + d_trunk_shapes(64, 32, 3), dtype)
+    for b in batches["E"]["mnist"]:
+        conv, bn = mnist_shapes(b)
+        convs(conv, f32)
+        bns([r for r in bn if "E/D." in r[0]], f32, False)
+    for b in batches["fused"]["cifar10"]:
+        convs(d_trunk_shapes(b, 32, 3), f32)
+
+
 def _plan_of(x, w, stride, padding):
     from graphical_gan_tpu_torch.ops.kernels import fused_conv
     return fused_conv.plan(tuple(x.shape), tuple(w.shape), stride, padding,
@@ -877,6 +997,7 @@ def phase_check(errs):
     _check_bn_stats_launches(gen, misses)
     _check_family1(gen, errs, misses, seen)
     _check_classifier(gen, errs, misses, seen)
+    _check_family2(gen, errs, misses, seen)
     _check_f32_against_cpu()
     missed = _k1_coverage_misses(seen)
     log({"check": "K1 plan coverage", "kernels_and_paths_run": len(seen),
@@ -1093,6 +1214,8 @@ PER_DISPATCH = {
     "encoder": {"fused_conv2d_bias_act": 3, "bn_stats": 2, "bn_apply": 2},
     "reconstructor": {"fused_conv2d_bias_act": 3, "bn_stats": 5,
                       "bn_apply": 5},
+    # GMGAN mnist's q(k|x): E's three convs and two BNs
+    "cluster": {"fused_conv2d_bias_act": 3, "bn_stats": 2, "bn_apply": 2},
 }
 
 
@@ -1574,7 +1697,7 @@ def phase_train(launch_totals, data, k1_counts):
              "profiled_host_self_ms_per_iter_top_ops": host_top})
 
 
-def _grads(model, params, raw, p_z, alpha, player):
+def _grads(model, params, raw, draws, player):
     import torch
     from graphical_gan_tpu_torch.core.registry import merge, partition
     names = model.GEN_PLAYER if player == "gen" else model.DISC_PLAYER
@@ -1582,8 +1705,8 @@ def _grads(model, params, raw, p_z, alpha, player):
     leaves = {n: p.detach().clone().requires_grad_(True)
               for n, p in mine.items()}
     merged = merge(params, leaves)
-    loss = model.gen_loss(merged, raw, p_z=p_z)[0] if player == "gen" \
-        else model.disc_loss(merged, raw, p_z=p_z, alpha=alpha)[0]
+    fn = model.gen_loss if player == "gen" else model.disc_loss
+    loss = fn(merged, raw, draws=draws)[0]
     return dict(zip(leaves, torch.autograd.grad(loss, list(
         leaves.values()))))
 
@@ -1596,8 +1719,10 @@ def phase_train_parity():
 
 def _parity_inputs(model, seed):
     """Raw batches [2, 1+k, B, D] in the dataset's convention, and the
-    noise of 2 iterations: p_z [2, 1+k, B, z] and, for wali-gp, alpha
-    [2, k, B, 1]."""
+    draws of 2 iterations by the model's names, stacked over the updates:
+    family 1's p_z [2, 1+k, B, z] and, for wali-gp, alpha [2, k, B, 1];
+    GMGAN's prior eps and component [2, 1+k, B, ...] and, for the Gumbel
+    modes, the posterior's uniforms."""
     import numpy as np
     import torch
     cfg = model.cfg
@@ -1607,12 +1732,38 @@ def _parity_inputs(model, seed):
     raw = rng.random(shape, dtype=np.float32) \
         if cfg.data.normalization == "unit" \
         else rng.integers(0, 256, shape).astype(np.float32)
-    noise = {"p_z": torch.from_numpy(rng.standard_normal(
-        (2, 1 + k, b, cfg.dim_latent)).astype(np.float32))}
-    if cfg.mode == "wali-gp":
-        noise["alpha"] = torch.from_numpy(
-            rng.random((2, k, b, 1)).astype(np.float32))
-    return torch.from_numpy(raw), noise
+    lead = (2, 1 + k, b)
+    if hasattr(cfg, "n_coms"):
+        noise = {"hyper_p_z": rng.standard_normal(lead + (cfg.dim_latent,)),
+                 "prior_idx": rng.integers(0, cfg.n_coms, lead)}
+        if cfg.mode_k in ("CONCRETE", "STRAIGHT_THROUGHT_CONCRETE"):
+            noise["gumbel_q"] = rng.random(lead + (cfg.n_coms,))
+    else:
+        noise = {"p_z": rng.standard_normal(lead + (cfg.dim_latent,))}
+        if cfg.mode == "wali-gp":
+            noise["alpha"] = rng.random((2, k, b, 1))
+    return torch.from_numpy(raw), {
+        n: torch.from_numpy(t if t.dtype == np.int64
+                            else t.astype(np.float32))
+        for n, t in noise.items()}
+
+
+def _update_draws(model, noise, it, j):
+    """Update j's draws of iteration ``it`` (0 is G's, 1 + i D's i-th), as
+    the step indexes them."""
+    only = model.DISC_ONLY_DRAWS
+    return {n: t[it, j - 1] if n in only else t[it, j]
+            for n, t in noise.items() if j or n not in only}
+
+
+def _step_noise(model, noise, it):
+    """Iteration ``it``'s draws as the step takes them: with
+    ``accum_steps = a`` each update's [B, ...] split into [a, B / a,
+    ...]."""
+    a = int(getattr(model.cfg, "accum_steps", 1) or 1)
+    return {n: t[it] if a == 1 else t[it].reshape(
+        t.shape[1:2] + (a, t.shape[2] // a) + t.shape[3:])
+        for n, t in noise.items()}
 
 
 def _train_parity(model, label, seed):
@@ -1623,16 +1774,16 @@ def _train_parity(model, label, seed):
     from graphical_gan_tpu_torch.train.step import make_train_step
     k = model.cfg.critic_iters
     raw, noise = _parity_inputs(model, seed)
-    p_z, alpha = noise["p_z"], noise.get("alpha")
     params = model.init(seed=1, device="cpu")
     dev = {"cpu": torch.device("cpu"), "cuda": torch.device("cuda")}
     grads = {}
     for name, d in dev.items():
         on = {n: p.to(d) for n, p in params.items()}
-        grads[name] = {pl: _grads(model, on, raw[0, i].to(d), p_z[0, i].to(d),
-                                  None if alpha is None else alpha[0, 0].to(d),
-                                  pl)
-                       for pl, i in (("gen", 0), ("disc", 1))}
+        grads[name] = {
+            pl: _grads(model, on, raw[0, i].to(d),
+                       {n: t.to(d) for n, t in
+                        _update_draws(model, noise, 0, i).items()}, pl)
+            for pl, i in (("gen", 0), ("disc", 1))}
     grad_err, grad_rel, bad = {}, {}, []
     for pl in ("gen", "disc"):
         norm = torch.linalg.vector_norm
@@ -1650,8 +1801,8 @@ def _train_parity(model, label, seed):
         # copies: the step updates the parameters in place
         st = init_state({n: p.to(d, copy=True) for n, p in params.items()})
         for it in range(2):
-            st, _ = step(st, raw[it].to(d), it > 0,
-                         noise={n: t[it].to(d) for n, t in noise.items()})
+            st, _ = step(st, raw[it].to(d), it > 0, noise={
+                n: t.to(d) for n, t in _step_noise(model, noise, it).items()})
         states[name] = st
     ref = states["cpu"]
     got = _to_cpu_state(states["cuda"])
@@ -2220,6 +2371,326 @@ def phase_learn(launch_totals):
         fail(f"learn: {misses}")
 
 
+# ---------------------------------------------------------------------------
+# the train step's options and family 2 (GMGAN)
+
+STEP_ACCUM = 2          # accum_steps of the step-options phase
+DECAY_ITERS = 3
+FAMILY2_ITERS = 3
+# family 2 beyond mnist: (dataset, mode), CONCRETE, at published widths
+FAMILY2_OTHER = (("cifar10", "local_ep"), ("svhn", "local_ep"),
+                 ("celeba", "ali"))
+# the family-2 run whose steady state is timed (FAMILY1_TIME_ITERS
+# iterations) and profiled (PROFILE_ITERS) after its FAMILY2_ITERS: the
+# learning check's config
+FAMILY2_PROFILED = (("mnist", "local_ep", "CONCRETE"),)
+# the cluster phase: each row of q(k|x) sums to 1 within CLUSTER_SUM_ATOL,
+# and the card's probabilities equal the CPU's within CLUSTER_ATOL
+CLUSTER_ATOL = 1e-4
+CLUSTER_SUM_ATOL = 1e-5
+# the learning check: mnist local_ep on the structured family for
+# LEARN2_ITERS iterations, clustering accuracy at iteration LEARN2_ITERS-1
+# at least LEARN2_MIN_ACC: the 5k run's value there (0.7385 at seed 0,
+# H100 80GB HBM3 at 700 W; PERF.md) less a margin of 0.25 for the spread
+# between runs (0.5655-0.7400 over seeds 0-3 on that card; seed 0 gives
+# 0.7385 again in a fresh process, but 0.7320 here, after the other
+# phases: which op's bits differ is not measured), and above 2x chance
+# (0.20)
+LEARN2_ITERS = 1000
+LEARN2_MIN_ACC = 0.4885
+LEARN2_CHANCE = 0.10
+
+
+def _option_model(**overrides):
+    """cifar10 wali-gp at the published config with step options."""
+    from graphical_gan_tpu_torch.core.config import gan_inference_defaults
+    from graphical_gan_tpu_torch.models.gan_inference import (
+        GanInferenceModel)
+    cfg = gan_inference_defaults("cifar10", "wali-gp", **overrides)
+    if (cfg.batch_size, cfg.dim, cfg.dim_latent, cfg.critic_iters) \
+            != (64, 64, 128, 5):
+        fail(f"cifar10 wali-gp defaults changed: {cfg}")
+    return GanInferenceModel(cfg)
+
+
+def phase_step_options(launch_totals):
+    """cifar10 wali-gp at B=64, k=5: 2 iterations on the card against the
+    CPU with ``accum_steps``, ``remat`` and ``fused_gp``, held as
+    train-parity holds the plain step; remat on the card bit-identical to
+    no remat; and a celeba ali run with ``decay``, whose Adam step sizes
+    are logged."""
+    from graphical_gan_tpu_torch.ops import kernels
+    kernels.reset_launches()
+    for label, kw in (("accum_steps", dict(accum_steps=STEP_ACCUM)),
+                      ("remat", dict(remat=True)),
+                      ("fused_gp", dict(fused_gp=True))):
+        model = _option_model(**kw)
+        if label == "fused_gp" and not model._fused_gp():
+            fail("cifar10 wali-gp does not take the fused penalty")
+        _train_parity(model, f"cifar10 wali-gp {label}={kw[label]}",
+                      seed=6)
+    _remat_bit_identity()
+    _add(launch_totals, kernels.launches())
+    _decay_run(launch_totals)
+
+
+def _remat_bit_identity():
+    """Two iterations with and without remat from one init and one seeded
+    generator on the card (the draws come from it, so the recompute must
+    replay them): the same bits."""
+    import torch
+    from graphical_gan_tpu_torch.train.step import make_train_step
+    raw, _ = _parity_inputs(_option_model(), seed=8)
+    params = _option_model().init(seed=2, device="cuda")
+    out = {}
+    for remat in (False, True):
+        step, init = make_train_step(_option_model(remat=remat))
+        st = init({n: p.clone() for n, p in params.items()})
+        gen = torch.Generator(device="cuda")
+        costs = []
+        for it in range(2):
+            gen.manual_seed(50 + it)
+            st, met = step(st, raw[it].cuda(), it > 0, gen)
+            costs.append({k: float(v) for k, v in met.items()})
+        out[remat] = (st.params, costs)
+    same = all(torch.equal(out[True][0][n], out[False][0][n])
+               for n in params)
+    log({"phase": "step-options", "check": "remat bit identity",
+         "iters": 2, "params_bit_identical": same,
+         "costs_equal": out[True][1] == out[False][1],
+         "costs": out[True][1]})
+    if not (same and out[True][1] == out[False][1]):
+        fail("remat on the card differs from the step without it")
+
+
+def _decay_run(launch_totals):
+    """celeba ali with ``decay`` through ``runs/gan_inference.run``: Adam's
+    step size at its step t is the undecayed one times 1 - t / iters."""
+    from graphical_gan_tpu_torch.optim.optimizers import Adam
+    from graphical_gan_tpu_torch.runs.gan_inference import run
+    seen = []
+    lr_t = Adam.lr_t
+
+    def spy(self, t):
+        out = lr_t(self, t)
+        if self.lr_scale is not None:
+            plain = Adam(lr=self.lr, beta1=self.beta1, beta2=self.beta2,
+                         eps=self.eps)
+            seen.append((int(t), out, lr_t(plain, t)))
+        return out
+
+    base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
+                        "smoke_decay")
+    shutil.rmtree(base, ignore_errors=True)
+    Adam.lr_t = spy
+    try:
+        (tr, metrics), got = _path_launches(
+            run, "celeba", "ali", iters=DECAY_ITERS, decay=True,
+            outdir=base, checkpoint_every=0, sample_every=10 ** 6,
+            tsne_every=0, inception_every=0, device="cuda")
+    finally:
+        Adam.lr_t = lr_t
+    _add(launch_totals, got)
+    iters = tr.cfg.iters
+    bad = [(t, v, u) for t, v, u in seen
+           if not math.isclose(v, u * max(0.0, 1.0 - t / iters),
+                               rel_tol=1e-6)]
+    log({"phase": "step-options", "check": "decay", "model": "celeba ali",
+         "cfg_iters": iters, "lr_t_at_step": sorted(set(
+             (t, v) for t, v, _ in seen if t in (1, 2))),
+         "last_metrics": metrics, "launches": got, "misses": bad})
+    if bad or {t for t, _, _ in seen} != set(range(1, DECAY_ITERS + 1)) \
+            or not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"decay: step sizes {seen} (off: {bad}), costs {metrics}")
+    if not got.get("fused_conv2d_bias_act"):
+        fail(f"decay: K1 never launched {got}")
+
+
+def _gmgan_model(dataset, mode, mode_k="CONCRETE"):
+    """The published config (core/config.py: gmgan_defaults)."""
+    from graphical_gan_tpu_torch.core.config import gmgan_defaults
+    from graphical_gan_tpu_torch.models.gmgan import GMGanModel
+    cfg = gmgan_defaults(dataset, mode, mode_k=mode_k)
+    want = {"mnist": (50, 64, 30), "cifar10": (64, 64, 30),
+            "svhn": (64, 64, 50), "celeba": (128, 32, 100)}[dataset]
+    if (cfg.batch_size, cfg.dim_g or cfg.dim, cfg.n_coms) != want:
+        fail(f"gmgan {dataset} {mode} defaults changed: {cfg}")
+    return GMGanModel(cfg)
+
+
+def phase_family2(launch_totals):
+    """3 Trainer iterations of each of the 5 modes under each of the 4
+    MODE_K on mnist, and of cifar10 and svhn local_ep and celeba ali, at
+    published widths on resident synthetic data (``runs/gmgan.py``'s
+    loaders): finite costs and parameters, K1 launched, K2a-d where BN is
+    on."""
+    import torch
+    from graphical_gan_tpu_torch.core.config import GMGAN_MODES, MODE_KS
+    from graphical_gan_tpu_torch.ops import kernels
+    from graphical_gan_tpu_torch.runs import gmgan as gm
+    from graphical_gan_tpu_torch.runs.gan_inference import resident_data
+    from graphical_gan_tpu_torch.train.trainer import Trainer
+    base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
+                        "smoke_family2")
+    shutil.rmtree(base, ignore_errors=True)
+    runs = [("mnist", m, k) for m in GMGAN_MODES for k in MODE_KS] + [
+        (ds, m, "CONCRETE") for ds, m in FAMILY2_OTHER]
+    data = {}
+    for dataset, mode, mode_k in runs:
+        model = _gmgan_model(dataset, mode, mode_k)
+        cfg = model.cfg
+        if dataset not in data:
+            data[dataset] = resident_data(cfg, None,
+                                          gm._loaders(cfg, None)[0])
+        tr = Trainer(model, data[dataset],
+                     os.path.join(base, f"{dataset}_{mode}_{mode_k}"),
+                     seed=0, device="cuda", checkpoint_every=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        metrics = tr.train(FAMILY2_ITERS)
+        torch.cuda.synchronize()
+        got = kernels.launches()
+        _add(launch_totals, got)
+        missing = [k for k in _expected_kernels(cfg) if not got[k]]
+        row = {"phase": "family2", "dataset": dataset, "mode": mode,
+               "mode_k": mode_k, "batch": cfg.batch_size,
+               "dim": cfg.dim_g or cfg.dim, "z": cfg.dim_latent,
+               "n_coms": cfg.n_coms, "bn": cfg.bn, "k": cfg.critic_iters,
+               "iters": FAMILY2_ITERS,
+               "seconds": round(time.perf_counter() - t0, 3),
+               "last_metrics": metrics, "launches": got}
+        if (dataset, mode, mode_k) in FAMILY2_PROFILED:
+            ms = _time_train(tr, FAMILY1_TIME_ITERS)
+            busy, dev_ms, groups, top, host_ops, _ = _profile_train(
+                tr, PROFILE_ITERS)
+            images = (1 + cfg.critic_iters) * cfg.batch_size
+            row.update(ms_per_iter=ms, images_per_s=images / ms * 1e3,
+                       busy_share=busy, device_ms_per_iter=dev_ms,
+                       device_ms_per_iter_by_group=groups,
+                       top_kernels_ms_per_iter=top,
+                       profiled_host_aten_ops_per_iter=host_ops)
+        log(row)
+        if not metrics or not all(math.isfinite(v)
+                                  for v in metrics.values()):
+            fail(f"family2 {dataset} {mode} {mode_k}: costs {metrics}")
+        _finite_state(tr, f"family2 {dataset} {mode} {mode_k}")
+        if missing:
+            fail(f"family2 {dataset} {mode} {mode_k}: kernels never "
+                 f"launched {missing}")
+
+
+def _argmax_flips(model, params, raw):
+    """Rows of one batch whose q(k|x) argmax differs between the card and
+    the CPU, with the CPU's top-two logit margin at each."""
+    import torch
+    with torch.no_grad():
+        logits = {}
+        for d in ("cpu", "cuda"):
+            on = {n: p.to(d) for n, p in params.items()}
+            z = model.encode(on, raw.to(d))
+            logits[d] = model.component_logits(on, z).cpu()
+    top = logits["cpu"].topk(2, dim=1).values
+    rows = (logits["cpu"].argmax(1) != logits["cuda"].argmax(1)).nonzero()
+    return [{"row": int(r), "cpu_top2_margin": float(top[r, 0] - top[r, 1])}
+            for r in rows.flatten()]
+
+
+def phase_family2_parity():
+    """mnist local_ep CONCRETE and mnist ali REINFORCE: 2 iterations on the
+    card against the CPU from the same params, batches and draws, the
+    controls refused; q(k|x)'s argmax flips between the two devices on the
+    first batches are logged with their margins."""
+    for mode, mode_k in (("local_ep", "CONCRETE"), ("ali", "REINFORCE")):
+        model = _gmgan_model("mnist", mode, mode_k)
+        raw, _ = _parity_inputs(model, seed=4)
+        params = model.init(seed=1, device="cpu")
+        log({"phase": "family2-parity", "model": f"mnist {mode} {mode_k}",
+             "argmax_flips": {f"update {j}": _argmax_flips(
+                 model, params, raw[0, j]) for j in (0, 1)}})
+        _train_parity(model, f"mnist {mode} {mode_k}", seed=4)
+
+
+def phase_cluster(launch_totals):
+    """A gmgan mnist local_ep run directory (published width, random
+    weights from a seed) served over HTTP: the sampler with server-drawn
+    one-hot and normal priors, and the cluster entry, whose q(k|x) rows
+    sum to 1 and equal the CPU's."""
+    import numpy as np
+    from graphical_gan_tpu_torch.core.config import asdict
+    from graphical_gan_tpu_torch.ops import kernels
+    from graphical_gan_tpu_torch.serve.server import sampler_from_run_dir
+    from graphical_gan_tpu_torch.train.checkpoint import save_params
+    model = _gmgan_model("mnist", "local_ep")
+    run_dir = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
+                           "smoke_gmgan_run")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    with open(os.path.join(run_dir, "config.json"), "w") as f:
+        json.dump(asdict(model.cfg), f, default=str)
+    save_params(os.path.join(run_dir, "ckpt_0.npz"),
+                model.init(seed=0, device="cuda"), {"iteration": 0})
+    raw = np.random.default_rng(10).random((300, 784), dtype=np.float32)
+    kernels.reset_launches()
+    _drive_entry(run_dir, "sampler", raw, 784)
+    outs = _drive_entry(run_dir, "cluster", raw, model.cfg.n_coms)
+    _add(launch_totals, kernels.launches())
+    cpu, _, _, _ = sampler_from_run_dir(run_dir, entry="cluster",
+                                        device="cpu")
+    ref = cpu(9, raw[:64])
+    e = float(np.abs(outs["exact64"] - ref).max())
+    sums = max(float(np.abs(o.sum(axis=1) - 1.0).max())
+               for o in outs.values())
+    log({"phase": "cluster", "gpu_vs_cpu_max_abs_err": e,
+         "atol": CLUSTER_ATOL, "row_sum_max_abs_err": sums,
+         "row_sum_atol": CLUSTER_SUM_ATOL,
+         "argmax_agree": float((outs["exact64"].argmax(1)
+                                == ref.argmax(1)).mean())})
+    if not (e <= CLUSTER_ATOL and sums <= CLUSTER_SUM_ATOL):
+        fail(f"cluster: the card's q(k|x) differs from the CPU's by {e}, "
+             f"rows sum to 1 within {sums}")
+
+
+def learn2_misses(acc) -> list:
+    """What the family-2 learning check refuses: no accuracy, or one below
+    LEARN2_MIN_ACC (which is above twice chance)."""
+    if acc is None or not math.isfinite(acc):
+        return [f"no finite testing accuracy: {acc}"]
+    if not acc >= LEARN2_MIN_ACC:
+        return [f"clustering accuracy {acc} < {LEARN2_MIN_ACC}"]
+    return []
+
+
+def phase_family2_learn(launch_totals):
+    """``runs/gmgan.run("mnist", "local_ep", data_dir="structured")`` for
+    LEARN2_ITERS iterations with the accuracy hook at the last one; its
+    ``testing accuracy`` held to LEARN2_MIN_ACC."""
+    from graphical_gan_tpu_torch.runs.gmgan import run
+    base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
+                        "smoke_family2_learn")
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    (tr, metrics), got = _path_launches(
+        run, "mnist", "local_ep", iters=LEARN2_ITERS, data_dir="structured",
+        outdir=base, eval_every=LEARN2_ITERS, checkpoint_every=0,
+        device="cuda")
+    _add(launch_totals, got)
+    with open(tr.logfile) as f:
+        accs = _log_values(f.read(), "testing accuracy")
+    acc = accs.get(LEARN2_ITERS)
+    misses = learn2_misses(acc)
+    missing = [k for k in TRAIN_KERNELS if not got.get(k)]
+    if missing:
+        misses.append(f"kernels never launched {missing}")
+    log({"phase": "family2-learn", "iters": LEARN2_ITERS,
+         "seconds": round(time.perf_counter() - t0, 3),
+         "testing_accuracy": acc, "min_acc": LEARN2_MIN_ACC,
+         "chance": LEARN2_CHANCE, "last_metrics": metrics, "launches": got,
+         "misses": misses})
+    if misses:
+        fail(f"family2-learn: {misses}")
+
+
 SOURCES = {
     "fused_conv2d_bias_act": (
         "graphical_gan_tpu_torch/csrc/fused_conv.cu",
@@ -2327,7 +2798,8 @@ def summary(errs, timings, launches):
     ``launches`` counts each kernel's main path (the cifar10
     training runs; for K3 the bench-conv run), ``launches_serve`` the
     serving run, ``launches_family1`` the family1 runs and
-    ``launches_loaders`` / ``_eval`` / ``_learn`` those phases' runs."""
+    ``launches_loaders`` / ``_eval`` / ``_learn`` / ``_step_options`` /
+    ``_family2`` / ``_cluster`` / ``_family2_learn`` those phases' runs."""
     out = []
     for name, (src, replaces) in SOURCES.items():
         k3 = name in K3_KERNELS
@@ -2354,7 +2826,9 @@ def summary(errs, timings, launches):
                     "launches_serve": launches["serve"][name],
                     "launches_family1": launches["family1"][name],
                     **{f"launches_{path}": launches[path].get(name, 0)
-                       for path in ("loaders", "eval", "learn")},
+                       for path in ("loaders", "eval", "learn",
+                                    "step_options", "family2", "cluster",
+                                    "family2_learn")},
                     "max_abs_err": errs[name],
                     "ms": total("ms"), "plain_ms": total("plain_ms"),
                     "bound_ms": total("bound_ms"),
@@ -2416,7 +2890,9 @@ def main(argv=None) -> int:
         set_numerics()
         errs, timings = {}, []
         launches = {"serve": {}, "train": {}, "bench": {}, "family1": {},
-                    "loaders": {}, "eval": {}, "learn": {}, "k1": {}}
+                    "loaders": {}, "eval": {}, "learn": {}, "k1": {},
+                    "step_options": {}, "family2": {}, "cluster": {},
+                    "family2_learn": {}}
         _timed("build", phase_build)
         _timed("check", phase_check, errs)
         _timed("time", phase_time, timings)
@@ -2443,6 +2919,20 @@ def main(argv=None) -> int:
         _timed("loaders", phase_loaders, launches["loaders"])
         _timed("eval", phase_eval, launches["eval"])
         _timed("learn", phase_learn, launches["learn"])
+        _timed("step-options", phase_step_options, launches["step_options"])
+        _timed("family2", phase_family2, launches["family2"])
+        _timed("family2-parity", phase_family2_parity)
+        _timed("cluster", phase_cluster, launches["cluster"])
+        _timed("family2-learn", phase_family2_learn,
+               launches["family2_learn"])
+        for path, want in (("family2", TRAIN_KERNELS),
+                           ("family2_learn", TRAIN_KERNELS),
+                           ("cluster", SERVE_KERNELS),
+                           ("step_options", TRAIN_KERNELS)):
+            missing = [k for k in want if not launches[path].get(k)]
+            if missing:
+                fail(f"kernels never launched on the {path} path: "
+                     f"{missing}")
         if "jax" in sys.modules or "graphical_gan_tpu" in sys.modules:
             fail("JAX or the JAX package was imported")
         imported = [m for m in ("PIL", "matplotlib", "sklearn")

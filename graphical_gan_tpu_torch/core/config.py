@@ -1,7 +1,7 @@
 """Config layer of the port: a copy of ``graphical_gan_tpu/core/config.py``
-(``DataSpec``, ``GanInferenceConfig``, the ``derive_*`` rules and
-``gan_inference_defaults``), kept here so that the port imports nothing of
-the JAX package. The GMGAN and SSGAN configs come with their families.
+(``DataSpec``, ``GanInferenceConfig``, ``GMGanConfig``, the ``derive_*``
+rules and the per-dataset defaults), kept here so that the port imports
+nothing of the JAX package. The SSGAN config comes with its family.
 """
 
 from __future__ import annotations
@@ -177,6 +177,88 @@ def gan_inference_defaults(dataset: str, mode: str = "ali", **overrides
     common.update(cfg)
     common.update(overrides)
     return GanInferenceConfig(**common)
+
+
+# ---------------------------------------------------------------------------
+# family 2 — GMGAN (Gaussian-mixture prior): gmgan_inference_*
+# ---------------------------------------------------------------------------
+
+GMGAN_MODES = ("ali", "local_ep", "alice", "local_epce", "vegan")
+MODE_KS = ("CONCRETE", "STRAIGHT_THROUGHT_CONCRETE", "STRAIGHT_THROUGHT",
+           "REINFORCE")
+
+
+@dataclass(frozen=True)
+class GMGanConfig:
+    dataset: str = "mnist"
+    mode: str = "local_ep"            # ali, local_ep, alice, local_epce, vegan
+    mode_k: str = "CONCRETE"          # MODE_KS
+    n_coms: int = 30
+    temp: float = 0.1                 # Gumbel-softmax temperature
+    control_variate: float = 0.0      # REINFORCE baseline
+    batch_size: int = 50
+    dim: int = 64
+    dim_g: Optional[int] = None
+    dim_d: Optional[int] = None
+    dim_latent: int = 128
+    bn: bool = True
+    lr: float = 2e-4
+    beta1: float = 0.5
+    beta2: float = 0.999
+    iters: int = 200_000
+    lambda_: float = 1.0
+    distance_x: str = "l2"
+    dropout_rate: float = 0.2
+    critic_iters: int = 1
+    type_q: str = "no_std"
+    type_p: str = "no_std"
+    n_vis: int = 300
+    compute_dtype: str = "float32"
+    param_dtype: str = "float32"
+    moment_dtype: str = "float32"
+    remat: bool = False
+    accum_steps: int = 1
+
+    @property
+    def data(self) -> DataSpec:
+        return dataset_spec(self.dataset)
+
+
+def gmgan_defaults(dataset: str, mode: str = "local_ep", **overrides
+                   ) -> GMGanConfig:
+    """Published per-script defaults (gmgan_inference_{mnist,svhn,cifar10,
+    face}): mnist B=50 with 30 components, svhn B=64, 50, no BN, cifar10
+    B=64, 30, celeba B=128, dim 32, 100 components, no BN."""
+    if mode not in GMGAN_MODES:
+        raise ValueError(f"unknown gmgan mode {mode!r}; valid modes: "
+                         f"{', '.join(GMGAN_MODES)}")
+    type_q, type_p = derive_type_q(mode)
+    common = dict(dataset=dataset, mode=mode,
+                  critic_iters=derive_critic_iters(mode),
+                  beta1=derive_beta1(mode), type_q=type_q, type_p=type_p)
+    if dataset == "mnist":
+        bn, dl = derive_bn_latent(mode, True, 128)
+        cfg = dict(batch_size=50, dim=64, bn=bn, dim_latent=dl, n_coms=30,
+                   n_vis=300)
+    elif dataset == "svhn":
+        _, dl = derive_bn_latent(mode, False, 128)
+        cfg = dict(batch_size=64, dim=64, bn=False, dim_latent=dl, n_coms=50,
+                   n_vis=500)
+    elif dataset == "cifar10":
+        bn, dl = derive_bn_latent(mode, True, 128)
+        cfg = dict(batch_size=64, dim=64, bn=bn, dim_latent=dl, n_coms=30,
+                   n_vis=300)
+    elif dataset == "celeba":
+        cfg = dict(batch_size=128, dim=32, dim_g=32, dim_d=32, bn=False,
+                   dim_latent=128, n_coms=100, iters=100_000, n_vis=400)
+    else:
+        raise ValueError(f"unknown gmgan dataset {dataset!r}")
+    common.update(cfg)
+    common.update(overrides)
+    if common.get("mode_k", "CONCRETE") not in MODE_KS:
+        raise ValueError(f"unknown MODE_K {common['mode_k']!r}; valid: "
+                         f"{', '.join(MODE_KS)}")
+    return GMGanConfig(**common)
 
 
 def asdict(cfg) -> dict:

@@ -31,6 +31,14 @@ dtype), ``eps_rec`` (the posterior on fake_x), ``d_real0-3`` and
 int64) and ``mix_eps`` ([S, z]) for a draw from the aggregated posterior,
 ``z_prior`` ([S, z]) for one from the prior (S = ``z_samples``).
 
+``fused_gp`` (off by default, as in JAX, which measured it slower) computes
+wali-gp's D loss from one batched D apply over [real; fake; interpolates]
+(``penalties.wali_gp_fused``) where D couples no rows (``_rowwise_disc``:
+cifar10, svhn, celeba); the mnist D, with batch-statistics BN, keeps the
+separate applies, as JAX does. The G+E player's loss reads only D's real
+and fake scores, which the fused apply gives row for row, so it keeps the
+two applies.
+
 Known reference defect, made functional as in the JAX package: the vae
 mode's Gaussian likelihood takes mean rec_x and std ``cfg.std``.
 """
@@ -86,6 +94,48 @@ def _bn(specs, name, c):
     specs[name + ".scale"] = ("ones", (c,), ())
 
 
+def encoder_generator_specs(cfg) -> Dict[str, _Spec]:
+    """The extractor's and the generator's parameters (``networks.py``), the
+    same in families 1 and 2: mnist, cifar10 and svhn (three stages, BN in
+    E and G where ``cfg.bn``), celeba (four stages of ``dim_g``, no BN)."""
+    ch, dl = cfg.data.channels, cfg.dim_latent
+    s: Dict[str, _Spec] = {}
+    if cfg.dataset == "celeba":
+        # gan_inference_face.py:78-116
+        dim = cfg.dim_g or cfg.dim
+        widths = [ch, dim, 2 * dim, 4 * dim, 8 * dim]
+        for i in range(4):
+            _conv(s, f"Extractor.{i + 1}", widths[i], widths[i + 1])
+        _linear(s, "Extractor.Output", 4 * 4 * 8 * dim, dl)
+        _linear(s, "Generator.Input", dl, 4 * 4 * 8 * dim)
+        for i, n in enumerate(["2", "3", "4", "5"]):
+            _deconv(s, f"Generator.{n}", widths[4 - i], widths[3 - i])
+        return s
+    dim = cfg.dim
+    feat = 4 * 4 * 4 * dim
+    _conv(s, "Extractor.1", ch, dim)
+    _conv(s, "Extractor.2", dim, 2 * dim)
+    if cfg.bn:
+        _bn(s, "Extractor.BN2", 2 * dim)
+    _conv(s, "Extractor.3", 2 * dim, 4 * dim)
+    if cfg.bn:
+        _bn(s, "Extractor.BN3", 4 * dim)
+    if cfg.type_q == "learn_std":
+        _linear(s, "Extractor.Std", feat, dl)
+    _linear(s, "Extractor.Output", feat, dl)
+    _linear(s, "Generator.Input", dl, feat)
+    if cfg.bn:
+        _bn(s, "Generator.BN1", feat)
+    _deconv(s, "Generator.2", 4 * dim, 2 * dim)
+    if cfg.bn:
+        _bn(s, "Generator.BN2", 2 * dim)
+    _deconv(s, "Generator.3", 2 * dim, dim)
+    if cfg.bn:
+        _bn(s, "Generator.BN3", dim)
+    _deconv(s, "Generator.5", dim, ch)
+    return s
+
+
 class GanInferenceModel:
     GEN_PLAYER = ("Generator", "Extractor")
     DISC_PLAYER = ("Discriminator",)
@@ -108,32 +158,7 @@ class GanInferenceModel:
         """Every parameter the JAX ``init`` makes, by name."""
         cfg = self.cfg
         ch, dl = cfg.data.channels, cfg.dim_latent
-        s: Dict[str, _Spec] = {}
-        if cfg.dataset == "celeba":
-            self._celeba_specs(s)
-        else:
-            dim = cfg.dim
-            feat = 4 * 4 * 4 * dim
-            _conv(s, "Extractor.1", ch, dim)
-            _conv(s, "Extractor.2", dim, 2 * dim)
-            if cfg.bn:
-                _bn(s, "Extractor.BN2", 2 * dim)
-            _conv(s, "Extractor.3", 2 * dim, 4 * dim)
-            if cfg.bn:
-                _bn(s, "Extractor.BN3", 4 * dim)
-            if cfg.type_q == "learn_std":
-                _linear(s, "Extractor.Std", feat, dl)
-            _linear(s, "Extractor.Output", feat, dl)
-            _linear(s, "Generator.Input", dl, feat)
-            if cfg.bn:
-                _bn(s, "Generator.BN1", feat)
-            _deconv(s, "Generator.2", 4 * dim, 2 * dim)
-            if cfg.bn:
-                _bn(s, "Generator.BN2", 2 * dim)
-            _deconv(s, "Generator.3", 2 * dim, dim)
-            if cfg.bn:
-                _bn(s, "Generator.BN3", dim)
-            _deconv(s, "Generator.5", dim, ch)
+        s = encoder_generator_specs(cfg)
         if cfg.mode in VEGAN_CODE_MODES:  # networks.discriminator_z
             widths = [dl, 1024, 512, 256, 256]
             for i, n in enumerate(["Input", "2", "3", "4"]):
@@ -141,7 +166,16 @@ class GanInferenceModel:
                 if cfg.bn:
                     _bn(s, f"Discriminator.BN{i + 1}", widths[i + 1])
             _linear(s, "Discriminator.Output", 256, 1)
-        elif cfg.has_discriminator and cfg.dataset != "celeba":
+        elif cfg.has_discriminator and cfg.dataset == "celeba":
+            # gan_inference_face.py:119-146: four stages, no BN
+            dd = cfg.dim_d or cfg.dim
+            wd = [ch, dd, 2 * dd, 4 * dd, 8 * dd]
+            for i in range(4):
+                _conv(s, f"Discriminator.{i + 1}", wd[i], wd[i + 1])
+            _linear(s, "Discriminator.z1", dl, 512)
+            _linear(s, "Discriminator.zx1", 4 * 4 * 8 * dd + 512, 512)
+            _linear(s, "Discriminator.Output", 512, 1)
+        elif cfg.has_discriminator:
             dim = cfg.dim
             feat = 4 * 4 * 4 * dim
             _conv(s, "Discriminator.1", ch, dim)
@@ -157,27 +191,6 @@ class GanInferenceModel:
             _linear(s, "Discriminator.zx1", feat + 512, 512)
             _linear(s, "Discriminator.Output", 512, 1)
         return s
-
-    def _celeba_specs(self, s: Dict[str, _Spec]) -> None:
-        """``gan_inference_face.py:78-146``: four stages each, no BN."""
-        cfg = self.cfg
-        ch, dl = cfg.data.channels, cfg.dim_latent
-        dim = cfg.dim_g or cfg.dim
-        widths = [ch, dim, 2 * dim, 4 * dim, 8 * dim]
-        for i in range(4):
-            _conv(s, f"Extractor.{i + 1}", widths[i], widths[i + 1])
-        _linear(s, "Extractor.Output", 4 * 4 * 8 * dim, dl)
-        _linear(s, "Generator.Input", dl, 4 * 4 * 8 * dim)
-        for i, n in enumerate(["2", "3", "4", "5"]):
-            _deconv(s, f"Generator.{n}", widths[4 - i], widths[3 - i])
-        if cfg.has_discriminator and cfg.mode not in VEGAN_CODE_MODES:
-            dd = cfg.dim_d or cfg.dim
-            wd = [ch, dd, 2 * dd, 4 * dd, 8 * dd]
-            for i in range(4):
-                _conv(s, f"Discriminator.{i + 1}", wd[i], wd[i + 1])
-            _linear(s, "Discriminator.z1", dl, 512)
-            _linear(s, "Discriminator.zx1", 4 * 4 * 8 * dd + 512, 512)
-            _linear(s, "Discriminator.Output", 512, 1)
 
     def init(self, seed: int = 0,
              device: Union[str, torch.device] = "cuda") -> Params:
@@ -259,11 +272,22 @@ class GanInferenceModel:
                                                       d, "d_real")
             t["disc_fake"] = networks.discriminator_z(cfg, params, q_z, d,
                                                       "d_fake")
-        elif mode in XZ_MODES:
+        elif mode in XZ_MODES and (gen or not self._fused_gp()):
             disc = self.discriminator(params)
             t["disc_real"] = disc(real_x, q_z)
             t["disc_fake"] = disc(t["fake_x"], t["p_z"])
         return t
+
+    def _rowwise_disc(self) -> bool:
+        """True where the joint D has no batch-coupled op (no BN in the
+        cifar10, svhn and celeba D stacks; dropout is the identity), so one
+        apply over stacked batches is exact per row; the mnist D has
+        batch-statistics BN (``gan_inference.py:86-97``)."""
+        return self.cfg.dataset in ("cifar10", "svhn", "celeba")
+
+    def _fused_gp(self) -> bool:
+        return self.cfg.mode == "wali-gp" and self.cfg.fused_gp \
+            and self._rowwise_disc()
 
     def discriminator(self, params: Params):
         return lambda x, z: networks.discriminator_xz(self.cfg, params, x, z)
@@ -387,6 +411,13 @@ class GanInferenceModel:
                                          aux["gp"], cfg.lambda_)
         elif mode == "wali":
             _, cost = objs.wali(t["disc_fake"], t["disc_real"])
+        elif self._fused_gp():
+            alpha = d.uniform("alpha", (raw_x.shape[0], 1), raw_x.device)
+            t["disc_real"], t["disc_fake"], aux["gp"] = \
+                penalties.wali_gp_fused(
+                    self.discriminator(params), t["real_x"], t["fake_x"],
+                    t["q_z"], t["p_z"], alpha, cfg.gp_lambda)
+            _, cost = objs.wali_gp(t["disc_fake"], t["disc_real"], aux["gp"])
         else:  # wali-gp
             aux["gp"] = self.gradient_penalty(params, t, draws=d)
             _, cost = objs.wali_gp(t["disc_fake"], t["disc_real"], aux["gp"])

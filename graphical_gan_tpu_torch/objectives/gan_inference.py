@@ -2,13 +2,14 @@
 (``graphical_gan_tpu/objectives/gan_inference.py``). Each returns
 ``(gen_cost, disc_cost)``. The sigmoid-CE losses train the generator with
 both labels flipped (fake -> 1 and real -> 0), as the reference does; the
-means are taken in the scores' dtype, as ``jnp.mean`` does. The
-``local_ep*`` losses come with family 3.
+means are taken in the scores' dtype, as ``jnp.mean`` does. ``s_f`` is
+GMGAN's REINFORCE surrogate (``objectives/discrete.py``), added to the
+generator cost where the reference adds it (``gan_inference.py:65-66``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -33,27 +34,63 @@ def wali_gp(disc_fake: torch.Tensor, disc_real: torch.Tensor,
     return gen_cost, disc_cost
 
 
-def ali(disc_fake: torch.Tensor, disc_real: torch.Tensor) -> Pair:
+def ali(disc_fake: torch.Tensor, disc_real: torch.Tensor,
+        s_f: Optional[torch.Tensor] = None) -> Pair:
     """Sigmoid-CE ALI with one joint discriminator
     (``gan_inference.py:47-79``)."""
     gen_cost = sigmoid_ce(disc_fake, 1.0) + sigmoid_ce(disc_real, 0.0)
     disc_cost = sigmoid_ce(disc_fake, 0.0) + sigmoid_ce(disc_real, 1.0)
+    if s_f is not None:
+        gen_cost = gen_cost + s_f
     return gen_cost, disc_cost
 
 
+def local_ep(disc_fake_list: Sequence[torch.Tensor],
+             disc_real_list: Sequence[torch.Tensor],
+             s_f: Optional[torch.Tensor] = None) -> Pair:
+    """The paper's method: CE averaged over local discriminators
+    (``gan_inference.py:81-119``); ``s_f`` is added before the division
+    by the list's length, as the reference adds it."""
+    gen_cost = torch.zeros((), device=disc_fake_list[0].device)
+    disc_cost = torch.zeros((), device=disc_fake_list[0].device)
+    for df, dr in zip(disc_fake_list, disc_real_list):
+        gen_cost = gen_cost + sigmoid_ce(df, 1.0) + sigmoid_ce(dr, 0.0)
+        disc_cost = disc_cost + sigmoid_ce(df, 0.0) + sigmoid_ce(dr, 1.0)
+    if s_f is not None:
+        gen_cost = gen_cost + s_f
+    n = len(disc_fake_list)
+    return gen_cost / n, disc_cost / n
+
+
+def local_epce(disc_fake_list: Sequence[torch.Tensor],
+               disc_real_list: Sequence[torch.Tensor],
+               rec_penalty: torch.Tensor,
+               s_f: Optional[torch.Tensor] = None) -> Pair:
+    """local_ep + reconstruction penalty on the generator, added after the
+    division (``gan_inference.py:121-159``)."""
+    gen_cost, disc_cost = local_ep(disc_fake_list, disc_real_list, s_f)
+    return gen_cost + rec_penalty, disc_cost
+
+
 def alice(disc_fake: torch.Tensor, disc_real: torch.Tensor,
-          rec_penalty: torch.Tensor) -> Pair:
+          rec_penalty: torch.Tensor,
+          s_f: Optional[torch.Tensor] = None) -> Pair:
     """ALI + reconstruction penalty on the generator
     (``gan_inference.py:161-192``)."""
-    gen_cost, disc_cost = ali(disc_fake, disc_real)
+    gen_cost, disc_cost = ali(disc_fake, disc_real, s_f)
     return gen_cost + rec_penalty, disc_cost
 
 
 def vegan(disc_fake: torch.Tensor, disc_real: torch.Tensor,
-          rec_penalty: torch.Tensor, lamb: float) -> Pair:
+          rec_penalty: torch.Tensor, lamb: float,
+          s_f: Optional[torch.Tensor] = None) -> Pair:
     """VEEGAN-style code-space objective (``gan_inference.py:194-223``):
-    gen = lamb·CE(fake -> 1) + rec; disc = (lamb/2)·(CE of both)."""
-    gen_cost = sigmoid_ce(disc_fake, 1.0) * lamb + rec_penalty
+    gen = lamb·(CE(fake -> 1) [+ s_f]) + rec; disc = (lamb/2)·(CE of
+    both)."""
+    gen_cost = sigmoid_ce(disc_fake, 1.0)
+    if s_f is not None:
+        gen_cost = gen_cost + s_f
+    gen_cost = gen_cost * lamb + rec_penalty
     disc_cost = (sigmoid_ce(disc_fake, 0.0) + sigmoid_ce(disc_real, 1.0)) \
         * (lamb / 2.0)
     return gen_cost, disc_cost

@@ -71,3 +71,10 @@ def gaussian_noise(x: torch.Tensor, std: float,
         noise = torch.randn(x.shape, generator=generator, device=x.device,
                             dtype=x.dtype)
     return x + std * noise.to(x.dtype)
+
+
+def sample_gumbel(u: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
+    """Gumbel(0, 1) samples from uniform draws ``u`` in [0, 1)
+    (``gmgan_inference_mnist.py:109-112``): ``-log(-log(u + eps) + eps)``.
+    The caller draws ``u`` (by name, ``models/common.py: Draws``)."""
+    return -torch.log(-torch.log(u + eps) + eps)

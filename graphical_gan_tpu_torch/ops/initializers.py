@@ -91,6 +91,8 @@ def init_params(specs: Dict[str, Tuple[str, Tuple[int, ...], Tuple]],
             params[name] = torch.zeros(shape, device=dev)
         elif kind == "ones":
             params[name] = torch.ones(shape, device=dev)
+        elif kind == "normal":
+            params[name] = torch.randn(shape, generator=gen, device=dev)
         else:
             if kind == "conv":
                 stdev = he_or_glorot_stdev(*conv_fans(*fan), he_init=True)

@@ -18,12 +18,15 @@ moments and the parameter tensors it is given (multi-tensor ``_foreach``
 ops, a few launches per player instead of a few per tensor), where the JAX
 functions return new arrays. Adam's step count ``t`` is a CPU tensor, so
 ``lr_t`` is computed on the host and the update never waits on the card.
+Adam's ``lr_scale(t)`` scales ``lr_t`` at that optimizer's own step count
+``t`` (1 at its first update), as the JAX Adam does (``optimizers.py:
+41, 73-74``): the face script's linear decay.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -76,6 +79,7 @@ class Adam(_Base):
     beta1: float = 0.9
     beta2: float = 0.999
     eps: float = 1e-8
+    lr_scale: Optional[Callable[[float], float]] = None
 
     def init(self, params: Params) -> dict:
         return self._with_master(
@@ -83,11 +87,15 @@ class Adam(_Base):
              "t": torch.zeros((), dtype=torch.int32)}, params)
 
     def lr_t(self, t: int) -> float:
-        """The bias-corrected step size, in f32 arithmetic as the JAX
-        update computes it."""
+        """The bias-corrected step size at step ``t``, times ``lr_scale(t)``
+        where there is one, in f32 arithmetic as the JAX update computes
+        it."""
         f = np.float32
-        return float(f(self.lr) * np.sqrt(f(1.0) - f(self.beta2) ** f(t))
-                     / (f(1.0) - f(self.beta1) ** f(t)))
+        lr_t = f(self.lr) * np.sqrt(f(1.0) - f(self.beta2) ** f(t)) \
+            / (f(1.0) - f(self.beta1) ** f(t))
+        if self.lr_scale is not None:
+            lr_t = f(lr_t) * f(self.lr_scale(f(t)))
+        return float(lr_t)
 
     @torch.no_grad()
     def update(self, grads: Params, state: dict, params: Params) -> None:
@@ -135,14 +143,16 @@ class RMSProp(_Base):
         _store(mss, ms)
 
 
-def make_optimizer(spec: OptSpec, master_weights: bool = False,
+def make_optimizer(spec: OptSpec,
+                   lr_scale: Optional[Callable[[float], float]] = None,
+                   master_weights: bool = False,
                    moment_dtype: Optional[torch.dtype] = None):
-    """The optimizer an ``OptSpec`` names (``optimizers.py:137-148``; the
-    learning-rate schedule of the face script comes with that dataset)."""
+    """The optimizer an ``OptSpec`` names (``optimizers.py:137-148``);
+    ``lr_scale`` reaches Adam only, as in JAX."""
     kw = dict(master_weights=master_weights, moment_dtype=moment_dtype)
     if spec.kind == "adam":
         return Adam(lr=spec.lr, beta1=spec.beta1, beta2=spec.beta2,
-                    eps=spec.eps, **kw)
+                    eps=spec.eps, lr_scale=lr_scale, **kw)
     if spec.kind == "rmsprop":
         return RMSProp(lr=spec.lr, **kw)
     raise ValueError(f"unknown optimizer kind {spec.kind!r}")

@@ -27,9 +27,16 @@ one log line, where sklearn or matplotlib is missing), and every
 ``inception_every`` the inception score: on the structured family IS and
 FID under a ``MetricClassifier`` trained on its train pool, on cifar10
 through ``metrics/inception.py: default_is_classifier`` (skipped, with a
-log line, where no Inception weights are on the machine). Meshes,
-preemption and the other flags of the JAX entry point come in later
-slices.
+log line, where no Inception weights are on the machine).
+
+Training options: ``--accum-steps N`` (gradient accumulation over N
+microbatches, ``train/step.py``); the ``run()`` overrides ``remat=True``,
+``fused_gp=True`` and ``decay=True`` (Adam's step size scaled by
+``max(0, 1 - t / iters)``, as the JAX entry point passes it; JAX has no
+``--decay`` flag either). The alias entry points
+``runs/gan_inference_{mnist,cifar10,svhn,face}.py`` fix ``--dataset``
+(``face`` is celeba). Meshes, preemption and the other flags of the JAX
+entry point come in later slices.
 """
 
 from __future__ import annotations
@@ -214,20 +221,24 @@ def make_tsne_hook(model, dev_gen):
 
 
 @torch.no_grad()
-def sample_images(model, params, n: int, batch: int, generator) -> list:
+def sample_images(model, params, n: int, batch: int, generator,
+                  sample=None) -> list:
     """``n`` generator samples as HWC arrays in [0, 255] (float32), in
-    batches of ``batch`` from f32 codes drawn by ``generator`` (so the
-    generator runs in f32, as the JAX hooks' f32 codes make it run):
-    sigmoid outputs scale by 255, tanh outputs map [-1, 1] to [0, 255]."""
+    batches of ``batch``, each ``sample(batch)`` (by default G of f32 codes
+    drawn by ``generator``, so the generator runs in f32, as the JAX hooks'
+    f32 codes make it run): sigmoid outputs scale by 255, tanh outputs map
+    [-1, 1] to [0, 255]."""
     cfg = model.cfg
     h, w = cfg.data.image_hw
     c = cfg.data.channels
     dev = next(iter(params.values())).device
+    if sample is None:
+        def sample(b):
+            return model.sample(params, torch.randn(
+                (b, cfg.dim_latent), generator=generator, device=dev))
     out = []
     for _ in range(-(-n // batch)):
-        noise = torch.randn((batch, cfg.dim_latent), generator=generator,
-                            device=dev)
-        flat = model.sample(params, noise).float()
+        flat = sample(batch).float()
         x = flat * 255.0 if cfg.data.normalization == "unit" \
             else (flat + 1.0) * (255.0 / 2)
         x = x.clamp(0, 255).reshape(-1, c, h, w).permute(0, 2, 3, 1)
@@ -375,8 +386,17 @@ def run(dataset: str = "mnist", mode: str = "ali",
                       checkpoint_every=checkpoint_every, eval_hooks=hooks,
                       dev_gen_factory=dev_gen,
                       train_gen_factory=None if resident is not None
-                      else train_gen)
+                      else train_gen, lr_scale=decay_scale(cfg))
     return trainer, trainer.train(iters)
+
+
+def decay_scale(cfg):
+    """Adam's ``lr_scale`` for ``cfg.decay``: ``max(0, 1 - t / iters)`` at
+    the optimizer's step t (JAX ``runs/gan_inference.py:400-401``), else
+    None."""
+    if not cfg.decay:
+        return None
+    return lambda t: max(0.0, 1.0 - t / cfg.iters)
 
 
 def main(argv=None):
@@ -408,6 +428,10 @@ def main(argv=None):
     p.add_argument("--moment-dtype", default=None,
                    choices=["float32", "bfloat16"],
                    help="bfloat16: Adam moments stored at 2 bytes")
+    p.add_argument("--accum-steps", type=int, default=None,
+                   help="gradient accumulation: each update's batch split "
+                        "into N microbatches with one averaged optimizer "
+                        "update (batch_size must divide by N)")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--dim", type=int, default=None)
     p.add_argument("--checkpoint-every", type=int, default=5000)
@@ -418,7 +442,8 @@ def main(argv=None):
                                    ("dim", args.dim),
                                    ("compute_dtype", args.compute_dtype),
                                    ("param_dtype", args.param_dtype),
-                                   ("moment_dtype", args.moment_dtype))
+                                   ("moment_dtype", args.moment_dtype),
+                                   ("accum_steps", args.accum_steps))
                  if v}
     run(args.dataset, args.mode, iters=args.iters, data_dir=args.data_dir,
         outdir=args.outdir, run_dir=args.run_dir, seed=args.seed,

@@ -1,0 +1,14 @@
+"""Alias entry point of the reference's ``gan_inference_mnist.py``:
+``runs/gan_inference.py`` with ``--dataset mnist`` (MNIST 28x28)::
+
+    python -m graphical_gan_tpu_torch.runs.gan_inference_mnist
+"""
+from graphical_gan_tpu_torch.runs.gan_inference import main as _main
+
+
+def main(argv=None):
+    _main(["--dataset", "mnist"] + (argv or __import__("sys").argv[1:]))
+
+
+if __name__ == "__main__":
+    main()

@@ -26,7 +26,7 @@ batcher and a stdlib HTTP front, around an entry of a trained run directory
 CLI::
 
     python -m graphical_gan_tpu_torch.serve.server --run-dir R \\
-        --entry {sampler,encoder,reconstructor} [--device cpu]
+        --entry {sampler,encoder,reconstructor,cluster} [--device cpu]
 
 The entry runs on ``cuda`` unless ``--device cpu`` is given; without a card
 it refuses to start. ``--export-dir``, ``--quantize``, ``--dp-devices`` and
@@ -65,9 +65,13 @@ import torch
 # prior input descriptions (what to draw for server-side latents / padding)
 
 def input_kinds(family: str, cfg) -> List[str]:
-    """Per-input prior kind, aligned with ``serve.export.make_sampler``."""
+    """Per-input prior kind, aligned with ``serve.export.make_sampler``:
+    ``"normal"`` (an N(0, 1) latent) or ``"onehot"`` (a uniform
+    component)."""
     if family == "gan_inference":
         return ["normal"]
+    if family == "gmgan":
+        return ["onehot", "normal"]
     raise NotImplementedError(
         f"family {family!r} is served from a later slice of the port")
 
@@ -82,11 +86,15 @@ def fold_in(seed: int, data: int) -> int:
 def _draw_prior(kinds: Sequence[str], shapes: Sequence[Tuple[int, ...]],
                 n: int, seed: int) -> Tuple[np.ndarray, ...]:
     """Prior-distributed input rows, drawn on the host from one
-    ``numpy.random.Generator`` seeded with ``seed``."""
+    ``numpy.random.Generator`` seeded with ``seed``, input by input: a
+    one-hot row of a uniform component, or N(0, 1) rows."""
     rng = np.random.default_rng(int(seed))
     out = []
     for kind, shape in zip(kinds, shapes):
-        if kind == "image":
+        if kind == "onehot":
+            k = int(shape[1])
+            out.append(np.eye(k, dtype=np.float32)[rng.integers(0, k, n)])
+        elif kind == "image":
             raise ValueError(
                 "this entry takes image inputs; POST an npz payload "
                 "(input0, ...) instead of a seeded JSON request")
@@ -500,11 +508,12 @@ def main(argv=None) -> int:
                    help="trained run directory (config.json + ckpt_*.npz)")
     p.add_argument("--ckpt", default=None)
     p.add_argument("--entry", default="sampler",
-                   choices=["sampler", "encoder", "reconstructor"],
+                   choices=["sampler", "encoder", "reconstructor",
+                            "cluster"],
                    help="which network to serve: the generator sampler, or "
                         "the inference side (encoder x->z, reconstructor "
-                        "x->G(E(x))). Image-input entries take npz payloads "
-                        "only")
+                        "x->G(E(x)), gmgan's cluster x->q(k|x)). "
+                        "Image-input entries take npz payloads only")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of "
                         "the kernels)")

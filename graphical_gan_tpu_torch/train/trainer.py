@@ -77,14 +77,21 @@ class Trainer:
     device; with ``resident_data=None`` the host-fed path runs over
     ``train_gen_factory`` (a loader's epoch-generator factory).
     ``eval_hooks`` maps a cadence to ``hook(trainer, iteration)``;
-    ``dev_gen_factory`` gives the dev batches the sweep averages over."""
+    ``dev_gen_factory`` gives the dev batches the sweep averages over;
+    ``lr_scale(t)`` scales Adam's step size at its step count t (the
+    linear decay of ``cfg.decay``, ``runs/gan_inference.py``). Any model of
+    the port trains: it gives ``gen_loss`` / ``disc_loss`` with their aux
+    (``gen_cost``, ``rec_cost``), ``opt_specs``, the players' names and
+    ``DISC_ONLY_DRAWS`` (``models/gan_inference.py``, ``models/
+    gmgan.py``)."""
 
     def __init__(self, model, resident_data: Optional[np.ndarray], outf: str,
                  seed: int = 0, device: Union[str, torch.device] = "cuda",
                  checkpoint_every: int = 5000,
                  eval_hooks: Optional[Dict[int, Callable]] = None,
                  dev_gen_factory: Optional[Callable] = None,
-                 train_gen_factory: Optional[Callable] = None):
+                 train_gen_factory: Optional[Callable] = None,
+                 lr_scale: Optional[Callable[[float], float]] = None):
         if resident_data is None and train_gen_factory is None:
             raise ValueError("the Trainer needs resident_data or, for the "
                              "host-fed path, train_gen_factory")
@@ -99,7 +106,7 @@ class Trainer:
         self.seed = int(seed)
         self.checkpoint_every = checkpoint_every
         self.k = self.cfg.critic_iters
-        self.step_fn, self.init_state = make_train_step(model)
+        self.step_fn, self.init_state = make_train_step(model, lr_scale)
         self.data = None if resident_data is None else to_device(
             resident_data, self.device)
         self.train_gen_factory = train_gen_factory

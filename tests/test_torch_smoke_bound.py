@@ -92,7 +92,7 @@ def test_bn_stats_bound_reads_x_once_and_writes_the_statistics(b, name, rc,
                                rel=1e-12)
 
 
-# -- the learn and eval phases' checks ------------------------------------------
+# -- the learn and eval phases' checks ----------------------------------------
 
 def _learn_doc(**change):
     """A sensitivity document that passes (the shape of the card's run)."""
@@ -289,3 +289,140 @@ def test_checked_batches_cover_the_eval_and_learn_phases():
     assert {512, 464, 96, 4096, 5000, 10000} <= got
     assert gan_inference_defaults("cifar10", "wali-gp").n_vis in \
         chip_smoke.generator_sample_batches()
+
+
+# -- family 2 and the step options: the batch sizes the check phase covers ----
+
+@pytest.fixture
+def gmgan_batches(monkeypatch):
+    """The batch sizes GMGAN's G (sample) and E (encode) see."""
+    from graphical_gan_tpu_torch.models.gmgan import GMGanModel
+    seen = {"G": set(), "E": set()}
+    sample, encode = GMGanModel.sample, GMGanModel.encode
+
+    def sample_spy(self, params, k, noise):
+        seen["G"].add(noise.shape[0])
+        return sample(self, params, k, noise)
+
+    def encode_spy(self, params, raw_x, *a, **k):
+        seen["E"].add(raw_x.shape[0])
+        return encode(self, params, raw_x, *a, **k)
+
+    monkeypatch.setattr(GMGanModel, "sample", sample_spy)
+    monkeypatch.setattr(GMGanModel, "encode", encode_spy)
+    return seen
+
+
+def _hook_trainer(model):
+    import types
+    plots = {}
+    return types.SimpleNamespace(
+        device=torch.device("cpu"), params=model.init(0, "cpu"),
+        outf=None, logger=types.SimpleNamespace(plot=plots.__setitem__),
+        eval_generator=lambda salt, it: torch.Generator().manual_seed(salt),
+        plots=plots)
+
+
+@pytest.mark.parametrize("dataset", ["mnist", "cifar10"])
+def test_checked_batches_cover_the_gmgan_hooks(dataset, gmgan_batches,
+                                               tmp_path):
+    """The sample hook runs G at the checked grid rows; the accuracy hook
+    E at the checked batches (the published batch over the structured
+    test split, n_eval at its default)."""
+    from graphical_gan_tpu_torch.core.config import gmgan_defaults
+    from graphical_gan_tpu_torch.models.gmgan import GMGanModel
+    from graphical_gan_tpu_torch.runs import gmgan as gm
+    model = GMGanModel(gmgan_defaults(dataset, dim=8))
+    trainer = _hook_trainer(model)
+    trainer.outf = str(tmp_path)
+    gm.make_sample_hook(model)(trainer, 0)
+    batches = chip_smoke.family2_batches()
+    assert gmgan_batches["G"] == set(batches["G_sample"][dataset]) == {300}
+    if dataset == "mnist":
+        _, _, test = gm._structured_loaders(model.cfg, n_train=10)
+        gm.make_accuracy_hook(model, test)(trainer, 0)
+        assert gmgan_batches["E"] == {50}
+        assert gmgan_batches["E"] <= set(batches["E"]["mnist"])
+        assert 0.0 <= trainer.plots["testing accuracy"] <= 1.0
+
+
+def test_checked_batches_cover_the_cluster_phase(gmgan_batches, tmp_path,
+                                                 monkeypatch):
+    """The cluster phase's requests through the server's buckets reach E
+    only at the checked batches (the phase's own request path, on the CPU, its
+    launch count left out)."""
+    from graphical_gan_tpu_torch.core.config import asdict, gmgan_defaults
+    from graphical_gan_tpu_torch.models.gmgan import GMGanModel
+    from graphical_gan_tpu_torch.train.checkpoint import save_params
+    import json
+    monkeypatch.setitem(chip_smoke.PER_DISPATCH, "cluster", {})
+    cfg = gmgan_defaults("mnist", dim=8)
+    run_dir = str(tmp_path / "run")
+    os.makedirs(run_dir)
+    with open(os.path.join(run_dir, "config.json"), "w") as f:
+        json.dump(asdict(cfg), f)
+    save_params(os.path.join(run_dir, "ckpt_0.npz"),
+                GMGanModel(cfg).init(0, "cpu"), {"iteration": 0})
+    raw = np.random.default_rng(0).random((300, 784), dtype=np.float32)
+    outs = chip_smoke._drive_entry(run_dir, "cluster", raw, cfg.n_coms,
+                                   device="cpu")
+    assert gmgan_batches["E"] == set(chip_smoke.BUCKETS)
+    assert gmgan_batches["E"] <= set(
+        chip_smoke.family2_batches()["E"]["mnist"])
+    assert all(np.allclose(o.sum(axis=1), 1.0, atol=1e-5)
+               for o in outs.values())
+
+
+@pytest.mark.parametrize("family", ["gmgan", "gan_inference"])
+def test_checked_batches_cover_accum_and_fused_gp(family, monkeypatch):
+    """A step with ``accum_steps=STEP_ACCUM`` at the published batch runs
+    the losses at the checked microbatch; the fused penalty runs D at the
+    checked 3 B."""
+    from graphical_gan_tpu_torch.core.config import (
+        gan_inference_defaults, gmgan_defaults)
+    from graphical_gan_tpu_torch.models.gan_inference import (
+        GanInferenceModel)
+    from graphical_gan_tpu_torch.models.gmgan import GMGanModel
+    from graphical_gan_tpu_torch.train.step import make_train_step
+    batches = chip_smoke.family2_batches()
+    seen = set()
+    if family == "gmgan":
+        model = GMGanModel(gmgan_defaults(
+            "mnist", dim=8, accum_steps=chip_smoke.STEP_ACCUM))
+        want = batches["micro"]["mnist"]
+    else:
+        model = GanInferenceModel(gan_inference_defaults(
+            "cifar10", "wali-gp", dim=8, critic_iters=1,
+            accum_steps=chip_smoke.STEP_ACCUM))
+        want = batches["micro"]["cifar10"]
+    for name in ("gen_loss", "disc_loss"):
+        fn = getattr(model, name)
+        monkeypatch.setattr(model, name, lambda p, raw, *a, _fn=fn, **k: (
+            seen.add(raw.shape[0]), _fn(p, raw, *a, **k))[1])
+    step, init = make_train_step(model)
+    b = model.cfg.batch_size
+    raw = torch.rand(1 + model.cfg.critic_iters, b, model.cfg.data.output_dim)
+    if family == "gan_inference":
+        raw = raw * 255
+    step(init(model.init(0, "cpu")), raw, True, torch.Generator())
+    assert seen == set(want)
+    if family == "gan_inference":
+        import dataclasses
+        rows = set()
+        fused = GanInferenceModel(dataclasses.replace(
+            model.cfg, fused_gp=True, accum_steps=1))
+        d = fused.discriminator
+        monkeypatch.setattr(fused, "discriminator", lambda p: (
+            lambda x, z, _d=d(p): (rows.add(x.shape[0]), _d(x, z))[1]))
+        fused.disc_loss(fused.init(0, "cpu"), raw[1],
+                        generator=torch.Generator())
+        assert rows == set(batches["fused"]["cifar10"]) == {3 * b}
+
+
+@pytest.mark.parametrize("acc,ok", [(0.7385, True), (0.4885, True),
+                                    (0.48, False), (0.1, False),
+                                    (None, False), (float("nan"), False)])
+def test_family2_learn_check(acc, ok):
+    misses = chip_smoke.learn2_misses(acc)
+    assert (misses == []) == ok
+    assert chip_smoke.LEARN2_MIN_ACC >= 2 * chip_smoke.LEARN2_CHANCE
