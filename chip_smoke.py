@@ -98,7 +98,27 @@ nothing of JAX or of the JAX package, and does in order:
 17. family2-learn: ``runs/gmgan.run("mnist", "local_ep",
    data_dir="structured")`` for 1,000 iterations, its clustering accuracy
    held to ``LEARN2_MIN_ACC``;
-18. prints one JSON line per kernel summary, the card line, and last
+18. family3: 3 Trainer iterations of SSGAN at published widths (B 50,
+   DIM 32): moving-MNIST (LEN 16) local_ep under each pos_mode,
+   local_epce-z, ali under concat_x, concat_z and 3dcnn, alice-z, chairs
+   (LEN 31) local_ep, and local_ep with ``bn=True`` through ``run()``:
+   finite costs, K1 launched (K2a-d with BN); local_ep timed and profiled;
+   the check and time phases hold K1 at family 3's shapes (the frame
+   batch B·LEN, Cin 1/3, the whole video as C·LEN channels, the VALID
+   D.5) and K2 at its BN shapes (``family3_batches``, ``ssgan_*_shapes``);
+19. family3-parity: moving-MNIST local_ep gsp and ali 3dcnn, 2
+   iterations on the card against the CPU at FAMILY3_PARITY_BATCH videos
+   (a G bias moment that misses is held again from the card's own state
+   only where its gradient is shown to cancel, ``_bias_cancellation``);
+20. family3-serve: a moving-MNIST run directory over HTTP, the sampler
+   from server-drawn priors and the reconstructor, held to the CPU within
+   E2E_ATOL;
+21. family3-learn: ``runs/ssgan.run("moving_mnist", "local_ep",
+   data_dir="structured", data_pipeline="device",
+   compute_dtype="bfloat16")`` for 1,000 iterations, the hook before
+   training and at 500 and 1,000: the reading at 1,000 at most half the
+   one before training, every montage at its size;
+22. prints one JSON line per kernel summary, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line. ``--log PATH`` also
@@ -998,6 +1018,7 @@ def phase_check(errs):
     _check_family1(gen, errs, misses, seen)
     _check_classifier(gen, errs, misses, seen)
     _check_family2(gen, errs, misses, seen)
+    _check_family3(gen, errs, misses, seen)
     _check_f32_against_cpu()
     missed = _k1_coverage_misses(seen)
     log({"check": "K1 plan coverage", "kernels_and_paths_run": len(seen),
@@ -1015,7 +1036,7 @@ def phase_time(timings):
     import torch
     import torch.nn.functional as F
     from graphical_gan_tpu_torch.ops.activations import activation
-    from graphical_gan_tpu_torch.ops.kernels import fused_conv, fused_norm
+    from graphical_gan_tpu_torch.ops.kernels import fused_norm
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     card = torch.cuda.get_device_name(0)
@@ -1024,37 +1045,8 @@ def phase_time(timings):
         size = dtype.itemsize
         for b in (64, 256):
             for name, shape, cout, act in conv_shapes(b):
-                x, w, bias = _conv_inputs(shape, cout, dtype, gen)
-                bb, h, wd, cin = shape
-                oh, ow = h // 2, wd // 2
-                lo, hi = fused_conv.same_pads(h, 5, 2)
-                xpad = F.pad(x.permute(0, 3, 1, 2), (lo, hi, lo, hi)
-                             ).contiguous(memory_format=torch.channels_last)
-                wlib = w.to(dtype).permute(3, 2, 0, 1).contiguous(
-                    memory_format=torch.channels_last)
-                blib = bias.to(dtype)
-                act_fn = activation(act)
-                taps = (conv_valid_taps(h, 5, 2, lo)
-                        * conv_valid_taps(wd, 5, 2, lo))
-                flops = 2.0 * bb * cout * cin * taps
-                nbytes = (x.numel() + bb * oh * ow * cout + w.numel()
-                          + cout) * size
-                t_b, by = bound(flops, nbytes, dn)
-                p = _plan_of(x, w, 2, "SAME")
-                row = {"kernel": "fused_conv2d_bias_act", "shape": name,
-                       "B": b, "dtype": dn, "card": card, "path": p.path,
-                       "tile": [p.bm, p.bn], "splits": p.splits,
-                       "ms": time_ms(
-                           lambda *a: fused_conv.fused_conv2d_bias_act(
-                               *a, 2, "SAME", act), (x, w, bias)),
-                       "plain_ms": time_ms(
-                           lambda *a: fused_conv.fused_conv2d_bias_act_plain(
-                               *a, 2, "SAME", act), (x, w, bias)),
-                       "library_ms": time_ms(
-                           lambda *a: act_fn(F.conv2d(*a, stride=2)),
-                           (xpad, wlib, blib)),
-                       "bound_ms": t_b, "bound_by": by,
-                       "flops": flops, "bytes": nbytes}
+                row = _k1_timing_row(name, shape, cout, 5, 2, "SAME", act,
+                                     dtype, gen, card)
                 timings.append(row)
                 log({"timing": row})
             for name, rc, act in bn_shapes(b):
@@ -1099,6 +1091,7 @@ def phase_time(timings):
                 log({"timing": row})
             _time_bn_bwd(timings, b, dtype, gen, card)
     _time_k3(timings, card)
+    _time_family3(timings, card)
 
 
 def bn_stats_bound(r: int, c: int, itemsize: int):
@@ -1557,6 +1550,10 @@ SIGN_FLIP_LR = 2.6
 GRAD_RTOL = 1e-2
 UPDATE_RTOL = 0.25
 MOMENT_RTOL = 5e-2
+# a gradient g = sum t whose terms differ between the devices by GRAD_RTOL
+# of their sum |t| differs by up to GRAD_RTOL / (|g| / sum |t|) of itself:
+# at |g| / sum |t| <= CANCEL_MAX that can pass MOMENT_RTOL
+CANCEL_MAX = GRAD_RTOL / MOMENT_RTOL
 NOISE_REL = 1e-4
 NOISE_FLOOR = 1e-6
 # the mnist wali-gp parity runs k = 2 critic updates (4 D updates in 2
@@ -1728,11 +1725,13 @@ def _parity_inputs(model, seed):
     cfg = model.cfg
     k, b = cfg.critic_iters, cfg.batch_size
     rng = np.random.default_rng(seed)
+    lead = (2, 1 + k, b)
+    if hasattr(cfg, "seq_len"):
+        return _ssgan_parity_inputs(cfg, rng, lead)
     shape = (2, 1 + k, b, cfg.data.output_dim)
     raw = rng.random(shape, dtype=np.float32) \
         if cfg.data.normalization == "unit" \
         else rng.integers(0, 256, shape).astype(np.float32)
-    lead = (2, 1 + k, b)
     if hasattr(cfg, "n_coms"):
         noise = {"hyper_p_z": rng.standard_normal(lead + (cfg.dim_latent,)),
                  "prior_idx": rng.integers(0, cfg.n_coms, lead)}
@@ -1746,6 +1745,37 @@ def _parity_inputs(model, seed):
         n: torch.from_numpy(t if t.dtype == np.int64
                             else t.astype(np.float32))
         for n, t in noise.items()}
+
+
+def _ssgan_parity_inputs(cfg, rng, lead):
+    """SSGAN's raw batches (moving-MNIST ``{'x': videos, 'y': one-hot}``,
+    chairs pixel videos) and draws ``p_z_l_0``, ``epsilon``, ``p_z_g`` and,
+    conditional, ``p_y``, each [2, 1+k, B, ...]."""
+    import numpy as np
+    import torch
+    shape = lead + (cfg.seq_len, cfg.output_dim)
+    if cfg.dataset == "chairs":
+        x = rng.integers(0, 256, shape).astype(np.float32)
+    else:
+        x = rng.random(shape, dtype=np.float32)
+    raw = {"x": torch.from_numpy(x)}
+    noise = {"p_z_l_0": rng.standard_normal(lead + (cfg.dim_latent_l,)),
+             "epsilon": rng.standard_normal(lead + (cfg.dim_latent_t,)),
+             "p_z_g": rng.standard_normal(lead + (cfg.dim_latent_g,))}
+    if cfg.conditional:
+        raw["y"] = torch.from_numpy(np.eye(cfg.n_classes, dtype=np.float32)[
+            rng.integers(0, cfg.n_classes, lead)])
+        noise["p_y"] = rng.integers(0, cfg.n_classes, lead)
+    return raw, {n: torch.from_numpy(t if t.dtype == np.int64
+                                     else t.astype(np.float32))
+                 for n, t in noise.items()}
+
+
+def _raw_at(raw, device, *idx):
+    """Entry ``idx`` of a raw batch (a tensor or a dict of tensors) on
+    ``device``."""
+    from graphical_gan_tpu_torch.core import tree
+    return tree.tree_map(lambda t: t[idx].to(device), raw)
 
 
 def _update_draws(model, noise, it, j):
@@ -1766,10 +1796,65 @@ def _step_noise(model, noise, it):
         for n, t in noise.items()}
 
 
-def _train_parity(model, label, seed):
+def _bias_cancellation(model, params, raw, draws, player, leaf):
+    """|g| / sum |t| for a bias leaf, the largest over its channels: g is
+    the leaf's gradient and the terms t the loss's gradient at each output
+    element of the leaf's layer (bias added, no activation fused), whose
+    sum over the elements is g. None where the leaf is no bias, its layer
+    fuses an activation, or the terms do not sum to g within 1e-5 of
+    sum |t|."""
+    import inspect
+    import torch
+    layer, _, kind = leaf.rpartition(".")
+    if kind not in ("Biases", "b"):
+        return None
+    mod = sys.modules[type(model).__module__]
+    terms, saved = [], {}
+
+    def spy(fn):
+        sig = inspect.signature(fn)
+
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            args = sig.bind(*a, **kw).arguments
+            if (args.get("name") == layer and args.get("act") is None
+                    and out.requires_grad):
+                out.register_hook(terms.append)
+            return out
+        return call
+
+    for f in ("conv2d", "deconv2d", "conv3d", "linear"):
+        if hasattr(mod, f):
+            saved[f] = getattr(mod, f)
+            setattr(mod, f, spy(saved[f]))
+    try:
+        g = _grads(model, params, raw, draws, player)[leaf].double()
+    finally:
+        for f, fn in saved.items():
+            setattr(mod, f, fn)
+    if not terms:
+        return None
+    t = torch.cat([x.double().reshape(-1, x.shape[-1]) for x in terms])
+    total, mass = t.sum(0), t.abs().sum(0)
+    if not bool(((total - g).abs() <= 1e-5 * mass).all()):
+        return None
+    return float((total.abs() / mass.clamp_min(1e-300)).max())
+
+
+def _train_parity(model, label, seed, carried=False):
     """2 iterations on the card against the CPU (plain versions), f32, from
     the same params, batches and noise; and the first updates' gradients.
-    A skipped and a reversed step fed to the same check must be refused."""
+    A skipped and a reversed step fed to the same check must be refused.
+
+    With ``carried``, an Adam moment of a G bias that misses its bound is
+    held a second time, against the CPU's iteration 1 run from the card's
+    own state after iteration 0, if its iteration-1 gradient (G's one
+    update in the 2 iterations) is shown to cancel: |g| / sum |t| at most
+    CANCEL_MAX (``_bias_cancellation``, on the CPU's state). Such a
+    gradient moves with D's parameters, which already differ by the sign
+    flips the parameter bound allows. The first misses, each leaf's
+    cancellation and the second errors are logged. The parameters, the
+    updates and the controls are held as before."""
     import torch
     from graphical_gan_tpu_torch.train.step import make_train_step
     k = model.cfg.critic_iters
@@ -1780,7 +1865,7 @@ def _train_parity(model, label, seed):
     for name, d in dev.items():
         on = {n: p.to(d) for n, p in params.items()}
         grads[name] = {
-            pl: _grads(model, on, raw[0, i].to(d),
+            pl: _grads(model, on, _raw_at(raw, d, 0, i),
                        {n: t.to(d) for n, t in
                         _update_draws(model, noise, 0, i).items()}, pl)
             for pl, i in (("gen", 0), ("disc", 1))}
@@ -1797,16 +1882,45 @@ def _train_parity(model, label, seed):
                 bad.append(f"{n} gradient")
     states = {}
     step, init_state = make_train_step(model)
+
+    def iteration(st, it, d):
+        return step(st, _raw_at(raw, d, it), it > 0, noise={
+            n: t.to(d) for n, t in _step_noise(model, noise, it).items()})[0]
+
+    firsts = {}
     for name, d in dev.items():
         # copies: the step updates the parameters in place
         st = init_state({n: p.to(d, copy=True) for n, p in params.items()})
-        for it in range(2):
-            st, _ = step(st, raw[it].to(d), it > 0, noise={
-                n: t.to(d) for n, t in _step_noise(model, noise, it).items()})
-        states[name] = st
+        st = iteration(st, 0, d)
+        # the CPU's parameters copied: iteration 1 updates them in place
+        firsts[name] = (_to_cpu_state(st) if name == "cuda" else
+                        {n: p.clone() for n, p in st.params.items()})
+        states[name] = iteration(st, 1, d)
     ref = states["cpu"]
     got = _to_cpu_state(states["cuda"])
     state_bad, report = _state_misses(ref, got, params, model, k)
+    gen_leaves = {n for n in params if n.split(".")[0] in model.GEN_PLAYER}
+    moments = [m for m in state_bad if m.split()[-1] in ("m", "v")]
+    if carried and moments:
+        report["first_moment_misses"] = moments
+        cancel = {n: _bias_cancellation(
+            model, firsts["cpu"], _raw_at(raw, dev["cpu"], 1, 0),
+            _update_draws(model, noise, 1, 0), "gen", n)
+            for n in sorted({m.split()[0] for m in moments} & gen_leaves)}
+        report["cancellation"] = cancel
+        report["cancel_max"] = CANCEL_MAX
+        second = [m for m in moments if cancel.get(m.split()[0]) is not None
+                  and cancel[m.split()[0]] <= CANCEL_MAX]
+        if second:
+            from_card = iteration(firsts["cuda"], 1, dev["cpu"])
+            again, rep2 = _state_misses(from_card, got, params, model, k)
+            report["carried_moment_err_of_max"] = {
+                f"gen_opt|{m.split()[1]}|{m.split()[0]}":
+                rep2["moment_err_of_max"][
+                    f"gen_opt|{m.split()[1]}|{m.split()[0]}"]
+                for m in second}
+            state_bad = [m for m in state_bad
+                         if m not in second or m in again]
     # negative controls: a step that updates nothing, and one that moves
     # every parameter the other way, must each fail at every held leaf
     skipped = init_state({n: p.clone() for n, p in params.items()})
@@ -2691,6 +2805,459 @@ def phase_family2_learn(launch_totals):
         fail(f"family2-learn: {misses}")
 
 
+# ---------------------------------------------------------------------------
+# family 3 (SSGAN)
+
+FAMILY3_ITERS = 3
+POS_MODES = ("naive_mean_field", "inverse", "forward_inverse", "gsp")
+# the family3 phase's Trainer runs at published widths: moving-MNIST
+# local_ep under each pos_mode, the other modes and video Ds, chairs
+FAMILY3_RUNS = tuple(
+    [("moving_mnist", "local_ep", (("pos_mode", p),)) for p in POS_MODES]
+    + [("moving_mnist", "local_epce-z", ()),
+       ("moving_mnist", "ali", (("ali_mode", "concat_x"),)),
+       ("moving_mnist", "ali", (("ali_mode", "concat_z"),)),
+       ("moving_mnist", "ali", (("ali_mode", "3dcnn"),)),
+       ("moving_mnist", "alice-z", ()),
+       ("chairs", "local_ep", ())])
+# the family-3 run timed and profiled after its iterations
+FAMILY3_PROFILED = ("moving_mnist", "local_ep", (("pos_mode", POS_MODES[0]),))
+# chairs' synthetic clips for the family3 run: 100 train chairs (two
+# batches of 50), the rest dev (chairs_64.npy is not on the machine)
+FAMILY3_CHAIRS = {"num_dev": 50, "synthetic_size": 150}
+# family3-parity: videos per batch (the widths, LEN and every other field
+# published; the CPU side of 2 iterations at B 50 would take minutes)
+FAMILY3_PARITY_BATCH = 10
+# family3-serve: rows of the reconstructor request held to the CPU
+FAMILY3_SERVE_ROWS = 8
+# family3-learn: moving-MNIST local_ep on the structured digits, bf16, the
+# device pipeline; the hook before training and every LEARN3_EVERY. The
+# reading at LEARN3_ITERS must be at most LEARN3_MAX_RATIO of the reading
+# before training (the one at 500 is logged)
+LEARN3_ITERS = 1000
+LEARN3_EVERY = 500
+LEARN3_MAX_RATIO = 0.5
+
+
+def _ssgan_model(dataset, mode, **overrides):
+    """The published config (core/config.py: ssgan_defaults), any field
+    but the widths and LEN overridable."""
+    from graphical_gan_tpu_torch.core.config import ssgan_defaults
+    from graphical_gan_tpu_torch.models.ssgan import SSGanModel
+    cfg = ssgan_defaults(dataset, mode, **overrides)
+    want = {"moving_mnist": (16, 32, 1, 10, 128, 8, 256, "res"),
+            "chairs": (31, 32, 3, 0, 128, 8, 256, "res_w")}[dataset]
+    got = (cfg.seq_len, cfg.dim, cfg.channels, cfg.n_classes,
+           cfg.dim_latent_g, cfg.dim_latent_l, cfg.dim_op, cfg.op_dyn_mode)
+    if got != want or ("batch_size" not in overrides
+                       and cfg.batch_size != 50):
+        fail(f"ssgan {dataset} {mode} defaults changed: {cfg}")
+    return SSGanModel(cfg)
+
+
+def family3_batches() -> dict:
+    """The video batches family 3 runs K1 (and K2) at, from the code's own
+    constants: the published batch (training, the hook's n_vis samples and
+    its dev batch, ``runs/ssgan.py: hook_inputs``), the parity batch, and
+    the serving buckets (the reconstructor); chairs at its published
+    batch; the frame batch of each is B·LEN."""
+    from graphical_gan_tpu_torch.core.config import ssgan_defaults
+    from graphical_gan_tpu_torch.runs.ssgan import hook_inputs
+    mm, ch = ssgan_defaults("moving_mnist"), ssgan_defaults("chairs")
+    hook = len(hook_inputs(mm, mm.batch_size)[0])
+    return {"moving_mnist": sorted({mm.batch_size, hook, FAMILY3_PARITY_BATCH}
+                                   | set(BUCKETS)),
+            "chairs": [ch.batch_size]}
+
+
+def ssgan_conv_shapes(cfg, b: int):
+    """K1's calls at ``b`` videos: the per-frame stack (E and the frame
+    D; B·LEN frames, Cin C), the whole-video stack (the global extractor
+    and the concat_x D; B videos, Cin C·LEN) and concat_z's VALID D.5."""
+    L, c, dim = cfg.seq_len, cfg.channels, cfg.dim
+    tag = f"{cfg.dataset} "
+    out = []
+    for name, n, cin in (("frame", b * L, c), ("video", b, c * L)):
+        out += [(f"{tag}{name}.1 leaky", (n, 64, 64, cin), dim, 5, 2,
+                 "SAME", "leaky_relu"),
+                (f"{tag}{name}.2", (n, 32, 32, dim), 2 * dim, 5, 2, "SAME",
+                 None),
+                (f"{tag}{name}.3", (n, 16, 16, 2 * dim), 4 * dim, 5, 2,
+                 "SAME", None),
+                (f"{tag}{name}.4", (n, 8, 8, 4 * dim), 8 * dim, 5, 2,
+                 "SAME", None)]
+    out.append((f"{tag}concat_z D.5 VALID", (b * L, 4, 4, 8 * dim),
+                cfg.dim_latent_g, 4, 1, "VALID", None))
+    return out
+
+
+def ssgan_bn_shapes(cfg, b: int):
+    """(name, (R, C), act) of every BN with ``bn=True`` at ``b`` videos:
+    G's dense BN1 over [B·LEN, 4096] and its conv BNs, the frame stack's
+    (E, frame D), the video stack's and the 3dcnn's 5-D BNs (R = B · T ·
+    H · W at its temporal strides)."""
+    L, dim = cfg.seq_len, cfg.dim
+    f = b * L
+    out = [("G.BN1 dense", (f, 16 * 8 * dim), "relu"),
+           ("G.BN2", (f * 64, 4 * dim), "relu"),
+           ("G.BN3", (f * 256, 2 * dim), "relu"),
+           ("G.BN4", (f * 1024, dim), "relu")]
+    for name, n in (("frame", f), ("video", b)):
+        out += [(f"{name}.BN2", (n * 256, 2 * dim), "leaky_relu"),
+                (f"{name}.BN3", (n * 64, 4 * dim), "leaky_relu"),
+                (f"{name}.BN4", (n * 16, 8 * dim), "leaky_relu")]
+    t, widths = L, (dim, 2 * dim, 4 * dim, 8 * dim)
+    sls = (2, 1 if L == 4 else 2, 2, 1 if L == 4 else 2)
+    for i, sl in enumerate(sls):
+        t = -(-t // sl)
+        if i:
+            hw = 64 // 2 ** (i + 1)
+            out.append((f"3dcnn 5-D BN{i + 1}", (b * t * hw * hw, widths[i]),
+                        "leaky_relu"))
+    return out
+
+
+def _check_family3(gen, errs, misses, seen):
+    """K1 at family 3's shapes (``family3_batches``) in f32 and bf16, each
+    called twice for the same bits; with ``bn=True``, at the same batches
+    and in both dtypes, K2a/K2b and K2c+K2d at every BN shape
+    (``ssgan_bn_shapes``)."""
+    import torch
+    from graphical_gan_tpu_torch.core.config import ssgan_defaults
+    batches = family3_batches()
+    log({"check": "family3 batches", **batches})
+    for dataset, bs in batches.items():
+        cfg = ssgan_defaults(dataset)
+        for b in bs:
+            rows = ssgan_conv_shapes(cfg, b)
+            if b != cfg.batch_size:  # concat_z trains at the batch alone
+                rows = rows[:-1]
+            for dtype in (torch.float32, torch.bfloat16):
+                for name, shape, cout, k, s, pad, act in rows:
+                    x, w, bias = _conv_inputs(shape, cout, dtype, gen, k)
+                    _check_conv(f"{name} B={shape[0]}", x, w, bias, s, pad,
+                                act, errs, misses, seen)
+    for dataset, bs in batches.items():
+        cfg = ssgan_defaults(dataset, bn=True)
+        for b in bs:
+            for dtype in (torch.float32, torch.bfloat16):
+                for name, rc, act in ssgan_bn_shapes(cfg, b):
+                    x, scale, offset = _bn_inputs(rc, dtype, gen)
+                    label = f"{cfg.dataset} {name} R={rc[0]}"
+                    _check_bn(label, x, scale, offset, act, 0.0, errs,
+                              misses)
+                    g = _bn_cotangents(x, gen)[1][1]
+                    _check_bn_bwd(f"{label}+corr", x, g, scale, offset,
+                                  act, errs, misses)
+
+
+def _k1_timing_row(name, shape, cout, k, s, pad, act, dtype, gen, card):
+    """K1 on random inputs of ``shape`` (NHWC) to ``cout`` channels, k x k
+    at stride ``s`` with ``pad``: its time, its plain version's,
+    ``F.conv2d`` + bias + act's on the padded input, and the bound (taps in
+    the padding left out)."""
+    import torch
+    import torch.nn.functional as F
+    from graphical_gan_tpu_torch.ops.activations import activation
+    from graphical_gan_tpu_torch.ops.kernels import fused_conv
+    dn = str(dtype).split(".")[1]
+    x, w, bias = _conv_inputs(shape, cout, dtype, gen, k)
+    bb, h, wd, cin = shape
+    oh = fused_conv.out_size(h, k, s, pad)
+    ow = fused_conv.out_size(wd, k, s, pad)
+    (plo, phi), (qlo, qhi) = fused_conv._pads(h, wd, k, k, s, pad)
+    xpad = F.pad(x.permute(0, 3, 1, 2), (qlo, qhi, plo, phi)
+                 ).contiguous(memory_format=torch.channels_last)
+    wlib = w.to(dtype).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    act_fn = activation(act)
+    taps = ((conv_valid_taps(h, k, s, plo) if pad == "SAME" else k * oh)
+            * (conv_valid_taps(wd, k, s, qlo) if pad == "SAME" else k * ow))
+    flops = 2.0 * bb * cout * cin * taps
+    nbytes = (x.numel() + bb * oh * ow * cout + w.numel() + cout
+              ) * dtype.itemsize
+    t_b, by = bound(flops, nbytes, dn)
+    p = _plan_of(x, w, s, pad)
+    return {"kernel": "fused_conv2d_bias_act", "shape": name, "B": bb,
+            "dtype": dn, "card": card, "path": p.path,
+            "tile": [p.bm, p.bn], "splits": p.splits,
+            "ms": time_ms(lambda *a: fused_conv.fused_conv2d_bias_act(
+                *a, s, pad, act), (x, w, bias)),
+            "plain_ms": time_ms(
+                lambda *a: fused_conv.fused_conv2d_bias_act_plain(
+                    *a, s, pad, act), (x, w, bias)),
+            "library_ms": time_ms(
+                lambda *a: act_fn(F.conv2d(*a, stride=s)),
+                (xpad, wlib, bias.to(dtype))),
+            "bound_ms": t_b, "bound_by": by, "flops": flops,
+            "bytes": nbytes}
+
+
+def _time_family3(timings, card):
+    """K1 at family 3's frame shapes (moving-MNIST and chairs at B 50:
+    every conv of the per-frame and whole-video stacks and the VALID D.5)
+    in f32 and bf16 (``_k1_timing_row``)."""
+    import torch
+    from graphical_gan_tpu_torch.core.config import ssgan_defaults
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    for dataset in ("moving_mnist", "chairs"):
+        cfg = ssgan_defaults(dataset)
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, shape, cout, k, s, pad, act in ssgan_conv_shapes(
+                    cfg, cfg.batch_size):
+                row = {**_k1_timing_row(name, shape, cout, k, s, pad, act,
+                                        dtype, gen, card), "family": 3}
+                timings.append(row)
+                log({"timing": row})
+
+
+def _family3_data(cfg, cache):
+    """(resident data, batch sampler) as ``runs/ssgan.run`` builds them:
+    moving-MNIST's digit pool for the device pipeline (the loader's
+    synthetic MNIST), chairs' synthetic clips (FAMILY3_CHAIRS) resident."""
+    from graphical_gan_tpu_torch.data import chairs
+    from graphical_gan_tpu_torch.data.common import materialize_epoch
+    from graphical_gan_tpu_torch.data.ondevice_moving_mnist import (
+        make_video_sampler)
+    from graphical_gan_tpu_torch.runs import ssgan
+    if cfg.dataset not in cache:
+        if cfg.dataset == "moving_mnist":
+            cache[cfg.dataset] = ssgan.device_pool(cfg, None)
+        else:
+            cache[cfg.dataset] = materialize_epoch(chairs.load(
+                cfg.seq_len, cfg.batch_size, **FAMILY3_CHAIRS)[0])
+    sampler = make_video_sampler(cfg.seq_len) \
+        if cfg.dataset == "moving_mnist" else None
+    return cache[cfg.dataset], sampler
+
+
+def phase_family3(launch_totals):
+    """3 Trainer iterations of each FAMILY3_RUNS config at published widths
+    (moving-MNIST on the device pipeline, chairs resident): finite costs and
+    parameters, K1 launched; moving-MNIST local_ep then timed and profiled;
+    then a moving-MNIST local_ep run with ``bn=True`` through ``run()``,
+    which must launch K2a-d as well."""
+    import torch
+    from graphical_gan_tpu_torch.ops import kernels
+    from graphical_gan_tpu_torch.runs.ssgan import run
+    from graphical_gan_tpu_torch.train.trainer import Trainer
+    base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
+                        "smoke_family3")
+    shutil.rmtree(base, ignore_errors=True)
+    cache = {}
+    for dataset, mode, over in FAMILY3_RUNS:
+        model = _ssgan_model(dataset, mode, **dict(over))
+        cfg = model.cfg
+        data, sampler = _family3_data(cfg, cache)
+        tag = "_".join([dataset, mode] + [str(v) for _, v in over])
+        tr = Trainer(model, data, os.path.join(base, tag), seed=0,
+                     device="cuda", checkpoint_every=0, batch_sampler=sampler)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        metrics = tr.train(FAMILY3_ITERS)
+        torch.cuda.synchronize()
+        got = kernels.launches()
+        _add(launch_totals, got)
+        row = {"phase": "family3", "dataset": dataset, "mode": mode,
+               "pos_mode": cfg.pos_mode, "ali_mode": cfg.ali_mode,
+               "batch": cfg.batch_size, "seq_len": cfg.seq_len,
+               "dim": cfg.dim, "bn": cfg.bn, "iters": FAMILY3_ITERS,
+               "seconds": round(time.perf_counter() - t0, 3),
+               "last_metrics": metrics, "launches": got}
+        if (dataset, mode, over) == FAMILY3_PROFILED:
+            ms = _time_train(tr, FAMILY1_TIME_ITERS)
+            busy, dev_ms, groups, top, host_ops, _ = _profile_train(
+                tr, PROFILE_ITERS)
+            frames = (1 + cfg.critic_iters) * cfg.batch_size * cfg.seq_len
+            row.update(ms_per_iter=ms, frames_per_s=frames / ms * 1e3,
+                       busy_share=busy, device_ms_per_iter=dev_ms,
+                       device_ms_per_iter_by_group=groups,
+                       top_kernels_ms_per_iter=top,
+                       profiled_host_aten_ops_per_iter=host_ops)
+        log(row)
+        if not metrics or not all(math.isfinite(v)
+                                  for v in metrics.values()):
+            fail(f"family3 {tag}: costs {metrics}")
+        _finite_state(tr, f"family3 {tag}")
+        if not got.get("fused_conv2d_bias_act"):
+            fail(f"family3 {tag}: K1 never launched {got}")
+    t0 = time.perf_counter()
+    (tr, metrics), got = _path_launches(
+        run, "moving_mnist", "local_ep", iters=FAMILY3_ITERS,
+        data_pipeline="device", outdir=os.path.join(base, "bn"),
+        checkpoint_every=0, device="cuda", bn=True)
+    _add(launch_totals, got)
+    log({"phase": "family3", "dataset": "moving_mnist", "mode": "local_ep",
+         "bn": True, "via": "run()", "iters": FAMILY3_ITERS,
+         "seconds": round(time.perf_counter() - t0, 3),
+         "last_metrics": metrics, "launches": got})
+    missing = [k for k in TRAIN_KERNELS if not got.get(k)]
+    if missing or not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"family3 bn=True: kernels never launched {missing}, costs "
+             f"{metrics}")
+
+
+def phase_family3_parity():
+    """moving-MNIST local_ep under gsp (both operator chains) and ali under
+    3dcnn (the conv3d D), FAMILY3_PARITY_BATCH videos a batch: 2
+    iterations on the card against the CPU from the same params, batches
+    and draws, the controls refused."""
+    for mode, over in (("local_ep", {"pos_mode": "gsp"}),
+                       ("ali", {"ali_mode": "3dcnn"})):
+        model = _ssgan_model("moving_mnist", mode,
+                             batch_size=FAMILY3_PARITY_BATCH, **over)
+        _train_parity(model, f"moving_mnist {mode} {over}", seed=6,
+                      carried=True)
+
+
+def phase_family3_serve(launch_totals):
+    """A moving-MNIST local_ep run directory (published width, random
+    weights from a seed) over HTTP: the sampler from server-drawn priors,
+    the reconstructor from video and label rows; its answer to an
+    ``exact`` FAMILY3_SERVE_ROWS-row request held to the CPU within
+    E2E_ATOL."""
+    import numpy as np
+    from graphical_gan_tpu_torch.core.config import asdict
+    from graphical_gan_tpu_torch.ops import kernels
+    from graphical_gan_tpu_torch.serve.client import SamplerClient
+    from graphical_gan_tpu_torch.serve.server import (
+        sampler_from_run_dir, serve_run_dir)
+    from graphical_gan_tpu_torch.train.checkpoint import save_params
+    model = _ssgan_model("moving_mnist", "local_ep")
+    cfg = model.cfg
+    run_dir = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
+                           "smoke_ssgan_run")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    with open(os.path.join(run_dir, "config.json"), "w") as f:
+        json.dump(asdict(cfg), f, default=str)
+    save_params(os.path.join(run_dir, "ckpt_0.npz"),
+                model.init(seed=0, device="cuda"), {"iteration": 0})
+    rng = np.random.default_rng(11)
+    x = rng.random((64, cfg.seq_len, cfg.output_dim), dtype=np.float32)
+    y = np.eye(cfg.n_classes, dtype=np.float32)[rng.integers(0, 10, 64)]
+    n = FAMILY3_SERVE_ROWS
+    kernels.reset_launches()
+    outs = {}
+    for entry in ("sampler", "reconstructor"):
+        httpd, batcher, _, warmup_s = serve_run_dir(
+            run_dir, entry=entry, device="cuda", buckets=BUCKETS, port=0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            cl = SamplerClient(f"http://127.0.0.1:{httpd.server_address[1]}")
+            if entry == "sampler":
+                outs["sampler"] = [cl.sample(n=m, seed=m) for m in (1, 8, 64)]
+            else:
+                outs["exact"] = cl.sample(inputs=[x[:n], y[:n]], seed=9,
+                                          exact=True)
+                outs["batched"] = [cl.sample(inputs=[x[:m], y[:m]])
+                                   for m in (1, 8, 64)]
+            stats = cl.stats()
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            batcher.close()
+            thread.join(timeout=30)
+        log({"phase": "family3-serve", "entry": entry,
+             "warmup_s": round(warmup_s, 3), "stats": stats})
+    got = kernels.launches()
+    _add(launch_totals, got)
+    for o in outs["sampler"] + outs["batched"] + [outs["exact"]]:
+        if o.shape[1:] != (cfg.seq_len, cfg.output_dim) \
+                or not np.isfinite(o).all() or np.abs(o).max() > 1.0:
+            fail(f"family3-serve: output {o.shape}, finite "
+                 f"{np.isfinite(o).all()}")
+    cpu, _, _, _ = sampler_from_run_dir(run_dir, entry="reconstructor",
+                                        device="cpu")
+    e = float(np.abs(outs["exact"] - cpu(9, x[:n], y[:n])).max())
+    log({"phase": "family3-serve", "rows": n,
+         "reconstructor_gpu_vs_cpu_max_abs_err": e, "atol": E2E_ATOL,
+         "launches": got})
+    if not e <= E2E_ATOL:
+        fail(f"family3-serve: the card's reconstruction differs from the "
+             f"CPU's by {e} > {E2E_ATOL}")
+    if not got.get("fused_conv2d_bias_act"):
+        fail(f"family3-serve: K1 never launched {got}")
+
+
+def ssgan_grid_misses(path: str, rows: int, cfg):
+    """What is wrong with an SSGAN montage: rows videos by LEN frames of
+    the frame size, gray or RGB, from its IHDR; and its GIF beside it."""
+    from graphical_gan_tpu_torch.report.save_images import png_size
+    if not os.path.isfile(path):
+        return [f"{os.path.basename(path)} missing"]
+    hgt, wdt = cfg.image_hw
+    want = (cfg.seq_len * wdt, rows * hgt, 0 if cfg.channels == 1 else 2)
+    got = png_size(path)
+    miss = [] if got == want else [
+        f"{os.path.basename(path)}: {got}, not {want}"]
+    gif = path[:-4] + ".gif"
+    if not os.path.isfile(gif):
+        miss.append(f"{os.path.basename(gif)} missing")
+    else:
+        with open(gif, "rb") as f:
+            if f.read(6) != b"GIF89a":
+                miss.append(f"{os.path.basename(gif)} is not a GIF89a")
+    return miss
+
+
+def learn3_misses(recs) -> list:
+    """What the family-3 learning check refuses: no reading before
+    training (iteration 0) or at LEARN3_ITERS, a reading that is not
+    finite, or the one at LEARN3_ITERS above LEARN3_MAX_RATIO of the one
+    before training."""
+    if (0 not in recs or LEARN3_ITERS not in recs
+            or not all(math.isfinite(v) for v in recs.values())):
+        return [f"dev rec l2 readings {recs}"]
+    first, end = recs[0], recs[LEARN3_ITERS]
+    if not end <= LEARN3_MAX_RATIO * first:
+        return [f"dev rec l2 {end} at {LEARN3_ITERS} > {LEARN3_MAX_RATIO} "
+                f"x {first} before training"]
+    return []
+
+
+def phase_family3_learn(launch_totals):
+    """``tools/ssgan_learn.run_protocol`` at seed 0: ``runs/ssgan.run(
+    "moving_mnist", "local_ep", data_dir="structured",
+    data_pipeline="device", compute_dtype="bfloat16")``, the hook once
+    before training, then LEARN3_ITERS iterations with the hook every
+    LEARN3_EVERY; dev rec l2 held to ``learn3_misses`` and every montage
+    to its size."""
+    from graphical_gan_tpu_torch.ops import kernels
+    from graphical_gan_tpu_torch.tools.ssgan_learn import run_protocol
+    base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
+                        "smoke_family3_learn")
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    tr, recs, metrics = run_protocol(seed=0, iters=LEARN3_ITERS,
+                                     every=LEARN3_EVERY, outdir=base)
+    got = kernels.launches()
+    _add(launch_totals, got)
+    misses = learn3_misses(recs)
+    cfg = tr.cfg
+    for it in (0, LEARN3_EVERY - 1, LEARN3_ITERS - 1):
+        for name, rows in (("samples", cfg.batch_size),
+                           ("reconstruction", 2 * cfg.batch_size),
+                           ("disentangle", 2 * cfg.batch_size)):
+            misses += ssgan_grid_misses(
+                os.path.join(tr.outf, f"{name}_{it}.png"), rows, cfg)
+    if not got.get("fused_conv2d_bias_act"):
+        misses.append(f"K1 never launched {got}")
+    its = sorted(recs)
+    log({"phase": "family3-learn", "iters": LEARN3_ITERS,
+         "seconds": round(time.perf_counter() - t0, 3),
+         "dev_rec_l2": recs, "max_ratio": LEARN3_MAX_RATIO,
+         "ratio_at_end": recs[its[-1]] / recs[its[0]] if len(its) > 1
+         else None,
+         "last_metrics": metrics, "launches": got, "misses": misses})
+    if misses:
+        fail(f"family3-learn: {misses}")
+
+
 SOURCES = {
     "fused_conv2d_bias_act": (
         "graphical_gan_tpu_torch/csrc/fused_conv.cu",
@@ -2728,7 +3295,7 @@ def _k1_rows(timings, k1_counts):
     out = []
     for dn, b, run in K1_ROWS:
         rows = [r for r in timings if r["kernel"] == "fused_conv2d_bias_act"
-                and r["dtype"] == dn and r["B"] == b]
+                and r["dtype"] == dn and r["B"] == b and "family" not in r]
         ops_ms = sum(r["bound_ms"] for r in rows
                      if r["bound_by"] == "operations")
         bytes_ms = sum(r["bound_ms"] for r in rows
@@ -2799,15 +3366,18 @@ def summary(errs, timings, launches):
     training runs; for K3 the bench-conv run), ``launches_serve`` the
     serving run, ``launches_family1`` the family1 runs and
     ``launches_loaders`` / ``_eval`` / ``_learn`` / ``_step_options`` /
-    ``_family2`` / ``_cluster`` / ``_family2_learn`` those phases' runs."""
+    ``_family2`` / ``_cluster`` / ``_family2_learn`` / ``_family3`` /
+    ``_family3_serve`` / ``_family3_learn`` those phases' runs; K1 adds
+    ``family3_rows``, its times at family 3's shapes (B 50 videos)."""
     out = []
     for name, (src, replaces) in SOURCES.items():
         k3 = name in K3_KERNELS
         backward = name not in SERVE_KERNELS and not k3
         b = 64 if backward else 256
-        rows = [r for r in timings if r["kernel"] == name and (
-            r["dtype"] == "bfloat16" if k3
-            else r["B"] == b and r["dtype"] == "float32")]
+        rows = [r for r in timings if r["kernel"] == name
+                and "family" not in r and (
+                    r["dtype"] == "bfloat16" if k3
+                    else r["B"] == b and r["dtype"] == "float32")]
 
         def total(key):
             return sum(r[key] for r in rows)
@@ -2828,7 +3398,8 @@ def summary(errs, timings, launches):
                     **{f"launches_{path}": launches[path].get(name, 0)
                        for path in ("loaders", "eval", "learn",
                                     "step_options", "family2", "cluster",
-                                    "family2_learn")},
+                                    "family2_learn", "family3",
+                                    "family3_serve", "family3_learn")},
                     "max_abs_err": errs[name],
                     "ms": total("ms"), "plain_ms": total("plain_ms"),
                     "bound_ms": total("bound_ms"),
@@ -2838,6 +3409,11 @@ def summary(errs, timings, launches):
                     "summed_over": over})
         if name == "fused_conv2d_bias_act":
             out[-1]["rows"] = _k1_rows(timings, launches["k1"])
+            out[-1]["family3_rows"] = [
+                {k: r[k] for k in ("shape", "B", "dtype", "path", "tile",
+                                   "splits", "ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by")}
+                for r in timings if r.get("family") == 3]
         if k3:
             out[-1]["rows"] = _k3_rows(timings, name)
         if name == "bn_stats":
@@ -2892,7 +3468,8 @@ def main(argv=None) -> int:
         launches = {"serve": {}, "train": {}, "bench": {}, "family1": {},
                     "loaders": {}, "eval": {}, "learn": {}, "k1": {},
                     "step_options": {}, "family2": {}, "cluster": {},
-                    "family2_learn": {}}
+                    "family2_learn": {}, "family3": {}, "family3_serve": {},
+                    "family3_learn": {}}
         _timed("build", phase_build)
         _timed("check", phase_check, errs)
         _timed("time", phase_time, timings)
@@ -2925,10 +3502,19 @@ def main(argv=None) -> int:
         _timed("cluster", phase_cluster, launches["cluster"])
         _timed("family2-learn", phase_family2_learn,
                launches["family2_learn"])
+        _timed("family3", phase_family3, launches["family3"])
+        _timed("family3-parity", phase_family3_parity)
+        _timed("family3-serve", phase_family3_serve,
+               launches["family3_serve"])
+        _timed("family3-learn", phase_family3_learn,
+               launches["family3_learn"])
         for path, want in (("family2", TRAIN_KERNELS),
                            ("family2_learn", TRAIN_KERNELS),
                            ("cluster", SERVE_KERNELS),
-                           ("step_options", TRAIN_KERNELS)):
+                           ("step_options", TRAIN_KERNELS),
+                           ("family3", TRAIN_KERNELS),
+                           ("family3_serve", ("fused_conv2d_bias_act",)),
+                           ("family3_learn", ("fused_conv2d_bias_act",))):
             missing = [k for k in want if not launches[path].get(k)]
             if missing:
                 fail(f"kernels never launched on the {path} path: "

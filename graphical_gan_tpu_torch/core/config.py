@@ -1,7 +1,7 @@
 """Config layer of the port: a copy of ``graphical_gan_tpu/core/config.py``
-(``DataSpec``, ``GanInferenceConfig``, ``GMGanConfig``, the ``derive_*``
-rules and the per-dataset defaults), kept here so that the port imports
-nothing of the JAX package. The SSGAN config comes with its family.
+(``DataSpec``, ``GanInferenceConfig``, ``GMGanConfig``, ``SSGanConfig``,
+the ``derive_*`` rules and the per-dataset defaults), kept here so that the
+port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -259,6 +259,105 @@ def gmgan_defaults(dataset: str, mode: str = "local_ep", **overrides
         raise ValueError(f"unknown MODE_K {common['mode_k']!r}; valid: "
                          f"{', '.join(MODE_KS)}")
     return GMGanConfig(**common)
+
+
+# ---------------------------------------------------------------------------
+# family 3 — SSGAN (state-space / video): ssgan_inference_*
+# ---------------------------------------------------------------------------
+
+SSGAN_MODES = ("local_ep", "local_epce-z", "ali", "alice-z")
+POS_MODES = ("naive_mean_field", "inverse", "forward_inverse", "gsp")
+ALI_MODES = ("concat_x", "concat_z", "3dcnn")
+
+
+@dataclass(frozen=True)
+class SSGanConfig:
+    dataset: str = "moving_mnist"
+    mode: str = "local_ep"            # SSGAN_MODES
+    pos_mode: str = "naive_mean_field"  # POS_MODES
+    ali_mode: str = "concat_x"        # ALI_MODES
+    op_dyn_mode: str = "res"          # res, res_w
+    bn: bool = False
+    seq_len: int = 16
+    dim_latent_g: int = 128
+    dim_latent_l: int = 8
+    dim_op: int = 256
+    dim: int = 32
+    n_classes: int = 10               # 0 => unconditional (chairs)
+    channels: int = 1
+    image_hw: Tuple[int, int] = (64, 64)
+    lambda_: float = 0.1
+    lr: float = 1e-4
+    batch_size: int = 50
+    beta1: float = 0.5
+    beta2: float = 0.999
+    iters: int = 100_000
+    critic_iters: int = 1
+    dropout_rate: float = 0.2
+    n_vis: int = 50
+    compute_dtype: str = "float32"
+    param_dtype: str = "float32"
+    moment_dtype: str = "float32"
+    remat: bool = False
+    accum_steps: int = 1
+
+    @property
+    def dim_latent_t(self) -> int:
+        return self.dim_latent_l
+
+    @property
+    def data(self) -> DataSpec:
+        # moving-mnist synthesizes float [0,1]; chairs npy carries int pixels
+        # (ssgan_inference_chairs.py:508 divides by 256)
+        norm = "int256_pm1" if self.dataset == "chairs" else "unit_pm1"
+        return DataSpec(self.dataset, tuple(self.image_hw), self.channels,
+                        norm)
+
+    @property
+    def output_dim(self) -> int:
+        return self.image_hw[0] * self.image_hw[1] * self.channels
+
+    @property
+    def conditional(self) -> bool:
+        return self.n_classes > 0
+
+    @property
+    def ratio(self):
+        """Discriminator weights (``ssgan_inference_moving_mnist.py:
+        78-79``): LEN-1 pair Ds, the z_g D and the frame D weighted LEN,
+        normalized."""
+        import numpy as np
+        r = [1.0] * (self.seq_len - 1) + [1.0, float(self.seq_len)]
+        return np.asarray(r) / (len(r) + self.seq_len - 1)
+
+
+def ssgan_defaults(dataset: str, mode: str = "local_ep", **overrides
+                   ) -> SSGanConfig:
+    """Published per-script defaults: moving-MNIST LEN 16, conditional on
+    10 classes, 1 channel, ``res``, 100k iterations; chairs LEN 31,
+    unconditional, 3 channels, ``res_w``, 40k (``ssgan_inference_chairs.
+    py``). Both B 50, DIM 32."""
+    if mode not in SSGAN_MODES:
+        raise ValueError(f"unknown ssgan mode {mode!r}; valid modes: "
+                         f"{', '.join(SSGAN_MODES)}")
+    if dataset == "moving_mnist":
+        cfg = dict(dataset=dataset, mode=mode, seq_len=16, n_classes=10,
+                   channels=1, iters=100_000, op_dyn_mode="res")
+    elif dataset == "chairs":
+        cfg = dict(dataset=dataset, mode=mode, seq_len=31, n_classes=0,
+                   channels=3, iters=40_000, op_dyn_mode="res_w")
+    else:
+        raise ValueError(f"unknown ssgan dataset {dataset!r}")
+    cfg.update(overrides)
+    out = SSGanConfig(**cfg)
+    for name, value, valid in (("pos_mode", out.pos_mode, POS_MODES),
+                               ("ali_mode", out.ali_mode, ALI_MODES),
+                               ("op_dyn_mode", out.op_dyn_mode,
+                                ("res", "res_w"))):
+        if value not in valid:
+            raise ValueError(f"unknown {name} {value!r}; valid: "
+                             f"{', '.join(valid)}")
+    return out
 
 
 def asdict(cfg) -> dict:

@@ -27,9 +27,12 @@ def set_numerics() -> None:
     """The numerics the server and the trainer both run with: full f32
     products and convolutions (cuDNN runs f32 convolutions, and their
     gradients, in TF32 by default, which keeps about three decimal digits),
-    and deterministic cuDNN algorithms, so that the same inputs give the
-    same bits: exact-mode requests as in the JAX server, and training steps
-    from one seed, as ``tools/determinism.py`` audits for the JAX step."""
+    bf16 products summed in f32 as the TPU's matrix unit sums them (cuBLAS
+    may otherwise add split-K partial sums in bf16), and deterministic
+    cuDNN algorithms, so that the same inputs give the same bits:
+    exact-mode requests as in the JAX server, and training steps from one
+    seed, as ``tools/determinism.py`` audits for the JAX step."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.deterministic = True

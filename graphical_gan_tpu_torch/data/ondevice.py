@@ -3,7 +3,9 @@
 A cifar10-sized training set fits on the card many times over (50,000 x
 3,072 bytes as uint8), so it is uploaded once and each iteration's
 (1+k) batches are gathered there by indices drawn on the card: no host
-copy in the training loop.
+copy in the training loop. A dataset may be a dict of aligned arrays
+(SSGAN's ``{'x', 'y'}``): each leaf is uploaded, and one index draw is
+shared by every leaf, so the pairs stay paired.
 """
 
 from __future__ import annotations
@@ -11,20 +13,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-
-def to_device(array: np.ndarray, device) -> torch.Tensor:
-    """Upload a host array once, in its own dtype (integer pixels stay
-    uint8, as ``runs/gan_inference.py:353-358`` keeps them)."""
-    return torch.from_numpy(np.ascontiguousarray(array)).to(device)
+from graphical_gan_tpu_torch.core import tree
 
 
-def sample_batches(data: torch.Tensor, n_batches: int, batch_size: int,
-                   generator: torch.Generator) -> torch.Tensor:
+def to_device(array, device):
+    """Upload a host array (or each array of a dict) once, in its own dtype
+    (integer pixels stay uint8, as ``runs/gan_inference.py:353-358`` keeps
+    them)."""
+    return tree.tree_map(
+        lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device), array)
+
+
+def sample_batches(data, n_batches: int, batch_size: int,
+                   generator: torch.Generator):
     """[n_batches, batch_size, ...] drawn uniformly with replacement (an
-    epochless stream, as the JAX ``sample_batches``); the indices come from
-    ``generator``, which lives on the data's device."""
-    n = data.shape[0]
-    idx = torch.randint(0, n, (n_batches * batch_size,), generator=generator,
-                        device=data.device)
-    batch = data.index_select(0, idx)
-    return batch.reshape((n_batches, batch_size) + tuple(data.shape[1:]))
+    epochless stream, as the JAX ``sample_batches`` and
+    ``sample_batches_tree``); the indices come from ``generator``, which
+    lives on the data's device, one draw for every leaf of a dict."""
+    first = tree.first_leaf(data)
+    idx = torch.randint(0, first.shape[0], (n_batches * batch_size,),
+                        generator=generator, device=first.device)
+    return tree.tree_map(
+        lambda x: x.index_select(0, idx).reshape(
+            (n_batches, batch_size) + tuple(x.shape[1:])), data)

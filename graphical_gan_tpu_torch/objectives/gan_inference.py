@@ -104,3 +104,32 @@ def vegan_wgan_gp(disc_fake: torch.Tensor, disc_real: torch.Tensor,
     disc_cost = (disc_fake.mean() - disc_real.mean()) * lamb \
         + gradient_penalty
     return gen_cost, disc_cost
+
+
+def weighted_local_epce(disc_fake_list: Sequence[torch.Tensor],
+                        disc_real_list: Sequence[torch.Tensor],
+                        ratio_list,
+                        rec_penalty: Optional[torch.Tensor] = None):
+    """SSGAN's per-discriminator weighted CE (``gan_inference.py:
+    307-358``): ``(gen, disc, gen_debug, disc_debug)``, the debug lists each
+    discriminator's weighted contribution; ``rec_penalty`` (local_epce-z's)
+    is added to the generator cost after the sum."""
+    if len(disc_fake_list) != len(ratio_list):
+        raise ValueError(f"{len(disc_fake_list)} discriminators, "
+                         f"{len(ratio_list)} weights")
+    dev = disc_fake_list[0].device
+    gen_cost = torch.zeros((), device=dev)
+    disc_cost = torch.zeros((), device=dev)
+    gen_debug, disc_debug = [], []
+    for df, dr, ratio in zip(disc_fake_list, disc_real_list, ratio_list):
+        # the weight rounded to f32 first, as jnp.float32(ratio)
+        r = torch.tensor(float(ratio), dtype=torch.float32).item()
+        g = r * sigmoid_ce(df, 1.0) + r * sigmoid_ce(dr, 0.0)
+        d = r * sigmoid_ce(df, 0.0) + r * sigmoid_ce(dr, 1.0)
+        gen_cost = gen_cost + g
+        disc_cost = disc_cost + d
+        gen_debug.append(g)
+        disc_debug.append(d)
+    if rec_penalty is not None:
+        gen_cost = gen_cost + rec_penalty
+    return gen_cost, disc_cost, gen_debug, disc_debug

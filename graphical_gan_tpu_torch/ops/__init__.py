@@ -2,7 +2,8 @@
 
 from graphical_gan_tpu_torch.ops.activations import (  # noqa: F401
     LEAKY_ALPHA, activation, dropout, gaussian_noise, leaky_relu, relu)
-from graphical_gan_tpu_torch.ops.conv import conv2d, deconv2d  # noqa: F401
+from graphical_gan_tpu_torch.ops.conv import (  # noqa: F401
+    conv2d, conv3d, deconv2d)
 from graphical_gan_tpu_torch.ops.layout import (  # noqa: F401
     flatten_image, unflatten_image)
 from graphical_gan_tpu_torch.ops.linear import linear  # noqa: F401

@@ -1,9 +1,10 @@
-"""2-D convolution and transpose convolution over NHWC
-(``graphical_gan_tpu/ops/conv.py``), with gradients.
+"""2-D convolution, transpose convolution and 3-D convolution over
+channels-last tensors (``graphical_gan_tpu/ops/conv.py``), with gradients.
 
 Filters keep the JAX package's TF layouts: conv HWIO ``[K, K, in, out]``,
-transpose conv ``[K, K, out, in]``. Each casts the filter to the activation
-dtype, as ``ops/conv.py:72`` does.
+transpose conv ``[K, K, out, in]``, conv3d DHWIO ``[K_len, K, K, in,
+out]``. Each casts the filter to the activation dtype, as ``ops/conv.py:72``
+does.
 
 - ``conv2d`` goes through ``conv2d_bias_act`` (``ops/kernels/
   fused_conv.py``): the K1 kernel forward, bias and activation fused into
@@ -16,6 +17,11 @@ dtype, as ``ops/conv.py:72`` does.
   forward conv (pads ``(lo, hi)``, ``lo <= hi``), while torch's ``padding``
   is symmetric, so it runs with ``padding=0`` and crops ``lo`` from the low
   side. Its gradients are autograd's (cuDNN on the card).
+- ``conv3d`` is ``F.conv3d`` on the NDHWC tensor viewed as NCDHW: the JAX
+  package runs it as a plain XLA convolution over DHWIO (``ops/conv.py:
+  227-243``), with no Pallas kernel. TF's SAME pads are asymmetric (the odd
+  pad goes high), so they are applied with ``F.pad`` first and the conv
+  runs unpadded. Its gradients are autograd's (cuDNN on the card).
 """
 
 from __future__ import annotations
@@ -61,4 +67,27 @@ def deconv2d(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
     lo_h = same_pads(oh, k, stride)[0]
     lo_w = same_pads(ow, k, stride)[0]
     out = full[:, :, lo_h:lo_h + oh, lo_w:lo_w + ow].permute(0, 2, 3, 1)
+    return (out + params[name + ".Biases"].to(out.dtype)).contiguous()
+
+
+def conv3d(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
+           stride: int = 1, stride_len: int = 1,
+           padding: str = "SAME") -> torch.Tensor:
+    """conv3d(x) + bias; x [N, D, H, W, Cin] NDHWC, ``name.Filters`` DHWIO
+    ``[K_len, K, K, in, out]``, ``name.Biases`` [Cout]; strides
+    (``stride_len``, ``stride``, ``stride``). Returns NDHWC."""
+    if padding != "SAME":
+        raise NotImplementedError("conv3d ports the SAME padding the models "
+                                  "use")
+    w = params[name + ".Filters"]
+    kd, kh, kw = w.shape[:3]
+    pads = []
+    # F.pad lists the last axis first: W, then H, then D
+    for size, k, s in ((x.shape[3], kw, stride), (x.shape[2], kh, stride),
+                       (x.shape[1], kd, stride_len)):
+        pads.extend(same_pads(size, k, s))
+    xc = F.pad(x.permute(0, 4, 1, 2, 3), pads)  # NCDHW view, padded
+    out = F.conv3d(xc, w.to(x.dtype).permute(4, 3, 0, 1, 2),
+                   stride=(stride_len, stride, stride))
+    out = out.permute(0, 2, 3, 4, 1)
     return (out + params[name + ".Biases"].to(out.dtype)).contiguous()

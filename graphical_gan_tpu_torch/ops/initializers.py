@@ -65,6 +65,18 @@ def deconv_fans(input_dim: int, output_dim: int, filter_size: int, stride: int
     return fan_in, fan_out
 
 
+def conv3d_fans(input_dim: int, output_dim: int, filter_size: int,
+                filter_len: int, stride: int, stride_len: int
+                ) -> Tuple[float, float]:
+    """``tflib/ops/conv3d.py:20-21``, with the py2 left-to-right
+    arithmetic."""
+    fan_in = input_dim * filter_size ** 2 * filter_len
+    fan_out = py2_div(
+        py2_div(output_dim * filter_size ** 2, stride ** 2) * filter_len,
+        stride_len)
+    return fan_in, fan_out
+
+
 def he_or_glorot_stdev(fan_in: float, fan_out: float, he_init: bool) -> float:
     """``tflib/ops/conv2d.py:69-72``: 'he' here is sqrt(4/(fi+fo))."""
     if he_init:
@@ -79,8 +91,10 @@ def init_params(specs: Dict[str, Tuple[str, Tuple[int, ...], Tuple]],
     """Fresh parameters from ``{name: (kind, shape, fan arguments)}``, drawn
     in the specs' order from a ``torch.Generator`` seeded with ``seed`` on
     ``device``: 'conv' / 'deconv' filters (He: ``conv_fans`` /
-    ``deconv_fans`` of (in, out, k, stride)) and 'linear' weights (Glorot:
-    (in, out)) scaled-uniform, 'zeros' and 'ones' constants."""
+    ``deconv_fans`` of (in, out, k, stride)), 'conv3d' filters (He:
+    ``conv3d_fans`` of (in, out, k, k_len, stride, stride_len)) and
+    'linear' weights (Glorot: (in, out)) scaled-uniform, 'normal' draws,
+    'zeros' and 'ones' constants."""
     from graphical_gan_tpu_torch.core.device import resolve_device
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -96,6 +110,8 @@ def init_params(specs: Dict[str, Tuple[str, Tuple[int, ...], Tuple]],
         else:
             if kind == "conv":
                 stdev = he_or_glorot_stdev(*conv_fans(*fan), he_init=True)
+            elif kind == "conv3d":
+                stdev = he_or_glorot_stdev(*conv3d_fans(*fan), he_init=True)
             elif kind == "deconv":
                 stdev = he_or_glorot_stdev(*deconv_fans(*fan), he_init=True)
             else:

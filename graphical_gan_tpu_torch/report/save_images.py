@@ -6,7 +6,8 @@ divisor of N that is at most sqrt(N) rows) or an explicit ``size=(rows,
 cols)``; floats in [0, 1] scale by 255.99; BCHW input turns BHWC; 2-D input
 reshapes to square images. ``save_images`` writes the PNG itself (8-bit
 gray or RGB, filter 0 on every row, one zlib IDAT chunk), so it needs no
-PIL. ``save_gifs`` needs imageio, imported where it runs.
+PIL, and ``save_gifs`` its animated GIF89a (:func:`encode_gif`), so it
+needs no imageio.
 """
 
 from __future__ import annotations
@@ -101,10 +102,76 @@ def save_images(x: np.ndarray, save_path: str, size=None) -> str:
     return save_path
 
 
+# GIF's LZW at a minimum code size of 8: codes 0-255 are the pixels, 256
+# clears the table, 257 ends the data. Every pixel goes out as its own
+# 9-bit code, and a clear code comes before the decoder's table would grow
+# to 10-bit codes (it adds one entry per code after the first since the
+# last clear: 258 + 253 < 512), so no compression table is needed.
+_GIF_CLEAR, _GIF_END, _GIF_RUN = 256, 257, 254
+
+
+def _gif_palette(color: bool) -> np.ndarray:
+    """[256, 3] uint8: the gray ramp, or 3-3-2 bits of red, green, blue."""
+    i = np.arange(256)
+    if not color:
+        return np.repeat(i[:, None], 3, axis=1).astype(np.uint8)
+    r, g, b = (i >> 5) & 7, (i >> 2) & 7, i & 3
+    return np.stack([r * 255 // 7, g * 255 // 7, b * 255 // 3],
+                    axis=1).astype(np.uint8)
+
+
+def gif_indices(img: np.ndarray) -> np.ndarray:
+    """The palette index of each pixel of a uint8 [H, W] (gray: the value
+    itself) or [H, W, 3] (the top 3, 3, 2 bits of R, G, B) frame."""
+    if img.ndim == 2:
+        return img
+    return ((img[..., 0] & 0xE0) | ((img[..., 1] & 0xE0) >> 3)
+            | (img[..., 2] >> 6)).astype(np.uint8)
+
+
+def _lzw_literal(indices: np.ndarray) -> bytes:
+    """The image data of one frame: minimum code size 8, then the 9-bit
+    codes packed LSB first in sub-blocks of at most 255 bytes."""
+    px = indices.reshape(-1).astype(np.uint16)
+    n_runs = -(-px.size // _GIF_RUN)
+    runs = np.full(n_runs * _GIF_RUN, _GIF_END, np.uint16)
+    runs[:px.size] = px
+    codes = np.concatenate(
+        [np.full((n_runs, 1), _GIF_CLEAR, np.uint16),
+         runs.reshape(n_runs, _GIF_RUN)], axis=1).reshape(-1)
+    codes = np.append(codes[:n_runs + px.size], _GIF_END).astype(np.uint16)
+    bits = ((codes[:, None] >> np.arange(9)) & 1).astype(np.uint8)
+    data = np.packbits(bits.reshape(-1), bitorder="little").tobytes()
+    blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                      for i in range(0, len(data), 255))
+    return bytes([8]) + blocks + b"\x00"
+
+
+def encode_gif(frames, fps: int = 5) -> bytes:
+    """An animated GIF89a of uint8 frames, all [H, W] (gray) or all
+    [H, W, 3] (RGB on the 3-3-2 palette), each shown 1/fps s, looping."""
+    frames = [np.ascontiguousarray(f, dtype=np.uint8) for f in frames]
+    h, w = frames[0].shape[:2]
+    color = frames[0].ndim == 3
+    out = [b"GIF89a", struct.pack("<HHBBB", w, h, 0xF7, 0, 0),
+           _gif_palette(color).tobytes(),
+           b"!\xff\x0bNETSCAPE2.0\x03\x01" + struct.pack("<H", 0)
+           + b"\x00"]
+    delay = int(round(100.0 / fps))
+    for f in frames:
+        if f.shape[:2] != (h, w) or (f.ndim == 3) != color:
+            raise ValueError("encode_gif takes frames of one shape")
+        out.append(b"!\xf9\x04\x00" + struct.pack("<H", delay) + b"\x00\x00")
+        out.append(b"," + struct.pack("<HHHHB", 0, 0, w, h, 0))
+        out.append(_lzw_literal(gif_indices(f)))
+    out.append(b";")
+    return b"".join(out)
+
+
 def save_gifs(x: np.ndarray, save_path: str, size=None, fps: int = 5) -> str:
     """x: [N, T, C, H, W]: one montage frame per timestep
     (``tflib/save_images.py:47-51``)."""
-    import imageio
     frames = [large_image(x[:, t], size=size) for t in range(x.shape[1])]
-    imageio.mimsave(save_path, frames, duration=1.0 / fps)
+    with open(save_path, "wb") as f:
+        f.write(encode_gif(frames, fps))
     return save_path

@@ -10,7 +10,13 @@ request is reproducible, as the JAX package's ``call(key, *inputs)`` is.
 Per family the sampler is ``fn(params, seed, *inputs) -> images``:
 
 - gan_inference: ``noise [n, dim_latent]``;
-- gmgan: ``k_onehot [n, n_coms], noise [n, dim_latent]``.
+- gmgan: ``k_onehot [n, n_coms], noise [n, dim_latent]``;
+- ssgan: ``z_l_0 [n, dim_latent_l], z_g [n, dim_latent_g]`` and, for a
+  conditional model, one-hot ``labels [n, n_classes]``; the motion chain's
+  eps is drawn from the seed. Output: videos [n, LEN, C·H·W].
+
+ssgan's ``reconstructor`` takes raw videos [n, LEN, C·H·W] (and the
+one-hot labels of a conditional model).
 
 The artifact export (``torch.export``) waits for a later slice.
 """
@@ -26,11 +32,18 @@ import torch
 ENTRIES = {
     "gan_inference": ("sampler", "encoder", "reconstructor"),
     "gmgan": ("sampler", "encoder", "cluster", "reconstructor"),
+    "ssgan": ("sampler", "reconstructor"),
 }
 
 #: what the entry's single output array is
 ENTRY_OUTPUT = {"sampler": "images", "reconstructor": "images",
                 "encoder": "latents", "cluster": "probs"}
+
+
+def _generator(seed: int, like: torch.Tensor) -> torch.Generator:
+    gen = torch.Generator(device=like.device)
+    gen.manual_seed(int(seed))
+    return gen
 
 
 def make_sampler(family: str, model) -> Tuple:
@@ -46,9 +59,17 @@ def make_sampler(family: str, model) -> Tuple:
             return model.sample(params, k_onehot, noise)
         example = (np.zeros((n, cfg.n_coms), np.float32),
                    np.zeros((n, cfg.dim_latent), np.float32))
+    elif family == "ssgan":
+        def fn(params, seed, z_l_0, z_g, *labels):
+            return model.sample(params, z_l_0, z_g,
+                                labels[0] if labels else None,
+                                _generator(seed, z_l_0))
+        example = (np.zeros((n, cfg.dim_latent_l), np.float32),
+                   np.zeros((n, cfg.dim_latent_g), np.float32))
+        if cfg.conditional:
+            example += (np.zeros((n, cfg.n_classes), np.float32),)
     else:
-        raise NotImplementedError(
-            f"family {family!r} is served from a later slice of the port")
+        raise ValueError(f"unknown family {family!r}")
     return fn, example
 
 
@@ -70,13 +91,22 @@ def make_entry(family: str, model, entry: str = "sampler") -> Tuple:
         fn, example = make_sampler(family, model)
         return fn, example, input_kinds(family, model.cfg)
 
+    cfg = model.cfg
+    if family == "ssgan":  # the reconstructor (ENTRIES gates the rest)
+        def fn(params, seed, raw_x, *labels):
+            return model.reconstruct(params, raw_x,
+                                     labels[0] if labels else None)
+        example = (np.zeros((cfg.batch_size, cfg.seq_len, cfg.output_dim),
+                            np.float32),)
+        if not cfg.conditional:
+            return fn, example, ["image"]
+        return (fn, example + (np.zeros((cfg.batch_size, cfg.n_classes),
+                                        np.float32),), ["image", "onehot"])
+
     method = {"encoder": model.encode, "reconstructor": model.reconstruct,
               "cluster": getattr(model, "cluster_probs", None)}[entry]
 
     def fn(params, seed, raw_x):
-        gen = torch.Generator(device=raw_x.device)
-        gen.manual_seed(int(seed))
-        return method(params, raw_x, generator=gen)
-    cfg = model.cfg
+        return method(params, raw_x, generator=_generator(seed, raw_x))
     example = (np.zeros((cfg.batch_size, cfg.data.output_dim), np.float32),)
     return fn, example, ["image"]

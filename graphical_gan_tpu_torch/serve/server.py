@@ -72,8 +72,9 @@ def input_kinds(family: str, cfg) -> List[str]:
         return ["normal"]
     if family == "gmgan":
         return ["onehot", "normal"]
-    raise NotImplementedError(
-        f"family {family!r} is served from a later slice of the port")
+    if family == "ssgan":
+        return ["normal", "normal"] + (["onehot"] if cfg.conditional else [])
+    raise ValueError(f"unknown family {family!r}")
 
 
 def fold_in(seed: int, data: int) -> int:

@@ -8,10 +8,13 @@ Family 1 (gan_inference) writes the fixed-noise sample grid and the
 interleaved reconstruction grid of the trainer's hook
 (``runs/gan_inference.py: make_eval_hooks``); family 2 (gmgan) the
 per-component sample grid and the reconstruction grid
-(``runs/gmgan.py``). The reconstruction needs a dev batch from the
-family's loaders (synthetic where the files are absent); ``--no-data``
-skips it. Runs restore from npz checkpoints; the SSGAN family, the orbax
-format and the pipeline-parallel packed layout come in later slices.
+(``runs/gmgan.py``); family 3 (ssgan) the sample, reconstruction and
+disentanglement montages and GIFs of its hook (``runs/ssgan.py:
+make_eval_hook``). The reconstruction (and ssgan's whole hook) needs a dev
+batch from the family's loaders (synthetic where the files are absent);
+``--no-data`` skips it, which ssgan refuses. Runs restore from npz
+checkpoints; the orbax format and the pipeline-parallel packed layout come
+in later slices.
 """
 
 from __future__ import annotations
@@ -42,9 +45,11 @@ def _families():
     from graphical_gan_tpu_torch.models.gan_inference import (
         GanInferenceModel)
     from graphical_gan_tpu_torch.models.gmgan import GMGanModel
+    from graphical_gan_tpu_torch.models.ssgan import SSGanModel
     return {"gan_inference": (config_lib.GanInferenceConfig,
                               GanInferenceModel),
-            "gmgan": (config_lib.GMGanConfig, GMGanModel)}
+            "gmgan": (config_lib.GMGanConfig, GMGanModel),
+            "ssgan": (config_lib.SSGanConfig, SSGanModel)}
 
 
 def rebuild(run_dir: str) -> Tuple[str, object, object]:
@@ -52,10 +57,6 @@ def rebuild(run_dir: str) -> Tuple[str, object, object]:
     with open(os.path.join(run_dir, "config.json")) as f:
         cfg_dict = json.load(f)
     family = detect_family(cfg_dict)
-    if family not in ("gan_inference", "gmgan"):
-        raise NotImplementedError(
-            f"family {family!r}: the port serves gan_inference and gmgan "
-            "runs; ssgan comes in a later slice")
     cfg_cls, model_cls = _families()[family]
     names = {f.name for f in dc_fields(cfg_cls)}
     # JSON turns tuples into lists; restore them so the config is the same
@@ -89,11 +90,14 @@ def restore_params(model, ckpt_path: str,
 
 class _Shim:
     """What the trainer's eval hooks read: ``params``, ``outf``,
-    ``device`` and the trainer's ``eval_generator``."""
+    ``device``, a ``logger`` (ssgan's hook plots ``dev rec l2``) and the
+    trainer's ``eval_generator``."""
 
     def __init__(self, params, outf, device, seed: int = 0):
+        from graphical_gan_tpu_torch.report.plot import MetricLogger
         self.params, self.outf, self.device = params, outf, device
         self.seed = seed
+        self.logger = MetricLogger()
 
     def eval_generator(self, salt: int, iteration: int) -> torch.Generator:
         from graphical_gan_tpu_torch.train.trainer import Trainer
@@ -103,6 +107,8 @@ class _Shim:
 def _dev_batch(family: str, cfg, data_dir):
     if family == "gmgan":
         from graphical_gan_tpu_torch.runs.gmgan import _loaders
+    elif family == "ssgan":
+        from graphical_gan_tpu_torch.runs.ssgan import _loaders
     else:
         from graphical_gan_tpu_torch.runs.gan_inference import _loaders
     batch = next(iter(_loaders(cfg, data_dir)[1]()))
@@ -134,6 +140,12 @@ def generate(run_dir: str, ckpt: str = None, out: str = None,
         make_sample_hook(model)(shim, iteration)
         if batch is not None:
             make_recon_hook(model, batch)(shim, iteration)
+    elif family == "ssgan":
+        from graphical_gan_tpu_torch.runs.ssgan import make_eval_hook
+        if batch is None:
+            raise ValueError("ssgan artifacts need a dev batch (drop "
+                             "--no-data)")
+        make_eval_hook(model, batch)(shim, iteration)
     else:
         from graphical_gan_tpu_torch.runs.gan_inference import (
             make_eval_hooks)

@@ -36,6 +36,10 @@ The options of the JAX step:
   (``optim/optimizers.py``; ``runs/gan_inference.py`` passes the linear
   decay when ``cfg.decay`` is set).
 - ``fused_gp`` is the model's (``models/gan_inference.py``).
+
+A raw batch is a tensor or a dict of tensors (SSGAN's ``{'x', 'y'}``),
+each leaf [1 + k, B, ...]; ``core/tree.py`` indexes, splits and places
+both forms alike.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from graphical_gan_tpu_torch.core import tree
 from graphical_gan_tpu_torch.core.registry import merge, partition
 from graphical_gan_tpu_torch.optim.optimizers import (
     clip_params, make_optimizer)
@@ -150,10 +155,10 @@ def make_train_step(model, lr_scale: Optional[Callable[[float], float]]
                 lambda p: loss_of(p, raw, draws), state.params, leaves,
                 generator)
         else:
-            loss = torch.zeros((), device=raw.device)
+            loss = torch.zeros((), device=tree.device(raw))
             sums = [torch.zeros(p.shape, dtype=torch.float32,
                                 device=p.device) for p in leaves.values()]
-            for j, raw_j in enumerate(raw.chunk(accum)):
+            for j, raw_j in enumerate(tree.chunk(raw, accum)):
                 draws_j = None if draws is None else {
                     n: t[j] for n, t in draws.items()}
                 loss_j, grads_j = value_and_grad(
@@ -174,7 +179,7 @@ def make_train_step(model, lr_scale: Optional[Callable[[float], float]]
                 clip_params(opt_state["master"], clip, "Discriminator")
         return loss.detach()
 
-    def step(state: TrainState, raw_batches: torch.Tensor, do_gen: bool,
+    def step(state: TrainState, raw_batches, do_gen: bool,
              generator: Optional[torch.Generator] = None,
              noise: Optional[Dict[str, torch.Tensor]] = None):
         def draws(j):
@@ -195,24 +200,25 @@ def make_train_step(model, lr_scale: Optional[Callable[[float], float]]
         if do_gen:
             metrics["gen_cost"] = update(
                 state, gen_names, gen_opt, state.gen_opt, gen_loss,
-                raw_batches[0], draws(0), generator)
+                tree.index(raw_batches, 0), draws(0), generator)
         elif accum == 1:
             with torch.no_grad():
-                metrics["gen_cost"], _ = gen_loss(state.params,
-                                                  raw_batches[0], draws(0))
+                metrics["gen_cost"], _ = gen_loss(
+                    state.params, tree.index(raw_batches, 0), draws(0))
         else:
             d0 = draws(0)
             with torch.no_grad():
                 metrics["gen_cost"] = sum(
                     gen_loss(state.params, raw_j, None if d0 is None else
                              {n: t[j] for n, t in d0.items()})[0].float()
-                    for j, raw_j in enumerate(raw_batches[0].chunk(accum))
+                    for j, raw_j in enumerate(
+                        tree.chunk(tree.index(raw_batches, 0), accum))
                 ) * (1.0 / accum)
         if disc_opt is not None:
             for i in range(k):
                 metrics["disc_cost"] = update(
                     state, disc_names, disc_opt, state.disc_opt, disc_loss,
-                    raw_batches[1 + i], draws(1 + i), generator,
+                    tree.index(raw_batches, 1 + i), draws(1 + i), generator,
                     disc_spec.weight_clip)
         state.step += 1
         return state, metrics

@@ -11,9 +11,10 @@ quality metrics) at their cadences, fired after the window's flush at
 ``iteration % every == every - 1``, with a last flush at the end so what
 they plot at the final boundary reaches the log. And the JAX trainer's
 improvements the port needs to train at all: the resident dataset
-(uploaded once, each iteration's (1+k) batches gathered on the device) or
-the host-fed path ((1+k) consecutive loader batches stacked on the host
-and copied ahead by ``data/prefetch.py``), ``ckpt_<iter>.npz`` of the
+(uploaded once, each iteration's (1+k) batches gathered on the device, or
+made there by a ``batch_sampler``) or the host-fed path ((1+k)
+consecutive loader batches stacked on the host and copied ahead by
+``data/prefetch.py``), ``ckpt_<iter>.npz`` of the
 whole ``TrainState`` every ``checkpoint_every`` iterations and at the end
 (the last ``CHECKPOINTS_TO_KEEP`` kept), and resume from the latest
 checkpoint of the run directory.
@@ -39,6 +40,7 @@ from typing import Callable, Dict, Optional, Union
 import numpy as np
 import torch
 
+from graphical_gan_tpu_torch.core import tree
 from graphical_gan_tpu_torch.core.device import resolve_device, set_numerics
 from graphical_gan_tpu_torch.data.ondevice import sample_batches, to_device
 from graphical_gan_tpu_torch.data.prefetch import prefetch_to_device
@@ -73,9 +75,15 @@ DEV_SALT = 1
 
 
 class Trainer:
-    """``resident_data`` [N, ...] is uploaded once and sampled on the
-    device; with ``resident_data=None`` the host-fed path runs over
-    ``train_gen_factory`` (a loader's epoch-generator factory).
+    """``resident_data`` [N, ...] (or a dict of aligned arrays) is
+    uploaded once and sampled on the device: ``batch_sampler(data,
+    generator, n, batch_size)`` makes an iteration's n = 1+k batches from
+    it (default: a uniform gather, one index draw for every leaf; SSGAN's
+    device path synthesizes videos from a digit pool,
+    ``data/ondevice_moving_mnist.py``). With ``resident_data=None`` the
+    host-fed path runs over ``train_gen_factory`` (a loader's
+    epoch-generator factory; its batches may be arrays or dicts of
+    arrays, and an ``(x, y)`` tuple feeds x alone).
     ``eval_hooks`` maps a cadence to ``hook(trainer, iteration)``;
     ``dev_gen_factory`` gives the dev batches the sweep averages over;
     ``lr_scale(t)`` scales Adam's step size at its step count t (the
@@ -91,7 +99,8 @@ class Trainer:
                  eval_hooks: Optional[Dict[int, Callable]] = None,
                  dev_gen_factory: Optional[Callable] = None,
                  train_gen_factory: Optional[Callable] = None,
-                 lr_scale: Optional[Callable[[float], float]] = None):
+                 lr_scale: Optional[Callable[[float], float]] = None,
+                 batch_sampler: Optional[Callable] = None):
         if resident_data is None and train_gen_factory is None:
             raise ValueError("the Trainer needs resident_data or, for the "
                              "host-fed path, train_gen_factory")
@@ -109,6 +118,8 @@ class Trainer:
         self.step_fn, self.init_state = make_train_step(model, lr_scale)
         self.data = None if resident_data is None else to_device(
             resident_data, self.device)
+        self.batch_sampler = batch_sampler or (
+            lambda data, gen, n, b: sample_batches(data, n, b, gen))
         self.train_gen_factory = train_gen_factory
         self.dev_gen_factory = dev_gen_factory
         self._dev_data = None
@@ -168,12 +179,12 @@ class Trainer:
     def _seed_iteration(self, iteration: int) -> None:
         self.generator.manual_seed((self.seed << 32) + iteration)
 
-    def draw_batches(self, iteration: int) -> torch.Tensor:
-        """Seed the generator for ``iteration`` and gather its (1+k)
-        batches from the resident data."""
+    def draw_batches(self, iteration: int):
+        """Seed the generator for ``iteration`` and draw its (1+k) batches
+        from the resident data."""
         self._seed_iteration(iteration)
-        return sample_batches(self.data, 1 + self.k, self.cfg.batch_size,
-                              self.generator)
+        return self.batch_sampler(self.data, self.generator, 1 + self.k,
+                                  self.cfg.batch_size)
 
     def _host_batches(self):
         """The host-fed stream: (1+k) consecutive batches of an endless
@@ -186,7 +197,7 @@ class Trainer:
                         yield batch[0] if isinstance(batch, tuple) else batch
             gen = batches()
             while True:
-                yield np.stack([next(gen) for _ in range(1 + self.k)])
+                yield tree.stack([next(gen) for _ in range(1 + self.k)])
 
         return prefetch_to_device(stacked(), size=2, device=self.device)
 
@@ -196,16 +207,16 @@ class Trainer:
         batches, seen = [], 0
         for b in self.dev_gen_factory():
             x = b[0] if isinstance(b, tuple) else b
-            if seen + x.nbytes > DEV_RESIDENT_MAX:
+            if seen + tree.nbytes(x) > DEV_RESIDENT_MAX:
                 self._log(f"dev sweep: resident subset of {len(batches)} "
                           f"batches (~{seen >> 20} MiB cap)")
                 break
             batches.append(x)
-            seen += x.nbytes
+            seen += tree.nbytes(x)
         if not batches:
             raise ValueError(f"one dev batch is over {DEV_RESIDENT_MAX} "
                              "bytes")
-        self._dev_data = to_device(np.stack(batches), self.device)
+        self._dev_data = to_device(tree.stack(batches), self.device)
 
     @torch.no_grad()
     def dev_costs(self, iteration: int):
@@ -215,8 +226,10 @@ class Trainer:
             self._build_dev()
         gen = self.eval_generator(DEV_SALT, iteration)
         gens, recs = [], []
-        for x in self._dev_data:
-            g, aux = self.model.gen_loss(self.state.params, x, generator=gen)
+        for i in range(tree.first_leaf(self._dev_data).shape[0]):
+            g, aux = self.model.gen_loss(self.state.params,
+                                         tree.index(self._dev_data, i),
+                                         generator=gen)
             gens.append(g.float())
             if "rec_cost" in aux:
                 recs.append(aux["rec_cost"].float())

@@ -134,12 +134,16 @@ def test_port_server_loads_the_run_directory(run_dir):
 
 def test_trainer_sets_the_numerics(tmp_path, monkeypatch):
     for flag, value in ((torch.backends.cudnn, "allow_tf32"),
-                        (torch.backends.cuda.matmul, "allow_tf32")):
+                        (torch.backends.cuda.matmul, "allow_tf32"),
+                        (torch.backends.cuda.matmul,
+                         "allow_bf16_reduced_precision_reduction")):
         monkeypatch.setattr(flag, value, True)
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
     run(iters=1, outdir=str(tmp_path), device="cpu", **CIFAR, **KW)
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert (torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+            is False)
     assert torch.backends.cudnn.deterministic is True
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
     port_device.set_numerics()
