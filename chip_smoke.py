@@ -118,7 +118,21 @@ nothing of JAX or of the JAX package, and does in order:
    compute_dtype="bfloat16")`` for 1,000 iterations, the hook before
    training and at 500 and 1,000: the reading at 1,000 at most half the
    one before training, every montage at its size;
-22. prints one JSON line per kernel summary, the card line, and last
+22. tools: each measurement tool of ``graphical_gan_tpu_torch/tools`` at
+   published widths: ``trace_report`` over the cifar10 wali-gp Trainer's
+   ``GGAN_PROFILE`` trace (its device ms per iteration within
+   TRACE_AGREE of ``profile_train``'s) and over SSGAN moving-MNIST
+   local_ep f32's (its top kernels with the ops and shapes that launched
+   them); ``mfu`` for gan f32 and bf16, gmgan and ssgan f32 (0 < mfu <=
+   1); ``memory`` for gan f32 (the peak above the state and data, within
+   the card's memory); ``determinism`` for gan (DIM 64, B 64) and gmgan
+   mnist local_ep at its published width (all five checks bit-identical);
+   ``bench_families``, ``bench_serving`` (three families, batches 8 and
+   256) and ``bench_server`` (gan_inference, request sizes 1 and 8); then
+   the GMGAN process replay: one Trainer run in a fresh subprocess and
+   one here, their final parameters compared bit for bit and printed as a
+   reading (ROADMAP §3 fault 1);
+23. prints one JSON line per kernel summary, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line. ``--log PATH`` also
@@ -1365,23 +1379,7 @@ def phase_serve(launch_totals, k1_counts):
     return run_dirs
 
 
-# device-time groups of a dispatch, by substrings of the kernel's name
-GROUPS = (("K1 fused_conv", ("conv_k1_",)),
-          ("K2a bn_stats", ("bn_stats_fused_kernel",)),
-          ("K2b bn_apply", ("bn_apply_kernel",)),
-          ("transpose conv (cuDNN)", ("dgrad", "conv", "xmma", "cudnn",
-                                      "implicit_gemm", "sm90_")),
-          ("matmul", ("gemm", "cutlass", "ampere_", "magma")))
 DISPATCH_REPS = 20
-
-
-def _group(name: str) -> str:
-    if "Memcpy" in name or "Memset" in name:
-        return "memcpy"
-    for label, keys in GROUPS:
-        if any(k in name for k in keys):
-            return label
-    return "other"
 
 
 def _profile(call, x):
@@ -1392,6 +1390,7 @@ def _profile(call, x):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from graphical_gan_tpu_torch.tools.trace_report import kernel_group
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1405,7 +1404,7 @@ def _profile(call, x):
                          getattr(ev, "self_cuda_time_total", 0.0))
         if dev_us <= 0 or ev.device_type == DeviceType.CPU:
             continue  # host-side ops, whose device time their kernels hold
-        g = _group(ev.key)
+        g = kernel_group(ev.key)
         groups[g] = groups.get(g, 0.0) + dev_us
         counts[g] = counts.get(g, 0) + ev.count
         top.append((dev_us, ev.key[:90]))
@@ -1492,22 +1491,6 @@ PER_ITER = {"fused_conv2d_bias_act": (9 + 12 * 5, 0),
             "bn_stats": (30, 0), "bn_apply": (30, 0),
             "bn_bwd": (5, -5),
             "conv_gemm_taps": (0, 0), "conv_gemm_im2col": (0, 0)}
-# device-time groups of a training iteration: the kernel's name first, then
-# the autograd node or op that launched it
-TRAIN_GROUPS = (
-    ("K1 forward", ("conv_k1_",), ()),
-    ("K2a-b BN forward", ("bn_stats_fused_kernel", "bn_apply_kernel"), ()),
-    ("K2c-d BN backward", ("bn_bwd_fused_kernel",), ()),
-    ("BN second order (plain)", (), ("_BatchNormActBackwardBackward",)),
-    ("memcpy", ("Memcpy", "Memset"), ()),
-    ("optimizer", (), ("aten::_foreach",)),
-    ("conv gradients (cuDNN)", (), ("FusedConv2dBiasActBackward",
-                                    "ConvolutionBackwardBackward")),
-    ("deconv backward", (), ("ConvolutionBackward0",)),
-    ("deconv forward", (), ("aten::conv_transpose2d",)),
-    ("GEMMs", ("gemm", "cutlass", "ampere_", "sm90_xmma"),
-     ("aten::mm", "aten::addmm", "aten::matmul")),
-)
 # card against CPU after 2 iterations, f32, same params, batches and noise.
 # TF1 Adam's first steps are about lr·sign(g): a gradient element near 0
 # whose sign differs between the two devices moves its parameter about
@@ -1565,74 +1548,6 @@ NOISE_FLOOR = 1e-6
 MNIST_PARITY_K = 2
 
 
-def _train_group(kernel: str, chain) -> str:
-    for label, names, ops in TRAIN_GROUPS:
-        if any(k in kernel for k in names) or any(
-                o in c for o in ops for c in chain):
-            return label
-    return "other"
-
-
-def _profile_train(tr, n):
-    """(device busy / wall time, device ms per iteration, device ms per
-    iteration by group, the largest kernels, the host's ops per iteration
-    and the ops that take the most host time) over ``n`` Trainer iterations
-    under torch.profiler, whose own cost inflates the host times."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    start = tr.state.step
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(n):
-            tr.step_fn(tr.state, tr.draw_batches(start + i), True,
-                       tr.generator)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, top = {}, {}
-    for ev in prof.events():
-        kernels = getattr(ev, "kernels", None) or []
-        if ev.device_type != DeviceType.CPU or not kernels:
-            continue
-        chain, q = [], ev
-        while q is not None:
-            chain.append(q.name)
-            q = q.cpu_parent
-        for k in kernels:
-            g = _train_group(k.name, chain)
-            groups[g] = groups.get(g, 0.0) + k.duration / 1e3
-            top[k.name[:90]] = top.get(k.name[:90], 0.0) + k.duration / 1e3
-    averages = prof.key_averages()
-    busy_ms = sum(
-        getattr(ev, "self_device_time_total",
-                getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
-        for ev in averages if ev.device_type != DeviceType.CPU)
-    per_iter = {k: v / n for k, v in sorted(groups.items())}
-    top = [[k, v / n] for k, v in sorted(top.items(), key=lambda kv: -kv[1])
-           [:10]]
-    host = [ev for ev in averages if ev.device_type == DeviceType.CPU]
-    host_ops = sum(ev.count for ev in host if ev.key.startswith("aten::")) / n
-    host_top = [[ev.key, ev.self_cpu_time_total / 1e3 / n] for ev in sorted(
-        host, key=lambda ev: -ev.self_cpu_time_total)[:8]]
-    return (busy_ms / wall_ms, busy_ms / n, per_iter, top, host_ops,
-            host_top)
-
-
-def _time_train(tr, n):
-    """Host wall ms per Trainer iteration (batches drawn and gathered on
-    the card, one step), ``n`` back to back, ending in a synchronize."""
-    import torch
-    start = tr.state.step
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(n):
-        tr.step_fn(tr.state, tr.draw_batches(start + i), True, tr.generator)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / n
-
-
 def _published(dtype):
     from graphical_gan_tpu_torch.core.config import gan_inference_defaults
     from graphical_gan_tpu_torch.models.gan_inference import GanInferenceModel
@@ -1656,6 +1571,8 @@ def phase_train(launch_totals, data, k1_counts):
     the Trainer runs TRAIN_ITERS iterations, and the counts are read; then
     the steady state is timed and profiled. ``launch_totals`` receives the
     counts summed over both dtypes, ``k1_counts`` K1's per dtype."""
+    from graphical_gan_tpu_torch.tools.mfu import time_train
+    from graphical_gan_tpu_torch.tools.trace_report import profile_train
     from graphical_gan_tpu_torch.ops import kernels
     from graphical_gan_tpu_torch.train.trainer import Trainer
     base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
@@ -1679,8 +1596,8 @@ def phase_train(launch_totals, data, k1_counts):
         _finite_state(tr, f"train {dtype}")
         if got != want:
             fail(f"train {dtype}: kernel launches {got} != {want}")
-        ms = _time_train(tr, TIME_ITERS)
-        busy, dev_ms, groups, top, host_ops, host_top = _profile_train(
+        ms = time_train(tr, TIME_ITERS)
+        busy, dev_ms, groups, top, host_ops, host_top = profile_train(
             tr, PROFILE_ITERS)
         per_iter_images = (1 + model.cfg.critic_iters) * model.cfg.batch_size
         log({"phase": "train", "dtype": dtype, "iters": TRAIN_ITERS,
@@ -2103,6 +2020,8 @@ def phase_family1(launch_totals):
     parameters, and each mode's kernels launched. Then the mnist wali-gp
     penalty: K2c+K2d launches inside its create-graph backward (D's BN2 and
     BN3), and the penalty differentiates once more."""
+    from graphical_gan_tpu_torch.tools.mfu import time_train
+    from graphical_gan_tpu_torch.tools.trace_report import profile_train
     import torch
     from graphical_gan_tpu_torch.core.config import GAN_INFERENCE_MODES
     from graphical_gan_tpu_torch.ops import kernels
@@ -2139,8 +2058,8 @@ def phase_family1(launch_totals):
                "iters": FAMILY1_ITERS, "seconds": round(secs, 3),
                "last_metrics": metrics, "launches": got}
         if (dataset, mode) in FAMILY1_PROFILED:
-            ms = _time_train(tr, FAMILY1_TIME_ITERS)
-            busy, dev_ms, groups, top, host_ops, _ = _profile_train(
+            ms = time_train(tr, FAMILY1_TIME_ITERS)
+            busy, dev_ms, groups, top, host_ops, _ = profile_train(
                 tr, PROFILE_ITERS)
             images = (1 + cfg.critic_iters) * cfg.batch_size
             row.update(ms_per_iter=ms, images_per_s=images / ms * 1e3,
@@ -2638,6 +2557,8 @@ def phase_family2(launch_totals):
     published widths on resident synthetic data (``runs/gmgan.py``'s
     loaders): finite costs and parameters, K1 launched, K2a-d where BN is
     on."""
+    from graphical_gan_tpu_torch.tools.mfu import time_train
+    from graphical_gan_tpu_torch.tools.trace_report import profile_train
     import torch
     from graphical_gan_tpu_torch.core.config import GMGAN_MODES, MODE_KS
     from graphical_gan_tpu_torch.ops import kernels
@@ -2675,8 +2596,8 @@ def phase_family2(launch_totals):
                "seconds": round(time.perf_counter() - t0, 3),
                "last_metrics": metrics, "launches": got}
         if (dataset, mode, mode_k) in FAMILY2_PROFILED:
-            ms = _time_train(tr, FAMILY1_TIME_ITERS)
-            busy, dev_ms, groups, top, host_ops, _ = _profile_train(
+            ms = time_train(tr, FAMILY1_TIME_ITERS)
+            busy, dev_ms, groups, top, host_ops, _ = profile_train(
                 tr, PROFILE_ITERS)
             images = (1 + cfg.critic_iters) * cfg.batch_size
             row.update(ms_per_iter=ms, images_per_s=images / ms * 1e3,
@@ -3038,6 +2959,8 @@ def phase_family3(launch_totals):
     parameters, K1 launched; moving-MNIST local_ep then timed and profiled;
     then a moving-MNIST local_ep run with ``bn=True`` through ``run()``,
     which must launch K2a-d as well."""
+    from graphical_gan_tpu_torch.tools.mfu import time_train
+    from graphical_gan_tpu_torch.tools.trace_report import profile_train
     import torch
     from graphical_gan_tpu_torch.ops import kernels
     from graphical_gan_tpu_torch.runs.ssgan import run
@@ -3067,8 +2990,8 @@ def phase_family3(launch_totals):
                "seconds": round(time.perf_counter() - t0, 3),
                "last_metrics": metrics, "launches": got}
         if (dataset, mode, over) == FAMILY3_PROFILED:
-            ms = _time_train(tr, FAMILY1_TIME_ITERS)
-            busy, dev_ms, groups, top, host_ops, _ = _profile_train(
+            ms = time_train(tr, FAMILY1_TIME_ITERS)
+            busy, dev_ms, groups, top, host_ops, _ = profile_train(
                 tr, PROFILE_ITERS)
             frames = (1 + cfg.critic_iters) * cfg.batch_size * cfg.seq_len
             row.update(ms_per_iter=ms, frames_per_s=frames / ms * 1e3,
@@ -3258,6 +3181,196 @@ def phase_family3_learn(launch_totals):
         fail(f"family3-learn: {misses}")
 
 
+
+# ---------------------------------------------------------------------------
+# tools: the measurement tools of graphical_gan_tpu_torch/tools on the card
+
+TOOL_PROFILE_START = 3   # GGAN_PROFILE window of the trace_report run
+TOOL_PROFILE_ITERS = 5
+TRACE_AGREE = 0.10       # trace_report's device ms vs profile_train's
+SSGAN_TRACE_ITERS = 2
+TOOL_ROUNDS = 2          # timed rounds of mfu and bench_families
+TOOL_ITERS = 10          # iterations per round
+DET_CHUNK_ITERS = 4
+DET_TRAINER_ITERS = 6
+REPLAY_ITERS = 200       # GMGAN trainer iterations of the process replay
+# GMGAN mnist local_ep at its published width: the config of the learning
+# check (ROADMAP §3 fault 1)
+REPLAY_DIM, REPLAY_B = 64, 50
+_REPLAY_CODE = """
+import sys
+sys.path.insert(0, {root!r})
+import numpy as np
+from graphical_gan_tpu_torch.core.device import set_numerics
+from graphical_gan_tpu_torch.tools import determinism
+set_numerics()
+model, cfg, resident = determinism._build("gmgan", {dim}, {b}, "mnist")
+params = determinism.trainer_params(model, resident, {iters}, "cuda")
+np.savez({out!r}, **params)
+"""
+
+
+def _trace_run(base, tag, tr, first, n):
+    """``n`` iterations of ``tr`` traced by the trainer's GGAN_PROFILE hook
+    from iteration ``first``; returns the trace's directory."""
+    out = os.path.join(base, tag)
+    env = {"GGAN_PROFILE": out, "GGAN_PROFILE_START": str(first),
+           "GGAN_PROFILE_STEPS": str(n)}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        # one iteration past the window: the run's last checkpoint is
+        # written outside it
+        tr.train(first + n + 1)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
+def _tool_trace(base, data):
+    """trace_report over the cifar10 wali-gp Trainer's GGAN_PROFILE trace,
+    held to profile_train's device ms; then SSGAN moving-MNIST local_ep
+    f32's trace, whose top kernels name the convs they serve."""
+    from graphical_gan_tpu_torch.tools import trace_report
+    from graphical_gan_tpu_torch.tools.mfu import make_trainer
+    from graphical_gan_tpu_torch.train.trainer import Trainer
+    tr = Trainer(_published("float32"), data, os.path.join(base, "gan"),
+                 seed=0, device="cuda", checkpoint_every=0)
+    trace_dir = _trace_run(base, "gan_trace", tr, TOOL_PROFILE_START,
+                           TOOL_PROFILE_ITERS)
+    rep = trace_report.report(trace_dir, iters=TOOL_PROFILE_ITERS, top=8)
+    dev_ms = trace_report.profile_train(tr, TOOL_PROFILE_ITERS)[1]
+    rel = abs(rep["busy_ms_per_iter"] - dev_ms) / dev_ms
+    log({"phase": "tools", "tool": "trace_report", "config":
+         "cifar10 wali-gp f32", **trace_report.summary_line(rep),
+         "by_op_ms_per_iter": {g["group"]: g["ms_per_iter"]
+                               for g in rep["by_op"]},
+         "top_ops": rep["top_ops"],
+         "profile_train_device_ms_per_iter": dev_ms, "rel_diff": rel})
+    if rep["lanes"] != "device" or not rel <= TRACE_AGREE:
+        fail(f"trace_report: {rep['busy_ms_per_iter']} device ms/iter "
+             f"({rep['lanes']} lanes) against profile_train's {dev_ms}")
+    tr = make_trainer("ssgan", "float32", os.path.join(base, "ssgan"),
+                      "cuda", data_rows=200)
+    trace_dir = _trace_run(base, "ssgan_trace", tr, 1, SSGAN_TRACE_ITERS)
+    rep = trace_report.report(trace_dir, iters=SSGAN_TRACE_ITERS, top=8)
+    log({"phase": "tools", "tool": "trace_report", "config":
+         "ssgan moving-MNIST local_ep f32", **trace_report.summary_line(rep),
+         "by_op_ms_per_iter": {g["group"]: g["ms_per_iter"]
+                               for g in rep["by_op"]},
+         "top_ops": rep["top_ops"]})
+
+
+def _tool_mfu():
+    from graphical_gan_tpu_torch.tools import mfu
+    for family, dtype in (("gan", "float32"), ("gan", "bfloat16"),
+                          ("gmgan", "float32"), ("ssgan", "float32")):
+        rec = mfu.measure(family, dtype, TOOL_ROUNDS, TOOL_ITERS, "cuda")
+        log({"phase": "tools", "tool": "mfu", **rec})
+        if rec["mfu"] is None or not 0 < rec["mfu"] <= 1:
+            fail(f"mfu {family} {dtype}: {rec['mfu']} outside (0, 1]")
+
+
+def _tool_memory():
+    import torch
+    from graphical_gan_tpu_torch.tools import memory
+    rec = memory.step_memory("float32", "gan", data_rows=1024,
+                             device="cuda")
+    total = torch.cuda.mem_get_info()[1]
+    log({"phase": "tools", "tool": "memory", "family": "gan",
+         "dtype": "float32", **rec, "hbm_budget_bytes": total})
+    live = rec["state_bytes"] + rec["data_resident_bytes"]
+    if not live < rec["peak_bytes"] <= total:
+        fail(f"memory: peak {rec['peak_bytes']} not in ({live}, {total}]")
+
+
+def _tool_determinism():
+    from graphical_gan_tpu_torch.tools import determinism
+    for family, dim, b, dataset in (("gan", 64, 64, "cifar10"),
+                                    ("gmgan", REPLAY_DIM, REPLAY_B,
+                                     "mnist")):
+        results = determinism.run_all(family, dim, b, DET_CHUNK_ITERS,
+                                      DET_TRAINER_ITERS, "cuda", dataset)
+        for r in results:
+            log({"phase": "tools", "tool": "determinism", "family": family,
+                 "dataset": dataset, "dim": dim, "B": b, **r})
+        bad = [r["check"] for r in results if not r["ok"]]
+        if bad:
+            fail(f"determinism {family}: {bad} not bit-identical")
+
+
+def _tool_benches(base):
+    from graphical_gan_tpu_torch.tools import (
+        bench_families, bench_server, bench_serving)
+    for name in ("gmgan", "ssgan", "ssgan_device"):
+        rec = bench_families.bench(name, "bfloat16", TOOL_ROUNDS, TOOL_ITERS,
+                                   "cuda")
+        log({"phase": "tools", "tool": "bench_families", **rec})
+    for family in ("gan_inference", "gmgan", "ssgan"):
+        for rec in bench_serving.measure(family, (8, 256), rounds=3,
+                                         device="cuda"):
+            log({"phase": "tools", "tool": "bench_serving", **rec})
+    run_dir = bench_server.write_run_dir(os.path.join(base, "server_run"),
+                                         "gan_inference")
+    for n in (1, 8):
+        rec = bench_server.run_load(run_dir, n, 8, 10, (8, 64, 256), 5.0,
+                                    "cuda")
+        log({"phase": "tools", "tool": "bench_server", **rec})
+
+
+def _gmgan_process_replay(base):
+    """ROADMAP §3 fault 1: the final parameters of one GMGAN mnist local_ep
+    Trainer run (published width, REPLAY_ITERS iterations, seed 42) in a
+    fresh subprocess and in this process after every other phase, compared
+    bit for bit. A reading, whichever way it falls."""
+    import numpy as np
+    from graphical_gan_tpu_torch.tools import determinism
+    path = os.path.join(base, "gmgan_replay.npz")
+    code = _REPLAY_CODE.format(root=ROOT, dim=REPLAY_DIM, b=REPLAY_B,
+                               iters=REPLAY_ITERS, out=path)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        fail(f"gmgan process replay subprocess: {res.stderr[-3000:]}")
+    with np.load(path) as f:
+        fresh = {k: f[k] for k in f.files}
+    model, _, resident = determinism._build("gmgan", REPLAY_DIM, REPLAY_B,
+                                            "mnist")
+    here = determinism.trainer_params(model, resident, REPLAY_ITERS, "cuda")
+    differ = sorted(n for n in here
+                    if not np.array_equal(here[n], fresh[n], equal_nan=True))
+    log({"check": "gmgan process replay", "iters": REPLAY_ITERS,
+         "dim": REPLAY_DIM, "B": REPLAY_B,
+         "bit_equal": not differ and sorted(here) == sorted(fresh),
+         "differing_leaves": differ,
+         "max_abs_diff": max((float(np.max(np.abs(here[n] - fresh[n])))
+                              for n in differ), default=0.0)})
+
+
+def phase_tools(launch_totals, data):
+    """Each measurement tool of graphical_gan_tpu_torch/tools on the card at
+    published widths: trace_report (against profile_train), mfu (0 < mfu
+    <= 1), memory, determinism (all five checks bit-identical for gan and
+    gmgan), bench_families, bench_serving, bench_server; then the GMGAN
+    process replay. ``launch_totals`` receives the kernels' launches."""
+    from graphical_gan_tpu_torch.ops import kernels
+    base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
+                        "smoke_tools")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    kernels.reset_launches()
+    _tool_trace(base, data)
+    _tool_mfu()
+    _tool_memory()
+    _tool_determinism()
+    _tool_benches(base)
+    launch_totals.update(kernels.launches())
+    _gmgan_process_replay(base)
+
 SOURCES = {
     "fused_conv2d_bias_act": (
         "graphical_gan_tpu_torch/csrc/fused_conv.cu",
@@ -3367,7 +3480,8 @@ def summary(errs, timings, launches):
     serving run, ``launches_family1`` the family1 runs and
     ``launches_loaders`` / ``_eval`` / ``_learn`` / ``_step_options`` /
     ``_family2`` / ``_cluster`` / ``_family2_learn`` / ``_family3`` /
-    ``_family3_serve`` / ``_family3_learn`` those phases' runs; K1 adds
+    ``_family3_serve`` / ``_family3_learn`` / ``_tools`` those phases'
+    runs; K1 adds
     ``family3_rows``, its times at family 3's shapes (B 50 videos)."""
     out = []
     for name, (src, replaces) in SOURCES.items():
@@ -3399,7 +3513,8 @@ def summary(errs, timings, launches):
                        for path in ("loaders", "eval", "learn",
                                     "step_options", "family2", "cluster",
                                     "family2_learn", "family3",
-                                    "family3_serve", "family3_learn")},
+                                    "family3_serve", "family3_learn",
+                                    "tools")},
                     "max_abs_err": errs[name],
                     "ms": total("ms"), "plain_ms": total("plain_ms"),
                     "bound_ms": total("bound_ms"),
@@ -3469,7 +3584,7 @@ def main(argv=None) -> int:
                     "loaders": {}, "eval": {}, "learn": {}, "k1": {},
                     "step_options": {}, "family2": {}, "cluster": {},
                     "family2_learn": {}, "family3": {}, "family3_serve": {},
-                    "family3_learn": {}}
+                    "family3_learn": {}, "tools": {}}
         _timed("build", phase_build)
         _timed("check", phase_check, errs)
         _timed("time", phase_time, timings)
@@ -3508,13 +3623,15 @@ def main(argv=None) -> int:
                launches["family3_serve"])
         _timed("family3-learn", phase_family3_learn,
                launches["family3_learn"])
+        _timed("tools", phase_tools, launches["tools"], data)
         for path, want in (("family2", TRAIN_KERNELS),
                            ("family2_learn", TRAIN_KERNELS),
                            ("cluster", SERVE_KERNELS),
                            ("step_options", TRAIN_KERNELS),
                            ("family3", TRAIN_KERNELS),
                            ("family3_serve", ("fused_conv2d_bias_act",)),
-                           ("family3_learn", ("fused_conv2d_bias_act",))):
+                           ("family3_learn", ("fused_conv2d_bias_act",)),
+                           ("tools", TRAIN_KERNELS)):
             missing = [k for k in want if not launches[path].get(k)]
             if missing:
                 fail(f"kernels never launched on the {path} path: "

@@ -70,7 +70,7 @@ def default_is_classifier(device: str = "cuda"):
         raise NotImplementedError(
             f"{pb}: the frozen Inception-2015 graph needs the GraphDef "
             "interpreter (metrics/graphdef.py, inception_frozen.py), which "
-            "the port does not have yet (ROADMAP.md §1 item 7)")
+            "the port does not have yet (ROADMAP.md §1 item 6)")
     return TorchInceptionClassifier(device)
 
 

@@ -85,8 +85,8 @@ def parse_args(argv=None):
     p.add_argument("--moment-dtype", default=None,
                    choices=["float32", "bfloat16"])
     p.add_argument("--accum-steps", type=int, default=None,
-                   help="gradient accumulation (the port's step raises for "
-                        "more than 1 until it is ported)")
+                   help="gradient accumulation: microbatches per optimizer "
+                        "update (train/step.py: accum_steps)")
     p.add_argument("--n-classes", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default=None, help="also write the JSON here")
@@ -115,7 +115,7 @@ def main(argv=None) -> dict:
     if args.quantize_final:
         raise NotImplementedError(
             "--quantize-final: int8 serving (serve/quantize.py, "
-            "ops/quant.py) is not ported yet (ROADMAP.md §1 item 7)")
+            "ops/quant.py) is not ported yet (ROADMAP.md §1 item 5)")
     dev = resolve_device(args.device)
     set_numerics()
     t_start = time.time()

@@ -25,6 +25,12 @@ uninterrupted one would (on the resident path; the host-fed stream, as in
 JAX, restarts at the loader's first epoch). The dev sweep and the hooks
 draw from generators seeded from (seed, their salt, iteration)
 (``eval_generator``), so a resumed run scores as an uninterrupted one.
+``GGAN_PROFILE=<dir>`` traces iterations ``GGAN_PROFILE_START`` (default
+10) to ``GGAN_PROFILE_START + GGAN_PROFILE_STEPS - 1`` (default 10 of them)
+under ``torch.profiler`` (CPU and, on the card, CUDA activities, with the
+ops' input shapes) and writes a Chrome trace, ``*.trace.json.gz``, into
+``<dir>`` for ``tools/trace_report.py`` (JAX ``train/trainer.py:491-519,
+609-620``). The trace reads the step and changes none of its values.
 Left for later slices: preemption handling, divergence rollback, async and
 orbax checkpoints, meshes and multi-iteration dispatch.
 """
@@ -269,9 +275,35 @@ class Trainer:
             self.logger.flush(self.logfile)
         return last
 
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts, record_shapes=True)
+        prof.__enter__()
+        return prof
+
+    def _stop_profile(self, prof, out_dir: str, first: int, last: int):
+        """End the trace after the device has run what it holds, and write
+        ``<out_dir>/ggan.<first>-<last>.<pid>.<ns>.trace.json.gz``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.__exit__(None, None, None)
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"ggan.{first}-{last}.{os.getpid()}."
+                            f"{time.time_ns()}.trace.json.gz")
+        prof.export_chrome_trace(path)
+        print(f"profile: iterations {first}-{last} traced to {path}")
+
     def _loop(self, iters: int, batches) -> Dict[str, float]:
-        pend, last = [], {}
+        profile_dir = os.environ.get("GGAN_PROFILE")
+        first = int(os.environ.get("GGAN_PROFILE_START", "10"))
+        end = first + int(os.environ.get("GGAN_PROFILE_STEPS", "10"))
+        pend, last, prof = [], {}, None
         for iteration in range(self._start_iter, iters):
+            if profile_dir and iteration == first:
+                prof = self._start_profile()
             t0 = time.time()
             if batches is None:
                 raw = self.draw_batches(iteration)
@@ -309,4 +341,9 @@ class Trainer:
                 hook(self, iteration)
             if ckpt:
                 self.save(iteration)
+            if prof is not None and iteration == end - 1:
+                self._stop_profile(prof, profile_dir, first, iteration)
+                prof = None
+        if prof is not None:  # the run ended inside the window
+            self._stop_profile(prof, profile_dir, first, iters - 1)
         return {k: float(v) for k, v in last.items()}
