@@ -132,7 +132,27 @@ nothing of JAX or of the JAX package, and does in order:
    the GMGAN process replay: one Trainer run in a fresh subprocess and
    one here, their final parameters compared bit for bit and printed as a
    reading (ROADMAP §3 fault 1);
-23. prints one JSON line per kernel summary, the card line, and last
+23. fault4: one published cifar10 wali-gp f32 step, plain, with
+   ``remat`` and with ``fused_gp``: every ``convolution_backward`` inside
+   the penalty's ``input_grads_only`` scope computes no weight gradient
+   (the scope holds on the card, where autograd would otherwise run a
+   node's backward on a device thread), and ``tools/mfu.py``'s FLOP
+   count at that config;
+24. phase-deconv: the phase route of ``ops/phase_deconv.py`` (one stride-1
+   K1 conv to 4·O channels, then a depth-to-space) against the cuDNN route
+   at the eight shapes of ``tools/bench_phase_deconv.py``, forward, dx and
+   dw in f32 and bf16 at K1's tolerances, one K1 launch per call (the
+   check phase holds K1 itself at those stride-1 shapes, their routes in
+   the coverage check); the bench tool on the card; an SSGAN moving-MNIST
+   f32 iteration and an f32 sampler dispatch at B 256 with
+   ``GGAN_PHASE_DECONV`` off and on;
+25. failure: the CLI at the published cifar10 wali-gp config in
+   subprocesses: SIGTERM after iteration 4 (exit 0, resumed to 100 bit for
+   bit against an uninterrupted run), ``GGAN_FAULT_NAN_AT=7`` with one
+   rollback (finite, ``rng_salt_high`` 1) and without the guard (inert),
+   async checkpoints equal to sync ones, ``--compile-cache`` built once and
+   then loaded with no ``nvcc`` run; the time a save holds the loop;
+26. prints one JSON line per kernel summary, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line. ``--log PATH`` also
@@ -1033,6 +1053,7 @@ def phase_check(errs):
     _check_classifier(gen, errs, misses, seen)
     _check_family2(gen, errs, misses, seen)
     _check_family3(gen, errs, misses, seen)
+    _check_phase_convs(gen, errs, misses, seen)
     _check_f32_against_cpu()
     missed = _k1_coverage_misses(seen)
     log({"check": "K1 plan coverage", "kernels_and_paths_run": len(seen),
@@ -3371,6 +3392,467 @@ def phase_tools(launch_totals, data):
     launch_totals.update(kernels.launches())
     _gmgan_process_replay(base)
 
+
+# ---------------------------------------------------------------------------
+# the gradient penalty's inner pass: input gradients only (ROADMAP §3 fault
+# 4), on the card, where autograd runs a CUDA node's backward on a device
+# thread of its own unless the scope keeps it on the caller's
+
+def phase_fault4(launch_totals):
+    """One published cifar10 wali-gp f32 step on the card, plain, with
+    ``remat`` and with ``fused_gp``, under a dispatch mode that records for
+    each ``convolution_backward`` whether it ran inside the penalty's
+    ``input_grads_only`` scope and whether it computed a weight gradient:
+    the scope's calls must exist and compute none, and the step's other
+    calls still compute the filters' gradients; then the FLOP count of
+    ``tools/mfu.py`` at that config (the fault's 35.91e9 gone)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from graphical_gan_tpu_torch.ops import kernels
+    from graphical_gan_tpu_torch.ops.kernels import fused_conv
+    from graphical_gan_tpu_torch.tools import mfu
+    from graphical_gan_tpu_torch.train.step import make_train_step
+
+    class Masks(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if str(func.overloadpacket) == "aten.convolution_backward":
+                self.calls.append((getattr(fused_conv._scope, "input_only",
+                                           False), bool(args[10][1])))
+            return func(*args, **(kwargs or {}))
+
+    kernels.reset_launches()
+    raw, _ = _parity_inputs(_option_model(), seed=9)
+    misses = []
+    for label, kw in (("plain", {}), ("remat", dict(remat=True)),
+                      ("fused_gp", dict(fused_gp=True))):
+        model = _option_model(**kw)
+        step, init = make_train_step(model)
+        st = init(model.init(seed=3, device="cuda"))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(70)
+        with Masks() as masks:
+            st, met = step(st, raw[0].cuda(), True, gen)
+            torch.cuda.synchronize()
+        inner = [w for scoped, w in masks.calls if scoped]
+        outer = [w for scoped, w in masks.calls if not scoped]
+        ok = bool(inner) and not any(inner) and any(outer) and all(
+            math.isfinite(float(v)) for v in met.values())
+        log({"phase": "fault4", "step": label,
+             "conv_backward_in_scope": len(inner),
+             "weight_grads_in_scope": sum(inner),
+             "conv_backward_outside": len(outer),
+             "weight_grads_outside": sum(outer), "ok": ok})
+        if not ok:
+            misses.append(label)
+    _add(launch_totals, kernels.launches())
+    flops = mfu.flops_per_iter("float32", "gan")
+    log({"phase": "fault4", "flops_per_iter": flops,
+         "formerly_redundant_flops": FAULT4_REDUNDANT_FLOPS,
+         "before": flops + FAULT4_REDUNDANT_FLOPS})
+    if misses:
+        fail(f"fault4: the penalty's inner pass computes weight gradients "
+             f"or runs outside its scope on the card: {misses}")
+
+
+# the conv items the penalty's inner pass ran before the repair at the
+# published config, per iteration (tests/test_torch_flop_gap.py): 15 D.1, 15
+# D.2 and 5 D.3 items of 2·B·Ho·Wo·Cin·Cout·25 FLOPs each
+FAULT4_REDUNDANT_FLOPS = (15 * 2 * 64 * 16 * 16 * 3 * 64 * 25
+                          + 15 * 2 * 64 * 8 * 8 * 64 * 128 * 25
+                          + 5 * 2 * 64 * 4 * 4 * 128 * 256 * 25)
+
+
+# ---------------------------------------------------------------------------
+# phase-deconv: the stride-2 transposed conv as one stride-1 K1 conv plus a
+# depth-to-space (ops/phase_deconv.py), against the cuDNN route
+
+PHASE_TIME_ITERS = 2     # SSGAN iterations profiled per gate setting
+
+
+def phase_conv_shapes():
+    """(label, x shape, phase filter shape, pads) of K1's stride-1 phase
+    conv at every shape of ``tools/bench_phase_deconv.py``."""
+    import torch
+    from graphical_gan_tpu_torch.ops.phase_deconv import _phase_kernel
+    from graphical_gan_tpu_torch.tools.bench_phase_deconv import K, SHAPES
+    out = []
+    for label, b, h, cin, cout in SHAPES:
+        big, (pl, pr) = _phase_kernel(torch.zeros((K, K, cout, cin)), K)
+        out.append((f"phase {label}", (b, h, h, cin), tuple(big.shape),
+                    ((pl, pr), (pl, pr))))
+    return out
+
+
+def _check_phase_convs(gen, errs, misses, seen):
+    """K1 at the phase convs' shapes (stride 1, explicit window pads, Cout
+    4·O), against its plain version; ``seen`` collects their routes."""
+    import torch
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, xs, ws, pads in phase_conv_shapes():
+            x = torch.randn(xs, generator=gen, device="cuda").to(dtype)
+            w = torch.randn(ws, generator=gen, device="cuda") * 0.05
+            bias = torch.randn((ws[3],), generator=gen, device="cuda") * 0.1
+            _check_conv(label, x, w, bias, 1, pads, None, errs, misses,
+                        seen)
+
+
+def _phase_route_check(label, b, h, cin, cout, dtype, gen, misses):
+    """The phase route against the cuDNN route at one shape: the forward,
+    dx and dw at one cotangent, at the K1 tolerances (``conv``,
+    ``conv_bwd``); returns K1's launches in the phase route's forward and
+    backward."""
+    import torch
+    from graphical_gan_tpu_torch.ops import kernels
+    from graphical_gan_tpu_torch.ops.conv import conv_transpose
+    from graphical_gan_tpu_torch.ops.phase_deconv import (
+        conv_transpose_phase)
+    dn = str(dtype).split(".")[1]
+    x = torch.randn((b, h, h, cin), generator=gen, device="cuda").to(dtype)
+    w = torch.randn((5, 5, cout, cin), generator=gen, device="cuda") * 0.05
+    bias = torch.randn((cout,), generator=gen, device="cuda") * 0.1
+    g = torch.randn((b, 2 * h, 2 * h, cout), generator=gen,
+                    device="cuda").to(dtype)
+    sides, launched = [], 0
+    for fn in (conv_transpose_phase, conv_transpose):
+        xl = x.detach().requires_grad_(True)
+        wl = w.detach().requires_grad_(True)
+        before = kernels.launches()["fused_conv2d_bias_act"]
+        y = fn(xl, wl, bias)
+        dx, dw = torch.autograd.grad(y, (xl, wl), g)
+        if fn is conv_transpose_phase:
+            launched = kernels.launches()["fused_conv2d_bias_act"] - before
+        sides.append((y.detach(), dx, dw))
+    torch.cuda.synchronize()
+    atol, rtol = TOL[("conv", dn)]
+    e_fwd, bad = max_err(sides[0][0], sides[1][0], atol, rtol)
+    atol_b, rtol_b = TOL[("conv_bwd", dn)]
+    errs = {"fwd": e_fwd}
+    for i, name in ((1, "dx"), (2, "dw")):
+        ref = sides[1][i]
+        e, miss = max_err(sides[0][i], ref, atol_b * max(1.0, float(
+            ref.float().abs().max())), rtol_b)
+        errs[name] = e
+        bad |= miss
+    ok = not bad and launched == 1 and sides[0][0].dtype == dtype
+    log({"phase": "phase-deconv", "check": "phase route vs cudnn",
+         "shape": label, "dtype": dn, "max_abs_err": errs,
+         "tol": {"fwd": [atol, rtol], "bwd": [atol_b, rtol_b]},
+         "k1_launches": launched, "ok": ok})
+    if not ok:
+        misses.append(f"{label} {dn}")
+
+
+def _gate_readings(base):
+    """Device ms of one SSGAN moving-MNIST local_ep f32 iteration (profiled
+    over PHASE_TIME_ITERS) and of one f32 sampler dispatch at B 256
+    (cifar10 wali-gp, CUDA events), with ``GGAN_PHASE_DECONV`` off and on;
+    the two samplers' images agree within 1e-4."""
+    import torch
+    from graphical_gan_tpu_torch.tools import mfu
+    from graphical_gan_tpu_torch.tools.trace_report import profile_train
+    old = os.environ.get("GGAN_PHASE_DECONV")
+    model = _published("float32")
+    params = model.init(seed=4, device="cuda")
+    noise = torch.randn((256, model.cfg.dim_latent), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(4))
+    images = {}
+    try:
+        for gate in ("0", "1"):
+            os.environ["GGAN_PHASE_DECONV"] = gate
+            tr = mfu.make_trainer("ssgan", "float32",
+                                  os.path.join(base, f"ssgan_{gate}"),
+                                  "cuda", data_rows=200)
+            tr.step_fn(tr.state, tr.draw_batches(0), True, tr.generator)
+            busy, dev_ms, groups = profile_train(tr, PHASE_TIME_ITERS)[:3]
+            log({"phase": "phase-deconv", "reading": "ssgan iteration",
+                 "config": "moving-MNIST local_ep f32", "gate": gate,
+                 "device_ms_per_iter": dev_ms, "busy_share": busy,
+                 "device_ms_per_iter_by_group": groups})
+            with torch.inference_mode():
+                images[gate] = model.sample(params, noise).float()
+                ms = time_ms(lambda z: model.sample(params, z), (noise,))
+            log({"phase": "phase-deconv", "reading": "sampler dispatch",
+                 "config": "cifar10 wali-gp f32", "B": 256, "gate": gate,
+                 "device_ms": ms})
+    finally:
+        if old is None:
+            os.environ.pop("GGAN_PHASE_DECONV", None)
+        else:
+            os.environ["GGAN_PHASE_DECONV"] = old
+    diff = float((images["0"] - images["1"]).abs().max())
+    log({"phase": "phase-deconv", "check": "sampler gate off vs on",
+         "max_abs_diff": diff, "ok": diff <= 1e-4})
+    if not diff <= 1e-4:
+        fail(f"phase-deconv: the sampler's images differ by {diff} between "
+             "the routes")
+
+
+def phase_phase_deconv(launch_totals):
+    """The phase route against the cuDNN route at the eight bench shapes
+    (forward, dx, dw; f32 and bf16; K1's launches counted), the bench tool
+    on the card, and the SSGAN iteration and f32 sampler with the gate off
+    and on."""
+    import torch
+    from graphical_gan_tpu_torch.ops import kernels
+    from graphical_gan_tpu_torch.tools import bench_phase_deconv
+    base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
+                        "smoke_phase")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    misses = []
+    kernels.reset_launches()
+    for label, b, h, cin, cout in bench_phase_deconv.SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            _phase_route_check(label, b, h, cin, cout, dtype, gen, misses)
+    launch_totals.update(kernels.launches())
+    if misses:
+        fail(f"phase-deconv: the phase route disagrees with cuDNN's or does "
+             f"not run K1: {misses}")
+    for rec in bench_phase_deconv.main([]):
+        log({"phase": "phase-deconv", "tool": "bench_phase_deconv", **rec})
+    _gate_readings(base)
+
+
+# ---------------------------------------------------------------------------
+# failure: SIGTERM, rollback, async checkpoints and the kernel build cache
+# through the real CLI, at the published cifar10 wali-gp config
+
+FAIL_ITERS = 100
+FAIL_CKPT_EVERY = 50
+FAIL_NAN_AT = 7
+SAVE_REPS = 3
+_NVCC_WRAPPER = """#!/bin/sh
+echo "$@" >> {log}
+exec {nvcc} "$@"
+"""
+
+
+def _cli(run_dir, cache, *extra):
+    return [sys.executable, "-m", "graphical_gan_tpu_torch.runs.gan_inference",
+            "--dataset", "cifar10", "--mode", "wali-gp",
+            "--iters", str(FAIL_ITERS), "--checkpoint-every",
+            str(FAIL_CKPT_EVERY), "--compile-cache", cache, "--run-dir",
+            run_dir, *extra]
+
+
+def _run_cli(cmd, env, sigterm_after=None):
+    """(exit code, output, seconds to the iteration-0 line, seconds from
+    the SIGTERM to the exit or None): ``sigterm_after`` sends SIGTERM that
+    many seconds after the iteration-4 line."""
+    import signal
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, first, stop = [], None, None
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if first is None and line.startswith("iter 0\t"):
+                first = time.perf_counter() - t0
+            if sigterm_after is not None and stop is None \
+                    and line.startswith("iter 4\t"):
+                time.sleep(sigterm_after)
+                proc.send_signal(signal.SIGTERM)
+                stop = time.perf_counter()
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    exit_s = None if stop is None else time.perf_counter() - stop
+    return proc.returncode, "".join(lines), first, exit_s
+
+
+def _ckpt_equal(a, b):
+    """The keys whose arrays differ between two npz checkpoints (all keys
+    where the key sets differ)."""
+    import numpy as np
+    from graphical_gan_tpu_torch.train import checkpoint as ckpt_lib
+    fa, ea = ckpt_lib.load_raw(a)
+    fb, eb = ckpt_lib.load_raw(b)
+    if set(fa) != set(fb):
+        return sorted(set(fa) ^ set(fb))
+    return sorted(k for k in fa if not np.array_equal(fa[k], fb[k]))
+
+
+def _costs(text):
+    return [float(ln.split("train disc cost\t")[1].split("\t")[0])
+            for ln in text.splitlines()
+            if ln.startswith("iter ") and "train disc cost\t" in ln]
+
+
+def _save_times(base, data):
+    """Median ms that ``Trainer.save`` holds the loop at the published f32
+    state (78.9 MB), synchronous against async, and the async write's
+    time to disk; the two files' arrays equal."""
+    import torch
+    from graphical_gan_tpu_torch.train.trainer import Trainer
+    out = {}
+    for mode in ("sync", "async"):
+        tr = Trainer(_published("float32"), data[:1024],
+                     os.path.join(base, f"save_{mode}"), seed=0,
+                     device="cuda", checkpoint_every=0,
+                     async_checkpoint=mode == "async",
+                     checkpoints_to_keep=0)
+        tr.state = tr.init_state(tr.model.init(0, tr.device))
+        held, done = [], []
+        for i in range(SAVE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.save(i)
+            held.append((time.perf_counter() - t0) * 1e3)
+            if tr._ckpt_writer is not None:
+                tr._ckpt_writer.join()
+            done.append((time.perf_counter() - t0) * 1e3)
+        out[mode] = (statistics.median(held), statistics.median(done),
+                     os.path.join(tr.outf, "ckpt_0.npz"))
+    differ = _ckpt_equal(out["sync"][2], out["async"][2])
+    nbytes = os.path.getsize(out["sync"][2])
+    log({"phase": "failure", "reading": "save", "file_bytes": nbytes,
+         "sync_ms_held": out["sync"][0], "async_ms_held": out["async"][0],
+         "async_ms_to_disk": out["async"][1], "arrays_equal": not differ})
+    if differ:
+        fail(f"failure: an async save's arrays differ from a sync one's: "
+             f"{differ[:5]}")
+
+
+def phase_failure(data):
+    """The failure drills through ``runs/gan_inference.py`` in subprocesses
+    at the published cifar10 wali-gp config (B 64, DIM 64, k 5, f32) on the
+    loader's synthetic data, ``--iters 100 --checkpoint-every 50``, each
+    run with ``--compile-cache`` on one directory, ``nvcc`` wrapped so its
+    calls are logged:
+
+    1. an uninterrupted run, the first into the empty cache: it builds;
+    2. a run sent SIGTERM one second after its iteration-4 line: exit 0,
+       the ``preempted`` line, no ``nvcc`` call (the cache loads); resumed
+       with ``--run-dir`` to iteration 100, its ckpt_99 equals run 1's bit
+       for bit;
+    3. ``GGAN_FAULT_NAN_AT=7 --max-rollbacks 1``: one ``rollback 1/1``
+       line, finite costs and checkpoint, ``rng_salt_high`` 1;
+    4. ``GGAN_FAULT_NAN_AT=7`` without the guard and with
+       ``GGAN_ASYNC_CKPT=1``: no rollback, the window of iteration 7 logged
+       as nan, and
+       ckpt_49 and ckpt_99 equal run 1's bit for bit (the injection is
+       inert, and async checkpoints equal sync ones);
+
+    then in this process the time ``save`` holds the loop, sync against
+    async. Logs each run's seconds to its first iteration (the cold build
+    against the cached load) and the SIGTERM's stop-to-exit seconds."""
+    import numpy as np
+    from graphical_gan_tpu_torch.ops.kernels import build
+    from graphical_gan_tpu_torch.train import checkpoint as ckpt_lib
+    base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
+                        "smoke_failure")
+    shutil.rmtree(base, ignore_errors=True)
+    cache = os.path.join(base, "cache")
+    bindir = os.path.join(base, "bin")
+    os.makedirs(cache)
+    os.makedirs(bindir)
+    nvcc_log = os.path.join(base, "nvcc.log")
+    open(nvcc_log, "w").close()
+    wrapper = os.path.join(bindir, "nvcc")
+    with open(wrapper, "w") as f:
+        f.write(_NVCC_WRAPPER.format(log=nvcc_log, nvcc=build.nvcc_path()))
+    os.chmod(wrapper, 0o755)
+    env = dict(os.environ, PATH=bindir + os.pathsep + os.environ["PATH"],
+               PYTHONUNBUFFERED="1")
+    for k in ("GGAN_FAULT_NAN_AT", "GGAN_ASYNC_CKPT", "GGAN_PHASE_DECONV",
+              "GGAN_PROFILE", "GGAN_COMPILE_CACHE"):
+        env.pop(k, None)
+
+    def nvcc_calls():
+        with open(nvcc_log) as f:
+            return f.read().splitlines()
+
+    run = {k: os.path.join(base, k) for k in ("straight", "cut", "rollback",
+                                               "inert")}
+    misses = []
+    rc, out, first_cold, _ = _run_cli(_cli(run["straight"], cache), env)
+    built = nvcc_calls()
+    log({"phase": "failure", "run": "straight", "rc": rc,
+         "seconds_to_iter_0": first_cold, "nvcc_calls": len(built),
+         "cache_entries": sorted(os.listdir(cache))})
+    if rc != 0 or not built or len(_costs(out)) < 6:
+        fail(f"failure: the uninterrupted run (rc {rc}, {len(built)} nvcc "
+             f"calls): {out[-3000:]}")
+
+    rc, out, first_cached, exit_s = _run_cli(_cli(run["cut"], cache), env,
+                                             sigterm_after=1.0)
+    stopped = [ln for ln in out.splitlines() if ln.startswith("preempted:")]
+    cached_clean = nvcc_calls() == built
+    log({"phase": "failure", "run": "sigterm", "rc": rc,
+         "seconds_to_iter_0": first_cached,
+         "sigterm_stop_to_exit_s": exit_s, "preempted_line": stopped,
+         "nvcc_calls_after_cold_build": len(nvcc_calls()) - len(built)})
+    if rc != 0 or len(stopped) != 1:
+        misses.append(f"SIGTERM: rc {rc}, preempted lines {stopped}")
+    if not cached_clean:
+        misses.append("the cached library ran nvcc again")
+    rc2, out2, _, _ = _run_cli(_cli(run["cut"], cache), env)
+    final = os.path.join(run["cut"], f"ckpt_{FAIL_ITERS - 1}.npz")
+    differ = (_ckpt_equal(os.path.join(run["straight"],
+                                       f"ckpt_{FAIL_ITERS - 1}.npz"), final)
+              if rc2 == 0 and os.path.exists(final) else ["no final ckpt"])
+    log({"phase": "failure", "run": "sigterm resume", "rc": rc2,
+         "final_state_bit_identical": not differ,
+         "differing_leaves": differ[:5]})
+    if rc2 != 0 or differ:
+        misses.append(f"SIGTERM resume: rc {rc2}, differing {differ[:5]}")
+
+    nan_env = dict(env, GGAN_FAULT_NAN_AT=str(FAIL_NAN_AT))
+    rc, out, _, _ = _run_cli(_cli(run["rollback"], cache, "--max-rollbacks",
+                                  "1"), nan_env)
+    rollbacks = [ln for ln in out.splitlines() if "rollback 1/1" in ln]
+    last = ckpt_lib.latest(run["rollback"])
+    extra = ckpt_lib.load_raw(last)[1] if last else {}
+    flat = ckpt_lib.load_raw(last)[0] if last else {}
+    finite = bool(flat) and all(np.isfinite(a).all() for a in flat.values()
+                                if np.issubdtype(a.dtype, np.floating))
+    costs = _costs(out)
+    log({"phase": "failure", "run": "rollback", "rc": rc,
+         "rollback_lines": rollbacks, "last_checkpoint":
+         os.path.basename(last or ""), "rng_salt": extra.get("rng_salt"),
+         "rng_salt_high": extra.get("rng_salt_high"),
+         "checkpoint_finite": finite, "last_costs": costs[-3:]})
+    if (rc != 0 or len(rollbacks) != 1 or extra.get("rng_salt_high") != 1
+            or not finite or not costs
+            or not all(math.isfinite(c) for c in costs[-3:])):
+        misses.append(f"rollback: rc {rc}, lines {rollbacks}, extra {extra}")
+
+    rc, out, _, _ = _run_cli(_cli(run["inert"], cache), dict(
+        nan_env, GGAN_ASYNC_CKPT="1"))
+    # the flush after iteration 7 logs the window's mean cost: nan
+    nan_logged = any(ln.startswith("iter ") and int(ln.split("\t")[0][5:])
+                     >= FAIL_NAN_AT and "train disc cost\tnan" in ln
+                     for ln in out.splitlines())
+    differ = {}
+    for it in (FAIL_CKPT_EVERY - 1, FAIL_ITERS - 1):
+        name = f"ckpt_{it}.npz"
+        got = os.path.join(run["inert"], name)
+        differ[name] = (_ckpt_equal(os.path.join(run["straight"], name), got)
+                        if os.path.exists(got) else ["missing"])
+    log({"phase": "failure", "run": "inert + async", "rc": rc,
+         "nan_logged": nan_logged,
+         "rollback_lines": sum("divergence guard" in ln
+                               for ln in out.splitlines()),
+         "checkpoints_bit_identical_to_sync": {
+             k: not v for k, v in differ.items()}})
+    if rc != 0 or not nan_logged or any(differ.values()) \
+            or "divergence guard" in out:
+        misses.append(f"inert/async: rc {rc}, nan logged {nan_logged}, "
+                      f"differing {differ}")
+    _save_times(base, data)
+    if misses:
+        fail(f"failure: {misses}")
+
+
 SOURCES = {
     "fused_conv2d_bias_act": (
         "graphical_gan_tpu_torch/csrc/fused_conv.cu",
@@ -3480,8 +3962,9 @@ def summary(errs, timings, launches):
     serving run, ``launches_family1`` the family1 runs and
     ``launches_loaders`` / ``_eval`` / ``_learn`` / ``_step_options`` /
     ``_family2`` / ``_cluster`` / ``_family2_learn`` / ``_family3`` /
-    ``_family3_serve`` / ``_family3_learn`` / ``_tools`` those phases'
-    runs; K1 adds
+    ``_family3_serve`` / ``_family3_learn`` / ``_tools`` / ``_fault4`` /
+    ``_phase_deconv`` those phases' runs (K1's ``_phase_deconv``: the phase
+    route at the eight bench shapes); K1 adds
     ``family3_rows``, its times at family 3's shapes (B 50 videos)."""
     out = []
     for name, (src, replaces) in SOURCES.items():
@@ -3514,7 +3997,7 @@ def summary(errs, timings, launches):
                                     "step_options", "family2", "cluster",
                                     "family2_learn", "family3",
                                     "family3_serve", "family3_learn",
-                                    "tools")},
+                                    "tools", "fault4", "phase_deconv")},
                     "max_abs_err": errs[name],
                     "ms": total("ms"), "plain_ms": total("plain_ms"),
                     "bound_ms": total("bound_ms"),
@@ -3584,7 +4067,8 @@ def main(argv=None) -> int:
                     "loaders": {}, "eval": {}, "learn": {}, "k1": {},
                     "step_options": {}, "family2": {}, "cluster": {},
                     "family2_learn": {}, "family3": {}, "family3_serve": {},
-                    "family3_learn": {}, "tools": {}}
+                    "family3_learn": {}, "tools": {}, "fault4": {},
+                    "phase_deconv": {}}
         _timed("build", phase_build)
         _timed("check", phase_check, errs)
         _timed("time", phase_time, timings)
@@ -3624,6 +4108,9 @@ def main(argv=None) -> int:
         _timed("family3-learn", phase_family3_learn,
                launches["family3_learn"])
         _timed("tools", phase_tools, launches["tools"], data)
+        _timed("fault4", phase_fault4, launches["fault4"])
+        _timed("phase-deconv", phase_phase_deconv, launches["phase_deconv"])
+        _timed("failure", phase_failure, data)
         for path, want in (("family2", TRAIN_KERNELS),
                            ("family2_learn", TRAIN_KERNELS),
                            ("cluster", SERVE_KERNELS),
@@ -3631,7 +4118,9 @@ def main(argv=None) -> int:
                            ("family3", TRAIN_KERNELS),
                            ("family3_serve", ("fused_conv2d_bias_act",)),
                            ("family3_learn", ("fused_conv2d_bias_act",)),
-                           ("tools", TRAIN_KERNELS)):
+                           ("tools", TRAIN_KERNELS),
+                           ("fault4", TRAIN_KERNELS),
+                           ("phase_deconv", ("fused_conv2d_bias_act",))):
             missing = [k for k in want if not launches[path].get(k)]
             if missing:
                 fail(f"kernels never launched on the {path} path: "

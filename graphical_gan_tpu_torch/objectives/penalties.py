@@ -3,7 +3,9 @@
 
 A penalty differentiates the discriminator's input-gradient again, so every
 op on D's path has a differentiable backward (``torch.autograd.grad`` with
-``create_graph=True``). Each takes its interpolation weights ``alpha``
+``create_graph=True``). That inner pass runs inside
+``fused_conv.input_grads_only``: K1's backward there computes D's input
+gradients only, as XLA's dead-code elimination leaves the JAX step. Each takes its interpolation weights ``alpha``
 ([B, 1], f32) from the caller, who draws them.
 """
 
@@ -12,6 +14,8 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
+
+from graphical_gan_tpu_torch.ops.kernels.fused_conv import input_grads_only
 
 
 def l2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -35,8 +39,10 @@ def _input_grads(d_fn, hats: Sequence[torch.Tensor], wrt: Sequence[int]):
     for i in wrt:
         if not hats[i].requires_grad:  # inputs made under no_grad
             hats[i].requires_grad_(True)
-    return torch.autograd.grad(d_fn(*hats).sum(), [hats[i] for i in wrt],
-                               create_graph=True)
+    out = d_fn(*hats).sum()
+    with input_grads_only():
+        return torch.autograd.grad(out, [hats[i] for i in wrt],
+                                   create_graph=True)
 
 
 def _penalty(grads: Sequence[torch.Tensor], lamb: float) -> torch.Tensor:
@@ -84,8 +90,9 @@ def wali_gp_fused(d_fn: Callable[[torch.Tensor, torch.Tensor],
     out = d_fn(xs, zs)
     cot = torch.zeros_like(out)
     cot[2 * b:] = 1.0
-    (grads_xs,) = torch.autograd.grad(out, xs, grad_outputs=cot,
-                                      create_graph=True)
+    with input_grads_only():
+        (grads_xs,) = torch.autograd.grad(out, xs, grad_outputs=cot,
+                                          create_graph=True)
     slopes = torch.sqrt(grads_xs[2 * b:].float().square().sum(dim=1))
     gp = lamb * (slopes - 1.0).square().mean()
     return out[:b], out[b:2 * b], gp

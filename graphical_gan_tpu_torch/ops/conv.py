@@ -10,13 +10,18 @@ does.
   fused_conv.py``): the K1 kernel forward, bias and activation fused into
   its epilogue, and a differentiable backward. On a CPU tensor the forward
   is its plain version.
-- ``deconv2d`` is ``F.conv_transpose2d``: the JAX package computes it outside
-  any Pallas kernel (``ops/conv.py:181-184``). It runs on the NHWC tensor
-  viewed as channels-last NCHW, so nothing is copied to change layout. TF's
-  SAME transpose conv is the input-gradient of the asymmetrically padded
-  forward conv (pads ``(lo, hi)``, ``lo <= hi``), while torch's ``padding``
-  is symmetric, so it runs with ``padding=0`` and crops ``lo`` from the low
-  side. Its gradients are autograd's (cuDNN on the card).
+- ``deconv2d`` is ``F.conv_transpose2d`` by default: the JAX package
+  computes it outside any Pallas kernel (``ops/conv.py:181-184``). It runs
+  on the NHWC tensor viewed as channels-last NCHW, so nothing is copied to
+  change layout. TF's SAME transpose conv is the input-gradient of the
+  asymmetrically padded forward conv (pads ``(lo, hi)``, ``lo <= hi``),
+  while torch's ``padding`` is symmetric, so it runs with ``padding=0`` and
+  crops ``lo`` from the low side. Its gradients are autograd's (cuDNN on
+  the card). With ``GGAN_PHASE_DECONV`` on (``ops/phase_deconv.py:
+  use_phase_deconv``, off by default, as in JAX's ``ops/conv.py:
+  171-179``) a stride-2 deconv takes the phase route instead: one stride-1
+  conv on K1 to 4x the channels, the bias in K1's epilogue, then a
+  depth-to-space (``ops/phase_deconv.py``).
 - ``conv3d`` is ``F.conv3d`` on the NDHWC tensor viewed as NCDHW: the JAX
   package runs it as a plain XLA convolution over DHWIO (``ops/conv.py:
   227-243``), with no Pallas kernel. TF's SAME pads are asymmetric (the odd
@@ -33,6 +38,8 @@ import torch.nn.functional as F
 
 from graphical_gan_tpu_torch.ops.kernels.fused_conv import (
     conv2d_bias_act, same_pads)
+from graphical_gan_tpu_torch.ops.phase_deconv import (
+    conv_transpose_phase, use_phase_deconv)
 
 
 def conv2d(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
@@ -59,6 +66,17 @@ def deconv2d(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
             "deconv2d ports the SAME padding the models use; VALID waits for "
             "a later slice of the port")
     w = params[name + ".Filters"]
+    bias = params[name + ".Biases"]
+    if stride == 2 and use_phase_deconv():
+        return conv_transpose_phase(x, w, bias)
+    return conv_transpose(x, w, bias, stride)
+
+
+def conv_transpose(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                   stride: int = 2) -> torch.Tensor:
+    """``deconv2d``'s library route: TF's SAME ``conv2d_transpose`` of x
+    [B, H, W, in] with the ``(k, k, out, in)`` filter w, plus bias, as
+    ``F.conv_transpose2d`` (cuDNN on the card)."""
     k = w.shape[0]
     oh, ow = x.shape[1] * stride, x.shape[2] * stride
     xc = x.permute(0, 3, 1, 2)  # channels-last NCHW view, no copy
@@ -67,7 +85,7 @@ def deconv2d(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
     lo_h = same_pads(oh, k, stride)[0]
     lo_w = same_pads(ow, k, stride)[0]
     out = full[:, :, lo_h:lo_h + oh, lo_w:lo_w + ow].permute(0, 2, 3, 1)
-    return (out + params[name + ".Biases"].to(out.dtype)).contiguous()
+    return (out + bias.to(out.dtype)).contiguous()
 
 
 def conv3d(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,

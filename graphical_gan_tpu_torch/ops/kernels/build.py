@@ -3,9 +3,18 @@
 Every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc``
 per source, all started together) and linked into one shared library with a
 plain C interface, loaded with ``ctypes``. The library is built at first use
-into ``graphical_gan_tpu_torch/_build/`` (listed in ``.gitignore``) under a
-name that hashes the sources and flags, so an edited source rebuilds and an
-unchanged one loads the library already there. A failed build raises.
+into ``graphical_gan_tpu_torch/_build/`` (listed in ``.gitignore``), or into
+the directory ``core/compile_cache.py: enable_compile_cache`` names, under a
+name that hashes the sources and flags and then ``nvcc --version``'s output,
+so an edited source or another toolkit rebuilds and an unchanged one loads
+the library already there. ``nvcc --version`` is run once per toolkit
+binary: its output is kept in the build directory under a name that hashes
+the binary's path, size and time, so a second process loads the library
+with no ``nvcc`` run; a machine without ``nvcc`` loads the newest library
+built from these sources and flags. A library is published atomically (built
+under a temporary name, then ``os.replace``), so processes that build into
+one directory at once never load a half-written file. A failed build
+raises, and so does a library that fails to load (it is not rebuilt).
 
 The C entry points take every pointer, and the CUDA stream, as ``c_void_p``
 and return ``cudaGetLastError()`` after their launch; :func:`check` turns a
@@ -61,7 +70,15 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_lib_path: Optional[str] = None
+# where the library is built and looked up; enable_compile_cache sets it
+_cache_dir: Optional[str] = None
 build_log = ""
+
+
+def build_dir() -> str:
+    """The directory the library is built into and loaded from."""
+    return _cache_dir or BUILD_DIR
 
 
 def sources():
@@ -77,26 +94,73 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def nvcc_path() -> str:
+def find_nvcc() -> Optional[str]:
     found = shutil.which("nvcc")
     if found:
         return found
     cand = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
-                       "from csrc/ with the CUDA toolkit at first use")
+    return cand if os.path.exists(cand) else None
+
+
+def nvcc_path() -> str:
+    found = find_nvcc()
+    if found is None:
+        raise RuntimeError("nvcc not found: the port's CUDA kernels are "
+                           "built from csrc/ with the CUDA toolkit at first "
+                           "use")
+    return found
+
+
+def _write_atomic(path: str, text: str) -> None:
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path), suffix=".tmp")
+    with os.fdopen(fd, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
+
+
+def nvcc_version(nvcc: str, directory: str) -> str:
+    """``nvcc --version``'s output, run once per toolkit binary (its real
+    path, size and modification time) and kept in ``directory``."""
+    real = os.path.realpath(nvcc)
+    st = os.stat(real)
+    stamp = hashlib.sha256(f"{real}:{st.st_size}:{st.st_mtime_ns}"
+                           .encode()).hexdigest()[:16]
+    memo = os.path.join(directory, f"nvcc-{stamp}.version")
+    if os.path.exists(memo):
+        with open(memo) as f:
+            return f.read()
+    out = subprocess.run([nvcc, "--version"], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, check=True
+                         ).stdout
+    _write_atomic(memo, out)
+    return out
+
+
+def library_name(version: str) -> str:
+    """The library's file name: the sources and flags' digest, then the
+    toolkit's (from ``nvcc --version``)."""
+    tool = hashlib.sha256(version.encode()).hexdigest()[:12]
+    return f"libggan_kernels_{_digest()}_{tool}.so"
 
 
 def build(force: bool = False) -> str:
-    """Compile ``csrc/*.cu`` into the shared library; returns its path."""
+    """Compile ``csrc/*.cu`` into the shared library in :func:`build_dir`
+    unless it is there; returns its path."""
     global build_log
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, f"libggan_kernels_{_digest()}.so")
+    directory = build_dir()
+    os.makedirs(directory, exist_ok=True)
+    nvcc = find_nvcc()
+    if nvcc is None and not force:
+        built = glob.glob(os.path.join(directory,
+                                       f"libggan_kernels_{_digest()}_*.so"))
+        if built:
+            return max(built, key=os.path.getmtime)
+    nvcc = nvcc_path()
+    out = os.path.join(directory, library_name(nvcc_version(nvcc,
+                                                            directory)))
     if os.path.exists(out) and not force:
         return out
-    nvcc = nvcc_path()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=directory) as tmp:
         procs = []
         for src in sources():
             obj = os.path.join(tmp, os.path.basename(src) + ".o")
@@ -127,16 +191,27 @@ def build(force: bool = False) -> str:
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    global _lib
+    global _lib, _lib_path
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(build())
+            path = build()
+            try:
+                handle = ctypes.CDLL(path)
+            except OSError as e:
+                raise RuntimeError(f"the kernel library {path} does not "
+                                   f"load ({e}); delete it to rebuild"
+                                   ) from e
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _lib = handle
+            _lib, _lib_path = handle, path
         return _lib
+
+
+def loaded_path() -> Optional[str]:
+    """The path of the loaded library, or None before :func:`lib`."""
+    return _lib_path
 
 
 def check(code: int, name: str) -> None:

@@ -1,4 +1,5 @@
-"""K1: ``act(conv2d(x, w, stride, SAME|VALID) + bias)`` over NHWC/HWIO.
+"""K1: ``act(conv2d(x, w, stride, padding) + bias)`` over NHWC/HWIO, padding
+SAME, VALID or explicit per-axis ``(lo, hi)`` pads.
 
 Replaces ``graphical_gan_tpu/ops/pallas/fused_conv.py:_forward_pallas``
 (the Pallas implicit GEMM behind ``fused_conv2d_bias_act``). The CUDA
@@ -25,7 +26,9 @@ as the JAX package leaves the conv gradients to XLA
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -47,18 +50,47 @@ def same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
     return lo, total - lo
 
 
-def out_size(size: int, k: int, s: int, padding: str) -> int:
+def out_size(size: int, k: int, s: int, padding) -> int:
+    """Output size of one axis under ``padding``: "SAME", "VALID" or that
+    axis's explicit ``(lo, hi)``."""
     if padding == "SAME":
         return -(-size // s)
     if padding == "VALID":
         return (size - k) // s + 1
-    raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    if isinstance(padding, tuple):
+        lo, hi = padding
+        return (size + lo + hi - k) // s + 1
+    raise ValueError(f"padding must be 'SAME', 'VALID' or ((lo, hi), "
+                     f"(lo, hi)), got {padding!r}")
 
 
-def _pads(h: int, w: int, kh: int, kw: int, stride: int, padding: str):
+def explicit_pads(padding):
+    """``padding`` as K1's wrappers take it: "SAME", "VALID", or per-axis
+    ``((lo, hi), (lo, hi))`` of non-negative ints (rows, then columns), as
+    tuples so that :func:`plan` can cache it."""
+    if isinstance(padding, str):
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be 'SAME', 'VALID' or ((lo, "
+                             f"hi), (lo, hi)), got {padding!r}")
+        return padding
+    pads = tuple(tuple(int(p) for p in axis) for axis in padding)
+    if len(pads) != 2 or any(len(a) != 2 or min(a) < 0 for a in pads):
+        raise ValueError(f"explicit padding must be ((lo, hi), (lo, hi)) "
+                         f"of non-negative ints, got {padding!r}")
+    return pads
+
+
+def _axes(padding):
+    """The padding of each spatial axis (rows, columns)."""
+    return (padding, padding) if isinstance(padding, str) else padding
+
+
+def _pads(h: int, w: int, kh: int, kw: int, stride: int, padding):
     if padding == "SAME":
         return same_pads(h, kh, stride), same_pads(w, kw, stride)
-    return (0, 0), (0, 0)
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    return padding
 
 
 SMS = 132              # streaming multiprocessors of an H100 SXM: one wave
@@ -124,9 +156,10 @@ SPLIT_WAVES = 3
 
 @functools.lru_cache(maxsize=None)
 def plan(x_shape: Tuple[int, ...], w_shape: Tuple[int, ...], stride: int,
-         padding: str, dtype: torch.dtype) -> Plan:
-    """K1's plan for x [B, H, W, Cin] and w [KH, KW, Cin, Cout], a pure
-    function of the shapes.
+         padding, dtype: torch.dtype) -> Plan:
+    """K1's plan for x [B, H, W, Cin] and w [KH, KW, Cin, Cout] under
+    ``padding`` (:func:`explicit_pads`' forms), a pure function of the
+    shapes.
 
     - f32: ``fma`` (BK = 32, 3 stages; 16-byte gathers when Cin and Cout
       are multiples of 4), never on the tensor cores (no TF32) and never
@@ -146,8 +179,8 @@ def plan(x_shape: Tuple[int, ...], w_shape: Tuple[int, ...], stride: int,
     """
     b, h, wd, cin = x_shape
     kh, kw, _, cout = w_shape
-    m = b * out_size(h, kh, stride, padding) * out_size(wd, kw, stride,
-                                                        padding)
+    ph, pw = _axes(padding)
+    m = b * out_size(h, kh, stride, ph) * out_size(wd, kw, stride, pw)
     r = kh * kw * cin
     if dtype == torch.float32:
         bm, bn = pick_tile(F32_TILES, m, cout)
@@ -199,11 +232,12 @@ def split_steps(steps: int, tiles: int) -> Tuple[int, int]:
 
 def fused_conv2d_bias_act_plain(x: torch.Tensor, w: torch.Tensor,
                                 bias: torch.Tensor, stride: int = 1,
-                                padding: str = "SAME",
+                                padding="SAME",
                                 act: Optional[str] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: w and bias are cast to x's
     dtype (as the TPU kernel does), the products are summed in f32, bias and
     act are applied in f32 and the result is cast back to x's dtype."""
+    padding = explicit_pads(padding)
     kh, kw = w.shape[:2]
     (plo, phi), (qlo, qhi) = _pads(x.shape[1], x.shape[2], kh, kw, stride,
                                    padding)
@@ -216,15 +250,17 @@ def fused_conv2d_bias_act_plain(x: torch.Tensor, w: torch.Tensor,
 
 def fused_conv2d_bias_act(x: torch.Tensor, w: torch.Tensor,
                           bias: torch.Tensor, stride: int = 1,
-                          padding: str = "SAME",
+                          padding="SAME",
                           act: Optional[str] = None) -> torch.Tensor:
     """K1: act(conv2d(x, w, stride, padding) + bias): on CUDA the
     :func:`plan`'s mainloop kernel, and its split-K reduce where the plan
     splits K; one count in ``launches`` per call.
 
     x: [B, H, W, Cin] contiguous NHWC; w: [KH, KW, Cin, Cout] (HWIO);
-    bias: [Cout]. f32 or bf16; f32 accumulation; output in x's dtype.
+    bias: [Cout]; padding "SAME", "VALID" or per-axis ``((lo, hi), (lo,
+    hi))``. f32 or bf16; f32 accumulation; output in x's dtype.
     """
+    padding = explicit_pads(padding)
     if x.ndim != 4 or w.ndim != 4 or w.shape[2] != x.shape[3] \
             or bias.shape != (w.shape[3],):
         raise ValueError(f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
@@ -249,7 +285,7 @@ def fused_conv2d_bias_act(x: torch.Tensor, w: torch.Tensor,
 
 
 def run_plan(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-             stride: int, padding: str, act: Optional[str], p: Plan,
+             stride: int, padding, act: Optional[str], p: Plan,
              leak: float = LEAKY_ALPHA) -> torch.Tensor:
     """K1's kernels on CUDA tensors that the caller has checked, run as
     plan ``p`` says, with ``leak`` the slope of ``leaky_relu``; counts no
@@ -259,8 +295,9 @@ def run_plan(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     rejects a plan it has no kernel for."""
     b, h, wd, cin = x.shape
     kh, kw, _, cout = w.shape
-    oh = out_size(h, kh, stride, padding)
-    ow = out_size(wd, kw, stride, padding)
+    ph, pw = _axes(padding)
+    oh = out_size(h, kh, stride, ph)
+    ow = out_size(wd, kw, stride, pw)
     (plo, _), (qlo, _) = _pads(h, wd, kh, kw, stride, padding)
     w = w.to(device=x.device, dtype=x.dtype).contiguous()
     bias = bias.to(device=x.device, dtype=x.dtype).contiguous()
@@ -291,24 +328,29 @@ fused_conv2d_bias_act.launches = 0
 
 def conv2d_bias_act_backward(g: torch.Tensor, x: torch.Tensor,
                              w: torch.Tensor, y: torch.Tensor, stride: int,
-                             padding: str, act: Optional[str],
+                             padding, act: Optional[str],
                              needs=(True, True, True)):
     """(dx, dw, dbias) of ``act(conv2d(x, w) + bias) = y`` at cotangent g,
     as the JAX ``_bwd`` computes them: ``gz = g·act'(y)`` in f32, cast to
     x's dtype; ``dbias = Σgz`` in f32; dx and dw are the gradients of the
     same asymmetrically padded conv (w cast to x's dtype), dw cast to w's
     dtype. Entries whose ``needs`` flag is False are None and are not
-    computed. Plain differentiable PyTorch: the wali-gp penalty
-    differentiates this function again."""
+    computed. ``padding`` takes :func:`explicit_pads`' forms. Plain
+    differentiable PyTorch: the wali-gp penalty
+    differentiates this function again; where dw is not asked for, x
+    enters detached (dx is linear in g and does not read x), so a second
+    differentiation does not reach the graph that made x."""
     kh, kw = w.shape[:2]
     (plo, phi), (qlo, qhi) = _pads(x.shape[1], x.shape[2], kh, kw, stride,
-                                   padding)
+                                   explicit_pads(padding))
     gz = (g.float() * activation_grad(act, y.float())).to(x.dtype)
     gz_nchw = gz.permute(0, 3, 1, 2)
     dx = dw = dbias = None
     if needs[0] or needs[1]:
-        # NHWC viewed as channels-last NCHW: no copy to change layout
-        xp = F.pad(x.permute(0, 3, 1, 2), (qlo, qhi, plo, phi))
+        # NHWC viewed as channels-last NCHW: no copy to change layout; dx
+        # does not read x, so without dw the op is handed no graph to x
+        xin = x if needs[1] else x.detach()
+        xp = F.pad(xin.permute(0, 3, 1, 2), (qlo, qhi, plo, phi))
         dxp, dw, _ = torch.ops.aten.convolution_backward(
             gz_nchw, xp, w.to(x.dtype).permute(3, 2, 0, 1), None,
             [stride, stride], [0, 0], [1, 1], False, [0, 0], 1,
@@ -323,11 +365,38 @@ def conv2d_bias_act_backward(g: torch.Tensor, x: torch.Tensor,
     return dx, dw, dbias
 
 
+_scope = threading.local()
+
+
+@contextlib.contextmanager
+def input_grads_only():
+    """A scope in which K1's backward computes the input gradient only.
+
+    A gradient penalty differentiates D with respect to its input and reads
+    nothing else of that pass; autograd still marks the filters and biases
+    as needing gradients there, since they require them. XLA drops those
+    terms from the JAX step by dead-code elimination; here the penalty
+    opens this scope around its ``torch.autograd.grad(..., create_graph=
+    True)``. The mark is thread-local, so the scope also runs that
+    backward pass on the calling thread (autograd otherwise runs a CUDA
+    node's backward on a device thread of its own, where the mark is not
+    set). Scopes nest, and a rematerialized loss that opens one inside an
+    outer backward marks only its own inner pass."""
+    prev = getattr(_scope, "input_only", False)
+    _scope.input_only = True
+    try:
+        with torch.autograd.set_multithreading_enabled(False):
+            yield
+    finally:
+        _scope.input_only = prev
+
+
 class FusedConv2dBiasAct(torch.autograd.Function):
     """The JAX ``fused_conv2d_bias_act`` with its custom VJP
     (``fused_conv.py:166-193``): K1 forward, saving ``(x, w, y)``; the
     backward (:func:`conv2d_bias_act_backward`) stays differentiable and
-    computes only the gradients autograd asks for. It does not run the
+    computes only the gradients autograd asks for, and inside
+    :func:`input_grads_only` only the input gradient. It does not run the
     forward conv again."""
 
     @staticmethod
@@ -341,19 +410,24 @@ class FusedConv2dBiasAct(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, y = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        if getattr(_scope, "input_only", False):
+            needs = (needs[0], False, False)
         dx, dw, dbias = conv2d_bias_act_backward(
-            g, x, w, y, *ctx.conf, needs=ctx.needs_input_grad[:3])
+            g, x, w, y, *ctx.conf, needs=needs)
         if dbias is not None:
             dbias = dbias.to(ctx.bias_dtype)
         return dx, dw, dbias, None, None, None
 
 
 def conv2d_bias_act(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                    stride: int = 1, padding: str = "SAME",
+                    stride: int = 1, padding="SAME",
                     act: Optional[str] = None) -> torch.Tensor:
     """act(conv2d(x, w, stride, padding) + bias) with gradients.
 
     x: [B, H, W, Cin] contiguous NHWC; w: [KH, KW, Cin, Cout] (HWIO);
-    bias: [Cout]. f32 or bf16; f32 accumulation; output in x's dtype.
+    bias: [Cout]; padding "SAME", "VALID" or per-axis ``((lo, hi), (lo,
+    hi))``. f32 or bf16; f32 accumulation; output in x's dtype.
     """
-    return FusedConv2dBiasAct.apply(x, w, bias, stride, padding, act)
+    return FusedConv2dBiasAct.apply(x, w, bias, stride,
+                                    explicit_pads(padding), act)

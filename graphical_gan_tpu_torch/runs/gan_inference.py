@@ -35,8 +35,16 @@ microbatches, ``train/step.py``); the ``run()`` overrides ``remat=True``,
 ``max(0, 1 - t / iters)``, as the JAX entry point passes it; JAX has no
 ``--decay`` flag either). The alias entry points
 ``runs/gan_inference_{mnist,cifar10,svhn,face}.py`` fix ``--dataset``
-(``face`` is celeba). Meshes, preemption and the other flags of the JAX
-entry point come in later slices.
+(``face`` is celeba).
+
+Failure handling (``train/trainer.py``): SIGTERM checkpoints the iteration
+in flight and exits 0 (resume with ``--run-dir``); ``--max-rollbacks N``
+rolls a non-finite training cost back to the latest checkpoint on a new
+random stream, up to N times; ``GGAN_ASYNC_CKPT=1`` writes checkpoints on a
+worker thread; ``--compile-cache DIR`` builds and loads the CUDA kernels in
+DIR (``core/compile_cache.py``); ``--checkpoint-backend`` takes ``npz``,
+the one format the port writes, so JAX command lines parse. Meshes and
+multi-iteration dispatch (JAX's ``--chunk-size``) come in later slices.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from graphical_gan_tpu_torch.core.compile_cache import enable_compile_cache
 from graphical_gan_tpu_torch.core.config import (
     GAN_INFERENCE_MODES, gan_inference_defaults)
 from graphical_gan_tpu_torch.data import pools
@@ -340,15 +349,48 @@ def add_hook(hooks: Dict, every: int, fn) -> None:
         hooks[every] = fn
 
 
+def add_failure_flags(p: argparse.ArgumentParser) -> None:
+    """The training CLIs' flags of the failure handling (JAX
+    ``runs/gan_inference.py:469-483``)."""
+    p.add_argument("--max-rollbacks", type=int, default=0,
+                   help="divergence guard: on a non-finite training cost, "
+                        "roll back to the latest checkpoint and retry on a "
+                        "new random stream, up to N times (0 disables)")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="build and load the CUDA kernel library in DIR, so "
+                        "a restart or another checkout pointing there runs "
+                        "no nvcc (also GGAN_COMPILE_CACHE; the flag wins)")
+    p.add_argument("--checkpoint-backend", default="npz", choices=["npz"],
+                   help="checkpoint format: npz (atomic single file), the "
+                        "one the port writes")
+
+
+def failure_kwargs(args) -> Dict:
+    return {"max_rollbacks": args.max_rollbacks,
+            "compile_cache": args.compile_cache,
+            "checkpoint_backend": args.checkpoint_backend}
+
+
+def check_backend(checkpoint_backend: str) -> None:
+    if checkpoint_backend != "npz":
+        raise ValueError(f"checkpoint_backend {checkpoint_backend!r}: the "
+                         "port writes npz (orbax comes in a later slice)")
+
+
 def run(dataset: str = "mnist", mode: str = "ali",
         iters: Optional[int] = None, data_dir: Optional[str] = None,
         outdir: str = "result", run_dir: Optional[str] = None,
         seed: int = 0, checkpoint_every: int = 5000,
+        checkpoints_to_keep: int = 3,
         sample_every: Optional[int] = None, tsne_every: int = 50000,
         inception_every: int = 10000, data_pipeline: Optional[str] = None,
-        device: str = "cuda", **overrides):
+        device: str = "cuda", max_rollbacks: int = 0,
+        compile_cache: Optional[str] = None,
+        checkpoint_backend: str = "npz", **overrides):
     """Train; returns ``(trainer, last metrics)``. ``run_dir`` reuses a
     run directory and resumes from its latest checkpoint."""
+    check_backend(checkpoint_backend)
+    enable_compile_cache(compile_cache)
     cfg = gan_inference_defaults(dataset, mode, **overrides)
     model = GanInferenceModel(cfg)
     train_gen, dev_gen, structured_pools = _loaders(cfg, data_dir)
@@ -386,7 +428,11 @@ def run(dataset: str = "mnist", mode: str = "ali",
                       checkpoint_every=checkpoint_every, eval_hooks=hooks,
                       dev_gen_factory=dev_gen,
                       train_gen_factory=None if resident is not None
-                      else train_gen, lr_scale=decay_scale(cfg))
+                      else train_gen, lr_scale=decay_scale(cfg),
+                      checkpoints_to_keep=checkpoints_to_keep,
+                      max_rollbacks=max_rollbacks)
+    # SIGTERM checkpoints and stops cleanly (no-op off the main thread)
+    trainer.install_preempt_handlers()
     return trainer, trainer.train(iters)
 
 
@@ -437,6 +483,7 @@ def main(argv=None):
     p.add_argument("--checkpoint-every", type=int, default=5000)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
+    add_failure_flags(p)
     args = p.parse_args(argv)
     overrides = {k: v for k, v in (("batch_size", args.batch_size),
                                    ("dim", args.dim),
@@ -448,7 +495,8 @@ def main(argv=None):
     run(args.dataset, args.mode, iters=args.iters, data_dir=args.data_dir,
         outdir=args.outdir, run_dir=args.run_dir, seed=args.seed,
         checkpoint_every=args.checkpoint_every,
-        data_pipeline=args.data_pipeline, device=args.device, **overrides)
+        data_pipeline=args.data_pipeline, device=args.device,
+        **failure_kwargs(args), **overrides)
 
 
 if __name__ == "__main__":

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from graphical_gan_tpu_torch.core.compile_cache import enable_compile_cache
 from graphical_gan_tpu_torch.core.config import (
     GMGAN_MODES, MODE_KS, gmgan_defaults)
 from graphical_gan_tpu_torch.data import pools, synthetic
@@ -46,8 +47,8 @@ from graphical_gan_tpu_torch.models.common import Draws
 from graphical_gan_tpu_torch.models.gmgan import GMGanModel
 from graphical_gan_tpu_torch.report.save_images import save_images
 from graphical_gan_tpu_torch.runs.gan_inference import (
-    _grid_shape, _missing_module, _to_grid_scale, resident_data,
-    sample_images)
+    _grid_shape, _missing_module, _to_grid_scale, add_failure_flags,
+    check_backend, failure_kwargs, resident_data, sample_images)
 from graphical_gan_tpu_torch.train.trainer import Trainer, make_run_dir
 
 # the eval generators' salts (``Trainer.eval_generator``; the dev sweep
@@ -259,11 +260,17 @@ def make_gmgan_inception_hook(model, n_samples: int = 50000,
 def run(dataset: str = "mnist", mode: str = "local_ep",
         iters: Optional[int] = None, data_dir: Optional[str] = None,
         outdir: str = "result", run_dir: Optional[str] = None,
-        seed: int = 0, checkpoint_every: int = 5000, eval_every: int = 5000,
+        seed: int = 0, checkpoint_every: int = 5000,
+        checkpoints_to_keep: int = 3, eval_every: int = 5000,
         data_pipeline: Optional[str] = None, device: str = "cuda",
-        **overrides):
+        max_rollbacks: int = 0, compile_cache: Optional[str] = None,
+        checkpoint_backend: str = "npz", **overrides):
     """Train; returns ``(trainer, last metrics)``. ``run_dir`` reuses a
-    run directory and resumes from its latest checkpoint."""
+    run directory and resumes from its latest checkpoint; SIGTERM,
+    ``max_rollbacks`` and ``compile_cache`` are the failure handling of
+    ``runs/gan_inference.py``."""
+    check_backend(checkpoint_backend)
+    enable_compile_cache(compile_cache)
     cfg = gmgan_defaults(dataset, mode, **overrides)
     model = GMGanModel(cfg)
     train_gen, dev_gen, test_gen = _loaders(cfg, data_dir)
@@ -292,7 +299,10 @@ def run(dataset: str = "mnist", mode: str = "local_ep",
                       eval_hooks={eval_every: combined},
                       dev_gen_factory=dev_gen,
                       train_gen_factory=None if resident is not None
-                      else train_gen)
+                      else train_gen,
+                      checkpoints_to_keep=checkpoints_to_keep,
+                      max_rollbacks=max_rollbacks)
+    trainer.install_preempt_handlers()
     metrics = trainer.train(iters)
     if dataset != "celeba":
         final = (iters if iters is not None else cfg.iters) - 1
@@ -331,6 +341,7 @@ def main(argv=None):
                    help="cadence of the grids and the clustering accuracy")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
+    add_failure_flags(p)
     args = p.parse_args(argv)
     overrides = {k: v for k, v in (("n_coms", args.n_coms),
                                    ("compute_dtype", args.compute_dtype),
@@ -341,7 +352,7 @@ def main(argv=None):
         outdir=args.outdir, run_dir=args.run_dir, seed=args.seed,
         checkpoint_every=args.checkpoint_every, eval_every=args.eval_every,
         data_pipeline=args.data_pipeline, device=args.device,
-        mode_k=args.mode_k, **overrides)
+        mode_k=args.mode_k, **failure_kwargs(args), **overrides)
 
 
 if __name__ == "__main__":

@@ -38,12 +38,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from graphical_gan_tpu_torch.core.compile_cache import enable_compile_cache
 from graphical_gan_tpu_torch.core.config import (
     ALI_MODES, POS_MODES, SSGAN_MODES, ssgan_defaults)
 from graphical_gan_tpu_torch.data import moving_mnist, synthetic
 from graphical_gan_tpu_torch.data.common import materialize_epoch
 from graphical_gan_tpu_torch.models.ssgan import SSGanModel
 from graphical_gan_tpu_torch.report.save_images import save_gifs, save_images
+from graphical_gan_tpu_torch.runs.gan_inference import (
+    add_failure_flags, check_backend, failure_kwargs)
 from graphical_gan_tpu_torch.train.trainer import Trainer, make_run_dir
 
 # the eval hook's generator salt (``Trainer.eval_generator``; the dev sweep
@@ -205,13 +208,19 @@ def log_player_param_counts(trainer) -> str:
 def run(dataset: str = "moving_mnist", mode: str = "local_ep",
         iters: Optional[int] = None, data_dir: Optional[str] = None,
         outdir: str = "result", run_dir: Optional[str] = None,
-        seed: int = 0, checkpoint_every: int = 5000, eval_every: int = 5000,
+        seed: int = 0, checkpoint_every: int = 5000,
+        checkpoints_to_keep: int = 3, eval_every: int = 5000,
         data_pipeline: str = "host", device: str = "cuda",
-        stream: str = "native", **overrides):
+        stream: str = "native", max_rollbacks: int = 0,
+        compile_cache: Optional[str] = None,
+        checkpoint_backend: str = "npz", **overrides):
     """Train; returns ``(trainer, last metrics)``. ``run_dir`` reuses a run
     directory and resumes from its latest checkpoint; ``overrides`` are
     config fields (``pos_mode``, ``ali_mode``, ``bn``, ``compute_dtype``,
-    ...)."""
+    ...); SIGTERM, ``max_rollbacks`` and ``compile_cache`` are the failure
+    handling of ``runs/gan_inference.py``."""
+    check_backend(checkpoint_backend)
+    enable_compile_cache(compile_cache)
     if data_pipeline not in PIPELINES:
         raise ValueError(f"data_pipeline {data_pipeline!r}: one of "
                          f"{PIPELINES}")
@@ -239,11 +248,14 @@ def run(dataset: str = "moving_mnist", mode: str = "local_ep",
                                                              fixed_dev)},
                       dev_gen_factory=dev_gen,
                       train_gen_factory=None if resident is not None
-                      else train_gen, batch_sampler=sampler)
+                      else train_gen, batch_sampler=sampler,
+                      checkpoints_to_keep=checkpoints_to_keep,
+                      max_rollbacks=max_rollbacks)
     # the counts need the state
     if trainer.state is None and not trainer.try_resume():
         trainer.state = trainer.init_state(model.init(seed, trainer.device))
     log_player_param_counts(trainer)
+    trainer.install_preempt_handlers()
     metrics = trainer.train(iters)
     return trainer, metrics
 
@@ -279,6 +291,7 @@ def main(argv=None):
                    help="cadence of the grids, GIFs and dev rec l2")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
+    add_failure_flags(p)
     args = p.parse_args(argv)
     overrides = {"pos_mode": args.pos_mode, "ali_mode": args.ali_mode}
     overrides.update({k: v for k, v in (
@@ -290,7 +303,7 @@ def main(argv=None):
                run_dir=args.run_dir, seed=args.seed,
                checkpoint_every=args.checkpoint_every,
                eval_every=args.eval_every, data_pipeline=args.data_pipeline,
-               device=args.device, **overrides)
+               device=args.device, **failure_kwargs(args), **overrides)
 
 
 if __name__ == "__main__":

@@ -29,8 +29,11 @@ CLI::
         --entry {sampler,encoder,reconstructor,cluster} [--device cpu]
 
 The entry runs on ``cuda`` unless ``--device cpu`` is given; without a card
-it refuses to start. ``--export-dir``, ``--quantize``, ``--dp-devices`` and
-``--compile-cache`` of the JAX server are not offered yet.
+it refuses to start. ``--compile-cache DIR`` (or ``GGAN_COMPILE_CACHE``)
+builds and loads the CUDA kernel library in DIR before the entry is built
+(``core/compile_cache.py``), so a replica pointing at a shared directory
+starts with no ``nvcc`` run. ``--export-dir``, ``--quantize`` and
+``--dp-devices`` of the JAX server are not offered yet.
 
 HTTP surface (identical to the JAX server's; see ``serve/client.py``):
 
@@ -526,7 +529,12 @@ def main(argv=None) -> int:
                    help="batching window after the first queued request")
     p.add_argument("--no-warmup", action="store_true",
                    help="skip running every bucket before serving")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="build and load the CUDA kernel library in DIR "
+                        "(also GGAN_COMPILE_CACHE; the flag wins)")
     args = p.parse_args(argv)
+    from graphical_gan_tpu_torch.core import compile_cache
+    compile_cache.enable_compile_cache(args.compile_cache)
 
     httpd, batcher, identity, warmup_s = serve_run_dir(
         args.run_dir, entry=args.entry, device=args.device, ckpt=args.ckpt,

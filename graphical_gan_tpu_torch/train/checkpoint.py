@@ -12,15 +12,20 @@ picks the checkpoints of a run directory, writes a params-only checkpoint
 (so a run directory can be made without a trainer), a plain dict (the
 metric classifier's parameters, keys ``k:<name>``) or a whole state, and
 carries JAX parameters or a whole JAX state into the port
-(:func:`params_from_jax`, :func:`state_from_jax`). The orbax and
-pipeline-parallel layouts come in a later slice.
+(:func:`params_from_jax`, :func:`state_from_jax`). :class:`AsyncWriter`
+writes a checkpoint on an ordered worker thread from a snapshot the caller
+took on the card, and :func:`remove` deletes one (JAX ``train/
+checkpoint.py:121-160, 192-210``). The orbax and pipeline-parallel layouts
+come in a later slice.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import tempfile
+import threading
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -81,7 +86,9 @@ def dict_of(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
             if k.startswith("k:") and SEP not in k}
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
+def _to_numpy(t) -> np.ndarray:
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
     t = t.detach()
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
@@ -116,6 +123,85 @@ def _save_flat(path: str, flat: Dict[str, np.ndarray],
         if os.path.exists(tmp):
             os.unlink(tmp)
     return path
+
+
+class AsyncWriter:
+    """Checkpoint writes on one ordered worker thread.
+
+    ``submit`` takes the ``{keypath: leaf}`` of a snapshot the caller made
+    on the card (a clone per leaf, on its current stream) and the CUDA
+    event recorded after it; the worker waits on that event, copies the
+    leaves to the host on a stream of its own and writes the npz
+    atomically (a temp file, then ``os.replace``), then runs ``after``
+    (the trainer's checkpoint collection). The training loop pays only for
+    the clones. Depth one: a new submit joins the previous write first, so
+    at most one snapshot is alive and writes finish in submission order. A
+    worker's exception re-raises on the next ``submit`` or ``join``, once.
+    """
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._exc: Optional[BaseException] = None
+
+    def submit(self, path: str, leaves: Dict[str, Any],
+               extra: Optional[Dict], ready=None, after=None) -> None:
+        self.join()
+
+        def work():
+            try:
+                if ready is not None:
+                    ready.synchronize()
+                _save_flat(path, _host_leaves(leaves), extra)
+                if after is not None:
+                    after()
+            except BaseException as e:  # noqa: BLE001 — raised on join
+                self._exc = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def join(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._exc is not None:
+            exc, self._exc = self._exc, None
+            raise exc
+
+
+def _host_leaves(leaves: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The leaves as numpy arrays; the card's are copied on a side stream,
+    so the copies do not queue behind the training stream's work."""
+    cuda = [t for t in leaves.values()
+            if isinstance(t, torch.Tensor) and t.device.type == "cuda"]
+    if not cuda:
+        return {k: _to_numpy(t) for k, t in leaves.items()}
+    with torch.cuda.stream(torch.cuda.Stream(cuda[0].device)):
+        return {k: _to_numpy(t) for k, t in leaves.items()}
+
+
+def snapshot(state) -> Tuple[Dict[str, Any], Any]:
+    """``({keypath: clone}, event)``: one clone per leaf of ``state`` on the
+    current stream, and a CUDA event recorded after them (None where no
+    leaf is on the card), for :class:`AsyncWriter`."""
+    leaves = {k: t.detach().clone() for k, t in state_leaves(state).items()}
+    event = None
+    if any(t.device.type == "cuda" for t in leaves.values()):
+        event = torch.cuda.Event()
+        event.record()
+    return leaves, event
+
+
+def remove(path: str) -> None:
+    """Delete one checkpoint: an npz file, or an orbax directory with its
+    ``.extra.json`` sidecar. One that is already gone is no error."""
+    if is_orbax(path):
+        shutil.rmtree(path, ignore_errors=True)
+        path = path.rstrip("/") + ".extra.json"
+    try:
+        os.unlink(path)
+    except FileNotFoundError:
+        pass
 
 
 def list_checkpoints(dirpath: str, prefix: str = "ckpt_"):

@@ -16,30 +16,64 @@ made there by a ``batch_sampler``) or the host-fed path ((1+k)
 consecutive loader batches stacked on the host and copied ahead by
 ``data/prefetch.py``), ``ckpt_<iter>.npz`` of the
 whole ``TrainState`` every ``checkpoint_every`` iterations and at the end
-(the last ``CHECKPOINTS_TO_KEEP`` kept), and resume from the latest
+(the last ``checkpoints_to_keep`` kept), and resume from the latest
 checkpoint of the run directory.
 
 Each iteration's random draws come from one ``torch.Generator`` on the
-device, seeded from (seed, iteration), so a resumed run draws what an
-uninterrupted one would (on the resident path; the host-fed stream, as in
-JAX, restarts at the loader's first epoch). The dev sweep and the hooks
-draw from generators seeded from (seed, their salt, iteration)
-(``eval_generator``), so a resumed run scores as an uninterrupted one.
+device, seeded from (seed, iteration) on salt 0 (``(seed << 32) +
+iteration``), so a resumed run draws what an uninterrupted one would (on
+the resident path; the host-fed stream, as in JAX, restarts at the loader's
+first epoch). After a rollback the iterations draw on salt r >= 1, seeded
+``2**63 + (seed << 40) + (r << 32) + 2**31 + (r << 24) + iteration``. On the
+card (Philox, all 64 bits) bit 63 is set in no salt-0 seed and in no eval
+seed; a CPU generator (MT19937) reads only the low 32 bits, where bit 31 is
+set in no salt-0 or eval seed either, and the salt bits keep the salted
+streams apart on both (for seeds below 2**23, salts below 128 and
+iterations below 2**24).
+The dev sweep and the hooks draw from generators seeded from (seed, their
+salt, iteration), ``(seed << 40) + (salt << 32) + iteration`` with salt >=
+1 (``eval_generator``), so a resumed run scores as an uninterrupted one.
 ``GGAN_PROFILE=<dir>`` traces iterations ``GGAN_PROFILE_START`` (default
 10) to ``GGAN_PROFILE_START + GGAN_PROFILE_STEPS - 1`` (default 10 of them)
 under ``torch.profiler`` (CPU and, on the card, CUDA activities, with the
 ops' input shapes) and writes a Chrome trace, ``*.trace.json.gz``, into
 ``<dir>`` for ``tools/trace_report.py`` (JAX ``train/trainer.py:491-519,
 609-620``). The trace reads the step and changes none of its values.
-Left for later slices: preemption handling, divergence rollback, async and
-orbax checkpoints, meshes and multi-iteration dispatch.
+
+Failure handling (JAX ``train/trainer.py:45-66, 229-330, 365-420,
+495-600``):
+
+- **Preemption.** ``request_preempt()`` (SIGTERM through
+  ``install_preempt_handlers()``) stops the loop after the iteration in
+  flight: the pending costs are drained into the log, that iteration is
+  checkpointed, ``preempted: checkpoint saved at iteration N; resume with
+  --run-dir`` is logged, and ``train()`` returns with ``preempted`` set.
+- **Divergence guard.** With ``max_rollbacks > 0`` each drained window of
+  training costs is checked for finiteness; a non-finite cost restores the
+  latest checkpoint (an anchor ``ckpt_-1`` is written first where none
+  exists) and retries on salt ``salt_high + 1``, never a salt that already
+  diverged, also across restarts (``rng_salt`` and ``rng_salt_high`` are in
+  each checkpoint's extras). ``GGAN_FAULT_NAN_AT=<iter>`` poisons that
+  iteration's observed cost once (inert without the guard). A preemption
+  whose drained costs are not finite rolls back instead of checkpointing.
+- **Async checkpoints** (``async_checkpoint=True`` or
+  ``GGAN_ASYNC_CKPT=1``): ``save()`` clones the state on the card and a
+  worker thread copies it to the host and writes it
+  (``checkpoint.AsyncWriter``); the writer is joined before every restore
+  and rollback and at the end of ``train()``.
+- ``checkpoints_to_keep`` checkpoints are kept (0 or less keeps all).
+
+Left for later slices: orbax checkpoints, meshes and multi-iteration
+dispatch (in the port, a CUDA graph over several iterations).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
 import time
+import weakref
 from dataclasses import asdict, is_dataclass
 from typing import Callable, Dict, Optional, Union
 
@@ -53,6 +87,29 @@ from graphical_gan_tpu_torch.data.prefetch import prefetch_to_device
 from graphical_gan_tpu_torch.report.plot import MetricLogger
 from graphical_gan_tpu_torch.train import checkpoint as ckpt_lib
 from graphical_gan_tpu_torch.train.step import make_train_step
+
+
+class DivergenceError(RuntimeError):
+    """A non-finite training cost that the guard could not recover from: no
+    checkpoint to roll back to, or the rollback budget is spent."""
+
+
+class _Diverged(Exception):
+    """Control flow: a non-finite training cost at ``iteration``."""
+
+    def __init__(self, iteration: int):
+        super().__init__(iteration)
+        self.iteration = int(iteration)
+
+
+class _PreemptStop(Exception):
+    """Control flow: a preemption request honored after ``iteration``;
+    ``metrics`` are its last costs."""
+
+    def __init__(self, iteration: int, metrics: Dict[str, float]):
+        super().__init__(iteration)
+        self.iteration = int(iteration)
+        self.metrics = dict(metrics)
 
 
 def make_run_dir(base: str, script: str, tags: Dict) -> str:
@@ -72,12 +129,15 @@ def dump_settings(outf: str, cfg, logfile: str) -> None:
             f.write(f"\t{k.upper()}: {d[k]}\n")
 
 
-CHECKPOINTS_TO_KEEP = 3
 # the dev set stays on the device up to this many bytes; a larger one keeps
 # its first batches that fit (``graphical_gan_tpu/train/trainer.py:977-1000``)
 DEV_RESIDENT_MAX = 512 * 1024 * 1024
 # the salt of the dev sweep's generator; the eval hooks take 2, 3, ...
 DEV_SALT = 1
+# set in the seed of every salted training stream, and in no other seed:
+# bit 63 for the card's generator, bit 31 for the CPU's (which reads the low
+# 32 bits only)
+SALTED_STREAM_BITS = (1 << 63) | (1 << 31)
 
 
 class Trainer:
@@ -93,7 +153,9 @@ class Trainer:
     ``eval_hooks`` maps a cadence to ``hook(trainer, iteration)``;
     ``dev_gen_factory`` gives the dev batches the sweep averages over;
     ``lr_scale(t)`` scales Adam's step size at its step count t (the
-    linear decay of ``cfg.decay``, ``runs/gan_inference.py``). Any model of
+    linear decay of ``cfg.decay``, ``runs/gan_inference.py``).
+    ``checkpoints_to_keep``, ``max_rollbacks`` and ``async_checkpoint``
+    are the failure handling of the module docstring. Any model of
     the port trains: it gives ``gen_loss`` / ``disc_loss`` with their aux
     (``gen_cost``, ``rec_cost``), ``opt_specs``, the players' names and
     ``DISC_ONLY_DRAWS`` (``models/gan_inference.py``, ``models/
@@ -106,7 +168,9 @@ class Trainer:
                  dev_gen_factory: Optional[Callable] = None,
                  train_gen_factory: Optional[Callable] = None,
                  lr_scale: Optional[Callable[[float], float]] = None,
-                 batch_sampler: Optional[Callable] = None):
+                 batch_sampler: Optional[Callable] = None,
+                 checkpoints_to_keep: int = 3, max_rollbacks: int = 0,
+                 async_checkpoint: Optional[bool] = None):
         if resident_data is None and train_gen_factory is None:
             raise ValueError("the Trainer needs resident_data or, for the "
                              "host-fed path, train_gen_factory")
@@ -135,6 +199,21 @@ class Trainer:
         self.logger = MetricLogger()
         self.state = None
         self._start_iter = 0
+        self.checkpoints_to_keep = checkpoints_to_keep
+        self.max_rollbacks = max(0, max_rollbacks or 0)
+        self._rollbacks = 0
+        # the salt of the training stream, and the highest salt this run
+        # has used (a rollback takes salt_high + 1)
+        self._salt = 0
+        self._salt_high = 0
+        self._fault_nan_at = int(os.environ.get("GGAN_FAULT_NAN_AT", "-1"))
+        self._fault_fired = False
+        self._preempt = threading.Event()
+        self.preempted = False
+        if async_checkpoint is None:
+            async_checkpoint = os.environ.get("GGAN_ASYNC_CKPT") == "1"
+        self._ckpt_writer = (ckpt_lib.AsyncWriter() if async_checkpoint
+                             else None)
 
     def _log(self, line: str) -> None:
         print(line)
@@ -154,36 +233,139 @@ class Trainer:
         gen.manual_seed((self.seed << 40) + (salt << 32) + iteration)
         return gen
 
+    # -- preemption -----------------------------------------------------------
+
+    def request_preempt(self) -> None:
+        """Ask the loop to stop after the iteration in flight, checkpoint it
+        and return. Safe from signal handlers and other threads: it only
+        sets an event."""
+        self._preempt.set()
+
+    def install_preempt_handlers(self, signals=None) -> None:
+        """Route termination signals (default: SIGTERM only; Ctrl-C still
+        interrupts) into :meth:`request_preempt`. A foreign previous handler
+        is chained; one an earlier Trainer installed is replaced, and
+        ``self`` is held by weakref, so repeated runs in one process build
+        no chain that keeps old trainers alive. Nothing is installed off
+        the main thread, where ``signal.signal`` is not allowed."""
+        import signal as _signal
+        if threading.current_thread() is not threading.main_thread():
+            return
+        for sig in signals or (_signal.SIGTERM,):
+            prev = _signal.getsignal(sig)
+            if getattr(prev, "_ggan_preempt", False):
+                prev = getattr(prev, "_ggan_chained_prev", None)
+            ref = weakref.ref(self)
+
+            def handler(signum, frame, _prev=prev, _ref=ref):
+                tr = _ref()
+                if tr is not None:
+                    tr.request_preempt()
+                if callable(_prev) and _prev not in (_signal.SIG_IGN,
+                                                     _signal.SIG_DFL):
+                    _prev(signum, frame)
+
+            handler._ggan_preempt = True
+            handler._ggan_chained_prev = prev
+            _signal.signal(sig, handler)
+
+    def _preempt_stop(self, iteration: int, metrics: Dict) -> None:
+        self.save(iteration)
+        self._log(f"preempted: checkpoint saved at iteration {iteration}; "
+                  "resume with --run-dir (or Trainer.try_resume)")
+        raise _PreemptStop(iteration,
+                           {k: float(v) for k, v in metrics.items()})
+
     # -- checkpoint -----------------------------------------------------------
 
     def save(self, iteration: int) -> str:
         # rng_* keep the JAX trainer's resume fields: the port's stream is
-        # (seed, iteration), so the position is the iteration count
+        # (seed, salt, iteration), so the position is the iteration count
         extra = {"iteration": iteration, "seed": self.seed,
-                 "rng_count": iteration + 1, "rng_salt": 0,
-                 "rng_salt_high": 0}
-        path = ckpt_lib.save_state(
-            os.path.join(self.outf, f"ckpt_{iteration}.npz"), self.state,
-            extra)
-        for _, old in ckpt_lib.list_checkpoints(
-                self.outf)[:-CHECKPOINTS_TO_KEEP]:
-            os.unlink(old)
+                 "rng_count": iteration + 1, "rng_salt": self._salt,
+                 "rng_salt_high": max(self._salt_high, self._salt)}
+        path = os.path.join(self.outf, f"ckpt_{iteration}.npz")
+        if self._ckpt_writer is not None:
+            leaves, ready = ckpt_lib.snapshot(self.state)
+            self._ckpt_writer.submit(path, leaves, extra, ready,
+                                     after=self._gc_checkpoints)
+            return path
+        ckpt_lib.save_state(path, self.state, extra)
+        self._gc_checkpoints()
         return path
 
+    def _gc_checkpoints(self) -> None:
+        if not self.checkpoints_to_keep or self.checkpoints_to_keep <= 0:
+            return
+        for _, old in ckpt_lib.list_checkpoints(
+                self.outf)[:-self.checkpoints_to_keep]:
+            ckpt_lib.remove(old)
+
     def try_resume(self) -> bool:
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.join()  # never restore a checkpoint mid-write
         path = ckpt_lib.latest(self.outf)
         if path is None:
             return False
         like = self.init_state(self.model.init(self.seed, self.device))
         self.state, extra = ckpt_lib.restore_state(path, like)
         self._start_iter = int(extra["iteration"]) + 1
+        self._salt = int(extra.get("rng_salt", 0))
+        self._salt_high = max(self._salt_high, self._salt,
+                              int(extra.get("rng_salt_high", 0)))
         self.logger.restore(self._start_iter)
         return True
 
+    def _rollback(self, iteration: int) -> None:
+        """Restore the latest checkpoint after a non-finite cost at
+        ``iteration`` and go on from it on salt ``salt_high + 1``; raises
+        :class:`DivergenceError` where there is nothing to restore, the
+        budget is spent or the checkpoint lies past the divergence."""
+        self._rollbacks += 1
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.join()  # a write in flight is a checkpoint
+        path = ckpt_lib.latest(self.outf)
+        msg = (f"divergence guard: non-finite training cost at iteration "
+               f"{iteration}; rollback {self._rollbacks}/"
+               f"{self.max_rollbacks}")
+        if path is None:
+            raise DivergenceError(msg + " — no checkpoint to restore")
+        if self._rollbacks > self.max_rollbacks:
+            raise DivergenceError(msg + " — rollback budget exhausted")
+        self._log(msg)
+        # the logger holds only values drained before the poisoned window:
+        # write them; the retry logs the rolled-back span anew
+        self._final_flush()
+        self.logger = MetricLogger()
+        if not self.try_resume():
+            raise DivergenceError(msg + " — restore failed")
+        if self._start_iter > iteration + 1:
+            raise DivergenceError(
+                msg + f" — latest checkpoint ({os.path.basename(path)}) is "
+                "ahead of the divergence point; this run directory holds "
+                "checkpoints of another run, refusing to roll forward into "
+                "them")
+        self._salt_high += 1
+        self._salt = self._salt_high
+
+    def _final_flush(self) -> None:
+        # hooks fire after the window's flush: what they plotted at the last
+        # boundary is written here
+        if self.logger.pending:
+            self.logger.flush(self.logfile)
+
     # -- loop -----------------------------------------------------------------
 
+    def iteration_seed(self, iteration: int) -> int:
+        """The seed of ``iteration``'s stream on the current salt (see the
+        module docstring)."""
+        if self._salt == 0:
+            return (self.seed << 32) + iteration
+        return (SALTED_STREAM_BITS + (self.seed << 40) + (self._salt << 32)
+                + (self._salt << 24) + iteration)
+
     def _seed_iteration(self, iteration: int) -> None:
-        self.generator.manual_seed((self.seed << 32) + iteration)
+        self.generator.manual_seed(self.iteration_seed(iteration))
 
     def draw_batches(self, iteration: int):
         """Seed the generator for ``iteration`` and draw its (1+k) batches
@@ -255,24 +437,48 @@ class Trainer:
 
     # -- loop -------------------------------------------------------------------
 
-    def train(self, iters: Optional[int] = None) -> Dict[str, float]:
+    def train(self, iters: Optional[int] = None,
+              resume: bool = True) -> Dict[str, float]:
         iters = iters if iters is not None else self.cfg.iters
-        if self.state is None and not self.try_resume():
+        fresh = False
+        if self.state is None and not (resume and self.try_resume()):
             self.state = self.init_state(
                 self.model.init(self.seed, self.device))
+            fresh = True
         total = sum(p.numel() for p in self.state.params.values())
         self._log(f"Total number of parameters {total}")
+        if self.max_rollbacks > 0:
+            # the guard's anchor: with no checkpoint yet, an early NaN would
+            # have nothing to roll back to (ckpt_-1 resumes at iteration 0)
+            if fresh and ckpt_lib.latest(self.outf) is not None:
+                raise ValueError(
+                    "divergence guard: resume=False would train afresh in "
+                    f"a directory that already holds checkpoints "
+                    f"({self.outf}); a rollback would restore the old "
+                    "run's state. Pass resume=True or use a clean run "
+                    "directory.")
+            if ckpt_lib.latest(self.outf) is None:
+                self.save(self._start_iter - 1)
 
-        batches = None if self.data is not None else self._host_batches()
-        try:
-            last = self._loop(iters, batches)
-        finally:
-            if batches is not None:
-                batches.close()  # release the worker and its queued batches
-        # hooks fire after the window's flush: what they plotted at the last
-        # boundary is written here
-        if self.logger.pending:
-            self.logger.flush(self.logfile)
+        while True:
+            # the host-fed stream restarts at the loader's first epoch after
+            # a rollback, as after a restart
+            batches = None if self.data is not None else self._host_batches()
+            try:
+                last = self._loop(iters, batches)
+                break
+            except _Diverged as e:
+                self._rollback(e.iteration)
+            except _PreemptStop as e:
+                self.preempted = True
+                last = e.metrics
+                break
+            finally:
+                if batches is not None:
+                    batches.close()  # release the worker and its batches
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.join()  # the last save must be on disk
+        self._final_flush()
         return last
 
     def _start_profile(self):
@@ -296,54 +502,84 @@ class Trainer:
         prof.export_chrome_trace(path)
         print(f"profile: iterations {first}-{last} traced to {path}")
 
+    def _drain(self, pend, inject: bool) -> None:
+        """Fetch the pending device costs in one copy, check them where the
+        guard is on (after ``GGAN_FAULT_NAN_AT``'s poison, where ``inject``)
+        and plot them."""
+        vals = torch.stack([v.float() for _, _, v in pend]).cpu().numpy()
+        hit = [i for i, (it, _, _) in enumerate(pend)
+               if it == self._fault_nan_at]
+        if inject and hit and not self._fault_fired:
+            self._fault_fired = True
+            vals[hit[0]] = np.nan
+        if self.max_rollbacks and not np.isfinite(vals).all():
+            raise _Diverged(next(it for (it, _, _), v in zip(pend, vals)
+                                 if not np.isfinite(v)))
+        for (it, name, _), val in zip(pend, vals.tolist()):
+            self.logger.plot_at(name, val, it)
+        pend.clear()
+
     def _loop(self, iters: int, batches) -> Dict[str, float]:
         profile_dir = os.environ.get("GGAN_PROFILE")
         first = int(os.environ.get("GGAN_PROFILE_START", "10"))
         end = first + int(os.environ.get("GGAN_PROFILE_STEPS", "10"))
         pend, last, prof = [], {}, None
-        for iteration in range(self._start_iter, iters):
-            if profile_dir and iteration == first:
-                prof = self._start_profile()
-            t0 = time.time()
-            if batches is None:
-                raw = self.draw_batches(iteration)
-            else:
-                self._seed_iteration(iteration)
-                raw = next(batches)
-            self.state, last = self.step_fn(self.state, raw, iteration > 0,
-                                            self.generator)
-            # device scalars are drained in one copy at the next boundary,
-            # not fetched every iteration
-            if "disc_cost" in last:
-                pend.append((iteration, "train disc cost",
-                             last["disc_cost"]))
-            elif iteration > 0:
-                pend.append((iteration, "train gen cost", last["gen_cost"]))
-            self.logger.plot("time", time.time() - t0)
-            flush = iteration < 5 or iteration % 100 == 99
-            ckpt = iteration == iters - 1 or (
-                self.checkpoint_every > 0
-                and iteration % self.checkpoint_every
-                == self.checkpoint_every - 1)
-            hooks = [hook for every, hook in self.eval_hooks.items()
-                     if iteration % every == every - 1]
-            if (flush or ckpt or hooks) and pend:
-                vals = torch.stack([v.float() for _, _, v in pend]).cpu()
-                for (it, name, _), val in zip(pend, vals.tolist()):
-                    self.logger.plot_at(name, val, it)
-                pend.clear()
-            if iteration % 100 == 99 and self.dev_gen_factory is not None:
-                self._dev_sweep(iteration)
-            if flush:
-                self.logger.flush(self.logfile)
-            self.logger.tick()
-            for hook in hooks:
-                hook(self, iteration)
-            if ckpt:
-                self.save(iteration)
-            if prof is not None and iteration == end - 1:
+        iteration = self._start_iter
+        try:
+            for iteration in range(self._start_iter, iters):
+                if profile_dir and iteration == first:
+                    prof = self._start_profile()
+                last = self._iteration(iteration, iters, batches, pend)
+                if prof is not None and iteration == end - 1:
+                    self._stop_profile(prof, profile_dir, first, iteration)
+                    prof = None
+        finally:
+            if prof is not None:  # the run ended or stopped in the window
                 self._stop_profile(prof, profile_dir, first, iteration)
-                prof = None
-        if prof is not None:  # the run ended inside the window
-            self._stop_profile(prof, profile_dir, first, iters - 1)
         return {k: float(v) for k, v in last.items()}
+
+    def _iteration(self, iteration: int, iters: int, batches, pend):
+        """One iteration and its boundary work; returns its device costs.
+        A preemption request stops the run after it (``_PreemptStop``); a
+        non-finite drained cost under the guard raises ``_Diverged``."""
+        t0 = time.time()
+        if batches is None:
+            raw = self.draw_batches(iteration)
+        else:
+            self._seed_iteration(iteration)
+            raw = next(batches)
+        self.state, last = self.step_fn(self.state, raw, iteration > 0,
+                                        self.generator)
+        # device scalars are drained in one copy at the next boundary,
+        # not fetched every iteration
+        if "disc_cost" in last:
+            pend.append((iteration, "train disc cost",
+                         last["disc_cost"]))
+        elif iteration > 0:
+            pend.append((iteration, "train gen cost", last["gen_cost"]))
+        self.logger.plot("time", time.time() - t0)
+        flush = iteration < 5 or iteration % 100 == 99
+        ckpt = iteration == iters - 1 or (
+            self.checkpoint_every > 0
+            and iteration % self.checkpoint_every
+            == self.checkpoint_every - 1)
+        hooks = [hook for every, hook in self.eval_hooks.items()
+                 if iteration % every == every - 1]
+        if (flush or ckpt or hooks) and pend:
+            self._drain(pend, inject=True)
+        if iteration % 100 == 99 and self.dev_gen_factory is not None:
+            self._dev_sweep(iteration)
+        if flush:
+            self.logger.flush(self.logfile)
+        self.logger.tick()
+        for hook in hooks:
+            hook(self, iteration)
+        if ckpt:
+            self.save(iteration)
+        if self._preempt.is_set():
+            # the boundary drain's check first: a preemption after a
+            # NaN rolls back instead of checkpointing it
+            if pend:
+                self._drain(pend, inject=False)
+            self._preempt_stop(iteration, last)
+        return last

@@ -4,26 +4,25 @@ the JAX step (cifar10 wali-gp, dim 8, B 8, f32, on the CPU): the port's
 ``graphical_gan_tpu/tools/mfu.py: cost_per_iter``'s program, its convs and
 dots read per op from ``jax.jit(...).lower(...).compile().as_text()``.
 
-The gap is four terms, each computed here on its own:
+The gap is three terms, each computed here on its own:
 
 - XLA counts elementwise work (its total less its convs and dots); the
   port's counter counts none;
 - XLA counts a conv's taps that fall inside its input only; the port's
   counter counts every tap of the padded conv (``padding_taps``: JAX's
   convs counted as the port counts them, less XLA's count of them);
-- the port runs conv work JAX's step does not (``redundant``, ROADMAP §3):
-  in wali-gp's penalty, K1's custom backward
-  (``ops/kernels/fused_conv.py: FusedConv2dBiasAct.backward``) takes its
-  gradient mask from ``ctx.needs_input_grad``, so the inner
-  ``autograd.grad`` w.r.t. the interpolates also computes the weight
-  gradients of D.1-3, which no loss reads; and ``aten.convolution_backward``
-  is handed the layer's padded input though only the input gradient is
-  wanted, so the outer backward pushes a cotangent through D's forward on
-  the interpolates (D.1's weight and input gradients, D.2's both), a value
-  no loss reads either. With both removed (in this test only) the port's
-  conv work equals JAX's layer by layer;
 - XLA rewrites the width-1 products of D's output layer as a multiply and
   a reduce (elementwise in its count); the port counts them as GEMMs.
+
+A fourth term, conv work the port ran and JAX's step does not
+(``redundant``), is now zero: in wali-gp's penalty K1's custom backward
+(``ops/kernels/fused_conv.py: FusedConv2dBiasAct.backward``) took its
+gradient mask from ``ctx.needs_input_grad``, so the inner ``autograd.grad``
+w.r.t. the interpolates also computed the weight gradients of D.1-3, and
+``aten.convolution_backward`` was handed the layer's input with its graph,
+so the outer backward reached D's forward on the interpolates. The
+penalty's ``input_grads_only`` scope and the detached input remove both:
+the port's conv work equals JAX's layer by layer, with no patch here.
 
 ``pytest -s`` prints the terms.
 """
@@ -41,7 +40,6 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from graphical_gan_tpu.tools import mfu as jax_mfu
 from graphical_gan_tpu_torch.data.ondevice import sample_batches, to_device
-from graphical_gan_tpu_torch.ops.kernels import fused_conv
 from graphical_gan_tpu_torch.tools import mfu
 from graphical_gan_tpu_torch.train.step import make_train_step
 from _torch_threads import one_thread  # noqa: F401
@@ -173,36 +171,15 @@ class _Items(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def _port_step(without_redundancy=False, monkeypatch=None):
+def _port_step():
     """(conv items per layer, GEMM FLOPs, FlopCounterMode's conv FLOPs) of
-    one port iteration; ``without_redundancy`` removes the two redundant
-    kinds of work (see the module docstring) for the count."""
+    one port iteration."""
     cfg, model = mfu.family_model("gan", "float32", dim=DIM, batch_size=B)
     step, init_state = make_train_step(model)
     state = init_state(model.init(0, "cpu"))
     data = to_device(mfu.family_data("gan", cfg, n=256), "cpu")
     gen = torch.Generator().manual_seed(1)
     raw = sample_batches(data, 1 + cfg.critic_iters, B, gen)
-    if without_redundancy:
-        inner = [False]
-        grad, backward = torch.autograd.grad, fused_conv.conv2d_bias_act_backward
-
-        def tagged_grad(*args, **kw):
-            prev, inner[0] = inner[0], bool(kw.get("create_graph"))
-            try:
-                return grad(*args, **kw)
-            finally:
-                inner[0] = prev
-
-        def lean_backward(g, x, w, y, stride, padding, act, needs):
-            if inner[0]:  # the penalty reads only the input gradient
-                needs = (needs[0], False, False)
-            if not needs[1]:  # the input gradient does not read x
-                x = x.detach()
-            return backward(g, x, w, y, stride, padding, act, needs)
-        monkeypatch.setattr(torch.autograd, "grad", tagged_grad)
-        monkeypatch.setattr(fused_conv, "conv2d_bias_act_backward",
-                            lean_backward)
     with FlopCounterMode(display=False) as counter, _Items() as items:
         step(state, raw, True, gen)
     conv = sum(v for op, v in counter.get_flop_counts()["Global"].items()
@@ -210,7 +187,8 @@ def _port_step(without_redundancy=False, monkeypatch=None):
     return items.items, items.gemm, conv
 
 
-def test_the_gap_is_four_terms(jax_step, monkeypatch):
+def test_the_gap_is_four_terms(jax_step):
+    """Three terms; the fourth (redundant conv work) is zero."""
     F = layer_flops(DIM, B)
     items, gemm, conv = _port_step()
     # the port's counter counts every conv item at its full tap count
@@ -219,11 +197,9 @@ def test_the_gap_is_four_terms(jax_step, monkeypatch):
     assert port == conv + gemm[True] + gemm[False]
 
     jax_items = collections.Counter(layer for layer, _ in jax_step["convs"])
-    lean, lean_gemm, _ = _port_step(True, monkeypatch)
-    # without the redundant work the port runs JAX's convs, layer by layer,
-    # and its GEMMs (the width-1 ones aside) are JAX's dots
-    assert lean == jax_items
-    assert lean_gemm == gemm
+    # the port runs JAX's convs, layer by layer, and its GEMMs (the
+    # width-1 ones aside) are JAX's dots
+    assert items == jax_items
     wide_dots = sum(f for f, width1 in jax_step["dots"] if not width1)
     assert gemm[False] == wide_dots
 
@@ -234,19 +210,18 @@ def test_the_gap_is_four_terms(jax_step, monkeypatch):
     padding_taps = canonical - valid
     redundant = conv - canonical
     width1 = gemm[True] + gemm[False] - dots
-    assert elementwise > 0 and padding_taps > 0 and redundant > 0
-    assert port == jax_step["total"] - elementwise + padding_taps \
-        + redundant + width1
-    # per iteration: 5 D updates, each 3 L1, 3 L2 and 1 L3 items
-    assert items - jax_items == collections.Counter(L1=15, L2=15, L3=5)
+    assert elementwise > 0 and padding_taps > 0 and width1 > 0
+    assert redundant == 0
+    assert port == jax_step["total"] - elementwise + padding_taps + width1
+    # per iteration, the 5 D updates' 3 L1, 3 L2 and 1 L3 items the port
+    # ran before: 35.91 GFLOP at the published config, now not run
     published = layer_flops(64, 64)
     print(f"\nxla total {jax_step['total']:.0f} = convs {valid:.0f} + dots "
           f"{dots:.0f} + elementwise {elementwise:.0f}\nport "
-          f"{port:.0f}: padding taps +{padding_taps:.0f}, redundant "
-          f"+{redundant:.0f}, width-1 GEMMs +{width1:.0f}, elementwise "
-          f"-{elementwise:.0f}\nitems port {dict(items)} jax "
-          f"{dict(jax_items)}\nredundant at B 64, DIM 64: "
-          f"{15 * published['L1'] + 15 * published['L2'] + 5 * published['L3']}")
+          f"{port:.0f}: padding taps +{padding_taps:.0f}, width-1 GEMMs "
+          f"+{width1:.0f}, elementwise -{elementwise:.0f}\nitems port "
+          f"{dict(items)} jax {dict(jax_items)}\nformerly redundant at "
+          f"B 64, DIM 64: {15 * published['L1'] + 15 * published['L2'] + 5 * published['L3']}")
 
 
 def test_xla_counts_no_tap_in_the_padding():
