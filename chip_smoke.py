@@ -50,55 +50,73 @@ nothing of JAX or of the JAX package, and does in order:
 6. dispatch: per dtype, entry and bucket, a dispatch's host and device
    time, its device busy share, its device time and kernels by group (no
    more than one K2a kernel per BN forward);
-7. train: the port's Trainer at the published cifar10 wali-gp config
+7. int8-export: Q1 (quantize) and Q2 (int8 conv, ``csrc/quant.cu``) at
+   every int8 layer of the published samplers (cifar10 wali-gp, GMGAN
+   mnist, SSGAN moving-MNIST) at buckets 8, 64 and 256 in f32 and bf16,
+   each call replayed twice against its plain version (int8 values and
+   int32 sums equal, outputs bit-equal, one launch per call) and timed
+   (Q2 at buckets 8 and 256, with ``torch._int_mm`` at the dense shapes
+   and cuDNN's f32 and bf16 conv as readings); the three quantized
+   samplers on the card against the CPU (no int8 value flipped, outputs
+   within 1e-6);
+   a cifar10 dispatch int8 against float; the server with ``--quantize
+   int8`` over HTTP, its launches counted; then the run directory
+   exported with ``torch.export`` (the int8 sampler, the float
+   reconstructor) and served from the artifacts in a fresh process
+   through ``--export-dir``'s path, bit for bit against the run
+   directory, Q1, Q2, K1 and K2 launched inside the programs;
+8. train: the port's Trainer at the published cifar10 wali-gp config
    (B=64, DIM=64, z=128, k=5) on a resident synthetic 50k set, in f32 and
    bf16: finite costs, every kernel launched, ms per iteration, images/s,
    busy share and device time by group; then 2 iterations on the card
    against the CPU from the same params, batches and noise, two runs from
    one seed bit for bit, and a resumed run against an uninterrupted one;
-8. bench-conv: K3's own path, ``tools/bench_conv_kernel.main()`` (four
+   in f32 the step's host ms/iter and host ops with the kernels called
+   straight (as eager calls run) and through their ``torch.library`` ops'
+   dispatcher (as traced calls run; a reading);
+9. bench-conv: K3's own path, ``tools/bench_conv_kernel.main()`` (four
    bf16 shapes, the library arm beside K3a and K3b); K3a must run its TMA
    mainloop there, and K1's counter must not count K3's calls;
-9. family1: 3 Trainer iterations of each of the 13 modes on mnist (B=50,
+10. family1: 3 Trainer iterations of each of the 13 modes on mnist (B=50,
    DIM=64) and of celeba ali (B=128, dim 32) at published widths on
    resident synthetic data: finite costs, each mode's kernels launched,
    K2c+K2d inside the mnist wali-gp penalty's backward; then mnist ali and
    wali-gp (k = 2) 2 iterations on the card against the CPU (the same
    checks and controls as train-parity) and one mnist reconstructor
    dispatch;
-10. loaders: cifar10 wali-gp at the published config, 3 iterations
+11. loaders: cifar10 wali-gp at the published config, 3 iterations
    through ``runs/gan_inference.run`` on CIFAR-10 pickle batches written
    here, resident (the pool is the written train rows) and host-fed (every
    batch through the prefetcher's side stream);
-11. eval: 100 iterations of cifar10 wali-gp in bf16 on the structured
+12. eval: 100 iterations of cifar10 wali-gp in bf16 on the structured
    family with the sample grids every 50 and the quality hook at 100: the
    grid PNGs at their sizes (read from their IHDR), the dev cost at
    iteration 99, finite IS / FID / classifier accuracy, no TSNE line;
-12. learn: ``tools/sensitivity.py --checkpoints 0,500 --n-score 5000``
+13. learn: ``tools/sensitivity.py --checkpoints 0,500 --n-score 5000``
    (bf16, published width): classifier held-out accuracy >= 0.95, real IS
    >= 8.0, noise IS <= 2.0, IS up and FID down from iteration 0 to 500;
    and PIL, matplotlib and sklearn never imported;
-13. step-options: cifar10 wali-gp (B=64, k=5) 2 iterations on the card
+14. step-options: cifar10 wali-gp (B=64, k=5) 2 iterations on the card
    against the CPU with ``accum_steps=2``, with ``remat`` and with
    ``fused_gp`` (train-parity's checks and controls); remat on the card
    bit-identical to no remat; a celeba ali run with ``decay`` whose Adam
    step sizes are logged and held to the undecayed ones times
    1 - t / iters;
-14. family2: 3 Trainer iterations of GMGAN's 5 modes under each of the 4
+15. family2: 3 Trainer iterations of GMGAN's 5 modes under each of the 4
    MODE_K on mnist (B=50, DIM=64, z=128, 30 components), and of cifar10
    and svhn local_ep and celeba ali, at published widths: finite costs,
    K1 launched, K2a-d where BN is on; mnist local_ep CONCRETE then timed
    and profiled as the family1 runs are;
-15. family2-parity: mnist local_ep CONCRETE and ali REINFORCE, 2
+16. family2-parity: mnist local_ep CONCRETE and ali REINFORCE, 2
    iterations on the card against the CPU, the controls refused, q(k|x)'s
    argmax flips between the devices logged with their margins;
-16. cluster: a gmgan mnist run directory served over HTTP, the sampler
+17. cluster: a gmgan mnist run directory served over HTTP, the sampler
    from server-drawn one-hot and normal priors and the cluster entry,
    whose rows sum to 1 within 1e-5 and equal the CPU's within 1e-4;
-17. family2-learn: ``runs/gmgan.run("mnist", "local_ep",
+18. family2-learn: ``runs/gmgan.run("mnist", "local_ep",
    data_dir="structured")`` for 1,000 iterations, its clustering accuracy
    held to ``LEARN2_MIN_ACC``;
-18. family3: 3 Trainer iterations of SSGAN at published widths (B 50,
+19. family3: 3 Trainer iterations of SSGAN at published widths (B 50,
    DIM 32): moving-MNIST (LEN 16) local_ep under each pos_mode,
    local_epce-z, ali under concat_x, concat_z and 3dcnn, alice-z, chairs
    (LEN 31) local_ep, and local_ep with ``bn=True`` through ``run()``:
@@ -106,19 +124,19 @@ nothing of JAX or of the JAX package, and does in order:
    the check and time phases hold K1 at family 3's shapes (the frame
    batch B·LEN, Cin 1/3, the whole video as C·LEN channels, the VALID
    D.5) and K2 at its BN shapes (``family3_batches``, ``ssgan_*_shapes``);
-19. family3-parity: moving-MNIST local_ep gsp and ali 3dcnn, 2
+20. family3-parity: moving-MNIST local_ep gsp and ali 3dcnn, 2
    iterations on the card against the CPU at FAMILY3_PARITY_BATCH videos
    (a G bias moment that misses is held again from the card's own state
    only where its gradient is shown to cancel, ``_bias_cancellation``);
-20. family3-serve: a moving-MNIST run directory over HTTP, the sampler
+21. family3-serve: a moving-MNIST run directory over HTTP, the sampler
    from server-drawn priors and the reconstructor, held to the CPU within
    E2E_ATOL;
-21. family3-learn: ``runs/ssgan.run("moving_mnist", "local_ep",
+22. family3-learn: ``runs/ssgan.run("moving_mnist", "local_ep",
    data_dir="structured", data_pipeline="device",
    compute_dtype="bfloat16")`` for 1,000 iterations, the hook before
    training and at 500 and 1,000: the reading at 1,000 at most half the
    one before training, every montage at its size;
-22. tools: each measurement tool of ``graphical_gan_tpu_torch/tools`` at
+23. tools: each measurement tool of ``graphical_gan_tpu_torch/tools`` at
    published widths: ``trace_report`` over the cifar10 wali-gp Trainer's
    ``GGAN_PROFILE`` trace (its device ms per iteration within
    TRACE_AGREE of ``profile_train``'s) and over SSGAN moving-MNIST
@@ -130,15 +148,16 @@ nothing of JAX or of the JAX package, and does in order:
    ``bench_families``, ``bench_serving`` (three families, batches 8 and
    256) and ``bench_server`` (gan_inference, request sizes 1 and 8); then
    the GMGAN process replay: one Trainer run in a fresh subprocess and
-   one here, their final parameters compared bit for bit and printed as a
-   reading (ROADMAP §3 fault 1);
-23. fault4: one published cifar10 wali-gp f32 step, plain, with
+   one here, and one more in a subprocess while another process holds
+   most of the card's free memory, their final parameters compared bit
+   for bit and printed as readings (ROADMAP §3 fault 1);
+24. fault4: one published cifar10 wali-gp f32 step, plain, with
    ``remat`` and with ``fused_gp``: every ``convolution_backward`` inside
    the penalty's ``input_grads_only`` scope computes no weight gradient
    (the scope holds on the card, where autograd would otherwise run a
    node's backward on a device thread), and ``tools/mfu.py``'s FLOP
    count at that config;
-24. phase-deconv: the phase route of ``ops/phase_deconv.py`` (one stride-1
+25. phase-deconv: the phase route of ``ops/phase_deconv.py`` (one stride-1
    K1 conv to 4·O channels, then a depth-to-space) against the cuDNN route
    at the eight shapes of ``tools/bench_phase_deconv.py``, forward, dx and
    dw in f32 and bf16 at K1's tolerances, one K1 launch per call (the
@@ -146,13 +165,13 @@ nothing of JAX or of the JAX package, and does in order:
    the coverage check); the bench tool on the card; an SSGAN moving-MNIST
    f32 iteration and an f32 sampler dispatch at B 256 with
    ``GGAN_PHASE_DECONV`` off and on;
-25. failure: the CLI at the published cifar10 wali-gp config in
+26. failure: the CLI at the published cifar10 wali-gp config in
    subprocesses: SIGTERM after iteration 4 (exit 0, resumed to 100 bit for
    bit against an uninterrupted run), ``GGAN_FAULT_NAN_AT=7`` with one
    rollback (finite, ``rng_salt_high`` 1) and without the guard (inert),
    async checkpoints equal to sync ones, ``--compile-cache`` built once and
    then loaded with no ``nvcc`` run; the time a save holds the loop;
-26. prints one JSON line per kernel summary, the card line, and last
+27. prints one JSON line per kernel summary, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line. ``--log PATH`` also
@@ -324,13 +343,13 @@ def phase_build():
     ptxas = [ln.strip() for ln in build.build_log.splitlines()
              if any(k in ln for k in ("registers", "spill", "Compiling entry",
                                       "wgmma", "Performance"))]
-    hgmma = _sass_count(path, "HGMMA")
-    utmaldg = _sass_count(path, "UTMALDG")
+    hgmma, utmaldg, imma = _sass_count(path, ("HGMMA", "UTMALDG", "IMMA"))
     log({"phase": "build", "seconds": round(secs, 3),
          "library": os.path.relpath(path, ROOT),
          "sources": [os.path.relpath(s, ROOT) for s in build.sources()],
          "sass_hgmma_instructions": hgmma,
-         "sass_utmaldg_instructions": utmaldg})
+         "sass_utmaldg_instructions": utmaldg,
+         "sass_imma_instructions": imma})
     for ln in ptxas:
         log("ptxas: " + ln)
     if not hgmma:
@@ -339,17 +358,21 @@ def phase_build():
     if not utmaldg:
         fail("no UTMALDG instruction in the library's SASS: K3a's mainloop "
              "issues no TMA load")
+    if not imma:
+        fail("no IMMA instruction in the library's SASS: Q2's int8 products "
+             "do not run on the tensor cores")
 
 
-def _sass_count(lib_path: str, opcode: str) -> int:
-    """Instructions of ``opcode`` in the SASS of ``lib_path``
-    (``cuobjdump -sass``, from the CUDA toolkit)."""
+def _sass_count(lib_path: str, opcodes):
+    """Instructions of each of ``opcodes`` in the SASS of ``lib_path``
+    (one ``cuobjdump -sass``, from the CUDA toolkit)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     res = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                          text=True, timeout=300)
     if res.returncode != 0:
         fail(f"cuobjdump -sass failed: {res.stderr.strip()[:500]}")
-    return sum(1 for ln in res.stdout.splitlines() if opcode in ln)
+    lines = res.stdout.splitlines()
+    return tuple(sum(1 for ln in lines if op in ln) for op in opcodes)
 
 
 def _conv_inputs(shape, cout, dtype, gen, k=5):
@@ -1401,6 +1424,11 @@ def phase_serve(launch_totals, k1_counts):
 
 
 DISPATCH_REPS = 20
+# time_ms windows and calls of each dispatch reading: (5, 10), not PR
+# 12's (7, 20), which take 10 s more of this phase (29.8-30.1 s against
+# 19.9-20.0). With the int8-export phase and every other depth as PR 12
+# had it, a run took 907.8 s, over PR 12's 894.6
+DISPATCH_TIME_REPS, DISPATCH_TIME_INNER = 5, 10
 
 
 def _profile(call, x):
@@ -1482,10 +1510,13 @@ def phase_dispatch(run_dirs):
                          f"({PER_DISPATCH[entry]['bn_stats']})")
                 xd = torch.tensor(x, device="cuda")
                 with torch.inference_mode():
-                    dev = time_ms(lambda a: fn(params, 0, a), (xd,))
+                    dev = time_ms(lambda a: fn(params, 0, a), (xd,),
+                                  DISPATCH_TIME_REPS, DISPATCH_TIME_INNER)
                     torch.backends.cudnn.deterministic = False
                     try:
-                        dev_free = time_ms(lambda a: fn(params, 0, a), (xd,))
+                        dev_free = time_ms(lambda a: fn(params, 0, a), (xd,),
+                                           DISPATCH_TIME_REPS,
+                                           DISPATCH_TIME_INNER)
                     finally:
                         torch.backends.cudnn.deterministic = True
                 log({"dispatch": {
@@ -1511,7 +1542,8 @@ REPEAT_ITERS = 4     # iterations of the bit-identity and resume runs
 PER_ITER = {"fused_conv2d_bias_act": (9 + 12 * 5, 0),
             "bn_stats": (30, 0), "bn_apply": (30, 0),
             "bn_bwd": (5, -5),
-            "conv_gemm_taps": (0, 0), "conv_gemm_im2col": (0, 0)}
+            "conv_gemm_taps": (0, 0), "conv_gemm_im2col": (0, 0),
+            "quantize_int8": (0, 0), "int8_conv": (0, 0)}
 # card against CPU after 2 iterations, f32, same params, batches and noise.
 # TF1 Adam's first steps are about lr·sign(g): a gradient element near 0
 # whose sign differs between the two devices moves its parameter about
@@ -1620,6 +1652,8 @@ def phase_train(launch_totals, data, k1_counts):
         ms = time_train(tr, TIME_ITERS)
         busy, dev_ms, groups, top, host_ops, host_top = profile_train(
             tr, PROFILE_ITERS)
+        if dtype == "float32":
+            _custom_op_cost(tr, ms, host_ops)
         per_iter_images = (1 + model.cfg.critic_iters) * model.cfg.batch_size
         log({"phase": "train", "dtype": dtype, "iters": TRAIN_ITERS,
              "seconds": round(secs, 3), "last_metrics": metrics,
@@ -1630,6 +1664,83 @@ def phase_train(launch_totals, data, k1_counts):
              "top_kernels_ms_per_iter": top,
              "profiled_host_aten_ops_per_iter": host_ops,
              "profiled_host_self_ms_per_iter_top_ops": host_top})
+
+
+class _ViaOps:
+    """Eager kernel calls through their ``torch.library`` ops' dispatcher,
+    as traced calls go (``ops/kernels/build.py: run_op`` sends eager calls
+    straight to the CUDA implementation): for the host-cost reading."""
+
+    def __enter__(self):
+        from graphical_gan_tpu_torch.ops.kernels import build
+        self.build, self.saved = build, build.run_op
+        build.run_op = lambda op, impl, x, *args: op(x, *args)
+        return self
+
+    def __exit__(self, *exc):
+        self.build.run_op = self.saved
+
+
+OP_CALLS = 2000  # host-timed calls of each wrapper, through and around
+
+
+def _per_call_us(fn, args):
+    """Host µs of one call of ``fn(*args)`` (the kernel's launch queued),
+    over OP_CALLS calls after a warm one."""
+    import torch
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(OP_CALLS):
+        fn(*args)
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / OP_CALLS * 1e6
+
+
+def _custom_op_cost(tr, ms_direct, host_ops):
+    """What the ``torch.library`` ops' dispatcher would cost the host: the
+    published f32 step's host ms/iter and profiled aten ops per iteration
+    as it runs (eager calls straight to the CUDA implementations; the
+    train phase's reading) and with every kernel call through its op
+    (``_ViaOps``), and each wrapper's host µs per call both ways (on tiny
+    tensors, so the card keeps up and the loop times the host alone),
+    which the step's calls per iteration turn into ms/iter. A reading, not
+    a limit."""
+    import torch
+    from graphical_gan_tpu_torch.ops.kernels import (
+        bn_apply, bn_stats, fused_conv2d_bias_act)
+    from graphical_gan_tpu_torch.tools.mfu import time_train
+    from graphical_gan_tpu_torch.tools.trace_report import profile_train
+    x = torch.randn(2, 8, 8, 8, device="cuda")
+    w = torch.randn(5, 5, 8, 8, device="cuda")
+    b = torch.zeros(8, device="cuda")
+    x2 = torch.randn(64, 8, device="cuda")
+    m, _, inv = bn_stats(x2)
+    one = torch.ones(8, device="cuda")
+    calls = {"fused_conv2d_bias_act": (fused_conv2d_bias_act,
+                                       (x, w, b, 2, "SAME", "leaky_relu")),
+             "bn_stats": (bn_stats, (x2,)),
+             "bn_apply": (bn_apply, (x2, m, inv, one, one, "relu"))}
+    us = {}
+    for name, (fn, args) in calls.items():
+        direct = _per_call_us(fn, args)
+        with _ViaOps():
+            through = _per_call_us(fn, args)
+        us[name] = {"ops_us": through, "direct_us": direct}
+    per_iter = {k: a for k, (a, _) in PER_ITER.items()}
+    with _ViaOps():
+        ms_ops = time_train(tr, TIME_ITERS)
+        prof = profile_train(tr, PROFILE_ITERS)
+    log({"check": "custom-op dispatch cost", "dtype": "float32",
+         "ms_per_iter_ops": ms_ops, "ms_per_iter_direct": ms_direct,
+         "per_call_host_us": us,
+         "host_ms_per_iter_from_per_call": sum(
+             per_iter[k] * (v["ops_us"] - v["direct_us"])
+             for k, v in us.items()) / 1e3,
+         "profiled_host_aten_ops_per_iter_ops": prof[4],
+         "profiled_host_aten_ops_per_iter_direct": host_ops,
+         "profiled_host_top_ops_ops": prof[5]})
 
 
 def _grads(model, params, raw, draws, player):
@@ -3210,14 +3321,28 @@ TOOL_PROFILE_START = 3   # GGAN_PROFILE window of the trace_report run
 TOOL_PROFILE_ITERS = 5
 TRACE_AGREE = 0.10       # trace_report's device ms vs profile_train's
 SSGAN_TRACE_ITERS = 2
-TOOL_ROUNDS = 2          # timed rounds of mfu and bench_families
-TOOL_ITERS = 10          # iterations per round
+TOOL_ROUNDS = 1          # timed rounds of mfu and bench_families
+TOOL_ITERS = 6           # iterations per round
+SERVING_DEPTH = 10       # bench_serving: dispatches per timed window, one
+SERVING_ROUNDS = 1       # window per family and batch
+SERVER_REQUESTS = 10     # bench_server: requests per client
 DET_CHUNK_ITERS = 4
 DET_TRAINER_ITERS = 6
 REPLAY_ITERS = 200       # GMGAN trainer iterations of the process replay
 # GMGAN mnist local_ep at its published width: the config of the learning
 # check (ROADMAP §3 fault 1)
 REPLAY_DIM, REPLAY_B = 64, 50
+# the share of the card's free memory the holder process takes during the
+# last replay run
+HOLD_SHARE = 0.9
+_HOLDER_CODE = """
+import sys
+import torch
+free = torch.cuda.mem_get_info()[0]
+held = torch.empty(int(free * {share}), dtype=torch.uint8, device="cuda")
+print("held", held.numel(), flush=True)
+sys.stdin.read()
+"""
 _REPLAY_CODE = """
 import sys
 sys.path.insert(0, {root!r})
@@ -3332,14 +3457,14 @@ def _tool_benches(base):
                                    "cuda")
         log({"phase": "tools", "tool": "bench_families", **rec})
     for family in ("gan_inference", "gmgan", "ssgan"):
-        for rec in bench_serving.measure(family, (8, 256), rounds=3,
-                                         device="cuda"):
+        for rec in bench_serving.measure(family, (8, 256), SERVING_DEPTH,
+                                         SERVING_ROUNDS, device="cuda"):
             log({"phase": "tools", "tool": "bench_serving", **rec})
     run_dir = bench_server.write_run_dir(os.path.join(base, "server_run"),
                                          "gan_inference")
     for n in (1, 8):
-        rec = bench_server.run_load(run_dir, n, 8, 10, (8, 64, 256), 5.0,
-                                    "cuda")
+        rec = bench_server.run_load(run_dir, n, 8, SERVER_REQUESTS,
+                                    (8, 64, 256), 5.0, "cuda")
         log({"phase": "tools", "tool": "bench_server", **rec})
 
 
@@ -3362,14 +3487,51 @@ def _gmgan_process_replay(base):
     model, _, resident = determinism._build("gmgan", REPLAY_DIM, REPLAY_B,
                                             "mnist")
     here = determinism.trainer_params(model, resident, REPLAY_ITERS, "cuda")
-    differ = sorted(n for n in here
-                    if not np.array_equal(here[n], fresh[n], equal_nan=True))
-    log({"check": "gmgan process replay", "iters": REPLAY_ITERS,
+    _log_replay("gmgan process replay", here, fresh)
+    # the same run in a fresh subprocess while another process holds most
+    # of the card's free memory (ROADMAP §3 fault 1: does the memory left
+    # to cuDNN and the allocator change the bits?)
+    import torch
+    torch.cuda.empty_cache()
+    holder = subprocess.Popen(
+        [sys.executable, "-c", _HOLDER_CODE.format(share=HOLD_SHARE)],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    try:
+        held = holder.stdout.readline().strip()
+        if not held.startswith("held"):
+            fail(f"gmgan replay under memory pressure: the holder printed "
+                 f"{held!r}")
+        free = torch.cuda.mem_get_info()[0]
+        path2 = os.path.join(base, "gmgan_replay_pressed.npz")
+        res = subprocess.run(
+            [sys.executable, "-c", _REPLAY_CODE.format(
+                root=ROOT, dim=REPLAY_DIM, b=REPLAY_B, iters=REPLAY_ITERS,
+                out=path2)], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+    finally:
+        holder.stdin.close()
+        holder.wait(timeout=60)
+    if res.returncode != 0:
+        fail(f"gmgan replay under memory pressure: {res.stderr[-3000:]}")
+    with np.load(path2) as f:
+        pressed = {k: f[k] for k in f.files}
+    _log_replay("gmgan process replay under memory pressure", pressed,
+                fresh, held_bytes=int(held.split()[1]),
+                free_bytes_while_held=int(free))
+
+
+def _log_replay(check, got, fresh, **extra):
+    """One replay reading: ``got``'s final parameters against the fresh
+    subprocess run's, bit for bit."""
+    import numpy as np
+    differ = sorted(n for n in got
+                    if not np.array_equal(got[n], fresh[n], equal_nan=True))
+    log({"check": check, "iters": REPLAY_ITERS,
          "dim": REPLAY_DIM, "B": REPLAY_B,
-         "bit_equal": not differ and sorted(here) == sorted(fresh),
+         "bit_equal": not differ and sorted(got) == sorted(fresh),
          "differing_leaves": differ,
-         "max_abs_diff": max((float(np.max(np.abs(here[n] - fresh[n])))
-                              for n in differ), default=0.0)})
+         "max_abs_diff": max((float(np.max(np.abs(got[n] - fresh[n])))
+                              for n in differ), default=0.0), **extra})
 
 
 def phase_tools(launch_totals, data):
@@ -3377,20 +3539,28 @@ def phase_tools(launch_totals, data):
     published widths: trace_report (against profile_train), mfu (0 < mfu
     <= 1), memory, determinism (all five checks bit-identical for gan and
     gmgan), bench_families, bench_serving, bench_server; then the GMGAN
-    process replay. ``launch_totals`` receives the kernels' launches."""
+    process replay. ``launch_totals`` receives the kernels' launches. Each
+    tool's seconds are logged."""
     from graphical_gan_tpu_torch.ops import kernels
     base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
                         "smoke_tools")
     shutil.rmtree(base, ignore_errors=True)
     os.makedirs(base)
     kernels.reset_launches()
-    _tool_trace(base, data)
-    _tool_mfu()
-    _tool_memory()
-    _tool_determinism()
-    _tool_benches(base)
+    for name, fn, args in (("trace_report", _tool_trace, (base, data)),
+                           ("mfu", _tool_mfu, ()),
+                           ("memory", _tool_memory, ()),
+                           ("determinism", _tool_determinism, ()),
+                           ("benches", _tool_benches, (base,))):
+        t0 = time.perf_counter()
+        fn(*args)
+        log({"tool_seconds": name,
+             "seconds": round(time.perf_counter() - t0, 3)})
     launch_totals.update(kernels.launches())
+    t0 = time.perf_counter()
     _gmgan_process_replay(base)
+    log({"tool_seconds": "gmgan process replay",
+         "seconds": round(time.perf_counter() - t0, 3)})
 
 
 # ---------------------------------------------------------------------------
@@ -3853,6 +4023,574 @@ def phase_failure(data):
         fail(f"failure: {misses}")
 
 
+# ---------------------------------------------------------------------------
+# int8-export: int8 serving (ops/quant.py) on Q1 and Q2 (csrc/quant.cu) at
+# the published samplers, and the run directory's torch.export artifacts
+
+PEAK_INT8 = 1979e12     # H100 SXM int8 tensor cores, dense
+INT8_CALIB_B = 64       # the calibration batch of the phase's samplers
+INT8_E2E_B = 8          # rows of the card-against-CPU sampler check
+# tests/test_torch_quant_sampler.py's bound: no int8 value flips between
+# the two runs, and the outputs (in [-1, 1]) differ by f32 roundings
+INT8_E2E_ATOL = 1e-6
+INT8_DISPATCH_BUCKETS = (8, 256)
+
+
+def _int8_models(dtype):
+    """The three published samplers of the int8 checks: cifar10 wali-gp
+    (DIM 64, z 128), GMGAN mnist local_ep (DIM 64, 30 components) and
+    SSGAN moving-MNIST local_ep (DIM 32, LEN 16)."""
+    from graphical_gan_tpu_torch.core.config import gmgan_defaults
+    from graphical_gan_tpu_torch.models.gmgan import GMGanModel
+    gm = GMGanModel(gmgan_defaults("mnist", "local_ep",
+                                   compute_dtype=dtype))
+    if (gm.cfg.dim_g or gm.cfg.dim, gm.cfg.n_coms) != (64, 30):
+        fail(f"gmgan mnist defaults changed: {gm.cfg}")
+    return (("gan_inference", _published(dtype)), ("gmgan", gm),
+            ("ssgan", _ssgan_model("moving_mnist", "local_ep",
+                                   compute_dtype=dtype)))
+
+
+class _Int8Calls:
+    """Records every Q1 and Q2 call the int8 layers make (their arguments)
+    while it is entered; each Q2 call also with the transposed conv's k
+    where a deconv made it (on its phase filter), else None."""
+
+    def __init__(self):
+        self.q1, self.q2 = [], []
+        self._deconv_k = None
+
+    def __enter__(self):
+        from graphical_gan_tpu_torch.ops import quant
+        self._mod = quant
+        self._saved = (quant.quantize_int8, quant.int8_conv,
+                       quant.intercept_deconv2d)
+        q1, q2, deconv = self._saved
+
+        def rec_q1(x, scale, axis=None):
+            self.q1.append((x, scale, axis))
+            return q1(x, scale, axis)
+
+        def rec_q2(xq, wq, factor, stride=1, padding="VALID",
+                   out_dtype=None):
+            self.q2.append((xq, wq, factor, stride, padding, out_dtype,
+                            self._deconv_k))
+            return q2(xq, wq, factor, stride, padding, out_dtype)
+
+        def rec_deconv(name, x, w, stride, padding):
+            self._deconv_k = int(w.shape[0])
+            try:
+                return deconv(name, x, w, stride, padding)
+            finally:
+                self._deconv_k = None
+        (quant.quantize_int8, quant.int8_conv,
+         quant.intercept_deconv2d) = rec_q1, rec_q2, rec_deconv
+        return self
+
+    def __exit__(self, *exc):
+        (self._mod.quantize_int8, self._mod.int8_conv,
+         self._mod.intercept_deconv2d) = self._saved
+
+
+def _bits(t):
+    """An integer view of a tensor's bits, for bit-for-bit equality."""
+    import torch
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16)
+    return t
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        torch.equal(_bits(a), _bits(b))
+
+
+def _check_q1(x, scale, axis, misses, label):
+    """Q1 twice (one launch each, the same bits) against its plain version
+    on the card; returns the largest difference of the int8 values."""
+    from graphical_gan_tpu_torch.ops.kernels import quant as kq
+    n0 = kq.quantize_int8.launches
+    a = kq.quantize_int8(x, scale, axis)
+    b = kq.quantize_int8(x, scale, axis)
+    want = kq.quantize_int8_plain(x, scale, axis)
+    if kq.quantize_int8.launches - n0 != 2:
+        misses.append(f"{label}: Q1 counted "
+                      f"{kq.quantize_int8.launches - n0} launches for 2")
+    if not _same_bits(a, b):
+        misses.append(f"{label}: Q1 differs between two calls")
+    if not _same_bits(a, want):
+        misses.append(f"{label}: Q1 != plain")
+    return int((a.int() - want.int()).abs().max()) if a.numel() else 0
+
+
+def _check_q2(xq, wq, factor, stride, pads, out_dtype, misses, label):
+    """Q2's int32 sums and its dequantized output, each twice, against the
+    plain version (F.conv2d in f64, exact) on the card; returns the largest
+    difference of the sums and of the outputs."""
+    import torch
+    from graphical_gan_tpu_torch.ops.kernels import quant as kq
+    n0 = kq.int8_conv.launches
+    s1 = kq.int8_conv(xq, wq, None, stride, pads, torch.int32)
+    s2 = kq.int8_conv(xq, wq, None, stride, pads, torch.int32)
+    y1 = kq.int8_conv(xq, wq, factor, stride, pads, out_dtype)
+    y2 = kq.int8_conv(xq, wq, factor, stride, pads, out_dtype)
+    sums = kq.int8_conv_sums_plain(xq, wq, stride, pads)
+    want = kq.dequantize_plain(sums, factor, out_dtype)
+    if kq.int8_conv.launches - n0 != 4:
+        misses.append(f"{label}: Q2 counted {kq.int8_conv.launches - n0} "
+                      "launches for 4")
+    if not (_same_bits(s1, s2) and _same_bits(y1, y2)):
+        misses.append(f"{label}: Q2 differs between two calls")
+    if not _same_bits(s1, sums):
+        misses.append(f"{label}: Q2 sums != plain")
+    if not _same_bits(y1, want):
+        misses.append(f"{label}: Q2 output != plain")
+    return (int((s1.long() - sums.long()).abs().max()),
+            float((y1.float() - want.float()).abs().max()))
+
+
+def _q2_key(xq, wq, stride, pads, out_dtype):
+    return (tuple(xq.shape), tuple(wq.shape), stride, tuple(pads)
+            if not isinstance(pads, str) else pads, str(out_dtype))
+
+
+def _in_taps(n_out, n_in, stride, lo, offsets):
+    """Window taps of one axis that read inside the input, summed over the
+    ``n_out`` outputs: ``offsets`` are the window positions taken."""
+    return sum(1 for o in range(n_out) for t in offsets
+               if 0 <= o * stride - lo + t < n_in)
+
+
+def _q2_products(bsz, h, w, cin, cout, kh, kw, stride, lo_h, lo_w, oh, ow,
+                 deconv_k):
+    """The int8 products Q2's function needs, 2 ops each: for a conv the
+    taps inside the input; for a deconv's phase filter (``deconv_k`` its
+    k, T x T window, 4·O channels) only the taps of each output phase
+    that the transposed conv has (``phase_deconv._phase_plan``; the
+    filter's other taps are fixed zeros), inside the input: the transposed
+    conv's own count."""
+    if deconv_k is None:
+        return 2.0 * bsz * _in_taps(oh, h, stride, lo_h, range(kh)) \
+            * _in_taps(ow, w, stride, lo_w, range(kw)) * cin * cout
+    from graphical_gan_tpu_torch.ops.phase_deconv import _phase_plan
+    taps = _phase_plan(deconv_k)[3]
+    per_phase = [[j for j, _ in taps[a]] for a in (0, 1)]
+    return 2.0 * bsz * cin * (cout // 4) * sum(
+        _in_taps(oh, h, 1, lo_h, per_phase[a])
+        * _in_taps(ow, w, 1, lo_w, per_phase[c])
+        for a in (0, 1) for c in (0, 1))
+
+
+def _q2_row(xq, wq, factor, stride, pads, out_dtype, deconv_k, family, b,
+            card):
+    """Q2's time at one shape beside its plain version's and its bound
+    (the products its function needs, :func:`_q2_products`, over the int8
+    peak, or bytes over 3.35 TB/s); the linear shapes add torch._int_mm
+    where it takes the shape (the library call), the convs cuDNN's f32 and
+    bf16 conv of the same shape as readings."""
+    import torch
+    import torch.nn.functional as F
+    from graphical_gan_tpu_torch.ops.kernels import quant as kq
+    from graphical_gan_tpu_torch.ops.kernels.fused_conv import _pads
+    bsz, h, w, cin = xq.shape
+    kh, kw, _, cout = wq.shape
+    (plo, phi), (qlo, qhi) = _pads(h, w, kh, kw, stride, pads)
+    oh = (h + plo + phi - kh) // stride + 1
+    ow = (w + qlo + qhi - kw) // stride + 1
+    ops = _q2_products(bsz, h, w, cin, cout, kh, kw, stride, plo, qlo, oh,
+                       ow, deconv_k)
+    nbytes = (xq.numel() + wq.numel() + 4 * cout
+              + bsz * oh * ow * cout * torch.empty((), dtype=out_dtype
+                                                    ).element_size())
+    t_ops, t_bytes = ops / PEAK_INT8 * 1e3, nbytes / HBM_BYTES_S * 1e3
+    ms = time_ms(lambda a, b_: kq.int8_conv(a, b_, factor, stride, pads,
+                                            out_dtype), [xq, wq], 5, 10)
+    # the plain version (F.conv2d in f64) at the summary's shapes only
+    plain_ms = time_ms(lambda a, b_: kq.int8_conv_plain(
+        a, b_, factor, stride, pads, out_dtype), [xq, wq], 3, 3) \
+        if (family, b, out_dtype) == ("gan_inference", 256,
+                                      torch.float32) else None
+    row = {"kernel": "int8_conv", "family": family, "B": b,
+           "dtype": str(out_dtype).replace("torch.", ""),
+           "shape": [list(xq.shape), list(wq.shape), stride,
+                     pads if isinstance(pads, str) else list(pads)],
+           "deconv_k": deconv_k,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": None, "card": card}
+    if kh == kw == h == w == 1:  # a dense layer: [M, K] @ [K, N]
+        a2 = xq.reshape(bsz, cin)
+        b2 = wq.reshape(cin, cout)
+        if bsz > 16 and cin % 8 == 0 and cout % 8 == 0:
+            try:
+                row["library_ms"] = time_ms(torch._int_mm, [a2, b2], 5, 10)
+            except RuntimeError as e:
+                row["int_mm_refused"] = str(e).splitlines()[0]
+        else:
+            row["int_mm_refused"] = "M <= 16 or K, N not multiples of 8"
+    else:
+        xf = xq.permute(0, 3, 1, 2).float().contiguous(
+            memory_format=torch.channels_last)
+        wf = wq.permute(3, 2, 0, 1).float().contiguous(
+            memory_format=torch.channels_last)
+        for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            xd, wd = xf.to(dt), wf.to(dt)
+            row[f"cudnn_{dn}_conv_ms"] = time_ms(
+                lambda a, b_: F.conv2d(F.pad(a, (qlo, qhi, plo, phi)), b_,
+                                       stride=stride), [xd, wd], 5, 10)
+    return row
+
+
+def _q1_row(x, scale, axis, family, b, card):
+    from graphical_gan_tpu_torch.ops.kernels import quant as kq
+    nbytes = x.numel() * (x.element_size() + 1)
+    return {"kernel": "quantize_int8", "family": family, "B": b,
+            "dtype": str(x.dtype).replace("torch.", ""),
+            "shape": list(x.shape), "per_channel": axis is not None,
+            "ms": time_ms(lambda t: kq.quantize_int8(t, scale, axis), [x],
+                          5, 10),
+            "plain_ms": time_ms(lambda t: kq.quantize_int8_plain(
+                t, scale, axis), [x], 5, 10),
+            "bound_ms": nbytes / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, "card": card}
+
+
+def _int8_sampler_checks(card, timings, misses):
+    """Q1 and Q2 at every int8 layer of the three published samplers, at
+    buckets 8, 64 and 256, in f32 and bf16: each recorded call replayed
+    twice against its plain version; Q2 timed at every shape, Q1 at the
+    cifar10 sampler's. Returns the largest errors."""
+    import torch
+    from graphical_gan_tpu_torch.serve.export import make_sampler
+    from graphical_gan_tpu_torch.serve.quantize import (
+        calibrate, prior_inputs, quantized_entry)
+    err = {"q1": 0, "q2_sums": 0, "q2_out": 0.0}
+    checked = {"q1_calls": 0, "q2_calls": 0}
+    timed = set()
+    for dtype in ("float32", "bfloat16"):
+        for family, model in _int8_models(dtype):
+            params = model.init(0, "cuda")
+            scales = calibrate(family, model, params, 11, n_batches=1,
+                               batch_size=INT8_CALIB_B)
+            fn = quantized_entry(make_sampler(family, model)[0], scales)
+            for b in BUCKETS:
+                z = [torch.from_numpy(a).cuda()
+                     for a in prior_inputs(family, model.cfg, b, 5)]
+                with _Int8Calls() as calls, torch.inference_mode():
+                    fn(params, 3, *z)
+                label = f"int8 {family} {dtype} B={b}"
+                with torch.inference_mode():
+                    for x, scale, axis in calls.q1:
+                        err["q1"] = max(err["q1"], _check_q1(
+                            x, scale, axis, misses, label))
+                        checked["q1_calls"] += 1
+                        # the summary's dispatch: the f32 cifar10
+                        # sampler's activations (its bf16 model takes f32
+                        # codes too, so the second loop repeats them)
+                        if (family, b, dtype) == ("gan_inference", 256,
+                                                  "float32"):
+                            timings.append(_q1_row(x, scale, axis, family,
+                                                   b, card))
+                    for xq, wq, factor, stride, pads, out, dk in calls.q2:
+                        s, y = _check_q2(xq, wq, factor, stride, pads, out,
+                                         misses, label)
+                        err["q2_sums"] = max(err["q2_sums"], s)
+                        err["q2_out"] = max(err["q2_out"], y)
+                        checked["q2_calls"] += 1
+                        key = (family, b) + _q2_key(xq, wq, stride, pads,
+                                                    out)
+                        if b in INT8_DISPATCH_BUCKETS and key not in timed:
+                            # SSGAN's chain repeats shapes
+                            timed.add(key)
+                            timings.append(_q2_row(xq, wq, factor, stride,
+                                                   pads, out, dk, family, b,
+                                                   card))
+            del params
+    return err, checked
+
+
+def _int8_e2e(misses):
+    """The quantized samplers at INT8_E2E_B rows in f32 on the card against
+    the same on the CPU: the same params, scales, inputs and (SSGAN) chain
+    eps; the int8 activations compared per layer, held to no flip, and the
+    outputs to INT8_E2E_ATOL, as the CPU test holds the port to JAX."""
+    import numpy as np
+    import torch
+    from graphical_gan_tpu_torch.ops import quant
+    from graphical_gan_tpu_torch.ops.kernels import quant as kq
+    from graphical_gan_tpu_torch.serve.quantize import (
+        calibrate, prior_inputs)
+    out = []
+    for family, model in _int8_models("float32"):
+        params = model.init(0, "cuda")
+        scales = calibrate(family, model, params, 11, n_batches=1,
+                           batch_size=INT8_CALIB_B)
+        inputs = prior_inputs(family, model.cfg, INT8_E2E_B, 5)
+        eps = torch.from_numpy(np.random.default_rng(6).standard_normal(
+            (INT8_E2E_B, getattr(model.cfg, "dim_latent_t", 1)),
+            dtype=np.float32))
+        got = {}
+        for dev in ("cuda", "cpu"):
+            p = {k: v.to(dev) for k, v in params.items()}
+            z = [torch.from_numpy(a).to(dev) for a in inputs]
+            with _Int8Calls() as calls, torch.inference_mode(), \
+                    quant.quantized(scales):
+                if family == "ssgan":
+                    y = model.sample(p, *z, draws={"epsilon": eps.to(dev)})
+                elif family == "gmgan":
+                    y = model.sample(p, *z)
+                else:
+                    y = model.sample(p, z[0])
+            got[dev] = (y.float().cpu(), calls)
+        y_card, calls_card = got["cuda"]
+        y_cpu, calls_cpu = got["cpu"]
+        flips, first = 0, []
+        for i, ((xa, sa, aa), (xb, sb, ab)) in enumerate(
+                zip(calls_card.q1, calls_cpu.q1)):
+            qa = kq.quantize_int8_plain(xa.cpu(), sa, aa)
+            qb = kq.quantize_int8_plain(xb, sb, ab)
+            flips += int((qa != qb).sum())
+            d = float((xa.cpu().float() - xb.float()).abs().max())
+            if d > 0 and len(first) < 3:  # where the two runs part
+                first.append({"q1_call": i, "shape": list(xb.shape),
+                              "input_max_abs_diff": d,
+                              "flips": int((qa != qb).sum())})
+        diff = (y_card - y_cpu).abs()
+        rec = {"check": "int8 sampler card vs cpu", "family": family,
+               "B": INT8_E2E_B, "dtype": "float32",
+               "int8_values": sum(c[0].numel() for c in calls_cpu.q1),
+               "flips": flips, "max_abs_diff": float(diff.max()),
+               "beyond_atol": int((diff > INT8_E2E_ATOL).sum()),
+               "elements": diff.numel(), "bound": INT8_E2E_ATOL,
+               "q1_calls": len(calls_cpu.q1),
+               "first_differing_inputs": first}
+        log(rec)
+        if flips or not float(diff.max()) <= INT8_E2E_ATOL:
+            misses.append(f"int8 {family}: card vs cpu {rec}")
+        out.append(rec)
+    return out
+
+
+def _int8_dispatch(card):
+    """Device ms of one cifar10 sampler dispatch at B 8 and 256: the int8
+    sampler against the float one, f32 and bf16 activations alike."""
+    import torch
+    from graphical_gan_tpu_torch.serve.export import make_sampler
+    from graphical_gan_tpu_torch.serve.quantize import (
+        calibrate, quantized_entry)
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        model = _published(dtype)
+        params = model.init(0, "cuda")
+        flt = make_sampler("gan_inference", model)[0]
+        q = quantized_entry(flt, calibrate("gan_inference", model, params,
+                                           11, n_batches=1,
+                                           batch_size=INT8_CALIB_B))
+        for b in INT8_DISPATCH_BUCKETS:
+            # codes in the compute dtype: G runs in its codes' dtype
+            z = torch.randn((b, model.cfg.dim_latent), device="cuda",
+                            dtype=getattr(torch, dtype))
+            with torch.inference_mode():
+                row = {"phase": "int8-export", "dispatch": "cifar10 sampler",
+                       "dtype": dtype, "B": b,
+                       "int8_device_ms": time_ms(
+                           lambda t: q(params, 0, t), [z], 5, 10),
+                       "float_device_ms": time_ms(
+                           lambda t: flt(params, 0, t), [z], 5, 10),
+                       "card": card}
+            log(row)
+            rows.append(row)
+    return rows
+
+
+def _int8_serve(base, launch_totals):
+    """The main path: a cifar10 wali-gp run directory (published width,
+    random weights) served with ``--quantize int8`` over HTTP, a seeded
+    request per bucket 8 and 256 and an exact one; the launches counted
+    from zero over that run."""
+    import numpy as np
+    import torch
+    from graphical_gan_tpu_torch.ops import kernels
+    from graphical_gan_tpu_torch.serve.client import SamplerClient
+    from graphical_gan_tpu_torch.serve.server import serve_run_dir
+    from graphical_gan_tpu_torch.tools.bench_server import write_run_dir
+    run_dir = write_run_dir(os.path.join(base, "run"), "gan_inference",
+                            "float32")
+    httpd, batcher, identity, _ = serve_run_dir(
+        run_dir, "sampler", "cuda", buckets=BUCKETS, port=0,
+        quantize="int8", warmup=False)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        client = SamplerClient(f"http://127.0.0.1:{httpd.server_address[1]}")
+        client.sample(n=1, seed=0)  # calibration done; weights quantized
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        outs = [client.sample(n=n, seed=s) for s, n in ((1, 8), (2, 256))]
+        outs.append(client.sample(n=8, seed=3, exact=True))
+        torch.cuda.synchronize()
+        got = kernels.launches()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+    launch_totals.update(got)
+    ok = all(o.shape[1] == 3072 and np.isfinite(o).all()
+             and float(np.abs(o).max()) <= 1.0 for o in outs)
+    log({"phase": "int8-export", "serve": "cifar10 wali-gp --quantize int8",
+         "identity_quantization": identity["quantization"],
+         "rows": [o.shape[0] for o in outs], "finite_in_range": ok,
+         "launches": got})
+    if identity["quantization"] != "int8" or not ok:
+        fail(f"int8 serving: identity {identity}, outputs ok {ok}")
+
+
+# (entry, quantize) of the cifar10 run directory the export check exports:
+# the int8 sampler runs Q1, Q2, K2a and K2b, the float reconstructor K1,
+# K2a, K2b and G's deconvs on cuDNN
+EXPORT_CASES = (("sampler", "int8"), ("reconstructor", None))
+EXPORT_ROWS = (8, 256)
+_EXPORT_SERVE_CODE = """
+import json, sys, threading
+sys.path.insert(0, {root!r})
+import numpy as np
+from graphical_gan_tpu_torch.ops import kernels
+from graphical_gan_tpu_torch.serve.client import SamplerClient
+from graphical_gan_tpu_torch.serve.server import serve_run_dir
+out = {{}}
+for name, export_dir, data in {cases!r}:
+    httpd, batcher, identity, _ = serve_run_dir(
+        export_dir=export_dir, buckets={rows!r}, port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        client = SamplerClient(
+            "http://127.0.0.1:%d" % httpd.server_address[1])
+        ref = np.load(data)
+        kernels.reset_launches()
+        rec = {{"identity": identity, "equal": {{}}, "max_abs_diff": {{}}}}
+        for n in {rows!r}:
+            inputs = [ref["%d_in%d" % (n, i)] for i in range(len(
+                batcher.input_shapes))]
+            got = client.sample(inputs=inputs, seed={seed}, exact=True)
+            want = ref["%d_out" % n]
+            rec["equal"][n] = bool(np.array_equal(got, want))
+            rec["max_abs_diff"][n] = float(np.abs(got - want).max())
+            if identity["entry"] == "sampler":  # a batched request too
+                b = client.sample(n=n, seed=n)
+                rec.setdefault("batched_finite", []).append(
+                    bool(b.shape[0] == n and np.isfinite(b).all()))
+        rec["launches"] = kernels.launches()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        batcher.close()
+    out[name] = rec
+print(json.dumps(out))
+"""
+# the kernels each exported program must have launched in the fresh process
+EXPORT_KERNELS = {"sampler-int8": ("quantize_int8", "int8_conv", "bn_stats",
+                                   "bn_apply"),
+                  "reconstructor-None": ("fused_conv2d_bias_act", "bn_stats",
+                                         "bn_apply")}
+
+
+def _int8_export(base, misses):
+    """The cifar10 wali-gp run directory (published width) exported on
+    the card: the sampler int8 (calibrated as the server calibrates, seed
+    11) and the reconstructor float; each loaded in a fresh process and
+    served there through ``--export-dir``'s path over HTTP, its exact
+    requests of 8 and 256 rows held to the run-directory entry's outputs
+    bit for bit, its launches counted there."""
+    import numpy as np
+    from graphical_gan_tpu_torch.serve.export import export_sampler
+    from graphical_gan_tpu_torch.serve.server import sampler_from_run_dir
+    run_dir = os.path.join(base, "run")
+    cases = []
+    for entry, quantize in EXPORT_CASES:
+        name = f"{entry}-{quantize}"
+        t0 = time.perf_counter()
+        info = export_sampler(run_dir, entry=entry, quantize=quantize,
+                              calib_seed=11, out=os.path.join(base, name),
+                              device="cuda")
+        export_s = time.perf_counter() - t0
+        call, kinds, shapes, _ = sampler_from_run_dir(
+            run_dir, entry=entry, device="cuda", quantize=quantize)
+        rng = np.random.default_rng(3)
+        arrays = {}
+        for n in EXPORT_ROWS:
+            inputs = [(rng.random((n,) + tuple(s[1:])) * 255).astype(
+                np.float32) if k == "image" else rng.standard_normal(
+                (n,) + tuple(s[1:]), dtype=np.float32)
+                for k, s in zip(kinds, shapes)]
+            arrays.update({f"{n}_in{i}": a for i, a in enumerate(inputs)})
+            arrays[f"{n}_out"] = call(7, *inputs)
+        data = os.path.join(base, f"{name}.npz")
+        np.savez(data, **arrays)
+        cases.append((name, os.path.dirname(info["blob"]), data))
+        log({"phase": "int8-export", "export": name,
+             "symbolic_batch": info["symbolic_batch"],
+             "draws": [d["name"] for d in info["draws"]],
+             "pt2_bytes": os.path.getsize(info["blob"]),
+             "export_seconds": export_s})
+    code = _EXPORT_SERVE_CODE.format(root=ROOT, cases=cases,
+                                     rows=EXPORT_ROWS, seed=7)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        fail(f"export served in a fresh process: {res.stderr[-3000:]}")
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    for name, rec in got.items():
+        log({"check": "export served through --export-dir", "case": name,
+             **rec})
+        if not all(rec["equal"].values()):
+            misses.append(f"export {name}: outputs differ from the run "
+                          f"directory's {rec['max_abs_diff']}")
+        if not all(rec.get("batched_finite", [True])):
+            misses.append(f"export {name}: a batched request failed")
+        missing = [k for k in EXPORT_KERNELS[name]
+                   if not rec["launches"].get(k)]
+        if missing:
+            misses.append(f"export {name}: {missing} never launched inside "
+                          "the program")
+
+
+def phase_int8(launch_totals, card, int8_out):
+    """The int8 serving path on the card: Q1 and Q2 against their plain
+    versions at every layer of the published samplers (buckets 8, 64, 256;
+    f32 and bf16), timed; the quantized samplers against the CPU's; the
+    cifar10 dispatch int8 against float; the server with --quantize int8
+    over HTTP, its launches counted from zero; then the run directory
+    exported (torch.export) float and int8 and served from the artifacts
+    in a fresh process, bit for bit against the run directory."""
+    base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
+                        "smoke_int8")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    misses, timings = [], []
+    t0 = time.perf_counter()
+    err, checked = _int8_sampler_checks(card, timings, misses)
+    log({"check": "Q1/Q2 at the samplers' layers", **checked, **err,
+         "misses": misses[:20],
+         "seconds": round(time.perf_counter() - t0, 3)})
+    for part, fn, args in (("e2e", _int8_e2e, (misses,)),
+                           ("dispatch", _int8_dispatch, (card,)),
+                           ("serve", _int8_serve, (base, launch_totals)),
+                           ("export", _int8_export, (base, misses))):
+        t0 = time.perf_counter()
+        fn(*args)
+        log({"int8_seconds": part,
+             "seconds": round(time.perf_counter() - t0, 3)})
+    for r in timings:
+        log({"phase": "int8-export", **r})
+    int8_out.update(err=err, timings=timings)
+    if misses:
+        fail(f"int8-export: {misses[:20]}")
+
+
 SOURCES = {
     "fused_conv2d_bias_act": (
         "graphical_gan_tpu_torch/csrc/fused_conv.cu",
@@ -3875,6 +4613,8 @@ SOURCES = {
 SERVE_KERNELS = ("fused_conv2d_bias_act", "bn_stats", "bn_apply")
 TRAIN_KERNELS = SERVE_KERNELS + ("bn_bwd",)
 K3_KERNELS = ("conv_gemm_taps", "conv_gemm_im2col")
+# the int8 sampler: Q1, Q2, and G's batch-stat BN in float (K2a, K2b)
+INT8_KERNELS = ("quantize_int8", "int8_conv", "bn_stats", "bn_apply")
 
 
 # K1's summary rows: (dtype, B, the run whose launches they count)
@@ -3949,7 +4689,7 @@ def _bn_rows(timings, name):
     return out
 
 
-def summary(errs, timings, launches):
+def summary(errs, timings, launches, int8_out):
     """One entry per kernel. The forward kernels' times are summed over the
     shapes of one reconstructor dispatch at B=256 in f32 (K1 adds ``rows``:
     f32 and bf16 at B=64 and 256; K2a too, per shape with its units);
@@ -3963,9 +4703,10 @@ def summary(errs, timings, launches):
     ``launches_loaders`` / ``_eval`` / ``_learn`` / ``_step_options`` /
     ``_family2`` / ``_cluster`` / ``_family2_learn`` / ``_family3`` /
     ``_family3_serve`` / ``_family3_learn`` / ``_tools`` / ``_fault4`` /
-    ``_phase_deconv`` those phases' runs (K1's ``_phase_deconv``: the phase
-    route at the eight bench shapes); K1 adds
-    ``family3_rows``, its times at family 3's shapes (B 50 videos)."""
+    ``_phase_deconv`` / ``_int8`` those phases' runs (K1's
+    ``_phase_deconv``: the phase route at the eight bench shapes); K1 adds
+    ``family3_rows``, its times at family 3's shapes (B 50 videos). Q1
+    and Q2 follow (:func:`_int8_summary`)."""
     out = []
     for name, (src, replaces) in SOURCES.items():
         k3 = name in K3_KERNELS
@@ -3997,7 +4738,8 @@ def summary(errs, timings, launches):
                                     "step_options", "family2", "cluster",
                                     "family2_learn", "family3",
                                     "family3_serve", "family3_learn",
-                                    "tools", "fault4", "phase_deconv")},
+                                    "tools", "fault4", "phase_deconv",
+                                    "int8")},
                     "max_abs_err": errs[name],
                     "ms": total("ms"), "plain_ms": total("plain_ms"),
                     "bound_ms": total("bound_ms"),
@@ -4019,7 +4761,55 @@ def summary(errs, timings, launches):
         if name == "bn_bwd":  # max_abs_err is dx's; red sums R terms
             out[-1]["red_max_abs_err"] = errs["bn_bwd_red"]
             out[-1]["rows"] = _bn_rows(timings, name)
+    out += _int8_summary(launches["int8"], int8_out)
     return {"kernels": out}
+
+
+INT8_SOURCES = {
+    "quantize_int8": ("graphical_gan_tpu_torch/csrc/quant.cu",
+                      "graphical_gan_tpu/ops/quant.py:103"),
+    # the three int8 contractions of the intercepts (XLA, no Pallas kernel)
+    "int8_conv": ("graphical_gan_tpu_torch/csrc/quant.cu",
+                  "graphical_gan_tpu/ops/quant.py:131, "
+                  "graphical_gan_tpu/ops/quant.py:149, "
+                  "graphical_gan_tpu/ops/quant.py:167"),
+}
+
+
+def _int8_summary(launches, int8_out):
+    """Q1 and Q2: times summed over one int8 cifar10 sampler dispatch at
+    B=256 in f32 (Q1 its activations: the weights are quantized once, at
+    the sampler's first call), launches from the int8 serving run; ``rows``
+    every timed shape. No PyTorch call computes Q1 (torch's
+    quantize_per_tensor multiplies by the scale's inverse and clamps to
+    -128) or a conv of Q2, so their library_ms is null; Q2's dense rows
+    carry torch._int_mm's time where it takes the shape."""
+    out = []
+    err = int8_out["err"]
+    for name, (src, replaces) in INT8_SOURCES.items():
+        rows = [r for r in int8_out["timings"] if r["kernel"] == name]
+        main = [r for r in rows if r["family"] == "gan_inference"
+                and r["B"] == 256 and r["dtype"] == "float32"]
+        ops_ms = sum(r["bound_ms"] for r in main
+                     if r["bound_by"] == "operations")
+        bytes_ms = sum(r["bound_ms"] for r in main
+                       if r["bound_by"] == "bytes")
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches.get(name, 0),
+            "max_abs_err": (err["q1"] if name == "quantize_int8"
+                            else err["q2_out"]),
+            **({"sums_max_abs_err": err["q2_sums"]}
+               if name == "int8_conv" else {}),
+            "ms": sum(r["ms"] for r in main),
+            "plain_ms": sum(r["plain_ms"] for r in main),
+            "bound_ms": sum(r["bound_ms"] for r in main),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None,
+            "summed_over": "one int8 cifar10 sampler dispatch, B=256, f32",
+            "rows": [{k: r[k] for k in r if k not in ("kernel", "card")}
+                     for r in rows]})
+    return out
 
 
 def _timed(name, fn, *args):
@@ -4068,7 +4858,8 @@ def main(argv=None) -> int:
                     "step_options": {}, "family2": {}, "cluster": {},
                     "family2_learn": {}, "family3": {}, "family3_serve": {},
                     "family3_learn": {}, "tools": {}, "fault4": {},
-                    "phase_deconv": {}}
+                    "phase_deconv": {}, "int8": {}}
+        int8_out = {}
         _timed("build", phase_build)
         _timed("check", phase_check, errs)
         _timed("time", phase_time, timings)
@@ -4078,6 +4869,7 @@ def main(argv=None) -> int:
         if missing:
             fail(f"kernels never launched on the serving path: {missing}")
         _timed("dispatch", phase_dispatch, run_dirs)
+        _timed("int8-export", phase_int8, launches["int8"], card, int8_out)
         data = images_int(50_000, 3072, seed=0).astype(np.uint8)
         _timed("train", phase_train, launches["train"], data,
                launches["k1"])
@@ -4120,7 +4912,8 @@ def main(argv=None) -> int:
                            ("family3_learn", ("fused_conv2d_bias_act",)),
                            ("tools", TRAIN_KERNELS),
                            ("fault4", TRAIN_KERNELS),
-                           ("phase_deconv", ("fused_conv2d_bias_act",))):
+                           ("phase_deconv", ("fused_conv2d_bias_act",)),
+                           ("int8", INT8_KERNELS)):
             missing = [k for k in want if not launches[path].get(k)]
             if missing:
                 fail(f"kernels never launched on the {path} path: "
@@ -4131,7 +4924,7 @@ def main(argv=None) -> int:
                     if m in sys.modules]
         if imported:
             fail(f"imported {imported}, which the card's machine lacks")
-        log(summary(errs, timings, launches))
+        log(summary(errs, timings, launches, int8_out))
         log({"phase": "done", "seconds": round(time.perf_counter() - t_start,
                                                1)})
         print(card, flush=True)

@@ -6,7 +6,7 @@ card is an error, never a silent fall back to the CPU.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Dict, Union
 
 import torch
 
@@ -23,6 +23,23 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     return dev
 
 
+#: the numerics below as ``torch.backends.<name>: value`` (an exported
+#: program's manifest carries them: ``serve/export.py``)
+NUMERICS = {"cudnn.allow_tf32": False, "cuda.matmul.allow_tf32": False,
+            "cuda.matmul.allow_bf16_reduced_precision_reduction": False,
+            "cudnn.deterministic": True}
+
+
+def apply_numerics(numerics: Dict[str, bool]) -> None:
+    """Set ``torch.backends.<name> = value`` for each entry."""
+    for name, value in numerics.items():
+        obj = torch.backends
+        *path, attr = name.split(".")
+        for part in path:
+            obj = getattr(obj, part)
+        setattr(obj, attr, value)
+
+
 def set_numerics() -> None:
     """The numerics the server and the trainer both run with: full f32
     products and convolutions (cuDNN runs f32 convolutions, and their
@@ -32,7 +49,4 @@ def set_numerics() -> None:
     cuDNN algorithms, so that the same inputs give the same bits:
     exact-mode requests as in the JAX server, and training steps from one
     seed, as ``tools/determinism.py`` audits for the JAX step."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    torch.backends.cudnn.deterministic = True
+    apply_numerics(NUMERICS)

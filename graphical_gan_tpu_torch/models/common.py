@@ -4,12 +4,38 @@ of a loss's random numbers."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import threading
+from contextlib import contextmanager
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from graphical_gan_tpu_torch.ops.activations import activation
 from graphical_gan_tpu_torch.ops.norm import batchnorm_act
+
+_log = threading.local()
+
+
+@contextmanager
+def recording_draws(log: List[dict]):
+    """Append to ``log`` every draw a :class:`Draws` makes from its
+    generator while the block runs (not the given ones), in order: its
+    ``kind`` (normal, uniform, randint), ``name``, ``shape``, ``dtype`` and
+    ``high``. ``serve/export.py`` learns from it which draws an entry makes,
+    to draw them outside the exported program."""
+    _log.draws = log
+    try:
+        yield log
+    finally:
+        _log.draws = None
+
+
+def _logged(kind: str, name: str, shape, dtype: torch.dtype, high=None):
+    log = getattr(_log, "draws", None)
+    if log is not None:
+        log.append({"kind": kind, "name": name, "shape": list(shape),
+                    "dtype": str(dtype).replace("torch.", ""),
+                    "high": high})
 
 
 class Draws:
@@ -39,6 +65,7 @@ class Draws:
                device) -> torch.Tensor:
         t = self._given(name, shape, dtype, device)
         if t is None:
+            _logged("normal", name, shape, dtype)
             t = torch.randn(tuple(shape), generator=self.generator,
                             device=device, dtype=dtype)
         return t
@@ -48,6 +75,7 @@ class Draws:
         """U[0, 1) in f32."""
         t = self._given(name, shape, torch.float32, device)
         if t is None:
+            _logged("uniform", name, shape, torch.float32)
             t = torch.rand(tuple(shape), generator=self.generator,
                            device=device)
         return t
@@ -57,6 +85,7 @@ class Draws:
         """Integers in [0, high), int64."""
         t = self._given(name, shape, torch.int64, device)
         if t is None:
+            _logged("randint", name, shape, torch.int64, high)
             t = torch.randint(0, high, tuple(shape), generator=self.generator,
                               device=device)
         return t

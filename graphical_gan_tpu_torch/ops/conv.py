@@ -36,6 +36,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from graphical_gan_tpu_torch.ops import quant
 from graphical_gan_tpu_torch.ops.kernels.fused_conv import (
     conv2d_bias_act, same_pads)
 from graphical_gan_tpu_torch.ops.phase_deconv import (
@@ -47,9 +48,17 @@ def conv2d(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
            act: Optional[str] = None) -> torch.Tensor:
     """act(conv2d(x) + bias); x [B, H, W, Cin] NHWC, ``name.Filters`` HWIO,
     ``name.Biases`` [Cout]. Every conv of the ported networks has a bias;
-    the JAX ``biases=False`` form comes when a caller needs it."""
-    return conv2d_bias_act(x.contiguous(), params[name + ".Filters"],
-                           params[name + ".Biases"], stride, padding, act)
+    the JAX ``biases=False`` form comes when a caller needs it.
+
+    Inside an int8 context (``ops/quant.py``) the product runs on Q1/Q2
+    instead of K1, and bias and act follow in float, as JAX's
+    ``ops/conv.py:114-126`` does."""
+    w = params[name + ".Filters"]
+    q = quant.intercept_conv2d(name, x, w, stride, padding)
+    if q is not None:
+        return quant.bias_act(q, params[name + ".Biases"], act)
+    return conv2d_bias_act(x.contiguous(), w, params[name + ".Biases"],
+                           stride, padding, act)
 
 
 def deconv2d(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
@@ -67,6 +76,11 @@ def deconv2d(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
             "a later slice of the port")
     w = params[name + ".Filters"]
     bias = params[name + ".Biases"]
+    # serving-side int8 context (ops/quant.py), before the phase gate, as
+    # JAX's ops/conv.py:167-179
+    q = quant.intercept_deconv2d(name, x, w, stride, padding)
+    if q is not None:
+        return q + bias.to(q.dtype)
     if stride == 2 and use_phase_deconv():
         return conv_transpose_phase(x, w, bias)
     return conv_transpose(x, w, bias, stride)

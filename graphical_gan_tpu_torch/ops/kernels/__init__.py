@@ -13,6 +13,8 @@ from graphical_gan_tpu_torch.ops.kernels.fused_conv import (  # noqa: F401
     conv2d_bias_act, fused_conv2d_bias_act)
 from graphical_gan_tpu_torch.ops.kernels.fused_norm import (  # noqa: F401
     bn_apply, bn_bwd, bn_stats, fused_batchnorm_act)
+from graphical_gan_tpu_torch.ops.kernels.quant import (  # noqa: F401
+    int8_conv, quantize_int8)
 
 #: every kernel wrapper, by the name chip_smoke.py reports
 WRAPPERS = {
@@ -22,6 +24,8 @@ WRAPPERS = {
     "bn_bwd": bn_bwd,
     "conv_gemm_taps": conv_gemm_taps,
     "conv_gemm_im2col": conv_gemm_im2col,
+    "quantize_int8": quantize_int8,
+    "int8_conv": int8_conv,
 }
 
 

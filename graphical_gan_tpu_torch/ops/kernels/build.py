@@ -66,6 +66,12 @@ _SIGNATURES = {
     # stride, pad_h, pad_w, act, leak, bm, bn, splits, per, stream
     "ggan_conv_gemm_tma": [_P] * 6 + [_I] * 12 + [ctypes.c_float]
     + [_I] * 4 + [_P],
+    # x, scales, scalar, C, inner, q, dtype, n, vec, stream
+    "ggan_quantize_int8": [_P, _P, ctypes.c_float, _I, ctypes.c_longlong, _P,
+                           _I, ctypes.c_longlong, _I, _P],
+    # x, w, factor, y, out, B, H, W, Cin, KH, KW, Cout, OH, OW, stride,
+    # pad_h, pad_w, avec, wvec, stream
+    "ggan_int8_conv": [_P] * 4 + [_I] * 15 + [_P],
 }
 
 _lock = threading.Lock()
@@ -222,3 +228,17 @@ def check(code: int, name: str) -> None:
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def run_op(op, cuda_impl, x, *args):
+    """A kernel wrapper's call on CUDA: through its ``torch.library`` op
+    ``op`` where ``torch.export`` or ``torch.compile`` traces it (``x`` is
+    then a fake or functional tensor), so the program records the op;
+    straight to the op's CUDA implementation ``cuda_impl`` in eager mode,
+    where the dispatcher costs the host 5-46 µs a call, 3.9 ms of a
+    published cifar10 wali-gp f32 iteration (the H100 machine's host;
+    PERF.md §6). Both run the same function, which counts the launch."""
+    import torch
+    if type(x) is torch.Tensor and not torch.compiler.is_compiling():
+        return cuda_impl(x, *args)
+    return op(x, *args)

@@ -14,8 +14,11 @@ ways the K loop is split; the split partials are summed in a fixed order
 by a second kernel, so a call is deterministic. See the source for the
 design.
 
-On a CUDA tensor :func:`fused_conv2d_bias_act` launches the plan's kernels
-or raises; on a CPU tensor it computes :func:`fused_conv2d_bias_act_plain`,
+On a CUDA tensor :func:`fused_conv2d_bias_act` calls the op
+``ggan::fused_conv2d_bias_act`` (a ``torch.library.custom_op``, so
+``torch.export`` traces through it), which launches the plan's kernels or
+raises; on a CPU tensor it computes :func:`fused_conv2d_bias_act_plain`
+(whose aten ops CPU traces and FLOP counters see),
 the same function in plain PyTorch (the CPU tests and ``chip_smoke.py``
 compare against it). :func:`conv2d_bias_act` is the JAX
 ``fused_conv2d_bias_act`` with its custom VJP (:class:`FusedConv2dBiasAct`):
@@ -30,7 +33,7 @@ import contextlib
 import functools
 import threading
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -78,6 +81,21 @@ def explicit_pads(padding):
         raise ValueError(f"explicit padding must be ((lo, hi), (lo, hi)) "
                          f"of non-negative ints, got {padding!r}")
     return pads
+
+
+def pad_spec(padding) -> Tuple[str, List[int]]:
+    """:func:`explicit_pads`' form as an op's arguments: "SAME" or "VALID"
+    with no pads, or "EXPLICIT" with ``[lo_h, hi_h, lo_w, hi_w]``."""
+    if isinstance(padding, str):
+        return padding, []
+    return "EXPLICIT", [p for axis in padding for p in axis]
+
+
+def pad_of(mode: str, pads: List[int]):
+    """The padding :func:`pad_spec` encoded."""
+    if mode != "EXPLICIT":
+        return mode
+    return (int(pads[0]), int(pads[1])), (int(pads[2]), int(pads[3]))
 
 
 def _axes(padding):
@@ -254,7 +272,8 @@ def fused_conv2d_bias_act(x: torch.Tensor, w: torch.Tensor,
                           act: Optional[str] = None) -> torch.Tensor:
     """K1: act(conv2d(x, w, stride, padding) + bias): on CUDA the
     :func:`plan`'s mainloop kernel, and its split-K reduce where the plan
-    splits K; one count in ``launches`` per call.
+    splits K; one count in ``launches`` per call. On CUDA it runs as the
+    op ``ggan::fused_conv2d_bias_act``.
 
     x: [B, H, W, Cin] contiguous NHWC; w: [KH, KW, Cin, Cout] (HWIO);
     bias: [Cout]; padding "SAME", "VALID" or per-axis ``((lo, hi), (lo,
@@ -270,13 +289,39 @@ def fused_conv2d_bias_act(x: torch.Tensor, w: torch.Tensor,
         return fused_conv2d_bias_act_plain(x, w, bias, stride, padding, act)
     if x.device.type != "cuda":
         raise RuntimeError(f"fused_conv2d_bias_act: no kernel for {x.device}")
+    if act not in build.ACT_CODES:
+        raise ValueError(f"unknown activation {act!r}")
+    mode, pads = pad_spec(padding)
+    return build.run_op(_k1, _k1_cuda, x, w, bias, stride, mode, pads,
+                        act or "")
+
+
+@torch.library.custom_op("ggan::fused_conv2d_bias_act", mutates_args=(),
+                         device_types="cpu")
+def _k1(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, stride: int,
+        padding: str, pads: List[int], act: str) -> torch.Tensor:
+    """K1 on CPU tensors (a program exported on the card, run on the
+    CPU): the plain version."""
+    return fused_conv2d_bias_act_plain(x, w, bias, stride,
+                                       pad_of(padding, pads), act or None)
+
+
+@_k1.register_fake
+def _k1_fake(x, w, bias, stride, padding, pads, act):
+    ph, pw = _axes(pad_of(padding, pads))
+    kh, kw, _, cout = w.shape
+    return x.new_empty((x.shape[0], out_size(x.shape[1], kh, stride, ph),
+                        out_size(x.shape[2], kw, stride, pw), cout))
+
+
+@_k1.register_kernel("cuda")
+def _k1_cuda(x, w, bias, stride, padding, pads, act):
+    padding, act = pad_of(padding, pads), act or None
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_conv2d_bias_act takes f32 or bf16, got "
                         f"{x.dtype}")
     if not x.is_contiguous():
         raise ValueError("fused_conv2d_bias_act needs a contiguous NHWC x")
-    if act not in build.ACT_CODES:
-        raise ValueError(f"unknown activation {act!r}")
     y = run_plan(x, w, bias, stride, padding, act,
                  plan(tuple(x.shape), tuple(w.shape), stride, padding,
                       x.dtype))

@@ -25,7 +25,9 @@ the grid. All three are bound by bytes (see the source).
 :class:`FusedBatchNormAct` is the JAX ``fused_batchnorm_act`` with its
 custom VJP: K2a then K2b forward, K2c+K2d backward. On a CUDA tensor each
 wrapper launches its kernel or raises; on a CPU tensor it computes its
-plain PyTorch version.
+plain PyTorch version. On CUDA, K2a and K2b run as the ops
+``ggan::bn_stats`` and ``ggan::bn_apply`` (``torch.library.custom_op``s), so
+``torch.export`` traces a serving entry through them.
 """
 
 from __future__ import annotations
@@ -176,9 +178,31 @@ def bn_bwd_plan(r: int, c: int, dtype: torch.dtype,
 def bn_stats(x2d: torch.Tensor, eps: float = EPS
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2a: (mean, var, inv) per column of [R, C], f32 [C] each, views of
-    one [3, C] tensor, in one launch."""
+    one [3, C] tensor, in one launch. On CUDA it runs as the op
+    ``ggan::bn_stats``."""
     if x2d.device.type == "cpu":
         return bn_stats_plain(x2d, eps)
+    if x2d.device.type != "cuda":
+        raise RuntimeError(f"bn_stats: no kernel for {x2d.device}")
+    out = build.run_op(_k2a, _k2a_cuda, x2d, float(eps))
+    return out[0], out[1], out[2]
+
+
+@torch.library.custom_op("ggan::bn_stats", mutates_args=(),
+                         device_types="cpu")
+def _k2a(x2d: torch.Tensor, eps: float) -> torch.Tensor:
+    """K2a on a CPU tensor (a program exported on the card, run on the
+    CPU): the plain version, as one [3, C] tensor."""
+    return torch.stack(bn_stats_plain(x2d, eps))
+
+
+@_k2a.register_fake
+def _k2a_fake(x2d, eps):
+    return x2d.new_empty((3, x2d.shape[1]), dtype=torch.float32)
+
+
+@_k2a.register_kernel("cuda")
+def _k2a_cuda(x2d, eps):
     _check_2d(x2d, "bn_stats")
     r, c = x2d.shape
     p = bn_stats_plan(r, c, x2d.dtype, x2d.data_ptr() % 16 == 0)
@@ -193,18 +217,43 @@ def bn_stats(x2d: torch.Tensor, eps: float = EPS
         p.n_rb, p.smem, p.grid, float(eps), build.stream_ptr(x2d.device))
     build.check(code, "ggan_bn_stats")
     bn_stats.launches += 1
-    return out[0], out[1], out[2]
+    return out
 
 
 def bn_apply(x2d: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
              scale: torch.Tensor, offset: torch.Tensor,
              act: Optional[str] = None) -> torch.Tensor:
-    """K2b: act((x - mean) * (inv * scale) + offset), output in x's dtype."""
+    """K2b: act((x - mean) * (inv * scale) + offset), output in x's dtype.
+    On CUDA it runs as the op ``ggan::bn_apply``."""
     if x2d.device.type == "cpu":
         return bn_apply_plain(x2d, mean, inv, scale, offset, act)
-    _check_2d(x2d, "bn_apply")
+    if x2d.device.type != "cuda":
+        raise RuntimeError(f"bn_apply: no kernel for {x2d.device}")
     if act not in build.ACT_CODES:
         raise ValueError(f"unknown activation {act!r}")
+    return build.run_op(_k2b, _k2b_cuda, x2d, mean, inv, scale, offset,
+                        act or "")
+
+
+@torch.library.custom_op("ggan::bn_apply", mutates_args=(),
+                         device_types="cpu")
+def _k2b(x2d: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
+         scale: torch.Tensor, offset: torch.Tensor, act: str
+         ) -> torch.Tensor:
+    """K2b on a CPU tensor (a program exported on the card, run on the
+    CPU): the plain version."""
+    return bn_apply_plain(x2d, mean, inv, scale, offset, act or None)
+
+
+@_k2b.register_fake
+def _k2b_fake(x2d, mean, inv, scale, offset, act):
+    return torch.empty_like(x2d)
+
+
+@_k2b.register_kernel("cuda")
+def _k2b_cuda(x2d, mean, inv, scale, offset, act):
+    act = act or None
+    _check_2d(x2d, "bn_apply")
     r, c = x2d.shape
     chan = [t.to(device=x2d.device, dtype=torch.float32).contiguous()
             for t in (mean, inv, scale, offset)]

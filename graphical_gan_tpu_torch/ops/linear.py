@@ -3,7 +3,8 @@
 ``W`` is stored ``[in, out]`` as in the JAX package and cast to the
 activation dtype before the product, as ``linear.py:64`` does. The product
 is a plain ``torch.matmul``: the JAX package computes it outside any Pallas
-kernel.
+kernel. Inside an int8 context (``ops/quant.py``) the 2-D product runs on
+Q1/Q2 instead, as JAX's ``linear.py:59-69`` intercepts it.
 """
 
 from __future__ import annotations
@@ -12,12 +13,17 @@ from typing import Dict
 
 import torch
 
+from graphical_gan_tpu_torch.ops import quant
+
 
 def linear(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
            biases: bool = True) -> torch.Tensor:
     w = params[name + ".W"]
     lead = x.shape[:-1]
-    out = torch.matmul(x.reshape(-1, x.shape[-1]), w.to(x.dtype))
+    x2d = x.reshape(-1, x.shape[-1])
+    out = quant.intercept_linear(name, x2d, w)
+    if out is None:
+        out = torch.matmul(x2d, w.to(x.dtype))
     out = out.reshape(*lead, w.shape[1])
     if biases:
         out = out + params[name + ".b"].to(out.dtype)

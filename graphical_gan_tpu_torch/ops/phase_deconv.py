@@ -61,15 +61,18 @@ def _phase_plan(k: int):
 def _tap_index(k: int, device: torch.device) -> torch.Tensor:
     """[T, T, 4] indices into the k·k taps of the transpose kernel (k·k
     for a zero): window position (jh, jw) of channel group g = 2a + b; one
-    copy per device."""
+    copy per device, made outside inference mode whatever the first
+    caller's mode (an int8 sampler under ``torch.inference_mode``), so a
+    later differentiable call may save it for backward."""
     _, _, T, taps = _phase_plan(k)
-    idx = torch.full((T, T, 4), k * k, dtype=torch.long)
-    for a in (0, 1):
-        for b in (0, 1):
-            for jh, dh in taps[a]:
-                for jw, dw in taps[b]:
-                    idx[jh, jw, 2 * a + b] = dh * k + dw
-    return idx.to(device)
+    with torch.inference_mode(False):
+        idx = torch.full((T, T, 4), k * k, dtype=torch.long)
+        for a in (0, 1):
+            for b in (0, 1):
+                for jh, dh in taps[a]:
+                    for jw, dw in taps[b]:
+                        idx[jh, jw, 2 * a + b] = dh * k + dw
+        return idx.to(device)
 
 
 def _phase_kernel(w_oi: torch.Tensor, k: int):

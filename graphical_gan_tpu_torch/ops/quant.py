@@ -1,0 +1,254 @@
+"""Post-training int8 quantization of the serving path
+(``graphical_gan_tpu/ops/quant.py``).
+
+The serving sampler's convolutions, transposed convolutions and dense
+products consult a thread-local context right before their product
+(``ops/conv.py``, ``ops/linear.py``); model code is unchanged.
+
+Scheme (static PTQ, the JAX package's):
+
+- weights: symmetric int8 per output channel, ``s_w = max(|w|)/127`` in
+  f32 over every axis but the output one (axis 3 of a HWIO filter, axis 2
+  of a transposed conv's ``(k, k, O, I)`` filter, axis 1 of a dense
+  ``[in, out]`` weight), floored at 1e-12;
+- activations: symmetric int8 per tensor, ``s_x`` from a calibration run
+  of the sampler on prior latents (:func:`calibrating`, then
+  :func:`scales_from_records`), floored at 1e-12;
+- ``q = clip(round_half_even(f32(x) / f32(s)), -127, 127)`` (Q1,
+  ``ops/kernels/quant.py: quantize_int8``), int8 x int8 products summed in
+  int32 (Q2, ``int8_conv``), then ``f32(acc) * (f32(s_x) * s_w)`` cast to
+  x's dtype; bias and activation stay in float after it.
+
+A transposed conv quantizes its whole ``(k, k, O, I)`` filter per ``o``
+first and then gathers the int8 taps of its phase filter
+(``ops/phase_deconv.py: _phase_kernel``): one stride-1 Q2 conv to 4·O
+channels, each taking its ``o``'s factor, then the depth-to-space. A dense
+layer is a 1x1 Q2 conv over ``[M, 1, 1, K]``.
+
+With no context active (the default, and always in training) every
+intercept returns None and the float path runs as it did. The weights are
+quantized once per context's weight cache (``quantized(scales,
+weights)``): a sampler built for int8 serving keeps one cache, so its
+weights are quantized at its first call and reused after.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import threading
+from contextlib import contextmanager
+from typing import Dict, Optional
+
+import torch
+
+from graphical_gan_tpu_torch.ops.activations import LEAKY_ALPHA, activation
+from graphical_gan_tpu_torch.ops.kernels.fused_conv import _pads
+from graphical_gan_tpu_torch.ops.kernels.quant import (
+    int8_conv, quantize_int8)
+
+_state = threading.local()
+SCALE_FLOOR = 1e-12
+
+
+def _mode() -> Optional[str]:
+    return getattr(_state, "mode", None)
+
+
+@contextmanager
+def calibrating(records: Dict[str, float]):
+    """Record each intercepted layer's input absmax into ``records``
+    (eager runs only)."""
+    if _mode() is not None:
+        raise RuntimeError(f"quant context already active: {_mode()}")
+    _state.mode, _state.records = "calib", records
+    try:
+        yield records
+    finally:
+        _state.mode = _state.records = None
+
+
+@contextmanager
+def quantized(scales: Dict[str, float],
+              weights: Optional[Dict[str, tuple]] = None):
+    """Run the intercepted layers on the int8 path with the calibrated
+    activation ``scales``. ``weights`` is the cache of quantized weights
+    by layer name; pass the same dict to every call of one sampler to
+    quantize its weights once."""
+    if _mode() is not None:
+        raise RuntimeError(f"quant context already active: {_mode()}")
+    _state.mode, _state.scales = "int8", dict(scales)
+    _state.weights = {} if weights is None else weights
+    try:
+        yield
+    finally:
+        _state.mode = _state.scales = _state.weights = None
+
+
+def _traced(x) -> bool:
+    """A FakeTensor (torch.export's tracing) or a torch.compile trace; a
+    process that never imported the fake-tensor module holds none."""
+    fake = sys.modules.get("torch._subclasses.fake_tensor")
+    return ((fake is not None and isinstance(x, fake.FakeTensor))
+            or torch.compiler.is_compiling())
+
+
+def _record(name: str, x: torch.Tensor) -> None:
+    if _traced(x):
+        raise RuntimeError(
+            "quant calibration must run eagerly (not under torch.compile "
+            f"or torch.export) so input ranges can be read; layer {name!r} "
+            "saw a traced tensor")
+    records = _state.records
+    absmax = float(x.detach().abs().max())
+    records[name] = max(absmax, records.get(name, 0.0))
+
+
+def _act_scale(name: str) -> float:
+    try:
+        s = _state.scales[name]
+    except KeyError:
+        raise KeyError(
+            f"no calibrated activation scale for layer {name!r} — the "
+            "calibration run did not cover this layer (model/config "
+            "mismatch between calibrate and quantize?)")
+    return max(float(s), SCALE_FLOOR)
+
+
+def weight_scales(w: torch.Tensor, out_axis: int) -> torch.Tensor:
+    """``max(|w|)/127`` over every axis but ``out_axis``, floored at 1e-12,
+    in w's dtype (JAX's ``_w_scales``). The divisor is a tensor on w's
+    device: PyTorch's CUDA division by a Python number multiplies by its
+    reciprocal, which is not the IEEE quotient JAX computes."""
+    axes = tuple(i for i in range(w.ndim) if i != out_axis)
+    qmax = torch.tensor(127.0, dtype=w.dtype, device=w.device)
+    return torch.clamp_min(w.abs().amax(dim=axes) / qmax, SCALE_FLOOR)
+
+
+def _factor(s_x: float, s_w: torch.Tensor) -> torch.Tensor:
+    """``f32(s_x) * s_w`` as JAX's weak typing computes it (in s_w's
+    dtype), then f32 for Q2's epilogue."""
+    return (torch.tensor(s_x, dtype=s_w.dtype, device=s_w.device) * s_w
+            ).float()
+
+
+def _prepared(name: str, w: torch.Tensor, kind: str, s_x: float):
+    """(int8 filter, f32 factor) of layer ``name``, from the context's
+    cache while ``w`` is the tensor it was made from, or is its trace
+    (``torch.export`` of an entry whose cache an eager call filled: the
+    program then holds the cached int8 weights as constants)."""
+    cache = _state.weights
+    hit = cache.get(name)
+    if hit is not None and (hit[0] is w or _traced(w)) and hit[1] == s_x:
+        return hit[2], hit[3]
+    if kind == "conv2d":          # HWIO
+        s_w = weight_scales(w, 3)
+        wq = quantize_int8(w.contiguous(), s_w.float(), axis=3)
+        factor = _factor(s_x, s_w)
+    elif kind == "deconv2d":      # (k, k, O, I): per o, then the phase taps
+        from graphical_gan_tpu_torch.ops.phase_deconv import _phase_kernel
+        s_w = weight_scales(w, 2)
+        wq_full = quantize_int8(w.contiguous(), s_w.float(), axis=2)
+        wq = _phase_kernel(wq_full, int(w.shape[0]))[0].contiguous()
+        factor = _factor(s_x, s_w).repeat(4)
+    else:                         # linear [in, out] as a 1x1 HWIO filter
+        s_w = weight_scales(w, 1)
+        wq = quantize_int8(w.contiguous(), s_w.float(), axis=1)
+        wq = wq.reshape(1, 1, *w.shape)
+        factor = _factor(s_x, s_w)
+    cache[name] = (w, s_x, wq, factor)
+    return wq, factor
+
+
+def intercept_conv2d(name: str, x: torch.Tensor, w: torch.Tensor,
+                     stride: int, padding) -> Optional[torch.Tensor]:
+    """int8 path of ``ops.conv.conv2d`` (HWIO filter): the dequantized
+    conv, without bias, or None where the float path runs (no context, or
+    calibration after recording)."""
+    mode = _mode()
+    if mode is None:
+        return None
+    if mode == "calib":
+        _record(name, x)
+        return None
+    s_x = _act_scale(name)
+    wq, factor = _prepared(name, w, "conv2d", s_x)
+    pads = _pads(x.shape[1], x.shape[2], w.shape[0], w.shape[1], stride,
+                 padding)
+    return int8_conv(quantize_int8(x.contiguous(), s_x), wq, factor, stride,
+                     pads, x.dtype)
+
+
+def intercept_deconv2d(name: str, x: torch.Tensor, w: torch.Tensor,
+                       stride: int, padding: str) -> Optional[torch.Tensor]:
+    """int8 path of ``ops.conv.deconv2d`` (``(k, k, O, I)`` filter), SAME
+    at stride 2, through the phase route: one stride-1 Q2 conv to 4·O
+    channels, then the depth-to-space; without bias."""
+    mode = _mode()
+    if mode is None:
+        return None
+    if mode == "calib":
+        _record(name, x)
+        return None
+    if stride != 2 or padding != "SAME":
+        raise NotImplementedError(
+            "the int8 transposed conv takes the phase route: stride 2, SAME "
+            f"(got stride {stride}, {padding!r})")
+    from graphical_gan_tpu_torch.ops.phase_deconv import _phase_plan
+    s_x = _act_scale(name)
+    wq, factor = _prepared(name, w, "deconv2d", s_x)
+    pl, pr = _phase_plan(int(w.shape[0]))[:2]
+    out4 = int8_conv(quantize_int8(x.contiguous(), s_x), wq, factor, 1,
+                     ((pl, pr), (pl, pr)), x.dtype)
+    b, h, wd = out4.shape[:3]
+    o = int(w.shape[2])
+    out = out4.reshape(b, h, wd, 2, 2, o).permute(0, 1, 3, 2, 4, 5)
+    return out.reshape(b, 2 * h, 2 * wd, o)
+
+
+def intercept_linear(name: str, x2d: torch.Tensor, w: torch.Tensor
+                     ) -> Optional[torch.Tensor]:
+    """int8 path of ``ops.linear.linear`` (2-D x, ``[in, out]`` weight), a
+    1x1 Q2 conv over ``[M, 1, 1, K]``; without bias."""
+    mode = _mode()
+    if mode is None:
+        return None
+    if mode == "calib":
+        _record(name, x2d)
+        return None
+    s_x = _act_scale(name)
+    wq, factor = _prepared(name, w, "linear", s_x)
+    m, k = x2d.shape
+    xq = quantize_int8(x2d.contiguous(), s_x).reshape(m, 1, 1, k)
+    out = int8_conv(xq, wq, factor, 1, "VALID", x2d.dtype)
+    return out.reshape(m, w.shape[1])
+
+
+def bias_act(y: torch.Tensor, bias: torch.Tensor, act: Optional[str]
+             ) -> torch.Tensor:
+    """``act(y + bias)`` in y's dtype after an int8 product, as JAX's
+    ``ops/conv.py:114-126`` applies them: the leaky slope is a weak-typed
+    Python float there, so it is rounded to y's dtype before the product
+    (0.2001953125 in bf16)."""
+    y = y + bias.to(y.dtype)
+    if act == "leaky_relu":
+        return torch.maximum(
+            y * torch.tensor(LEAKY_ALPHA, dtype=y.dtype, device=y.device), y)
+    return activation(act)(y)
+
+
+def scales_from_records(records: Dict[str, float]) -> Dict[str, float]:
+    """Calibration absmax records to activation scales."""
+    return {k: max(v, SCALE_FLOOR) / 127.0 for k, v in records.items()}
+
+
+def save_scales(path: str, scales: Dict[str, float]) -> None:
+    """The JAX package's ``act_scales.json`` format."""
+    with open(path, "w") as f:
+        json.dump({k: float(v) for k, v in scales.items()}, f, indent=1,
+                  sort_keys=True)
+
+
+def load_scales(path: str) -> Dict[str, float]:
+    with open(path) as f:
+        return {k: float(v) for k, v in json.load(f).items()}

@@ -26,14 +26,21 @@ batcher and a stdlib HTTP front, around an entry of a trained run directory
 CLI::
 
     python -m graphical_gan_tpu_torch.serve.server --run-dir R \\
-        --entry {sampler,encoder,reconstructor,cluster} [--device cpu]
+        --entry {sampler,encoder,reconstructor,cluster} [--device cpu] \\
+        [--quantize int8]
+    python -m graphical_gan_tpu_torch.serve.server --export-dir R/export
 
 The entry runs on ``cuda`` unless ``--device cpu`` is given; without a card
 it refuses to start. ``--compile-cache DIR`` (or ``GGAN_COMPILE_CACHE``)
 builds and loads the CUDA kernel library in DIR before the entry is built
 (``core/compile_cache.py``), so a replica pointing at a shared directory
-starts with no ``nvcc`` run. ``--export-dir``, ``--quantize`` and
-``--dp-devices`` of the JAX server are not offered yet.
+starts with no ``nvcc`` run. ``--quantize int8`` serves the sampler
+entry through the int8 path (``ops/quant.py``, the Q1/Q2 kernels), its
+activation scales calibrated on prior latents from seed 11
+(``serve/quantize.py``), as the JAX server does. ``--export-dir`` serves
+an artifact of ``serve/export.py`` instead of a run directory: the
+program and its manifest, no model code, on the device it was exported on.
+``--dp-devices`` of the JAX server is not offered yet.
 
 HTTP surface (identical to the JAX server's; see ``serve/client.py``):
 
@@ -358,12 +365,15 @@ class BatchingSampler:
 
 def sampler_from_run_dir(run_dir: str, entry: str = "sampler",
                          device: Union[str, torch.device] = "cuda",
-                         ckpt: Optional[str] = None):
+                         ckpt: Optional[str] = None,
+                         quantize: Optional[str] = None):
     """(call, kinds, input_shapes, identity) from a trained run directory.
 
     ``call(seed, *inputs)`` takes numpy inputs, runs the entry on
     ``device`` (``cuda`` unless the caller asks for ``cpu``; a missing card
     raises) and returns a float32 numpy array. Calls are serialized.
+    ``quantize="int8"`` calibrates the sampler (seed 11) and serves it on
+    the int8 path (JAX ``serve/server.py:423-436``).
     """
     from graphical_gan_tpu_torch.core.device import (
         resolve_device, set_numerics)
@@ -379,6 +389,15 @@ def sampler_from_run_dir(run_dir: str, entry: str = "sampler",
         raise FileNotFoundError(f"no ckpt_*.npz under {run_dir}")
     params, extra = restore_params(model, path, dev)
     fn, example, kinds = make_entry(family, model, entry)
+    if quantize == "int8":
+        if entry != "sampler":
+            raise ValueError("--quantize int8 calibrates on prior latents "
+                             "and applies to the sampler entry only")
+        from graphical_gan_tpu_torch.serve.quantize import (
+            calibrate, quantized_entry)
+        fn = quantized_entry(fn, calibrate(family, model, params, 11))
+    elif quantize not in (None, "none"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
     lock = threading.Lock()
 
     def call(seed: int, *inputs: np.ndarray) -> np.ndarray:
@@ -391,9 +410,37 @@ def sampler_from_run_dir(run_dir: str, entry: str = "sampler",
                 "output": ENTRY_OUTPUT.get(entry, "images"),
                 "checkpoint": os.path.basename(path),
                 "iteration": int(extra.get("iteration", -1)),
-                "quantization": "none", "device": str(dev),
+                "quantization": quantize or "none", "device": str(dev),
                 "compute_dtype": cfg.compute_dtype}
     return call, kinds, [tuple(a.shape) for a in example], identity
+
+
+def sampler_from_export(export_dir: str):
+    """(call, kinds, input_shapes, identity) from an export directory
+    (``serve/export.py``): the program and its manifest alone, with no
+    model code, so it serves artifacts made elsewhere, int8 ones included.
+    The program runs on the device it was exported on."""
+    from graphical_gan_tpu_torch.serve.export import load_sampler
+
+    with open(os.path.join(export_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    program = load_sampler(os.path.join(export_dir, manifest["blob"]))
+    lock = threading.Lock()
+
+    def call(seed: int, *inputs: np.ndarray) -> np.ndarray:
+        with lock:
+            return program(seed, *inputs).float().cpu().numpy()
+
+    kinds = [inp.get("prior", "normal") for inp in manifest["inputs"]]
+    shapes = [tuple(inp["shape"]) for inp in manifest["inputs"]]
+    identity = {"family": manifest["family"], "backend": "export",
+                "entry": manifest.get("entry", "sampler"),
+                "output": manifest.get("output", "images"),
+                "iteration": manifest.get("iteration", -1),
+                "quantization": manifest.get("quantization", "none"),
+                "symbolic_batch": manifest.get("symbolic_batch", False),
+                "device": manifest["device"]}
+    return call, kinds, shapes, identity
 
 
 # --------------------------------------------------------------------------
@@ -480,17 +527,25 @@ def make_http_server(batcher: BatchingSampler, identity: Dict,
     return ThreadingHTTPServer((host, port), Handler)
 
 
-def serve_run_dir(run_dir: str, entry: str = "sampler",
+def serve_run_dir(run_dir: Optional[str] = None, entry: str = "sampler",
                   device: Union[str, torch.device] = "cuda",
                   ckpt: Optional[str] = None,
                   buckets: Sequence[int] = (8, 64, 256),
                   max_wait_ms: float = 5.0, host: str = "127.0.0.1",
-                  port: int = 8787, warmup: bool = True):
+                  port: int = 8787, warmup: bool = True,
+                  quantize: Optional[str] = None,
+                  export_dir: Optional[str] = None):
     """(httpd, batcher, identity, warmup_s): the server ``main`` runs, not
-    yet serving; the caller runs ``httpd.serve_forever()`` and, at the end,
-    ``httpd.server_close()`` and ``batcher.close()``."""
-    call, kinds, shapes, identity = sampler_from_run_dir(
-        run_dir, entry=entry, device=device, ckpt=ckpt)
+    yet serving, over ``run_dir`` or, given ``export_dir``, an exported
+    program (which carries its entry, quantization and device); the caller
+    runs ``httpd.serve_forever()`` and, at the end, ``httpd.server_close()``
+    and ``batcher.close()``."""
+    if export_dir is not None:
+        call, kinds, shapes, identity = sampler_from_export(export_dir)
+    else:
+        call, kinds, shapes, identity = sampler_from_run_dir(
+            run_dir, entry=entry, device=device, ckpt=ckpt,
+            quantize=quantize)
     batcher = BatchingSampler(call, kinds, shapes, buckets=buckets,
                               max_wait_ms=max_wait_ms)
     warmup_s = None
@@ -508,8 +563,12 @@ def serve_run_dir(run_dir: str, entry: str = "sampler",
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--run-dir", required=True,
-                   help="trained run directory (config.json + ckpt_*.npz)")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--run-dir",
+                     help="trained run directory (config.json + ckpt_*.npz)")
+    src.add_argument("--export-dir",
+                     help="serve a torch.export artifact directory "
+                          "(serve/export.py; <entry>.pt2 + manifest.json)")
     p.add_argument("--ckpt", default=None)
     p.add_argument("--entry", default="sampler",
                    choices=["sampler", "encoder", "reconstructor",
@@ -529,10 +588,16 @@ def main(argv=None) -> int:
                    help="batching window after the first queued request")
     p.add_argument("--no-warmup", action="store_true",
                    help="skip running every bucket before serving")
+    p.add_argument("--quantize", default=None, choices=["none", "int8"],
+                   help="int8 PTQ path (ops/quant.py; sampler entry only)")
     p.add_argument("--compile-cache", default=None, metavar="DIR",
                    help="build and load the CUDA kernel library in DIR "
                         "(also GGAN_COMPILE_CACHE; the flag wins)")
     args = p.parse_args(argv)
+    if args.export_dir and (args.quantize or args.ckpt
+                            or args.entry != "sampler"):
+        p.error("--export-dir serves the artifact as exported; --quantize, "
+                "--ckpt and --entry belong to --run-dir")
     from graphical_gan_tpu_torch.core import compile_cache
     compile_cache.enable_compile_cache(args.compile_cache)
 
@@ -540,7 +605,8 @@ def main(argv=None) -> int:
         args.run_dir, entry=args.entry, device=args.device, ckpt=args.ckpt,
         buckets=[int(b) for b in args.buckets.split(",")],
         max_wait_ms=args.max_wait_ms, host=args.host, port=args.port,
-        warmup=not args.no_warmup)
+        warmup=not args.no_warmup, quantize=args.quantize,
+        export_dir=args.export_dir)
     if warmup_s is not None:
         print(json.dumps({"warmup_s": round(warmup_s, 3),
                           "buckets": batcher.buckets}), flush=True)

@@ -15,7 +15,10 @@ counters (fill ratio, rows per batch, batches), one JSON line each.
     python -m graphical_gan_tpu_torch.tools.bench_server \\
         [--family gan_inference] [--request-sizes 1,8,64] [--clients 16]
         [--requests-per-client 20] [--buckets 8,64,256] [--max-wait-ms 5]
-        [--dtype bfloat16] [--run-dir DIR] [--device cpu]
+        [--dtype bfloat16] [--run-dir DIR] [--quantize int8] [--device cpu]
+
+``--quantize int8`` serves the sampler on the int8 path, calibrated as the
+server calibrates it (``serve/server.py``: seed 11).
 
 Runs on ``cuda`` unless ``--device cpu``; without a card it raises.
 """
@@ -50,14 +53,14 @@ def write_run_dir(run_dir: str, family: str, dtype: str = "bfloat16",
 
 def run_load(run_dir: str, request_size: int, clients: int,
              requests_per_client: int, buckets, max_wait_ms: float,
-             device="cuda") -> dict:
+             device="cuda", quantize=None) -> dict:
     from graphical_gan_tpu_torch.core.device import resolve_device
     from graphical_gan_tpu_torch.serve.client import SamplerClient
     from graphical_gan_tpu_torch.serve.server import serve_run_dir
     dev = resolve_device(device)
     httpd, batcher, identity, _ = serve_run_dir(
         run_dir, "sampler", dev, buckets=buckets, max_wait_ms=max_wait_ms,
-        port=0)
+        port=0, quantize=quantize)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     try:
@@ -116,6 +119,7 @@ def run_load(run_dir: str, request_size: int, clients: int,
             "buckets": list(batcher.buckets),
             "max_wait_ms": max_wait_ms,
             "compute_dtype": identity["compute_dtype"],
+            "quantization": identity["quantization"],
             "device_kind": device_kind(dev),
         }
     finally:
@@ -140,6 +144,8 @@ def main(argv=None) -> int:
                         "from seed 0 at the family's published config)")
     p.add_argument("--dim", type=int, default=None,
                    help="override the model width (smoke/testing)")
+    p.add_argument("--quantize", default=None, choices=["none", "int8"],
+                   help="serve the int8 PTQ sampler (ops/quant.py)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the plain versions)")
     args = p.parse_args(argv)
@@ -151,7 +157,7 @@ def main(argv=None) -> int:
         for n in [int(x) for x in args.request_sizes.split(",")]:
             rec = run_load(run_dir, n, args.clients,
                            args.requests_per_client, buckets,
-                           args.max_wait_ms, args.device)
+                           args.max_wait_ms, args.device, args.quantize)
             print(json.dumps(rec), flush=True)
     return 0
 

@@ -16,7 +16,13 @@ PERF.md §2 (latency at bucket 8, rows/s at bucket 256).
     python -m graphical_gan_tpu_torch.tools.bench_serving \\
         [--families gan_inference,gmgan,ssgan] [--batches 8,64,256]
         [--entry sampler] [--depth 10] [--rounds 5] [--dtype bfloat16]
-        [--run-dir DIR] [--device cpu]
+        [--run-dir DIR] [--quantize int8] [--via-export] [--device cpu]
+
+``--quantize int8`` measures the sampler on the int8 path (``ops/quant.py``:
+the Q1/Q2 kernels), its scales calibrated on 2 batches of prior latents
+from seed 11, as JAX's tool does (``tools/bench_serving.py:88-105``).
+``--via-export`` measures the entry as ``serve/export.py`` exports it,
+through a save and load of the ``torch.export`` program.
 
 Runs on ``cuda`` unless ``--device cpu``; without a card it raises.
 """
@@ -58,9 +64,32 @@ def _inputs(example, kinds, n: int, gen: torch.Generator, device):
     return tuple(out)
 
 
+def _exported(family, model, params, entry, scales, dev):
+    """The entry as ``serve/export.py`` exports it, saved and loaded back
+    (the whole round trip), called as ``fn(params, seed, *inputs)``: its
+    draws from a generator seeded ``seed``, as ``load_sampler`` draws
+    them."""
+    import os
+    import tempfile
+    from graphical_gan_tpu_torch.serve.export import export_entry, replay_draw
+    program, draws, _ = export_entry(family, model, params, entry, scales)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"{entry}.pt2")
+        torch.export.save(program, path)
+        loaded = torch.export.load(path).module()
+
+    def fn(params, seed, *inputs):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        return loaded(*inputs, *[replay_draw(d, inputs[0].shape[0], gen, dev)
+                                 for d in draws])
+    return fn
+
+
 def measure(family: str, batches, depth: int = 10, rounds: int = 5,
             entry: str = "sampler", dtype: str = "bfloat16", device="cuda",
-            run_dir=None, **overrides):
+            run_dir=None, quantize=None, via_export: bool = False,
+            **overrides):
     from graphical_gan_tpu_torch.core.device import (
         resolve_device, set_numerics)
     from graphical_gan_tpu_torch.serve.export import make_entry
@@ -74,6 +103,20 @@ def measure(family: str, batches, depth: int = 10, rounds: int = 5,
     else:
         params = model.init(0, dev)
     fn, example, kinds = make_entry(family, model, entry)
+    scales = None
+    if quantize == "int8":
+        if entry != "sampler":
+            raise ValueError("--quantize int8 applies to the sampler entry "
+                             "only (calibration is prior-latent-based)")
+        from graphical_gan_tpu_torch.serve.quantize import calibrate
+        scales = calibrate(family, model, params, 11, n_batches=2)
+    elif quantize not in (None, "none"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
+    if via_export:
+        fn = _exported(family, model, params, entry, scales, dev)
+    elif scales is not None:
+        from graphical_gan_tpu_torch.serve.quantize import quantized_entry
+        fn = quantized_entry(fn, scales)
     cuda = dev.type == "cuda"
     frames = getattr(model.cfg, "seq_len", 1)
     gen = torch.Generator(device=dev)
@@ -97,6 +140,8 @@ def measure(family: str, batches, depth: int = 10, rounds: int = 5,
                     else f"{family}_{entry}_serving_throughput")
             results.append({
                 "metric": name, "entry": entry, "dtype": dtype,
+                "quantize": quantize or "none",
+                "path": "export" if via_export else "eager",
                 "batch": n, "latency_ms": best * 1e3,
                 "samples_per_sec": n / best,
                 **({"frames_per_sec": n * frames / best}
@@ -124,6 +169,11 @@ def main(argv=None) -> int:
                         "random weights from seed 0, the same compute)")
     p.add_argument("--dim", type=int, default=None,
                    help="override the model width (smoke/testing)")
+    p.add_argument("--quantize", default=None, choices=["none", "int8"],
+                   help="measure the int8 PTQ sampler (ops/quant.py)")
+    p.add_argument("--via-export", action="store_true",
+                   help="measure the entry as serve/export.py exports it "
+                        "(saved and loaded back)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the plain versions)")
     args = p.parse_args(argv)
@@ -132,7 +182,8 @@ def main(argv=None) -> int:
     for family in args.families.split(","):
         for rec in measure(family, batches, args.depth, args.rounds,
                            args.entry, args.dtype, args.device,
-                           args.run_dir, **overrides):
+                           args.run_dir, args.quantize, args.via_export,
+                           **overrides):
             print(json.dumps(rec), flush=True)
     return 0
 

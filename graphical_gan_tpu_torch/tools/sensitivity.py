@@ -57,14 +57,27 @@ def _to_hwc(flat_int, channels, h, w):
     return x.transpose(0, 2, 3, 1).astype(np.float64)
 
 
-def draw_gan_samples(model, params, n, batch=100, seed=0):
+def draw_gan_samples(model, params, n, batch=100, seed=0,
+                     quantize_scales=None):
     """``n`` HWC samples in [0, 255] (float32 numpy) from the generator,
     their codes drawn by a generator on the params' device seeded
-    ``seed * 7919``."""
+    ``seed * 7919``; with ``quantize_scales`` (``serve.quantize.
+    calibrate``) through the int8 serving path."""
     from graphical_gan_tpu_torch.runs.gan_inference import sample_images
-    gen = torch.Generator(device=next(iter(params.values())).device)
+    dev = next(iter(params.values())).device
+    gen = torch.Generator(device=dev)
     gen.manual_seed(seed * 7919)
-    return sample_images(model, params, n, batch, gen)
+    sample = None
+    if quantize_scales:
+        from graphical_gan_tpu_torch.serve.quantize import quantized_entry
+        fn = quantized_entry(lambda p, s, z: model.sample(p, z),
+                             quantize_scales)
+
+        def sample(b):
+            return fn(params, 0, torch.randn((b, model.cfg.dim_latent),
+                                             generator=gen, device=dev))
+    with torch.inference_mode():
+        return sample_images(model, params, n, batch, gen, sample)
 
 
 def parse_args(argv=None):
@@ -91,8 +104,9 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default=None, help="also write the JSON here")
     p.add_argument("--quantize-final", action="store_true",
-                   help="score the final checkpoint through int8 serving "
-                        "(not ported yet: refused)")
+                   help="also score the final checkpoint through the int8 "
+                        "PTQ serving path (ops/quant.py): the quality delta "
+                        "of quantized serving")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
     return p.parse_args(argv)
@@ -112,10 +126,6 @@ def main(argv=None) -> dict:
     from graphical_gan_tpu_torch.train.step import make_train_step
 
     args = parse_args(argv)
-    if args.quantize_final:
-        raise NotImplementedError(
-            "--quantize-final: int8 serving (serve/quantize.py, "
-            "ops/quant.py) is not ported yet (ROADMAP.md §1 item 5)")
     dev = resolve_device(args.device)
     set_numerics()
     t_start = time.time()
@@ -188,11 +198,24 @@ def main(argv=None) -> dict:
         curve.append(entry)
         print(json.dumps({"progress": entry}), flush=True)
 
+    final_int8 = None
+    if args.quantize_final:
+        from graphical_gan_tpu_torch.serve.quantize import calibrate
+        scales = calibrate("gan_inference", model, state.params, 1234,
+                           n_batches=4)
+        samples_q = draw_gan_samples(model, state.params, args.n_score,
+                                     seed=args.seed, quantize_scales=scales)
+        final_int8 = {"iter": done,
+                      **_score(samples_q, feature_fn, prob_fn, real_mu,
+                               real_sigma)}
+        print(json.dumps({"final_int8": final_int8}), flush=True)
+
     rec = {
         "metric": "quality_instrument_sensitivity",
         "classifier_heldout_accuracy": round(float(heldout_acc), 4),
         "anchors": anchors,
         "curve": curve,
+        **({"final_int8": final_int8} if final_int8 else {}),
         "n_score": args.n_score,
         "config": {"dim": cfg.dim, "batch_size": cfg.batch_size,
                    "mode": cfg.mode, "compute_dtype": cfg.compute_dtype,

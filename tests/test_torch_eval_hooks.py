@@ -36,6 +36,7 @@ from graphical_gan_tpu.runs import gan_inference as jax_run
 from graphical_gan_tpu_torch.runs import gan_inference as port_run
 from graphical_gan_tpu_torch.train.trainer import DEV_SALT, Trainer
 from tests._torch_family1 import B, _Stream, models
+from _torch_threads import one_thread  # noqa: F401
 
 ARGS = ["--dim", "8", "--batch-size", "4", "--device", "cpu"]
 

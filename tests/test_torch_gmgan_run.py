@@ -20,6 +20,7 @@ from graphical_gan_tpu_torch.models.gmgan import GMGanModel
 from graphical_gan_tpu_torch.report.save_images import png_size
 from graphical_gan_tpu_torch.runs import gmgan as port_run
 from graphical_gan_tpu_torch.train import checkpoint as ckpt_lib
+from _torch_threads import one_thread  # noqa: F401
 
 TINY = ["--dim", "8", "--n-coms", "5", "--device", "cpu"]
 

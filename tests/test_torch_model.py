@@ -20,6 +20,7 @@ from graphical_gan_tpu.ops import pallas as jax_pallas
 from graphical_gan_tpu_torch.core.config import gan_inference_defaults
 from graphical_gan_tpu_torch.models.gan_inference import GanInferenceModel
 from graphical_gan_tpu_torch.train.checkpoint import params_from_jax
+from _torch_threads import one_thread  # noqa: F401
 
 KEY = jax.random.PRNGKey(0)
 B = 4

@@ -85,8 +85,10 @@ def test_preempt_sigterm_end_to_end(tmp_path):
                PYTHONUNBUFFERED="1")
     iters = ["--iters", "30"]
     straight = tmp_path / "straight"
-    subprocess.run(CLI + iters + ["--run-dir", str(straight)], env=env,
-                   cwd=ROOT, check=True, capture_output=True, timeout=300)
+    # the uninterrupted run goes on beside the cut one and its resume
+    ref = subprocess.Popen(CLI + iters + ["--run-dir", str(straight)],
+                           env=env, cwd=ROOT, stdout=subprocess.DEVNULL,
+                           stderr=subprocess.PIPE, text=True)
     run = tmp_path / "cut"
     proc = subprocess.Popen(CLI + iters + ["--run-dir", str(run)], env=env,
                             cwd=ROOT, stdout=subprocess.PIPE,
@@ -106,6 +108,8 @@ def test_preempt_sigterm_end_to_end(tmp_path):
     assert 4 <= stopped < 29
     subprocess.run(CLI + iters + ["--run-dir", str(run)], env=env, cwd=ROOT,
                    check=True, capture_output=True, timeout=300)
+    _, err = ref.communicate(timeout=300)
+    assert ref.returncode == 0, err
     a, _ = ckpt_lib.load_raw(str(straight / "ckpt_29.npz"))
     b, _ = ckpt_lib.load_raw(str(run / "ckpt_29.npz"))
     assert set(a) == set(b)

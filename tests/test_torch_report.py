@@ -16,6 +16,7 @@ from PIL import Image
 from graphical_gan_tpu.report import visualization as jax_vis
 from graphical_gan_tpu_torch.report import save_images as si
 from graphical_gan_tpu_torch.report import visualization as vis
+from _torch_threads import one_thread  # noqa: F401
 
 # the JAX report package exports the function save_images under the module's
 # name

@@ -3,8 +3,8 @@ sensitivity.py) on the CPU at dim 8: it prints a progress line per ladder
 point and then one JSON document with the JAX tool's keys (read from the
 JAX tool's source, whose run at this size takes most of a minute); its
 arguments and defaults are the JAX tool's; its scoring helpers agree with
-the JAX tool's on the same inputs; and ``--quantize-final`` is refused
-until int8 serving is ported."""
+the JAX tool's on the same inputs; and ``--quantize-final`` adds the
+final checkpoint's scores through the int8 serving path."""
 
 import ast
 import contextlib
@@ -17,6 +17,7 @@ import pytest
 
 from graphical_gan_tpu.tools import sensitivity as jax_tool
 from graphical_gan_tpu_torch.tools import sensitivity
+from _torch_threads import one_thread  # noqa: F401
 
 ARGS = ["--device", "cpu", "--dim", "8", "--n-data", "256", "--n-score",
         "200", "--checkpoints", "0,2", "--clf-steps", "5"]
@@ -129,6 +130,16 @@ def test_draw_gan_samples_gives_hwc_images_in_range():
     np.testing.assert_array_equal(np.asarray(again), arr)
 
 
-def test_quantize_final_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sensitivity.main(ARGS + ["--quantize-final"])
+def test_quantize_final_is_refused(capsys):
+    """(The name is from the slice that refused the flag.) Since int8
+    serving is ported, ``--quantize-final`` scores the final checkpoint
+    through the int8 path: a ``final_int8`` line before the document and
+    the same entry in it, as the JAX tool prints them."""
+    doc = sensitivity.main(ARGS + ["--quantize-final", "--checkpoints",
+                                   "2"])
+    lines = capsys.readouterr().out.splitlines()
+    final = doc["final_int8"]
+    assert json.loads(lines[-2]) == {"final_int8": final}
+    assert final["iter"] == 2 and doc["curve"][-1]["iter"] == 2
+    assert all(np.isfinite(final[k]) for k in ("is_mean", "is_std", "fid"))
+    assert final != {k: v for k, v in doc["curve"][-1].items()}

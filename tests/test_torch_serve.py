@@ -348,7 +348,8 @@ def test_cpu_serving_launches_no_kernel(tmp_path):
     assert kernels.launches() == {"fused_conv2d_bias_act": 0, "bn_stats": 0,
                                   "bn_apply": 0, "bn_bwd": 0,
                                   "conv_gemm_taps": 0,
-                                  "conv_gemm_im2col": 0}
+                                  "conv_gemm_im2col": 0,
+                                  "quantize_int8": 0, "int8_conv": 0}
 
 
 def test_checkpoint_round_trip_and_latest(tmp_path):

@@ -2,7 +2,9 @@
 its bound for the fused conv: only the taps that land inside the input are
 work the function needs, checked against a count made by convolving ones
 over the zero-padded input, at the serving sizes and at odd sizes, strides
-and kernels; the BN kernels' byte bounds. The learn phase's bounds, which
+and kernels; Q2's (the int8 conv's) count likewise, and on a deconv's
+phase filter the transposed conv's own products; the BN kernels' byte
+bounds. The learn phase's bounds, which
 must refuse a flat curve, a falling IS, a rising FID and anchors or an
 accuracy out of bounds; the eval phase's grid check (the IHDR size of each
 PNG) and logfile check; the classifier shapes it checks the kernels at,
@@ -426,3 +428,43 @@ def test_family2_learn_check(acc, ok):
     misses = chip_smoke.learn2_misses(acc)
     assert (misses == []) == ok
     assert chip_smoke.LEARN2_MIN_ACC >= 2 * chip_smoke.LEARN2_CHANCE
+
+
+# -- Q2's operation count ------------------------------------------------------
+
+@pytest.mark.parametrize("k", [5, 4, 3])
+@pytest.mark.parametrize("n", [1, 2, 4, 7, 8])
+def test_q2_deconv_products_are_the_transposed_convs_own(n, k):
+    """On a deconv's phase filter (T x T window to 4·O channels) Q2's bound
+    counts only the taps the transposed conv has: the products of the
+    stride-2 SAME transposed conv of ones by ones, i.e. the sum of its
+    output, and not the phase filter's fixed zero taps."""
+    from graphical_gan_tpu_torch.ops.phase_deconv import (
+        _phase_plan, conv_transpose_phase)
+    y = conv_transpose_phase(torch.ones(1, n, n, 1, dtype=torch.float64),
+                             torch.ones(k, k, 1, 1, dtype=torch.float64))
+    pl, pr, t = _phase_plan(k)[:3]
+    out = n + pl + pr - t + 1
+    got = chip_smoke._q2_products(2, n, n, 3, 4 * 5, t, t, 1, pl, pl, out,
+                                  out, k)
+    assert got == 2 * 2 * 3 * 5 * float(y.sum())
+    if n > 1:  # the whole phase filter would count more
+        assert got < chip_smoke._q2_products(2, n, n, 3, 4 * 5, t, t, 1, pl,
+                                             pl, out, out, None)
+
+
+@pytest.mark.parametrize("n,k,s,pads", [
+    (8, 5, 2, ((1, 2), (1, 2))), (7, 3, 1, ((1, 1), (1, 1))),
+    (4, 4, 1, ((0, 0), (0, 0))), (1, 1, 1, ((0, 0), (0, 0))),
+    (9, 5, 2, ((2, 2), (1, 3)))])
+def test_q2_conv_products_count_taps_inside_the_input(n, k, s, pads):
+    """For a conv (dense layers as 1x1) Q2's bound counts the taps that
+    land inside the input: ones convolved over the zero-padded input."""
+    (plo, phi), (qlo, qhi) = pads
+    x = F.pad(torch.ones(1, 1, n, n, dtype=torch.float64),
+              (qlo, qhi, plo, phi))
+    taps = F.conv2d(x, torch.ones(1, 1, k, k, dtype=torch.float64),
+                    stride=s)
+    oh, ow = taps.shape[-2:]
+    assert chip_smoke._q2_products(3, n, n, 2, 7, k, k, s, plo, qlo, oh, ow,
+                                   None) == 2 * 3 * 2 * 7 * float(taps.sum())

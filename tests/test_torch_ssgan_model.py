@@ -34,6 +34,7 @@ from _torch_family1 import close
 from _torch_gmgan import compiled
 from _torch_ssgan import (
     POS_MODES, as_jax, as_torch, config_kw, models, raw_batch)
+from _torch_threads import one_thread  # noqa: F401
 
 KEY = jax.random.PRNGKey(0)
 

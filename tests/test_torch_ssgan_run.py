@@ -27,6 +27,7 @@ from graphical_gan_tpu_torch.models.ssgan import SSGanModel
 from graphical_gan_tpu_torch.report.save_images import (
     _gif_palette, gif_indices, large_image, png_size, save_gifs)
 from graphical_gan_tpu_torch.train import checkpoint as ckpt_lib
+from _torch_threads import one_thread  # noqa: F401
 
 TINY = ["--dim", "4", "--batch-size", "2", "--seq-len", "3", "--device",
         "cpu", "--eval-every", "2", "--checkpoint-every", "2"]

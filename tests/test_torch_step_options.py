@@ -42,6 +42,7 @@ from graphical_gan_tpu_torch.core.config import (
 from graphical_gan_tpu_torch.models.gan_inference import GanInferenceModel
 from graphical_gan_tpu_torch.models.gmgan import GMGanModel
 from graphical_gan_tpu_torch.train import step as step_mod
+from _torch_threads import one_thread  # noqa: F401
 
 KW = dict(dim=8, batch_size=4)
 

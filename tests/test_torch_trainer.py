@@ -28,6 +28,7 @@ from graphical_gan_tpu_torch.runs.gan_inference import main, run
 from graphical_gan_tpu_torch.serve.server import sampler_from_run_dir
 from graphical_gan_tpu_torch.train import checkpoint as ckpt_lib
 from graphical_gan_tpu_torch.train.step import make_train_step
+from _torch_threads import one_thread  # noqa: F401
 
 ARGS = ["--dataset", "cifar10", "--mode", "wali-gp", "--dim", "8",
         "--batch-size", "4", "--device", "cpu"]
