@@ -7,7 +7,8 @@ nothing of JAX or of the JAX package, and does in order:
 1. device: requires CUDA, prints the card's name and power limit;
 2. build: compiles ``graphical_gan_tpu_torch/csrc/*.cu`` with nvcc and
    requires ``HGMMA`` (``wgmma``) and ``UTMALDG`` (TMA load) instructions
-   in the library's SASS;
+   in the library's SASS, ``IMMA`` (Q2's ``mma`` route), and ``IGMMA``
+   (int8 ``wgmma``) with ``UTMALDG`` in Q2's ``tma`` kernel;
 3. check: holds each kernel (K1 conv+bias+act, K2a BN stats in one
    launch, K2b BN apply, K2c+K2d the BN backward in one launch, K3a/K3b
    conv_gemm taps and im2col) against its plain PyTorch version at every
@@ -50,15 +51,20 @@ nothing of JAX or of the JAX package, and does in order:
 6. dispatch: per dtype, entry and bucket, a dispatch's host and device
    time, its device busy share, its device time and kernels by group (no
    more than one K2a kernel per BN forward);
-7. int8-export: Q1 (quantize) and Q2 (int8 conv, ``csrc/quant.cu``) at
+7. int8-export: Q1 (quantize), Q2 (int8 conv, ``csrc/quant.cu``,
+   ``csrc/quant_tma.cu``) and K2b with its int8 copy (``bn_apply_q8``) at
    every int8 layer of the published samplers (cifar10 wali-gp, GMGAN
    mnist, SSGAN moving-MNIST) at buckets 8, 64 and 256 in f32 and bf16,
    each call replayed twice against its plain version (int8 values and
-   int32 sums equal, outputs bit-equal, one launch per call) and timed
-   (Q2 at buckets 8 and 256, with ``torch._int_mm`` at the dense shapes
-   and cuDNN's f32 and bf16 conv as readings); the three quantized
-   samplers on the card against the CPU (no int8 value flipped, outputs
-   within 1e-6);
+   int32 sums equal, outputs bit-equal, one launch per call; each Q2 call
+   logs ``q2_plan``'s route, tile and splits; the cifar10 sampler's bf16
+   model on bf16 codes) and timed (Q2 at buckets 8 and 256, with
+   ``torch._int_mm`` at the dense shapes; at the cifar10 shapes its
+   ``mma`` route beside the planned one and cuDNN's f32 and bf16 conv as
+   readings; K2b's int8 copy beside K2b alone); the three
+   quantized samplers on the card against the CPU, on their first call
+   and on a later one that takes the BNs' int8 copies (no int8 value
+   flipped, outputs within 1e-6);
    a cifar10 dispatch int8 against float; the server with ``--quantize
    int8`` over HTTP, its launches counted; then the run directory
    exported with ``torch.export`` (the int8 sampler, the float
@@ -173,6 +179,17 @@ nothing of JAX or of the JAX package, and does in order:
    then loaded with no ``nvcc`` run; the time a save holds the loop;
 27. prints one JSON line per kernel summary, the card line, and last
    ``{"ok": true, "device": {...}}``.
+
+The numbers name the phases; the run takes them in another order. First,
+one at a time, the phases that time the card: 1-9 (but train-parity and
+train-repeat), 10, 15, 19, 23 and 25. Then the side phases, failure (26),
+learn (13), family2-learn (18) and family3-learn (22), start, each in a
+process of its own (``SidePhases``: they are bound by the host, so they
+overlap on a machine of several cores; failure's readings are so taken
+beside the others), and beside them the rest run in this process:
+train-parity, train-repeat, the family1 parity checks, 11, 12, 14, 16,
+17, 20, 21 and 24. Last the side phases are joined, their output logged
+and their launches counted.
 
 Any failed check exits non-zero without the last line. ``--log PATH`` also
 writes every logged line to PATH. Each phase logs its seconds.
@@ -343,13 +360,17 @@ def phase_build():
     ptxas = [ln.strip() for ln in build.build_log.splitlines()
              if any(k in ln for k in ("registers", "spill", "Compiling entry",
                                       "wgmma", "Performance"))]
-    hgmma, utmaldg, imma = _sass_count(path, ("HGMMA", "UTMALDG", "IMMA"))
+    counts = _sass_count(path, ("HGMMA", "UTMALDG", "IMMA", "IGMMA"))
+    hgmma, utmaldg, imma = counts[""][:3]
+    q2_igmma, q2_utmaldg = counts[Q2_TMA_KERNEL][3], counts[Q2_TMA_KERNEL][1]
     log({"phase": "build", "seconds": round(secs, 3),
          "library": os.path.relpath(path, ROOT),
          "sources": [os.path.relpath(s, ROOT) for s in build.sources()],
          "sass_hgmma_instructions": hgmma,
          "sass_utmaldg_instructions": utmaldg,
-         "sass_imma_instructions": imma})
+         "sass_imma_instructions": imma,
+         "sass_q2_tma_igmma_instructions": q2_igmma,
+         "sass_q2_tma_utmaldg_instructions": q2_utmaldg})
     for ln in ptxas:
         log("ptxas: " + ln)
     if not hgmma:
@@ -359,20 +380,39 @@ def phase_build():
         fail("no UTMALDG instruction in the library's SASS: K3a's mainloop "
              "issues no TMA load")
     if not imma:
-        fail("no IMMA instruction in the library's SASS: Q2's int8 products "
-             "do not run on the tensor cores")
+        fail("no IMMA instruction in the library's SASS: Q2's mma route "
+             "does not run on the tensor cores")
+    if not (q2_igmma and q2_utmaldg):
+        fail(f"Q2's tma kernel has {q2_igmma} IGMMA (int8 wgmma) and "
+             f"{q2_utmaldg} UTMALDG (TMA load) instructions in its SASS")
+
+
+# the mangled name's part of Q2's tma kernel (csrc/quant_tma.cu)
+Q2_TMA_KERNEL = "int8_conv_tma_kernel"
 
 
 def _sass_count(lib_path: str, opcodes):
-    """Instructions of each of ``opcodes`` in the SASS of ``lib_path``
-    (one ``cuobjdump -sass``, from the CUDA toolkit)."""
+    """Instructions of each of ``opcodes`` in the SASS of ``lib_path`` (one
+    ``cuobjdump -sass``, from the CUDA toolkit): under key "" in the whole
+    library, under :data:`Q2_TMA_KERNEL` in the functions whose name holds
+    it."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     res = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                          text=True, timeout=300)
     if res.returncode != 0:
         fail(f"cuobjdump -sass failed: {res.stderr.strip()[:500]}")
-    lines = res.stdout.splitlines()
-    return tuple(sum(1 for ln in lines if op in ln) for op in opcodes)
+    counts = {"": [0] * len(opcodes), Q2_TMA_KERNEL: [0] * len(opcodes)}
+    in_q2 = False
+    for ln in res.stdout.splitlines():
+        if "Function :" in ln:
+            in_q2 = Q2_TMA_KERNEL in ln
+            continue
+        for i, op in enumerate(opcodes):
+            if op in ln:
+                counts[""][i] += 1
+                if in_q2:
+                    counts[Q2_TMA_KERNEL][i] += 1
+    return counts
 
 
 def _conv_inputs(shape, cout, dtype, gen, k=5):
@@ -1543,7 +1583,8 @@ PER_ITER = {"fused_conv2d_bias_act": (9 + 12 * 5, 0),
             "bn_stats": (30, 0), "bn_apply": (30, 0),
             "bn_bwd": (5, -5),
             "conv_gemm_taps": (0, 0), "conv_gemm_im2col": (0, 0),
-            "quantize_int8": (0, 0), "int8_conv": (0, 0)}
+            "quantize_int8": (0, 0), "int8_conv": (0, 0),
+            "bn_apply_q8": (0, 0)}
 # card against CPU after 2 iterations, f32, same params, batches and noise.
 # TF1 Adam's first steps are about lr·sign(g): a gradient element near 0
 # whose sign differs between the two devices moves its parameter about
@@ -4052,44 +4093,58 @@ def _int8_models(dtype):
 
 
 class _Int8Calls:
-    """Records every Q1 and Q2 call the int8 layers make (their arguments)
-    while it is entered; each Q2 call also with the transposed conv's k
-    where a deconv made it (on its phase filter), else None."""
+    """Records every standalone Q1, Q2 and dual-output K2b call the int8
+    layers make (their arguments; K2b's with its outputs) while it is
+    entered; each Q2 call also with the transposed conv's k where a deconv
+    made it (on its phase filter), else None."""
 
     def __init__(self):
-        self.q1, self.q2 = [], []
+        self.q1, self.q2, self.k2b = [], [], []
         self._deconv_k = None
 
     def __enter__(self):
-        from graphical_gan_tpu_torch.ops import quant
-        self._mod = quant
-        self._saved = (quant.quantize_int8, quant.int8_conv,
-                       quant.intercept_deconv2d)
-        q1, q2, deconv = self._saved
+        from graphical_gan_tpu_torch.ops import norm, quant
+        from graphical_gan_tpu_torch.ops.kernels import fused_norm
+        self._mods = (quant, norm)
+        self._saved = (quant.quantize_int8, quant.int8_conv_packed,
+                       quant.intercept_deconv2d, norm.batchnorm_act_q8)
+        q1, q2, deconv, bn_q8 = self._saved
 
         def rec_q1(x, scale, axis=None):
             self.q1.append((x, scale, axis))
             return q1(x, scale, axis)
 
-        def rec_q2(xq, wq, factor, stride=1, padding="VALID",
-                   out_dtype=None):
-            self.q2.append((xq, wq, factor, stride, padding, out_dtype,
-                            self._deconv_k))
-            return q2(xq, wq, factor, stride, padding, out_dtype)
+        def rec_q2(xq, pf, factor, stride=1, padding="VALID",
+                   out_dtype=None, bias=None, act=None):
+            self.q2.append((xq, pf, factor, stride, padding, out_dtype,
+                            bias, act, self._deconv_k))
+            return q2(xq, pf, factor, stride, padding, out_dtype, bias, act)
 
-        def rec_deconv(name, x, w, stride, padding):
+        def rec_deconv(name, x, w, stride, padding, bias=None):
             self._deconv_k = int(w.shape[0])
             try:
-                return deconv(name, x, w, stride, padding)
+                return deconv(name, x, w, stride, padding, bias)
             finally:
                 self._deconv_k = None
-        (quant.quantize_int8, quant.int8_conv,
-         quant.intercept_deconv2d) = rec_q1, rec_q2, rec_deconv
+
+        def rec_bn_q8(x, scale, offset, act, s_x, eps=fused_norm.EPS):
+            # K2b's arguments: its statistics again (K2a gives the same
+            # bits every call)
+            y, q = bn_q8(x, scale, offset, act, s_x, eps)
+            x2d = x.reshape(-1, x.shape[-1])
+            mean, _, inv = fused_norm.bn_stats(x2d, eps)
+            self.k2b.append((x2d, mean, inv, scale, offset, act, s_x,
+                             y.reshape(x2d.shape), q.reshape(x2d.shape)))
+            return y, q
+        (quant.quantize_int8, quant.int8_conv_packed,
+         quant.intercept_deconv2d, norm.batchnorm_act_q8) = (
+            rec_q1, rec_q2, rec_deconv, rec_bn_q8)
         return self
 
     def __exit__(self, *exc):
-        (self._mod.quantize_int8, self._mod.int8_conv,
-         self._mod.intercept_deconv2d) = self._saved
+        quant, norm = self._mods
+        (quant.quantize_int8, quant.int8_conv_packed,
+         quant.intercept_deconv2d, norm.batchnorm_act_q8) = self._saved
 
 
 def _bits(t):
@@ -4126,22 +4181,42 @@ def _check_q1(x, scale, axis, misses, label):
     return int((a.int() - want.int()).abs().max()) if a.numel() else 0
 
 
-def _check_q2(xq, wq, factor, stride, pads, out_dtype, misses, label):
-    """Q2's int32 sums and its dequantized output, each twice, against the
-    plain version (F.conv2d in f64, exact) on the card; returns the largest
-    difference of the sums and of the outputs."""
+def _q2_plan_of(xq, pf, stride, pads):
+    """``q2_plan``'s plan of a Q2 call as its CUDA op makes it."""
+    from graphical_gan_tpu_torch.ops.kernels import quant as kq
+    from graphical_gan_tpu_torch.ops.kernels.fused_conv import _pads
+    explicit = _pads(xq.shape[1], xq.shape[2], pf.kh, pf.kw, stride,
+                     kq.explicit_pads(pads))
+    aligned = xq.data_ptr() % 16 == 0 and pf.wk.data_ptr() % 16 == 0
+    return kq.q2_plan(tuple(xq.shape), pf.kh, pf.kw, pf.cout, stride,
+                      explicit, aligned)
+
+
+def _check_q2(xq, pf, factor, stride, pads, out_dtype, bias, act, misses,
+              label):
+    """Q2's int32 sums and its output (with the call's bias and
+    activation), each twice, against the plain version (F.conv2d in f64,
+    exact, then the epilogue's steps) on the card, each launch counted on
+    the route ``q2_plan`` names; returns the largest difference of the sums
+    and of the outputs, and that route."""
     import torch
     from graphical_gan_tpu_torch.ops.kernels import quant as kq
-    n0 = kq.int8_conv.launches
-    s1 = kq.int8_conv(xq, wq, None, stride, pads, torch.int32)
-    s2 = kq.int8_conv(xq, wq, None, stride, pads, torch.int32)
-    y1 = kq.int8_conv(xq, wq, factor, stride, pads, out_dtype)
-    y2 = kq.int8_conv(xq, wq, factor, stride, pads, out_dtype)
-    sums = kq.int8_conv_sums_plain(xq, wq, stride, pads)
-    want = kq.dequantize_plain(sums, factor, out_dtype)
-    if kq.int8_conv.launches - n0 != 4:
+    route = _q2_plan_of(xq, pf, stride, pads).route
+    n0, r0 = kq.int8_conv.launches, kq.int8_conv.routes[route]
+    s1 = kq.int8_conv_packed(xq, pf, None, stride, pads, torch.int32)
+    s2 = kq.int8_conv_packed(xq, pf, None, stride, pads, torch.int32)
+    y1 = kq.int8_conv_packed(xq, pf, factor, stride, pads, out_dtype, bias,
+                             act)
+    y2 = kq.int8_conv_packed(xq, pf, factor, stride, pads, out_dtype, bias,
+                             act)
+    sums = kq.int8_conv_sums_plain(xq, kq.unpack_filter(pf), stride, pads)
+    want = kq.bias_act_plain(kq.dequantize_plain(sums, factor, out_dtype),
+                             bias, act)
+    if (kq.int8_conv.launches - n0, kq.int8_conv.routes[route] - r0) \
+            != (4, 4):
         misses.append(f"{label}: Q2 counted {kq.int8_conv.launches - n0} "
-                      "launches for 4")
+                      f"launches, {kq.int8_conv.routes[route] - r0} on its "
+                      f"route {route}, for 4")
     if not (_same_bits(s1, s2) and _same_bits(y1, y2)):
         misses.append(f"{label}: Q2 differs between two calls")
     if not _same_bits(s1, sums):
@@ -4149,11 +4224,37 @@ def _check_q2(xq, wq, factor, stride, pads, out_dtype, misses, label):
     if not _same_bits(y1, want):
         misses.append(f"{label}: Q2 output != plain")
     return (int((s1.long() - sums.long()).abs().max()),
-            float((y1.float() - want.float()).abs().max()))
+            float((y1.float() - want.float()).abs().max()), route)
 
 
-def _q2_key(xq, wq, stride, pads, out_dtype):
-    return (tuple(xq.shape), tuple(wq.shape), stride, tuple(pads)
+def _check_k2b_q8(x2d, mean, inv, scale, offset, act, s_x, misses, label):
+    """K2b with its int8 copy, twice: y bit-equal to K2b's alone, q equal
+    to Q1's plain version of that y (and of the plain version's y, which
+    K2b's own check holds within rounding); returns the largest difference
+    of the int8 values and whether the whole plain version matched."""
+    from graphical_gan_tpu_torch.ops.kernels import fused_norm as kn
+    from graphical_gan_tpu_torch.ops.kernels import quant as kq
+    n0 = kn.bn_apply_q8.launches
+    y1, q1 = kn.bn_apply_q8(x2d, mean, inv, scale, offset, act, s_x)
+    y2, q2 = kn.bn_apply_q8(x2d, mean, inv, scale, offset, act, s_x)
+    y0 = kn.bn_apply(x2d, mean, inv, scale, offset, act)
+    want = kq.quantize_int8_plain(y1, s_x)
+    py, pq = kn.bn_apply_q8_plain(x2d, mean, inv, scale, offset, act, s_x)
+    if kn.bn_apply_q8.launches - n0 != 2:
+        misses.append(f"{label}: K2b+Q1 counted "
+                      f"{kn.bn_apply_q8.launches - n0} launches for 2")
+    if not (_same_bits(y1, y2) and _same_bits(q1, q2)):
+        misses.append(f"{label}: K2b+Q1 differs between two calls")
+    if not _same_bits(y1, y0):
+        misses.append(f"{label}: K2b+Q1's y != K2b's")
+    if not _same_bits(q1, want):
+        misses.append(f"{label}: K2b+Q1's int8 copy != Q1 of its y")
+    return (int((q1.int() - want.int()).abs().max()),
+            _same_bits(y1, py) and _same_bits(q1, pq))
+
+
+def _q2_key(xq, pf, stride, pads, out_dtype):
+    return (tuple(xq.shape), pf.hwio_shape, stride, tuple(pads)
             if not isinstance(pads, str) else pads, str(out_dtype))
 
 
@@ -4184,41 +4285,61 @@ def _q2_products(bsz, h, w, cin, cout, kh, kw, stride, lo_h, lo_w, oh, ow,
         for a in (0, 1) for c in (0, 1))
 
 
-def _q2_row(xq, wq, factor, stride, pads, out_dtype, deconv_k, family, b,
-            card):
-    """Q2's time at one shape beside its plain version's and its bound
-    (the products its function needs, :func:`_q2_products`, over the int8
-    peak, or bytes over 3.35 TB/s); the linear shapes add torch._int_mm
-    where it takes the shape (the library call), the convs cuDNN's f32 and
-    bf16 conv of the same shape as readings."""
+def _q2_row(xq, pf, factor, stride, pads, out_dtype, bias, act, deconv_k,
+            family, b, card):
+    """Q2's time at one shape (with the call's bias and activation in its
+    epilogue) on ``q2_plan``'s route beside its plain version's and its
+    bound (the products its function needs, :func:`_q2_products`, over
+    the int8 peak, or bytes over 3.35 TB/s); the linear shapes add
+    torch._int_mm where it takes the shape (the library call); at the
+    cifar10 sampler's shapes also the ``mma`` route (``mma_ms``) and, at
+    its convs, cuDNN's f32 and bf16 conv of the same shape as readings."""
     import torch
     import torch.nn.functional as F
     from graphical_gan_tpu_torch.ops.kernels import quant as kq
     from graphical_gan_tpu_torch.ops.kernels.fused_conv import _pads
     bsz, h, w, cin = xq.shape
-    kh, kw, _, cout = wq.shape
-    (plo, phi), (qlo, qhi) = _pads(h, w, kh, kw, stride, pads)
+    kh, kw, cout = pf.kh, pf.kw, pf.cout
+    (plo, phi), (qlo, qhi) = _pads(h, w, kh, kw, stride,
+                                   kq.explicit_pads(pads))
     oh = (h + plo + phi - kh) // stride + 1
     ow = (w + qlo + qhi - kw) // stride + 1
     ops = _q2_products(bsz, h, w, cin, cout, kh, kw, stride, plo, qlo, oh,
                        ow, deconv_k)
-    nbytes = (xq.numel() + wq.numel() + 4 * cout
-              + bsz * oh * ow * cout * torch.empty((), dtype=out_dtype
-                                                    ).element_size())
+    esize = torch.empty((), dtype=out_dtype).element_size()
+    nbytes = (xq.numel() + kh * kw * cin * cout + 4 * cout
+              + (0 if bias is None else cout * esize)
+              + bsz * oh * ow * cout * esize)
     t_ops, t_bytes = ops / PEAK_INT8 * 1e3, nbytes / HBM_BYTES_S * 1e3
-    ms = time_ms(lambda a, b_: kq.int8_conv(a, b_, factor, stride, pads,
-                                            out_dtype), [xq, wq], 5, 10)
-    # the plain version (F.conv2d in f64) at the summary's shapes only
+    plan = _q2_plan_of(xq, pf, stride, pads)
+    ms = time_ms(lambda a, wk: kq.int8_conv_packed(
+        a, pf._replace(wk=wk), factor, stride, pads, out_dtype, bias, act),
+        [xq, pf.wk], 5, 10)
+    # the mma route, and the plain version (F.conv2d in f64), at the
+    # summary's sampler only
+    main = family == "gan_inference"
+    mma_ms = None
+    if main and plan.route != "mma":
+        mma = kq.q2_plan(tuple(xq.shape), kh, kw, cout, stride,
+                         ((plo, phi), (qlo, qhi)), route="mma")
+        mma_ms = time_ms(lambda a, wk: kq.run_plan(
+            a, wk, factor, bias, kh, kw, cout, stride,
+            ((plo, phi), (qlo, qhi)), out_dtype, act, mma), [xq, pf.wk],
+            5, 10)
+    wq = kq.unpack_filter(pf)
     plain_ms = time_ms(lambda a, b_: kq.int8_conv_plain(
-        a, b_, factor, stride, pads, out_dtype), [xq, wq], 3, 3) \
-        if (family, b, out_dtype) == ("gan_inference", 256,
-                                      torch.float32) else None
+        a, b_, factor, stride, pads, out_dtype, bias, act), [xq, wq], 3, 3) \
+        if main and (b, out_dtype) == (256, torch.float32) else None
     row = {"kernel": "int8_conv", "family": family, "B": b,
            "dtype": str(out_dtype).replace("torch.", ""),
            "shape": [list(xq.shape), list(wq.shape), stride,
                      pads if isinstance(pads, str) else list(pads)],
-           "deconv_k": deconv_k,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+           "deconv_k": deconv_k, "bias": bias is not None, "act": act,
+           "route": plan.route,
+           "plan": {k: v for k, v in plan.as_dict().items()
+                    if k in ("bm", "bn", "bk", "stages", "splits")},
+           "ms": ms, "mma_ms": mma_ms, "plain_ms": plain_ms,
+           "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "library_ms": None, "card": card}
     if kh == kw == h == w == 1:  # a dense layer: [M, K] @ [K, N]
@@ -4231,7 +4352,7 @@ def _q2_row(xq, wq, factor, stride, pads, out_dtype, deconv_k, family, b,
                 row["int_mm_refused"] = str(e).splitlines()[0]
         else:
             row["int_mm_refused"] = "M <= 16 or K, N not multiples of 8"
-    else:
+    elif main:
         xf = xq.permute(0, 3, 1, 2).float().contiguous(
             memory_format=torch.channels_last)
         wf = wq.permute(3, 2, 0, 1).float().contiguous(
@@ -4258,17 +4379,46 @@ def _q1_row(x, scale, axis, family, b, card):
             "library_ms": None, "card": card}
 
 
+def _k2b_q8_row(x2d, mean, inv, scale, offset, act, s_x, family, b, card):
+    """K2b with its int8 copy at one BN shape beside K2b alone (``k2b_ms``,
+    the same inputs) and Q1 alone on K2b's output (``q1_ms``): the pass it
+    saves; bound by its bytes (x read, y and q written, the four channel
+    vectors)."""
+    from graphical_gan_tpu_torch.ops.kernels import fused_norm as kn
+    from graphical_gan_tpu_torch.ops.kernels import quant as kq
+    y = kn.bn_apply(x2d, mean, inv, scale, offset, act)
+    nbytes = x2d.numel() * (2 * x2d.element_size() + 1) + 16 * x2d.shape[1]
+    vecs = [mean, inv, scale, offset]
+    return {"kernel": "bn_apply_q8", "family": family, "B": b,
+            "dtype": str(x2d.dtype).replace("torch.", ""),
+            "shape": list(x2d.shape), "act": act,
+            "ms": time_ms(lambda t, *v: kn.bn_apply_q8(t, *v, act, s_x),
+                          [x2d] + vecs, 5, 10),
+            "k2b_ms": time_ms(lambda t, *v: kn.bn_apply(t, *v, act),
+                              [x2d] + vecs, 5, 10),
+            "q1_ms": time_ms(lambda t: kq.quantize_int8(t, s_x), [y], 5, 10),
+            "plain_ms": time_ms(lambda t, *v: kn.bn_apply_q8_plain(
+                t, *v, act, s_x), [x2d] + vecs, 5, 10),
+            "bound_ms": nbytes / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, "card": card}
+
+
 def _int8_sampler_checks(card, timings, misses):
-    """Q1 and Q2 at every int8 layer of the three published samplers, at
-    buckets 8, 64 and 256, in f32 and bf16: each recorded call replayed
-    twice against its plain version; Q2 timed at every shape, Q1 at the
-    cifar10 sampler's. Returns the largest errors."""
+    """Q1, Q2 and K2b's int8 copy at every int8 layer of the three
+    published samplers, at buckets 8, 64 and 256, in f32 and bf16 (the
+    first bucket's call fills the weight cache and pairs each BN with the
+    layer it feeds; the later ones take K2b's int8 copies): each recorded
+    call replayed twice against its plain version; Q2 timed at every
+    shape, Q1 and K2b's int8 copy at the cifar10 sampler's. Returns the
+    largest errors, the calls checked and Q2's calls per route."""
     import torch
     from graphical_gan_tpu_torch.serve.export import make_sampler
     from graphical_gan_tpu_torch.serve.quantize import (
         calibrate, prior_inputs, quantized_entry)
-    err = {"q1": 0, "q2_sums": 0, "q2_out": 0.0}
-    checked = {"q1_calls": 0, "q2_calls": 0}
+    err = {"q1": 0, "q2_sums": 0, "q2_out": 0.0, "k2b_q8": 0}
+    checked = {"q1_calls": 0, "q2_calls": 0, "k2b_q8_calls": 0,
+               "k2b_q8_whole_plain_equal": 0,
+               "q2_routes": {"tma": 0, "mma": 0}}
     timed = set()
     for dtype in ("float32", "bfloat16"):
         for family, model in _int8_models(dtype):
@@ -4279,35 +4429,51 @@ def _int8_sampler_checks(card, timings, misses):
             for b in BUCKETS:
                 z = [torch.from_numpy(a).cuda()
                      for a in prior_inputs(family, model.cfg, b, 5)]
+                if family == "gan_inference":
+                    # G runs in its codes' dtype: bf16 codes for the bf16
+                    # model, as the dispatch below feeds it
+                    z = [t.to(getattr(torch, dtype)) for t in z]
                 with _Int8Calls() as calls, torch.inference_mode():
                     fn(params, 3, *z)
                 label = f"int8 {family} {dtype} B={b}"
+                # the summary's dispatch: the f32 cifar10 sampler at B 256
+                summary = (family, b, dtype) == ("gan_inference", 256,
+                                                 "float32")
                 with torch.inference_mode():
                     for x, scale, axis in calls.q1:
                         err["q1"] = max(err["q1"], _check_q1(
                             x, scale, axis, misses, label))
                         checked["q1_calls"] += 1
-                        # the summary's dispatch: the f32 cifar10
-                        # sampler's activations (its bf16 model takes f32
-                        # codes too, so the second loop repeats them)
-                        if (family, b, dtype) == ("gan_inference", 256,
-                                                  "float32"):
+                        if summary:
                             timings.append(_q1_row(x, scale, axis, family,
                                                    b, card))
-                    for xq, wq, factor, stride, pads, out, dk in calls.q2:
-                        s, y = _check_q2(xq, wq, factor, stride, pads, out,
-                                         misses, label)
+                    for x2d, mean, inv, sc, of, act, s_x, _, _ in calls.k2b:
+                        e, whole = _check_k2b_q8(x2d, mean, inv, sc, of, act,
+                                                 s_x, misses, label)
+                        err["k2b_q8"] = max(err["k2b_q8"], e)
+                        checked["k2b_q8_calls"] += 1
+                        checked["k2b_q8_whole_plain_equal"] += int(whole)
+                        if summary:
+                            timings.append(_k2b_q8_row(
+                                x2d, mean, inv, sc, of, act, s_x, family, b,
+                                card))
+                    for (xq, pf, factor, stride, pads, out, bias, act,
+                         dk) in calls.q2:
+                        s, y, route = _check_q2(xq, pf, factor, stride, pads,
+                                                out, bias, act, misses,
+                                                label)
                         err["q2_sums"] = max(err["q2_sums"], s)
                         err["q2_out"] = max(err["q2_out"], y)
                         checked["q2_calls"] += 1
-                        key = (family, b) + _q2_key(xq, wq, stride, pads,
+                        checked["q2_routes"][route] += 1
+                        key = (family, b) + _q2_key(xq, pf, stride, pads,
                                                     out)
                         if b in INT8_DISPATCH_BUCKETS and key not in timed:
                             # SSGAN's chain repeats shapes
                             timed.add(key)
-                            timings.append(_q2_row(xq, wq, factor, stride,
-                                                   pads, out, dk, family, b,
-                                                   card))
+                            timings.append(_q2_row(
+                                xq, pf, factor, stride, pads, out, bias, act,
+                                dk, family, b, card))
             del params
     return err, checked
 
@@ -4315,8 +4481,11 @@ def _int8_sampler_checks(card, timings, misses):
 def _int8_e2e(misses):
     """The quantized samplers at INT8_E2E_B rows in f32 on the card against
     the same on the CPU: the same params, scales, inputs and (SSGAN) chain
-    eps; the int8 activations compared per layer, held to no flip, and the
-    outputs to INT8_E2E_ATOL, as the CPU test holds the port to JAX."""
+    eps, each called twice with one weight cache (the first call pairs
+    each BN with the layer it feeds; the second takes K2b's int8 copies);
+    per call the int8 activations compared per layer (Q1's, and the K2b
+    copies), held to no flip, and the outputs to INT8_E2E_ATOL, as the CPU
+    test holds the port to JAX."""
     import numpy as np
     import torch
     from graphical_gan_tpu_torch.ops import quant
@@ -4336,41 +4505,51 @@ def _int8_e2e(misses):
         for dev in ("cuda", "cpu"):
             p = {k: v.to(dev) for k, v in params.items()}
             z = [torch.from_numpy(a).to(dev) for a in inputs]
-            with _Int8Calls() as calls, torch.inference_mode(), \
-                    quant.quantized(scales):
-                if family == "ssgan":
-                    y = model.sample(p, *z, draws={"epsilon": eps.to(dev)})
-                elif family == "gmgan":
-                    y = model.sample(p, *z)
-                else:
-                    y = model.sample(p, z[0])
-            got[dev] = (y.float().cpu(), calls)
-        y_card, calls_card = got["cuda"]
-        y_cpu, calls_cpu = got["cpu"]
-        flips, first = 0, []
-        for i, ((xa, sa, aa), (xb, sb, ab)) in enumerate(
-                zip(calls_card.q1, calls_cpu.q1)):
-            qa = kq.quantize_int8_plain(xa.cpu(), sa, aa)
-            qb = kq.quantize_int8_plain(xb, sb, ab)
-            flips += int((qa != qb).sum())
-            d = float((xa.cpu().float() - xb.float()).abs().max())
-            if d > 0 and len(first) < 3:  # where the two runs part
-                first.append({"q1_call": i, "shape": list(xb.shape),
-                              "input_max_abs_diff": d,
-                              "flips": int((qa != qb).sum())})
-        diff = (y_card - y_cpu).abs()
-        rec = {"check": "int8 sampler card vs cpu", "family": family,
-               "B": INT8_E2E_B, "dtype": "float32",
-               "int8_values": sum(c[0].numel() for c in calls_cpu.q1),
-               "flips": flips, "max_abs_diff": float(diff.max()),
-               "beyond_atol": int((diff > INT8_E2E_ATOL).sum()),
-               "elements": diff.numel(), "bound": INT8_E2E_ATOL,
-               "q1_calls": len(calls_cpu.q1),
-               "first_differing_inputs": first}
-        log(rec)
-        if flips or not float(diff.max()) <= INT8_E2E_ATOL:
-            misses.append(f"int8 {family}: card vs cpu {rec}")
-        out.append(rec)
+            weights, got[dev] = {}, []
+            for _ in range(2):
+                with _Int8Calls() as calls, torch.inference_mode(), \
+                        quant.quantized(scales, weights):
+                    if family == "ssgan":
+                        y = model.sample(p, *z,
+                                         draws={"epsilon": eps.to(dev)})
+                    elif family == "gmgan":
+                        y = model.sample(p, *z)
+                    else:
+                        y = model.sample(p, z[0])
+                got[dev].append((y.float().cpu(), calls))
+        for call, ((y_card, calls_card), (y_cpu, calls_cpu)) in enumerate(
+                zip(got["cuda"], got["cpu"])):
+            flips, first = 0, []
+            for i, ((xa, sa, aa), (xb, sb, ab)) in enumerate(
+                    zip(calls_card.q1, calls_cpu.q1)):
+                qa = kq.quantize_int8_plain(xa.cpu(), sa, aa)
+                qb = kq.quantize_int8_plain(xb, sb, ab)
+                flips += int((qa != qb).sum())
+                d = float((xa.cpu().float() - xb.float()).abs().max())
+                if d > 0 and len(first) < 3:  # where the two runs part
+                    first.append({"q1_call": i, "shape": list(xb.shape),
+                                  "input_max_abs_diff": d,
+                                  "flips": int((qa != qb).sum())})
+            k2b_flips = sum(int((ka[-1].cpu() != kb[-1]).sum()) for ka, kb
+                            in zip(calls_card.k2b, calls_cpu.k2b))
+            diff = (y_card - y_cpu).abs()
+            rec = {"check": "int8 sampler card vs cpu", "family": family,
+                   "call": call, "B": INT8_E2E_B, "dtype": "float32",
+                   "int8_values": sum(c[0].numel() for c in calls_cpu.q1)
+                   + sum(k[-1].numel() for k in calls_cpu.k2b),
+                   "flips": flips + k2b_flips, "k2b_copy_flips": k2b_flips,
+                   "max_abs_diff": float(diff.max()),
+                   "beyond_atol": int((diff > INT8_E2E_ATOL).sum()),
+                   "elements": diff.numel(), "bound": INT8_E2E_ATOL,
+                   "q1_calls": len(calls_cpu.q1),
+                   "k2b_q8_calls": [len(calls_card.k2b),
+                                    len(calls_cpu.k2b)],
+                   "first_differing_inputs": first}
+            log(rec)
+            if flips or k2b_flips or len(calls_card.k2b) != len(
+                    calls_cpu.k2b) or not float(diff.max()) <= INT8_E2E_ATOL:
+                misses.append(f"int8 {family}: card vs cpu {rec}")
+            out.append(rec)
     return out
 
 
@@ -4406,14 +4585,23 @@ def _int8_dispatch(card):
     return rows
 
 
-def _int8_serve(base, launch_totals):
+# launches of the int8 cifar10 sampler's kernels per dispatch after its
+# first call: Q1 at the latents only, Q2 at its four layers, K2a and K2b
+# with its int8 copy at its three BNs (each BN's copy feeds its deconv)
+INT8_PER_DISPATCH = {"quantize_int8": 1, "int8_conv": 4, "bn_stats": 3,
+                     "bn_apply_q8": 3, "bn_apply": 0}
+
+
+def _int8_serve(base, launch_totals, int8_out):
     """The main path: a cifar10 wali-gp run directory (published width,
     random weights) served with ``--quantize int8`` over HTTP, a seeded
     request per bucket 8 and 256 and an exact one; the launches counted
-    from zero over that run."""
+    from zero over that run (Q2's also per route), held to
+    INT8_PER_DISPATCH."""
     import numpy as np
     import torch
     from graphical_gan_tpu_torch.ops import kernels
+    from graphical_gan_tpu_torch.ops.kernels import quant as kq
     from graphical_gan_tpu_torch.serve.client import SamplerClient
     from graphical_gan_tpu_torch.serve.server import serve_run_dir
     from graphical_gan_tpu_torch.tools.bench_server import write_run_dir
@@ -4433,19 +4621,26 @@ def _int8_serve(base, launch_totals):
         outs.append(client.sample(n=8, seed=3, exact=True))
         torch.cuda.synchronize()
         got = kernels.launches()
+        routes = dict(kq.int8_conv.routes)
     finally:
         httpd.shutdown()
         httpd.server_close()
         batcher.close()
     launch_totals.update(got)
+    int8_out["serve_routes"] = routes
     ok = all(o.shape[1] == 3072 and np.isfinite(o).all()
              and float(np.abs(o).max()) <= 1.0 for o in outs)
+    want = {k: v * len(outs) for k, v in INT8_PER_DISPATCH.items()}
     log({"phase": "int8-export", "serve": "cifar10 wali-gp --quantize int8",
          "identity_quantization": identity["quantization"],
          "rows": [o.shape[0] for o in outs], "finite_in_range": ok,
-         "launches": got})
+         "launches": got, "expected_launches": want,
+         "int8_conv_routes": routes})
     if identity["quantization"] != "int8" or not ok:
         fail(f"int8 serving: identity {identity}, outputs ok {ok}")
+    if any(got[k] != v for k, v in want.items()) or routes["mma"]:
+        fail(f"int8 serving launches {got} (Q2 routes {routes}), want "
+             f"{want}, every Q2 call on the tma route")
 
 
 # (entry, quantize) of the cifar10 run directory the export check exports:
@@ -4493,7 +4688,7 @@ print(json.dumps(out))
 """
 # the kernels each exported program must have launched in the fresh process
 EXPORT_KERNELS = {"sampler-int8": ("quantize_int8", "int8_conv", "bn_stats",
-                                   "bn_apply"),
+                                   "bn_apply_q8"),
                   "reconstructor-None": ("fused_conv2d_bias_act", "bn_stats",
                                          "bn_apply")}
 
@@ -4559,11 +4754,12 @@ def _int8_export(base, misses):
 
 
 def phase_int8(launch_totals, card, int8_out):
-    """The int8 serving path on the card: Q1 and Q2 against their plain
-    versions at every layer of the published samplers (buckets 8, 64, 256;
-    f32 and bf16), timed; the quantized samplers against the CPU's; the
-    cifar10 dispatch int8 against float; the server with --quantize int8
-    over HTTP, its launches counted from zero; then the run directory
+    """The int8 serving path on the card: Q1, Q2 and K2b's int8 copy
+    against their plain versions at every layer of the published samplers
+    (buckets 8, 64, 256; f32 and bf16), timed (Q2's two routes side by
+    side at cifar10's shapes); the quantized samplers against the CPU's;
+    the cifar10 dispatch int8 against float; the server with --quantize
+    int8 over HTTP, its launches counted from zero; then the run directory
     exported (torch.export) float and int8 and served from the artifacts
     in a fresh process, bit for bit against the run directory."""
     base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
@@ -4573,12 +4769,13 @@ def phase_int8(launch_totals, card, int8_out):
     misses, timings = [], []
     t0 = time.perf_counter()
     err, checked = _int8_sampler_checks(card, timings, misses)
-    log({"check": "Q1/Q2 at the samplers' layers", **checked, **err,
+    log({"check": "Q1/Q2/K2b+Q1 at the samplers' layers", **checked, **err,
          "misses": misses[:20],
          "seconds": round(time.perf_counter() - t0, 3)})
     for part, fn, args in (("e2e", _int8_e2e, (misses,)),
                            ("dispatch", _int8_dispatch, (card,)),
-                           ("serve", _int8_serve, (base, launch_totals)),
+                           ("serve", _int8_serve,
+                            (base, launch_totals, int8_out)),
                            ("export", _int8_export, (base, misses))):
         t0 = time.perf_counter()
         fn(*args)
@@ -4613,8 +4810,9 @@ SOURCES = {
 SERVE_KERNELS = ("fused_conv2d_bias_act", "bn_stats", "bn_apply")
 TRAIN_KERNELS = SERVE_KERNELS + ("bn_bwd",)
 K3_KERNELS = ("conv_gemm_taps", "conv_gemm_im2col")
-# the int8 sampler: Q1, Q2, and G's batch-stat BN in float (K2a, K2b)
-INT8_KERNELS = ("quantize_int8", "int8_conv", "bn_stats", "bn_apply")
+# the int8 sampler: Q1, Q2, and G's batch-stat BN in float (K2a, K2b with
+# its int8 copy)
+INT8_KERNELS = ("quantize_int8", "int8_conv", "bn_stats", "bn_apply_q8")
 
 
 # K1's summary rows: (dtype, B, the run whose launches they count)
@@ -4768,22 +4966,32 @@ def summary(errs, timings, launches, int8_out):
 INT8_SOURCES = {
     "quantize_int8": ("graphical_gan_tpu_torch/csrc/quant.cu",
                       "graphical_gan_tpu/ops/quant.py:103"),
-    # the three int8 contractions of the intercepts (XLA, no Pallas kernel)
-    "int8_conv": ("graphical_gan_tpu_torch/csrc/quant.cu",
+    # the three int8 contractions of the intercepts (XLA, no Pallas
+    # kernel); the tma route's kernel is quant_tma.cu
+    "int8_conv": ("graphical_gan_tpu_torch/csrc/quant_tma.cu",
                   "graphical_gan_tpu/ops/quant.py:131, "
                   "graphical_gan_tpu/ops/quant.py:149, "
                   "graphical_gan_tpu/ops/quant.py:167"),
+    # K2b (the BN apply's pallas_call) with Q1 of its output folded in
+    "bn_apply_q8": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
+                    "graphical_gan_tpu/ops/pallas/fused_norm.py:182, "
+                    "graphical_gan_tpu/ops/quant.py:103"),
 }
 
 
 def _int8_summary(launches, int8_out):
-    """Q1 and Q2: times summed over one int8 cifar10 sampler dispatch at
-    B=256 in f32 (Q1 its activations: the weights are quantized once, at
-    the sampler's first call), launches from the int8 serving run; ``rows``
-    every timed shape. No PyTorch call computes Q1 (torch's
-    quantize_per_tensor multiplies by the scale's inverse and clamps to
-    -128) or a conv of Q2, so their library_ms is null; Q2's dense rows
-    carry torch._int_mm's time where it takes the shape."""
+    """Q1, Q2 and K2b with its int8 copy: times summed over one int8
+    cifar10 sampler dispatch at B=256 in f32 after its first call (Q1 at
+    the latents: the BNs' outputs come as K2b's int8 copies, the weights
+    are quantized once), launches from the int8 serving run; ``rows``
+    every timed shape. Q2 adds ``mma_route_ms``, its ``mma`` route at the
+    same shapes in the same run, and ``routes``, the serving run's
+    launches per ``q2_plan`` route; K2b's copy adds ``k2b_ms`` (K2b alone)
+    and ``q1_ms`` (the Q1 pass it saves). No PyTorch call computes Q1
+    (torch's quantize_per_tensor multiplies by the scale's inverse and
+    clamps to -128), a conv of Q2 or K2b's pair of outputs, so their
+    library_ms is null; Q2's dense rows carry torch._int_mm's time where
+    it takes the shape."""
     out = []
     err = int8_out["err"]
     for name, (src, replaces) in INT8_SOURCES.items():
@@ -4794,13 +5002,12 @@ def _int8_summary(launches, int8_out):
                      if r["bound_by"] == "operations")
         bytes_ms = sum(r["bound_ms"] for r in main
                        if r["bound_by"] == "bytes")
-        out.append({
+        rec = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches.get(name, 0),
-            "max_abs_err": (err["q1"] if name == "quantize_int8"
-                            else err["q2_out"]),
-            **({"sums_max_abs_err": err["q2_sums"]}
-               if name == "int8_conv" else {}),
+            "max_abs_err": {"quantize_int8": err["q1"],
+                            "int8_conv": err["q2_out"],
+                            "bn_apply_q8": err["k2b_q8"]}[name],
             "ms": sum(r["ms"] for r in main),
             "plain_ms": sum(r["plain_ms"] for r in main),
             "bound_ms": sum(r["bound_ms"] for r in main),
@@ -4808,7 +5015,15 @@ def _int8_summary(launches, int8_out):
             "library_ms": None,
             "summed_over": "one int8 cifar10 sampler dispatch, B=256, f32",
             "rows": [{k: r[k] for k in r if k not in ("kernel", "card")}
-                     for r in rows]})
+                     for r in rows]}
+        if name == "int8_conv":
+            rec["sums_max_abs_err"] = err["q2_sums"]
+            rec["mma_route_ms"] = sum(r["mma_ms"] or 0.0 for r in main)
+            rec["routes"] = int8_out.get("serve_routes")
+        if name == "bn_apply_q8":
+            rec["k2b_ms"] = sum(r["k2b_ms"] for r in main)
+            rec["q1_ms"] = sum(r["q1_ms"] for r in main)
+        out.append(rec)
     return out
 
 
@@ -4820,12 +5035,137 @@ def _timed(name, fn, *args):
     return out
 
 
+# ---------------------------------------------------------------------------
+# side phases: the three learning checks and the failure drills, each in a
+# process of its own beside the run's untimed phases. The learning checks
+# are bound by the host (the card is busy a quarter of an SSGAN iteration
+# or less, the tools phase's busy_share), the drills by their CLI
+# processes' start, so on a machine of several cores they overlap. They
+# start after every phase that times the card; the drills' readings are
+# taken beside the others.
+
+# phase name: (phase function of this module, key of its launches or None)
+SIDE_PHASES = {"failure": ("phase_failure_side", None),
+               "learn": ("phase_learn", "learn"),
+               "family2-learn": ("phase_family2_learn", "family2_learn"),
+               "family3-learn": ("phase_family3_learn", "family3_learn")}
+SIDE_TIMEOUT = 900    # seconds from the join to the last side phase's exit
+_SIDE_CODE = """
+import sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+sys.exit(chip_smoke.side_main({name!r}, {target!r}, {out!r}))
+"""
+
+
+def phase_failure_side(launch_totals):
+    """``phase_failure`` as a side phase: its save readings on the first
+    1024 rows of the train phase's synthetic set (the rows it reads)."""
+    import numpy as np
+    from graphical_gan_tpu_torch.data.synthetic import images_int
+    phase_failure(images_int(1024, 3072, seed=0).astype(np.uint8))
+
+
+def side_main(name: str, target: str, out: str) -> int:
+    """A side process's body: the phase ``target`` (a function of this
+    module, or ``module:function``) timed as ``name`` with a launches dict
+    of its own, which is written to ``out`` as JSON. Exit code 1 on a
+    failed check, or where JAX, the JAX package, PIL, matplotlib or sklearn
+    was imported."""
+    import importlib
+    try:
+        sys.path.insert(0, ROOT)
+        from graphical_gan_tpu_torch.core.device import set_numerics
+        set_numerics()
+        mod, _, fn = target.rpartition(":")
+        phase = getattr(importlib.import_module(mod) if mod
+                        else sys.modules[__name__], fn)
+        got = {}
+        _timed(name, phase, got)
+        leaked = [m for m in ("jax", "graphical_gan_tpu", "PIL",
+                              "matplotlib", "sklearn") if m in sys.modules]
+        if leaked:
+            fail(f"{name} imported {leaked}")
+        with open(out, "w") as f:
+            json.dump(got, f)
+        return 0
+    except SmokeFailure as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
+        return 1
+
+
+class SidePhases:
+    """Processes of ``side_main``, one per entry of ``targets`` (phase
+    name: function), each in a session of its own: ``start`` launches them
+    with their output in files under ``base``, ``join`` waits for them,
+    logs their output and returns each one's launches, ``stop`` ends each
+    one's whole process group (the processes it started too)."""
+
+    def __init__(self, targets, base, env=None):
+        self.targets, self.base, self.env = dict(targets), base, env
+        self.procs = {}
+
+    def start(self):
+        shutil.rmtree(self.base, ignore_errors=True)
+        os.makedirs(self.base)
+        for name, target in self.targets.items():
+            out = os.path.join(self.base, f"{name}.json")
+            text = os.path.join(self.base, f"{name}.out")
+            code = _SIDE_CODE.format(root=ROOT, name=name, target=target,
+                                     out=out)
+            with open(text, "w") as f:
+                self.procs[name] = (subprocess.Popen(
+                    [sys.executable, "-c", code], cwd=ROOT, env=self.env,
+                    stdin=subprocess.DEVNULL, stdout=f,
+                    stderr=subprocess.STDOUT, start_new_session=True),
+                    out, text)
+
+    def join(self, timeout=SIDE_TIMEOUT) -> dict:
+        deadline = time.perf_counter() + timeout
+        got, failed = {}, []
+        try:
+            for name, (proc, out, text) in self.procs.items():
+                try:
+                    rc = proc.wait(timeout=max(
+                        1.0, deadline - time.perf_counter()))
+                except subprocess.TimeoutExpired:
+                    rc = None
+                with open(text) as f:
+                    lines = f.read().splitlines()
+                for line in lines:
+                    log(line)
+                if rc == 0:
+                    with open(out) as f:
+                        got[name] = json.load(f)
+                else:
+                    failed.append(f"{name} (exit code {rc}): "
+                                  + "\n".join(lines[-20:]))
+        finally:
+            self.stop()
+        if failed:
+            fail("side phases failed: " + "\n".join(failed))
+        return got
+
+    def stop(self):
+        import signal
+        for proc, _, _ in self.procs.values():
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--log", default=None,
                    help="also write every logged line to this file")
     args = p.parse_args(argv)
     t_start = time.perf_counter()
+    side = SidePhases({name: target for name, (target, _) in
+                       SIDE_PHASES.items()},
+                      os.path.join(ROOT, "graphical_gan_tpu_torch",
+                                   "_build", "smoke_side"))
     try:
         try:
             import torch
@@ -4876,33 +5216,33 @@ def main(argv=None) -> int:
         missing = [k for k in TRAIN_KERNELS if not launches["train"].get(k)]
         if missing:
             fail(f"kernels never launched on the training path: {missing}")
-        _timed("train-parity", phase_train_parity)
-        _timed("train-repeat", phase_train_repeat, data)
         _timed("bench-conv", phase_bench_conv, launches["bench"])
         missing = [k for k in K3_KERNELS if not launches["bench"].get(k)]
         if missing:
             fail(f"kernels never launched on the bench-conv path: {missing}")
         _timed("family1", phase_family1, launches["family1"])
+        _timed("family2", phase_family2, launches["family2"])
+        _timed("family3", phase_family3, launches["family3"])
+        _timed("tools", phase_tools, launches["tools"], data)
+        _timed("phase-deconv", phase_phase_deconv, launches["phase_deconv"])
+        # the side phases from here on beside the untimed phases
+        side.start()
+        _timed("train-parity", phase_train_parity)
+        _timed("train-repeat", phase_train_repeat, data)
         _timed("family1-parity", phase_family1_parity)
         _timed("loaders", phase_loaders, launches["loaders"])
         _timed("eval", phase_eval, launches["eval"])
-        _timed("learn", phase_learn, launches["learn"])
         _timed("step-options", phase_step_options, launches["step_options"])
-        _timed("family2", phase_family2, launches["family2"])
         _timed("family2-parity", phase_family2_parity)
         _timed("cluster", phase_cluster, launches["cluster"])
-        _timed("family2-learn", phase_family2_learn,
-               launches["family2_learn"])
-        _timed("family3", phase_family3, launches["family3"])
         _timed("family3-parity", phase_family3_parity)
         _timed("family3-serve", phase_family3_serve,
                launches["family3_serve"])
-        _timed("family3-learn", phase_family3_learn,
-               launches["family3_learn"])
-        _timed("tools", phase_tools, launches["tools"], data)
         _timed("fault4", phase_fault4, launches["fault4"])
-        _timed("phase-deconv", phase_phase_deconv, launches["phase_deconv"])
-        _timed("failure", phase_failure, data)
+        got = _timed("side phases", side.join)
+        for name, (_, key) in SIDE_PHASES.items():
+            if key is not None:
+                launches[key].update(got[name])
         for path, want in (("family2", TRAIN_KERNELS),
                            ("family2_learn", TRAIN_KERNELS),
                            ("cluster", SERVE_KERNELS),
@@ -4936,6 +5276,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     finally:
+        side.stop()
         if args.log:
             os.makedirs(os.path.dirname(os.path.abspath(args.log)),
                         exist_ok=True)

@@ -33,4 +33,13 @@ __device__ __forceinline__ float apply_act(float v, int act, float leak = 0.2f) 
   return v;
 }
 
+// Q1's rounding, int8(clip(rint(v / s), -127, 127)): IEEE division (no fast
+// math in build.py's flags), rint half to even, as jnp.round and torch.round
+// do. K2b's int8 output (fused_norm.cu) rounds with it too.
+__device__ __forceinline__ int8_t q8(float v, float s) {
+  float r = rintf(__fdiv_rn(v, s));
+  r = fminf(fmaxf(r, -127.0f), 127.0f);
+  return static_cast<int8_t>(static_cast<int>(r));
+}
+
 }  // namespace ggan

@@ -53,6 +53,7 @@
 #include <cuda.h>
 
 #include "fused_conv.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace ggan {
@@ -70,59 +71,6 @@ template <int BM, int BN>
 constexpr int tma_smem_bytes() {
   // the stages, 1024 bytes to align them, the full and empty barriers
   return STAGES * (BM + BN) * 128 + 1024 + 2 * STAGES * 8;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-// one arrival that also arms the barrier for `bytes` of transactions
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// returns once the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// The im2col box: pixels from (n, h, w) on, each at (h + oh, w + ow), 64
-// channels from c.
-__device__ __forceinline__ void tma_im2col(uint32_t dst, const CUtensorMap* map,
-                                           uint32_t bar, int c, int w, int h,
-                                           int n, uint16_t ow, uint16_t oh) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(w), "r"(h), "r"(n),
-      "h"(ow), "h"(oh)
-      : "memory");
-}
-
-// The tiled box at (c0, c1, c2), innermost first.
-__device__ __forceinline__ void tma_tile3d(uint32_t dst, const CUtensorMap* map,
-                                           uint32_t bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
 }
 
 template <int BM, int BN>
@@ -152,10 +100,8 @@ conv_k3_tma_kernel(const __grid_constant__ CUtensorMap xmap,
   const int steps = min(nk, step0 + per) - step0;
 
   if (tid == 0) {
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&xmap))
-                 : "memory");
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&wmap))
-                 : "memory");
+    prefetch_tensormap(&xmap);
+    prefetch_tensormap(&wmap);
     for (int i = 0; i < STAGES; ++i) {
       mbar_init(full + 8 * i, 1);
       mbar_init(empty + 8 * i, THREADS);
@@ -252,40 +198,9 @@ cudaError_t launch_tma_tile(const CUtensorMap& xm, const CUtensorMap& wm,
   return cudaErrorInvalidValue;
 }
 
-// The tensor-map encoders of the CUDA API (CUDA 12 signatures), found through
-// cudaGetDriverEntryPoint so that the library links against nothing new.
-using EncodeIm2col = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const int*, const int*, cuuint32_t, cuuint32_t,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-template <typename F>
-bool entry_point(const char* name, F* fn) {
-  void* p = nullptr;
-  cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-  if (cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &q) != cudaSuccess ||
-      q != cudaDriverEntryPointSuccess || p == nullptr)
-    return false;
-  *fn = reinterpret_cast<F>(p);
-  return true;
-}
-
 }  // namespace
 }  // namespace k3
 }  // namespace ggan
-
-// Error codes beside cudaGetLastError()'s: the two maps' encodings failed
-// (kEncodeX / kEncodeW + the CUresult), or no encoder was found.
-constexpr int kEncodeX = 10000;
-constexpr int kEncodeW = 20000;
-constexpr int kNoEncoder = 30000;
 
 // One K3a call on the TMA path. geo holds the maps' parameters in the order
 // of conv_gemm.py: TmaGeometry.packed():
@@ -300,8 +215,8 @@ constexpr int kNoEncoder = 30000;
 // splits > 1, ws is the f32 workspace [splits, M, Cout] and K1's reduce
 // kernel follows); act 0 (none) or 2 (leaky, slope `leak`); pad_h / pad_w
 // are the low-side pads. Returns cudaGetLastError() after the launches,
-// cudaErrorInvalidValue for arguments it has no kernel for, or one of the
-// codes above.
+// cudaErrorInvalidValue for arguments it has no kernel for, or one of
+// tma.cuh's codes (kEncodeX, kEncodeW, kNoEncoder).
 extern "C" int ggan_conv_gemm_tma(const void* x, const void* w, const void* bias,
                                   void* y, void* ws, const long long* geo, int B,
                                   int H, int W, int Cin, int K, int Cout, int OH,
@@ -317,11 +232,9 @@ extern "C" int ggan_conv_gemm_tma(const void* x, const void* w, const void* bias
       (splits > 1 && ws == nullptr) || (act != ggan::kActNone && act != ggan::kActLeaky))
     return static_cast<int>(cudaErrorInvalidValue);
 
-  static EncodeIm2col encode_im2col = nullptr;
-  static EncodeTiled encode_tiled = nullptr;
-  static const bool found = entry_point("cuTensorMapEncodeIm2col", &encode_im2col) &&
-                            entry_point("cuTensorMapEncodeTiled", &encode_tiled);
-  if (!found) return kNoEncoder;
+  ggan::EncodeIm2col encode_im2col;
+  ggan::EncodeTiled encode_tiled;
+  if (!ggan::tensor_map_encoders(&encode_im2col, &encode_tiled)) return ggan::kNoEncoder;
 
   CUtensorMap xm, wm;
   const cuuint64_t xdims[4] = {cuuint64_t(geo[0]), cuuint64_t(geo[1]),
@@ -337,7 +250,7 @@ extern "C" int ggan_conv_gemm_tma(const void* x, const void* w, const void* bias
       lower, upper, cuuint32_t(geo[11]), cuuint32_t(geo[12]), xelem,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return kEncodeX + static_cast<int>(r);
+  if (r != CUDA_SUCCESS) return ggan::kEncodeX + static_cast<int>(r);
   const cuuint64_t wdims[3] = {cuuint64_t(geo[17]), cuuint64_t(geo[18]),
                                cuuint64_t(geo[19])};
   const cuuint64_t wstrides[2] = {cuuint64_t(geo[20]), cuuint64_t(geo[21])};
@@ -348,7 +261,7 @@ extern "C" int ggan_conv_gemm_tma(const void* x, const void* w, const void* bias
                    wdims, wstrides, box, welem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                    CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return kEncodeW + static_cast<int>(r);
+  if (r != CUDA_SUCCESS) return ggan::kEncodeW + static_cast<int>(r);
 
   const Conv s{B,  H,  W,      Cin,   K,     K,           Cout,
                OH, OW, stride, pad_h, pad_w, B * OH * OW, K * K * Cin};

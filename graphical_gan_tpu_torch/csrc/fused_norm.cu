@@ -6,7 +6,10 @@
 //     inv = 1 / sqrt(var + eps), in one launch. Replaces
 //     graphical_gan_tpu/ops/pallas/fused_norm.py:_stats (_stats_kernel).
 // K2b ggan_bn_apply: y = act((x - mean) * (inv * scale) + offset) in x's
-//     dtype. Replaces fused_norm.py:_fwd (_apply_kernel).
+//     dtype. Replaces fused_norm.py:_fwd (_apply_kernel). ggan_bn_apply_q8
+//     also writes y's int8 copy for the int8 layer that reads it (Q1 folded
+//     into its producer: ops/quant.py), in the same pass, 1 more byte an
+//     element.
 // K2c+K2d ggan_bn_bwd: the whole backward in one launch. Per channel
 //     red = [Σgz, Σgz·xhat] in f32, with xhat = (x - mean) * inv and
 //     gz = g * act'(y), y recomputed from x as K2b computes it, and
@@ -109,12 +112,15 @@ __device__ __forceinline__ float pre_act(float d, float a, float offset) {
   return __fadd_rn(__fmul_rn(d, a), offset);
 }
 
-template <typename T, int VEC>
+// Q8 adds K2b's int8 output: q = q8(y, qs) of each y as rounded to T, the
+// value a consumer's Q1 would quantize (ops/quant.py pairs the two).
+template <typename T, int VEC, bool Q8 = false>
 __global__ void __launch_bounds__(256)
 bn_apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
                 const float* __restrict__ inv, const float* __restrict__ scale,
                 const float* __restrict__ offset, T* __restrict__ y,
-                int64_t n_packs, int C, int act) {
+                int64_t n_packs, int C, int act, int8_t* __restrict__ q = nullptr,
+                float qs = 1.0f) {
   const Pack<T, VEC>* xp = reinterpret_cast<const Pack<T, VEC>*>(x);
   Pack<T, VEC>* yp = reinterpret_cast<Pack<T, VEC>*>(y);
   const int64_t stride = int64_t(gridDim.x) * blockDim.x;
@@ -130,6 +136,12 @@ bn_apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
       out.v[k] = from_f32<T>(apply_act(v, act));
     }
     yp[i] = out;
+    if constexpr (Q8) {
+      Pack<int8_t, VEC> qo;
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) qo.v[k] = q8(to_f32(out.v[k]), qs);
+      reinterpret_cast<Pack<int8_t, VEC>*>(q)[i] = qo;
+    }
   }
 }
 
@@ -146,6 +158,16 @@ void launch_apply(const void* x, const float* mean, const float* inv, const floa
   bn_apply_kernel<T, VEC><<<apply_grid(n_packs), 256, 0, st>>>(
       static_cast<const T*>(x), mean, inv, scale, offset, static_cast<T*>(y), n_packs, C,
       act);
+}
+
+template <typename T, int VEC>
+void launch_apply_q8(const void* x, const float* mean, const float* inv, const float* scale,
+                     const float* offset, void* y, void* q, float qs, int64_t numel, int C,
+                     int act, cudaStream_t st) {
+  const int64_t n_packs = numel / VEC;
+  bn_apply_kernel<T, VEC, true><<<apply_grid(n_packs), 256, 0, st>>>(
+      static_cast<const T*>(x), mean, inv, scale, offset, static_cast<T*>(y), n_packs, C,
+      act, static_cast<int8_t*>(q), qs);
 }
 
 // d act(u)/du at the forward's pre-activation y: relu 1 or 0, leaky 1 or 0.2
@@ -707,6 +729,32 @@ extern "C" int ggan_bn_apply(const void* x, const void* mean, const void* inv,
     ggan::launch_apply<__nv_bfloat16, 4>(x, m, iv, sc, of, y, numel, C, act, st);
   } else if (dtype == ggan::kBFloat16 && vec == 1) {
     ggan::launch_apply<__nv_bfloat16, 1>(x, m, iv, sc, of, y, numel, C, act, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2b with its int8 copy: as ggan_bn_apply, and q [numel] int8 gets
+// q8(y, qs) (Q1 at the scale qs of y's consumer) in the same pass; vec 4
+// also needs q 4-byte aligned.
+extern "C" int ggan_bn_apply_q8(const void* x, const void* mean, const void* inv,
+                                const void* scale, const void* offset, void* y, void* q,
+                                float qs, int dtype, long long numel, int C, int act,
+                                int vec, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mean);
+  const float* iv = static_cast<const float*>(inv);
+  const float* sc = static_cast<const float*>(scale);
+  const float* of = static_cast<const float*>(offset);
+  if (dtype == ggan::kFloat32 && vec == 4) {
+    ggan::launch_apply_q8<float, 4>(x, m, iv, sc, of, y, q, qs, numel, C, act, st);
+  } else if (dtype == ggan::kFloat32 && vec == 1) {
+    ggan::launch_apply_q8<float, 1>(x, m, iv, sc, of, y, q, qs, numel, C, act, st);
+  } else if (dtype == ggan::kBFloat16 && vec == 4) {
+    ggan::launch_apply_q8<__nv_bfloat16, 4>(x, m, iv, sc, of, y, q, qs, numel, C, act, st);
+  } else if (dtype == ggan::kBFloat16 && vec == 1) {
+    ggan::launch_apply_q8<__nv_bfloat16, 1>(x, m, iv, sc, of, y, q, qs, numel, C, act, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

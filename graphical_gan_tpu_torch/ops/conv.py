@@ -51,12 +51,13 @@ def conv2d(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
     the JAX ``biases=False`` form comes when a caller needs it.
 
     Inside an int8 context (``ops/quant.py``) the product runs on Q1/Q2
-    instead of K1, and bias and act follow in float, as JAX's
-    ``ops/conv.py:114-126`` does."""
+    instead of K1, bias and act in Q2's epilogue in x's dtype, as JAX's
+    ``ops/conv.py:114-126`` applies them."""
     w = params[name + ".Filters"]
-    q = quant.intercept_conv2d(name, x, w, stride, padding)
+    q = quant.intercept_conv2d(name, x, w, stride, padding,
+                               params[name + ".Biases"], act)
     if q is not None:
-        return quant.bias_act(q, params[name + ".Biases"], act)
+        return q
     return conv2d_bias_act(x.contiguous(), w, params[name + ".Biases"],
                            stride, padding, act)
 
@@ -78,9 +79,9 @@ def deconv2d(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
     bias = params[name + ".Biases"]
     # serving-side int8 context (ops/quant.py), before the phase gate, as
     # JAX's ops/conv.py:167-179
-    q = quant.intercept_deconv2d(name, x, w, stride, padding)
+    q = quant.intercept_deconv2d(name, x, w, stride, padding, bias)
     if q is not None:
-        return q + bias.to(q.dtype)
+        return q
     if stride == 2 and use_phase_deconv():
         return conv_transpose_phase(x, w, bias)
     return conv_transpose(x, w, bias, stride)

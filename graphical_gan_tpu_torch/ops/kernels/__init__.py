@@ -12,7 +12,7 @@ from graphical_gan_tpu_torch.ops.kernels.conv_gemm import (  # noqa: F401
 from graphical_gan_tpu_torch.ops.kernels.fused_conv import (  # noqa: F401
     conv2d_bias_act, fused_conv2d_bias_act)
 from graphical_gan_tpu_torch.ops.kernels.fused_norm import (  # noqa: F401
-    bn_apply, bn_bwd, bn_stats, fused_batchnorm_act)
+    bn_apply, bn_apply_q8, bn_bwd, bn_stats, fused_batchnorm_act)
 from graphical_gan_tpu_torch.ops.kernels.quant import (  # noqa: F401
     int8_conv, quantize_int8)
 
@@ -26,12 +26,15 @@ WRAPPERS = {
     "conv_gemm_im2col": conv_gemm_im2col,
     "quantize_int8": quantize_int8,
     "int8_conv": int8_conv,
+    "bn_apply_q8": bn_apply_q8,
 }
 
 
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for route in int8_conv.routes:  # Q2's launches per q2_plan route
+        int8_conv.routes[route] = 0
 
 
 def launches() -> dict:

@@ -69,9 +69,19 @@ _SIGNATURES = {
     # x, scales, scalar, C, inner, q, dtype, n, vec, stream
     "ggan_quantize_int8": [_P, _P, ctypes.c_float, _I, ctypes.c_longlong, _P,
                            _I, ctypes.c_longlong, _I, _P],
-    # x, w, factor, y, out, B, H, W, Cin, KH, KW, Cout, OH, OW, stride,
-    # pad_h, pad_w, avec, wvec, stream
-    "ggan_int8_conv": [_P] * 4 + [_I] * 15 + [_P],
+    # x, wk, factor, bias, y, out, act, leak, B, H, W, Cin, KH, KW, Cout,
+    # n_rows, OH, OW, stride, pad_h, pad_w, avec, wvec, stream
+    "ggan_int8_conv": [_P] * 5 + [_I] * 2 + [ctypes.c_float] + [_I] * 15
+    + [_P],
+    # x, wk, factor, bias, y, ws, out, act, leak, B, H, W, Cin, KH, KW,
+    # Cout, n_rows, OH, OW, stride, pad_h, pad_h_hi, pad_w, pad_w_hi, dense,
+    # bm, bn, bk, stages, splits, per, stream
+    "ggan_int8_conv_tma": [_P] * 6 + [_I] * 2 + [ctypes.c_float] + [_I] * 22
+    + [_P],
+    # x, mean, inv, scale, offset, y, q, qs, dtype, numel, C, act, vec,
+    # stream
+    "ggan_bn_apply_q8": [_P] * 7 + [ctypes.c_float, _I, ctypes.c_longlong,
+                                    _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

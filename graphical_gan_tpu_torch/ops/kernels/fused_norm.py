@@ -12,6 +12,9 @@ Three kernels in ``csrc/fused_norm.cu``, each behind its own wrapper:
   rounding;
 - K2b :func:`bn_apply` replaces ``fused_norm.py:_fwd``'s apply pass:
   ``act((x - mean) * (inv * scale) + offset)`` in x's dtype;
+  :func:`bn_apply_q8` is the same kernel with a second output, y's int8
+  copy at its consumer's scale (Q1 folded into its producer, for the int8
+  serving path: ``ops/quant.py``);
 - K2c+K2d :func:`bn_bwd` replaces both passes of ``fused_norm.py:_bwd`` in
   one cooperative launch: per channel ``red = [Σgz, Σgz·xhat]`` in f32
   (``gz = g·act'(y)``, xhat and y recomputed from x), one grid-wide
@@ -41,6 +44,7 @@ from torch.autograd.function import once_differentiable
 from graphical_gan_tpu_torch.ops.activations import (
     activation, activation_grad)
 from graphical_gan_tpu_torch.ops.kernels import build
+from graphical_gan_tpu_torch.ops.kernels.quant import quantize_int8_plain
 
 EPS = 1e-5
 _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -271,6 +275,71 @@ def _k2b_cuda(x2d, mean, inv, scale, offset, act):
     return y
 
 
+def bn_apply_q8_plain(x2d: torch.Tensor, mean: torch.Tensor,
+                      inv: torch.Tensor, scale: torch.Tensor,
+                      offset: torch.Tensor, act: Optional[str],
+                      s_x: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y, q): K2b's y and Q1 of it at ``s_x``, as two passes."""
+    y = bn_apply_plain(x2d, mean, inv, scale, offset, act)
+    return y, quantize_int8_plain(y, s_x)
+
+
+def bn_apply_q8(x2d: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
+                scale: torch.Tensor, offset: torch.Tensor,
+                act: Optional[str], s_x: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2b with its int8 copy: y as :func:`bn_apply` gives it (the same
+    bits) and ``q = clip(rint(f32(y) / f32(s_x)), -127, 127)`` as int8,
+    Q1's values, in one pass. On CUDA it runs as the op
+    ``ggan::bn_apply_q8``."""
+    if x2d.device.type == "cpu":
+        return bn_apply_q8_plain(x2d, mean, inv, scale, offset, act, s_x)
+    if x2d.device.type != "cuda":
+        raise RuntimeError(f"bn_apply_q8: no kernel for {x2d.device}")
+    if act not in build.ACT_CODES:
+        raise ValueError(f"unknown activation {act!r}")
+    return build.run_op(_k2b_q8, _k2b_q8_cuda, x2d, mean, inv, scale, offset,
+                        act or "", float(s_x))
+
+
+@torch.library.custom_op("ggan::bn_apply_q8", mutates_args=(),
+                         device_types="cpu")
+def _k2b_q8(x2d: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
+            scale: torch.Tensor, offset: torch.Tensor, act: str, s_x: float
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2b with its int8 copy on a CPU tensor: the plain version."""
+    return bn_apply_q8_plain(x2d, mean, inv, scale, offset, act or None, s_x)
+
+
+@_k2b_q8.register_fake
+def _k2b_q8_fake(x2d, mean, inv, scale, offset, act, s_x):
+    return torch.empty_like(x2d), torch.empty_like(x2d, dtype=torch.int8)
+
+
+@_k2b_q8.register_kernel("cuda")
+def _k2b_q8_cuda(x2d, mean, inv, scale, offset, act, s_x):
+    act = act or None
+    _check_2d(x2d, "bn_apply_q8")
+    r, c = x2d.shape
+    chan = [t.to(device=x2d.device, dtype=torch.float32).contiguous()
+            for t in (mean, inv, scale, offset)]
+    if any(t.shape != (c,) for t in chan):
+        raise ValueError(f"bn_apply_q8: per-channel vectors must be [{c}]")
+    y = torch.empty_like(x2d)
+    q = torch.empty_like(x2d, dtype=torch.int8)
+    aligned = (x2d.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+               and q.data_ptr() % 4 == 0)
+    vec = 4 if c % 4 == 0 and aligned else 1
+    code = build.lib().ggan_bn_apply_q8(
+        x2d.data_ptr(), *[t.data_ptr() for t in chan], y.data_ptr(),
+        q.data_ptr(), float(s_x), build.DTYPE_CODES[_DTYPES[x2d.dtype]],
+        x2d.numel(), c, build.ACT_CODES[act], vec,
+        build.stream_ptr(x2d.device))
+    build.check(code, "ggan_bn_apply_q8")
+    bn_apply_q8.launches += 1
+    return y, q
+
+
 def _gz_xhat(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
              inv: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
              act: Optional[str]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -361,6 +430,7 @@ def bn_bwd(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
 
 bn_stats.launches = 0
 bn_apply.launches = 0
+bn_apply_q8.launches = 0
 bn_bwd.launches = 0
 
 
@@ -457,3 +527,16 @@ def fused_batchnorm_act(x: torch.Tensor, scale: torch.Tensor,
 
     x: [..., C] contiguous; scale/offset: [C]. Output in x's dtype."""
     return FusedBatchNormAct.apply(x, scale, offset, act, eps)
+
+
+def batchnorm_act_q8(x: torch.Tensor, scale: torch.Tensor,
+                     offset: torch.Tensor, act: Optional[str], s_x: float,
+                     eps: float = EPS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """act(batchnorm(x)) over channels-last x with batch statistics, and
+    its int8 copy at ``s_x``: K2a, then K2b with its second output. For the
+    int8 serving path only (no gradient)."""
+    c = x.shape[-1]
+    x2d = x.reshape(-1, c)
+    mean, _, inv = bn_stats(x2d, eps)
+    y, q = bn_apply_q8(x2d, mean, inv, scale, offset, act, s_x)
+    return y.reshape(x.shape), q.reshape(x.shape)

@@ -19,12 +19,13 @@ from graphical_gan_tpu_torch.ops import quant
 def linear(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
            biases: bool = True) -> torch.Tensor:
     w = params[name + ".W"]
+    b = params[name + ".b"] if biases else None
     lead = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
-    out = quant.intercept_linear(name, x2d, w)
-    if out is None:
-        out = torch.matmul(x2d, w.to(x.dtype))
-    out = out.reshape(*lead, w.shape[1])
+    q = quant.intercept_linear(name, x2d, w, b)  # the bias in Q2's epilogue
+    if q is not None:
+        return q.reshape(*lead, w.shape[1])
+    out = torch.matmul(x2d, w.to(x.dtype)).reshape(*lead, w.shape[1])
     if biases:
-        out = out + params[name + ".b"].to(out.dtype)
+        out = out + b.to(out.dtype)
     return out

@@ -15,9 +15,10 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
+from graphical_gan_tpu_torch.ops import quant
 from graphical_gan_tpu_torch.ops.activations import activation
 from graphical_gan_tpu_torch.ops.kernels.fused_norm import (
-    EPS, fused_batchnorm_act)
+    EPS, batchnorm_act_q8, fused_batchnorm_act)
 
 
 def _is_channels_last(x: torch.Tensor, axes) -> bool:
@@ -27,10 +28,23 @@ def _is_channels_last(x: torch.Tensor, axes) -> bool:
 def batchnorm_act(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
                   act: Optional[str] = None,
                   axes: Optional[Sequence[int]] = None) -> torch.Tensor:
-    """``act(batchnorm(x))`` with learned ``name.scale`` / ``name.offset``."""
+    """``act(batchnorm(x))`` with learned ``name.scale`` / ``name.offset``.
+
+    Under an int8 context (``ops/quant.py``) the channels-last form reports
+    its output to the context, and where the context paired it with the
+    int8 layer that reads it, also writes that layer's int8 copy in the
+    same pass (``fused_norm.batchnorm_act_q8``)."""
     if _is_channels_last(x, axes):
-        return fused_batchnorm_act(x.contiguous(), params[name + ".scale"],
-                                   params[name + ".offset"], act, EPS)
+        scale, offset = params[name + ".scale"], params[name + ".offset"]
+        s_q = quant.bn_consumer_scale(name)
+        if s_q is not None:
+            y, q = batchnorm_act_q8(x.contiguous(), scale, offset, act, s_q,
+                                    EPS)
+            quant.bn_produced(name, y, q)
+            return y
+        y = fused_batchnorm_act(x.contiguous(), scale, offset, act, EPS)
+        quant.bn_produced(name, y)
+        return y
     return activation(act)(batchnorm(params, name, x, axes))
 
 

@@ -16,20 +16,32 @@ Scheme (static PTQ, the JAX package's):
   :func:`scales_from_records`), floored at 1e-12;
 - ``q = clip(round_half_even(f32(x) / f32(s)), -127, 127)`` (Q1,
   ``ops/kernels/quant.py: quantize_int8``), int8 x int8 products summed in
-  int32 (Q2, ``int8_conv``), then ``f32(acc) * (f32(s_x) * s_w)`` cast to
-  x's dtype; bias and activation stay in float after it.
+  int32 (Q2, ``int8_conv_packed``), then ``f32(acc) * (f32(s_x) * s_w)``
+  cast to x's dtype; bias and activation follow in that dtype, in Q2's
+  epilogue (``bias_act_plain`` is their plain version).
 
 A transposed conv quantizes its whole ``(k, k, O, I)`` filter per ``o``
 first and then gathers the int8 taps of its phase filter
 (``ops/phase_deconv.py: _phase_kernel``): one stride-1 Q2 conv to 4·O
-channels, each taking its ``o``'s factor, then the depth-to-space. A dense
-layer is a 1x1 Q2 conv over ``[M, 1, 1, K]``.
+channels, each taking its ``o``'s factor and bias, then the
+depth-to-space. A dense layer is a 1x1 Q2 conv over ``[M, 1, 1, K]``.
+Each filter is kept K-major (``pack_filter``), as Q2 reads it.
 
 With no context active (the default, and always in training) every
 intercept returns None and the float path runs as it did. The weights are
 quantized once per context's weight cache (``quantized(scales,
 weights)``): a sampler built for int8 serving keeps one cache, so its
 weights are quantized at its first call and reused after.
+
+Q1 folded into the BN that produces its input: at a layer's first call
+(its weights' cache miss), its intercept notes whether its input is the
+output of the ``batchnorm_act`` that ran last (``ops/norm.py``), the same
+tensor or a contiguous view of all of it (cifar10's ``Generator.2`` reads
+BN1's output through a reshape). The two are then paired in the cache;
+on later calls that BN runs K2b with its int8 copy at the layer's scale
+(``fused_norm.bn_apply_q8``), and the layer takes that copy in place of a
+Q1 launch. Other inputs (the latents, mnist's crop between BN2 and
+``Generator.3``, celeba's BN-free generator) keep the standalone Q1.
 """
 
 from __future__ import annotations
@@ -42,13 +54,15 @@ from typing import Dict, Optional
 
 import torch
 
-from graphical_gan_tpu_torch.ops.activations import LEAKY_ALPHA, activation
 from graphical_gan_tpu_torch.ops.kernels.fused_conv import _pads
 from graphical_gan_tpu_torch.ops.kernels.quant import (
-    int8_conv, quantize_int8)
+    int8_conv_packed, pack_filter, quantize_int8)
 
 _state = threading.local()
 SCALE_FLOOR = 1e-12
+# the weight cache's entry of the BN -> consumer pairs (a tuple: no layer
+# name)
+PAIRS = ("bn pairs",)
 
 
 def _mode() -> Optional[str]:
@@ -79,10 +93,14 @@ def quantized(scales: Dict[str, float],
         raise RuntimeError(f"quant context already active: {_mode()}")
     _state.mode, _state.scales = "int8", dict(scales)
     _state.weights = {} if weights is None else weights
+    # the last BN output (a pairing candidate) and the paired BNs' int8
+    # copies by consumer
+    _state.last_bn, _state.pending = None, {}
     try:
         yield
     finally:
         _state.mode = _state.scales = _state.weights = None
+        _state.last_bn = _state.pending = None
 
 
 def _traced(x) -> bool:
@@ -133,14 +151,15 @@ def _factor(s_x: float, s_w: torch.Tensor) -> torch.Tensor:
 
 
 def _prepared(name: str, w: torch.Tensor, kind: str, s_x: float):
-    """(int8 filter, f32 factor) of layer ``name``, from the context's
-    cache while ``w`` is the tensor it was made from, or is its trace
-    (``torch.export`` of an entry whose cache an eager call filled: the
-    program then holds the cached int8 weights as constants)."""
+    """(K-major int8 filter, f32 factor, made now) of layer ``name``, from
+    the context's cache while ``w`` is the tensor it was made from, or is
+    its trace (``torch.export`` of an entry whose cache an eager call
+    filled: the program then holds the cached int8 weights as
+    constants)."""
     cache = _state.weights
     hit = cache.get(name)
     if hit is not None and (hit[0] is w or _traced(w)) and hit[1] == s_x:
-        return hit[2], hit[3]
+        return hit[2], hit[3], False
     if kind == "conv2d":          # HWIO
         s_w = weight_scales(w, 3)
         wq = quantize_int8(w.contiguous(), s_w.float(), axis=3)
@@ -149,22 +168,71 @@ def _prepared(name: str, w: torch.Tensor, kind: str, s_x: float):
         from graphical_gan_tpu_torch.ops.phase_deconv import _phase_kernel
         s_w = weight_scales(w, 2)
         wq_full = quantize_int8(w.contiguous(), s_w.float(), axis=2)
-        wq = _phase_kernel(wq_full, int(w.shape[0]))[0].contiguous()
+        wq = _phase_kernel(wq_full, int(w.shape[0]))[0]
         factor = _factor(s_x, s_w).repeat(4)
     else:                         # linear [in, out] as a 1x1 HWIO filter
         s_w = weight_scales(w, 1)
         wq = quantize_int8(w.contiguous(), s_w.float(), axis=1)
         wq = wq.reshape(1, 1, *w.shape)
         factor = _factor(s_x, s_w)
-    cache[name] = (w, s_x, wq, factor)
-    return wq, factor
+    pf = pack_filter(wq)
+    cache[name] = (w, s_x, pf, factor)
+    return pf, factor, True
+
+
+def _whole_view(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """x is y, or a contiguous view of all of y's elements."""
+    return (x is y or (x.dtype == y.dtype and x.numel() == y.numel()
+                       and x.is_contiguous() and y.is_contiguous()
+                       and x.data_ptr() == y.data_ptr()))
+
+
+def _input_q8(name: str, x: torch.Tensor, s_x: float,
+              first: bool) -> torch.Tensor:
+    """The int8 values of layer ``name``'s input x: its paired BN's int8
+    copy where that BN made one for it, else Q1. At the layer's first
+    call (``first``), pair it with the last BN if x is that BN's output."""
+    pairs = _state.weights.setdefault(PAIRS, {})
+    if first:
+        last = _state.last_bn
+        if last is not None and last[0] not in pairs and not _traced(x) \
+                and _whole_view(x, last[1]):
+            pairs[last[0]] = name
+    else:
+        made = _state.pending.pop(name, None)
+        if made is not None and (_traced(x) or _whole_view(x, made[0])):
+            return made[1].reshape(x.shape)
+    return quantize_int8(x.contiguous(), s_x)
+
+
+def bn_consumer_scale(bn: str) -> Optional[float]:
+    """The activation scale of the int8 layer paired with BN ``bn`` (its
+    output's int8 copy is made at it), or None: no int8 context, or no
+    pair."""
+    if _mode() != "int8":
+        return None
+    consumer = _state.weights.get(PAIRS, {}).get(bn)
+    return None if consumer is None else _act_scale(consumer)
+
+
+def bn_produced(bn: str, y: torch.Tensor,
+                q: Optional[torch.Tensor] = None) -> None:
+    """``ops/norm.py: batchnorm_act``'s output y of BN ``bn`` (and with
+    ``q`` its int8 copy for the paired layer) under an int8 context."""
+    if _mode() != "int8":
+        return
+    if q is None:
+        _state.last_bn = (bn, y)
+    else:
+        _state.pending[_state.weights[PAIRS][bn]] = (y, q)
 
 
 def intercept_conv2d(name: str, x: torch.Tensor, w: torch.Tensor,
-                     stride: int, padding) -> Optional[torch.Tensor]:
-    """int8 path of ``ops.conv.conv2d`` (HWIO filter): the dequantized
-    conv, without bias, or None where the float path runs (no context, or
-    calibration after recording)."""
+                     stride: int, padding, bias: Optional[torch.Tensor] = None,
+                     act: Optional[str] = None) -> Optional[torch.Tensor]:
+    """int8 path of ``ops.conv.conv2d`` (HWIO filter): ``act(conv + bias)``
+    (without them where not given), or None where the float path runs (no
+    context, or calibration after recording)."""
     mode = _mode()
     if mode is None:
         return None
@@ -172,18 +240,21 @@ def intercept_conv2d(name: str, x: torch.Tensor, w: torch.Tensor,
         _record(name, x)
         return None
     s_x = _act_scale(name)
-    wq, factor = _prepared(name, w, "conv2d", s_x)
+    pf, factor, first = _prepared(name, w, "conv2d", s_x)
     pads = _pads(x.shape[1], x.shape[2], w.shape[0], w.shape[1], stride,
                  padding)
-    return int8_conv(quantize_int8(x.contiguous(), s_x), wq, factor, stride,
-                     pads, x.dtype)
+    return int8_conv_packed(_input_q8(name, x, s_x, first), pf, factor,
+                            stride, pads, x.dtype, bias, act)
 
 
 def intercept_deconv2d(name: str, x: torch.Tensor, w: torch.Tensor,
-                       stride: int, padding: str) -> Optional[torch.Tensor]:
+                       stride: int, padding: str,
+                       bias: Optional[torch.Tensor] = None
+                       ) -> Optional[torch.Tensor]:
     """int8 path of ``ops.conv.deconv2d`` (``(k, k, O, I)`` filter), SAME
     at stride 2, through the phase route: one stride-1 Q2 conv to 4·O
-    channels, then the depth-to-space; without bias."""
+    channels (the bias tiled 4x into its epilogue where given), then the
+    depth-to-space."""
     mode = _mode()
     if mode is None:
         return None
@@ -196,20 +267,22 @@ def intercept_deconv2d(name: str, x: torch.Tensor, w: torch.Tensor,
             f"(got stride {stride}, {padding!r})")
     from graphical_gan_tpu_torch.ops.phase_deconv import _phase_plan
     s_x = _act_scale(name)
-    wq, factor = _prepared(name, w, "deconv2d", s_x)
+    pf, factor, first = _prepared(name, w, "deconv2d", s_x)
     pl, pr = _phase_plan(int(w.shape[0]))[:2]
-    out4 = int8_conv(quantize_int8(x.contiguous(), s_x), wq, factor, 1,
-                     ((pl, pr), (pl, pr)), x.dtype)
+    out4 = int8_conv_packed(_input_q8(name, x, s_x, first), pf, factor, 1,
+                            ((pl, pr), (pl, pr)), x.dtype,
+                            None if bias is None else bias.repeat(4))
     b, h, wd = out4.shape[:3]
     o = int(w.shape[2])
     out = out4.reshape(b, h, wd, 2, 2, o).permute(0, 1, 3, 2, 4, 5)
     return out.reshape(b, 2 * h, 2 * wd, o)
 
 
-def intercept_linear(name: str, x2d: torch.Tensor, w: torch.Tensor
+def intercept_linear(name: str, x2d: torch.Tensor, w: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None
                      ) -> Optional[torch.Tensor]:
     """int8 path of ``ops.linear.linear`` (2-D x, ``[in, out]`` weight), a
-    1x1 Q2 conv over ``[M, 1, 1, K]``; without bias."""
+    1x1 Q2 conv over ``[M, 1, 1, K]``, + bias where given."""
     mode = _mode()
     if mode is None:
         return None
@@ -217,24 +290,11 @@ def intercept_linear(name: str, x2d: torch.Tensor, w: torch.Tensor
         _record(name, x2d)
         return None
     s_x = _act_scale(name)
-    wq, factor = _prepared(name, w, "linear", s_x)
+    pf, factor, first = _prepared(name, w, "linear", s_x)
     m, k = x2d.shape
-    xq = quantize_int8(x2d.contiguous(), s_x).reshape(m, 1, 1, k)
-    out = int8_conv(xq, wq, factor, 1, "VALID", x2d.dtype)
+    xq = _input_q8(name, x2d, s_x, first).reshape(m, 1, 1, k)
+    out = int8_conv_packed(xq, pf, factor, 1, "VALID", x2d.dtype, bias)
     return out.reshape(m, w.shape[1])
-
-
-def bias_act(y: torch.Tensor, bias: torch.Tensor, act: Optional[str]
-             ) -> torch.Tensor:
-    """``act(y + bias)`` in y's dtype after an int8 product, as JAX's
-    ``ops/conv.py:114-126`` applies them: the leaky slope is a weak-typed
-    Python float there, so it is rounded to y's dtype before the product
-    (0.2001953125 in bf16)."""
-    y = y + bias.to(y.dtype)
-    if act == "leaky_relu":
-        return torch.maximum(
-            y * torch.tensor(LEAKY_ALPHA, dtype=y.dtype, device=y.device), y)
-    return activation(act)(y)
 
 
 def scales_from_records(records: Dict[str, float]) -> Dict[str, float]:

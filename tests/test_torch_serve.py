@@ -349,7 +349,8 @@ def test_cpu_serving_launches_no_kernel(tmp_path):
                                   "bn_apply": 0, "bn_bwd": 0,
                                   "conv_gemm_taps": 0,
                                   "conv_gemm_im2col": 0,
-                                  "quantize_int8": 0, "int8_conv": 0}
+                                  "quantize_int8": 0, "int8_conv": 0,
+                                  "bn_apply_q8": 0}
 
 
 def test_checkpoint_round_trip_and_latest(tmp_path):
