@@ -172,24 +172,53 @@ nothing of JAX or of the JAX package, and does in order:
    f32 iteration and an f32 sampler dispatch at B 256 with
    ``GGAN_PHASE_DECONV`` off and on;
 26. failure: the CLI at the published cifar10 wali-gp config in
-   subprocesses: SIGTERM after iteration 4 (exit 0, resumed to 100 bit for
+   subprocesses: SIGTERM after iteration 4 (exit 0, resumed to 60 bit for
    bit against an uninterrupted run), ``GGAN_FAULT_NAN_AT=7`` with one
    rollback (finite, ``rng_salt_high`` 1) and without the guard (inert),
    async checkpoints equal to sync ones, ``--compile-cache`` built once and
    then loaded with no ``nvcc`` run; the time a save holds the loop;
-27. prints one JSON line per kernel summary, the card line, and last
+27. frozen-inception: the complete Inception-v3 (2015 ``classify_image``)
+   architecture written as a GraphDef by this script's protobuf writer
+   (``inception_v3_2015_graphdef``: the op sequence and channel plan of
+   tests/test_inception_full_graph.py, 94 convs, ~24M random weights from
+   seed 0, ~95 MB of Consts), read by the port's reader into
+   ``FrozenInceptionClassifier(device="cuda")``: finite probabilities
+   that sum to 1, images/s at batch 100 of 32x32x3 images in [0, 255]
+   (the graph resizes them to 299) from CUDA events against the f32 bound
+   of the graph's Conv2D and head operations (``frozen_flops``); then
+   ``default_is_classifier("cuda")`` with ``GGAN_INCEPTION_PB`` naming the
+   file and ``tools/score_samples.py --classifier frozen`` on a
+   full-width cifar10 wali-gp checkpoint, each reaching the frozen head on
+   the card;
+28. frozen-parity: pool_3 and the probabilities of 8 images on the card
+   against the same graph on the CPU (relative L2 within 1e-4, TF32 off);
+29. quality-run: ``tools/quality_run.py`` at the published cifar10
+   wali-gp width, bf16 and f32, 100 iterations and 1,000 metric samples
+   each: finite records with the JAX tool's keys, the training kernels
+   launched (the check phase holds K1 and K2 at the shapes its width-64
+   metric classifier and bf16 samples add, ``_check_quality_run``);
+30. library-ops: each op no model uses (``batchnorm_moving_stats`` in both
+   branches, ``layernorm``, ``cond_batchnorm``, ``minibatch_layer``,
+   ``ladder``, weight-normed and orthogonal ``linear``, masked,
+   weight-normed and bias-free ``conv2d`` on K1, ``conv1d``, VALID
+   ``deconv2d`` at k 3-5 and stride 1-2, ``objectives/gan.py``,
+   ``local_ep_dynamic``, the layout transposes) on the card against its
+   CPU run, outputs and gradients; ``epoch_batches_ondevice`` on the card;
+   K1's launches counted;
+31. prints one JSON line per kernel summary, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 The numbers name the phases; the run takes them in another order. First,
 one at a time, the phases that time the card: 1-9 (but train-parity and
-train-repeat), 10, 15, 19, 23 and 25. Then the side phases, failure (26),
-learn (13), family2-learn (18) and family3-learn (22), start, each in a
-process of its own (``SidePhases``: they are bound by the host, so they
-overlap on a machine of several cores; failure's readings are so taken
-beside the others), and beside them the rest run in this process:
-train-parity, train-repeat, the family1 parity checks, 11, 12, 14, 16,
-17, 20, 21 and 24. Last the side phases are joined, their output logged
-and their launches counted.
+train-repeat), 10, 15, 19, 23, 25 and 27. Then the side phases, failure
+(26), learn (13), family2-learn (18) and family3-learn (22), start, each
+in a process of its own (``SidePhases``: they are bound by the host, so
+they overlap on a machine of several cores; failure's readings are so
+taken beside the others), and beside them the rest run in this process:
+28, 30, 29 (its throughput so read beside the side phases), train-parity,
+train-repeat, the family1 parity checks, 11, 12, 14, 16, 17, 20, 21 and
+24. Last the side phases are joined, their output logged and their
+launches counted.
 
 Any failed check exits non-zero without the last line. ``--log PATH`` also
 writes every logged line to PATH. Each phase logs its seconds.
@@ -1117,6 +1146,7 @@ def phase_check(errs):
     _check_family2(gen, errs, misses, seen)
     _check_family3(gen, errs, misses, seen)
     _check_phase_convs(gen, errs, misses, seen)
+    _check_quality_run(gen, errs, misses, seen)
     _check_f32_against_cpu()
     missed = _k1_coverage_misses(seen)
     log({"check": "K1 plan coverage", "kernels_and_paths_run": len(seen),
@@ -3369,7 +3399,9 @@ SERVING_ROUNDS = 1       # window per family and batch
 SERVER_REQUESTS = 10     # bench_server: requests per client
 DET_CHUNK_ITERS = 4
 DET_TRAINER_ITERS = 6
-REPLAY_ITERS = 200       # GMGAN trainer iterations of the process replay
+# GMGAN trainer iterations of the process replay (200 before the
+# frozen-inception phase took that time)
+REPLAY_ITERS = 100
 # GMGAN mnist local_ep at its published width: the config of the learning
 # check (ROADMAP §3 fault 1)
 REPLAY_DIM, REPLAY_B = 64, 50
@@ -3834,7 +3866,8 @@ def phase_phase_deconv(launch_totals):
 # failure: SIGTERM, rollback, async checkpoints and the kernel build cache
 # through the real CLI, at the published cifar10 wali-gp config
 
-FAIL_ITERS = 100
+# 100 before the frozen-inception phase took that time
+FAIL_ITERS = 60
 FAIL_CKPT_EVERY = 50
 FAIL_NAN_AT = 7
 SAVE_REPS = 3
@@ -3936,7 +3969,7 @@ def _save_times(base, data):
 def phase_failure(data):
     """The failure drills through ``runs/gan_inference.py`` in subprocesses
     at the published cifar10 wali-gp config (B 64, DIM 64, k 5, f32) on the
-    loader's synthetic data, ``--iters 100 --checkpoint-every 50``, each
+    loader's synthetic data, ``--iters 60 --checkpoint-every 50``, each
     run with ``--compile-cache`` on one directory, ``nvcc`` wrapped so its
     calls are logged:
 
@@ -4901,7 +4934,8 @@ def summary(errs, timings, launches, int8_out):
     ``launches_loaders`` / ``_eval`` / ``_learn`` / ``_step_options`` /
     ``_family2`` / ``_cluster`` / ``_family2_learn`` / ``_family3`` /
     ``_family3_serve`` / ``_family3_learn`` / ``_tools`` / ``_fault4`` /
-    ``_phase_deconv`` / ``_int8`` those phases' runs (K1's
+    ``_phase_deconv`` / ``_int8`` / ``_frozen`` (score_samples' generator)
+    / ``_quality_run`` / ``_library`` those phases' runs (K1's
     ``_phase_deconv``: the phase route at the eight bench shapes); K1 adds
     ``family3_rows``, its times at family 3's shapes (B 50 videos). Q1
     and Q2 follow (:func:`_int8_summary`)."""
@@ -4937,7 +4971,8 @@ def summary(errs, timings, launches, int8_out):
                                     "family2_learn", "family3",
                                     "family3_serve", "family3_learn",
                                     "tools", "fault4", "phase_deconv",
-                                    "int8")},
+                                    "int8", "frozen", "quality_run",
+                                    "library")},
                     "max_abs_err": errs[name],
                     "ms": total("ms"), "plain_ms": total("plain_ms"),
                     "bound_ms": total("bound_ms"),
@@ -5025,6 +5060,844 @@ def _int8_summary(launches, int8_out):
             rec["q1_ms"] = sum(r["q1_ms"] for r in main)
         out.append(rec)
     return out
+
+
+# ---------------------------------------------------------------------------
+# frozen Inception-2015: a GraphDef writer and the v3 architecture. The
+# card's machine has neither TensorFlow nor protobuf, so the graph the
+# frozen-inception phase reads is written here, message by message, with
+# the op sequence and channel plan of the 2015 classify_image graph
+# (tests/test_inception_full_graph.py: _V3Builder, whose random draws it
+# repeats in the same order) and random weights from a numpy seed.
+
+# TF DataType enum values (tensorflow/core/framework/types.proto)
+TF_FLOAT, TF_INT32 = 1, 3
+# the attributes whose int value is a DataType
+_PB_TYPE_ATTRS = ("T", "DstT", "SrcT", "Tshape", "Tidx", "Tdim", "Tpaddings",
+                  "out_type", "dtype")
+
+
+def _pb_varint(n: int) -> bytes:
+    n &= (1 << 64) - 1  # negative int64s as their two's complement
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _pb_int(field: int, n: int) -> bytes:
+    return _pb_varint(field << 3) + _pb_varint(int(n))
+
+
+def _pb_bytes(field: int, payload: bytes) -> bytes:
+    return _pb_varint(field << 3 | 2) + _pb_varint(len(payload)) + payload
+
+
+def pb_tensor(arr) -> bytes:
+    """TensorProto: dtype (1), tensor_shape (2: a dim (2) per axis, each
+    its size (1)), tensor_content (4)."""
+    import numpy as np
+    dtype = {np.dtype(np.float32): TF_FLOAT,
+             np.dtype(np.int32): TF_INT32}[arr.dtype]
+    shape = b"".join(_pb_bytes(2, _pb_int(1, d)) for d in arr.shape)
+    return (_pb_int(1, dtype) + _pb_bytes(2, shape)
+            + _pb_bytes(4, np.ascontiguousarray(arr).tobytes()))
+
+
+def pb_attr(key: str, value) -> bytes:
+    """AttrValue by the value's Python type: bytes s (2), bool b (5), int
+    i (3) or type (6) for the DataType attributes, float f (4), a list of
+    ints list.i (1: 3, packed), an ndarray tensor (8)."""
+    import struct
+    import numpy as np
+    if isinstance(value, bytes):
+        body = _pb_bytes(2, value)
+    elif isinstance(value, bool):
+        body = _pb_int(5, value)
+    elif isinstance(value, int):
+        body = _pb_int(6 if key in _PB_TYPE_ATTRS else 3, value)
+    elif isinstance(value, float):
+        body = _pb_varint(4 << 3 | 5) + struct.pack("<f", value)
+    elif isinstance(value, list):
+        body = _pb_bytes(1, _pb_bytes(3, b"".join(_pb_varint(v)
+                                                  for v in value)))
+    elif isinstance(value, np.ndarray):
+        body = _pb_bytes(8, pb_tensor(value))
+    else:
+        raise TypeError(f"attr {key}: {type(value).__name__}")
+    return body
+
+
+def pb_node(name: str, op: str, inputs, attrs) -> bytes:
+    """NodeDef: name (1), op (2), input (3 each), attr (5: map entries of
+    key (1) and AttrValue (2))."""
+    out = _pb_bytes(1, name.encode()) + _pb_bytes(2, op.encode())
+    for i in inputs:
+        out += _pb_bytes(3, i.encode())
+    for k, v in attrs.items():
+        out += _pb_bytes(5, _pb_bytes(1, k.encode())
+                         + _pb_bytes(2, pb_attr(k, v)))
+    return out
+
+
+def pb_graphdef(nodes, producer: int = 8) -> bytes:
+    """GraphDef: node (1 each), versions (4: producer (1)); producer 8 is
+    older than BatchNormWithGlobalNormalization's deprecation."""
+    return (b"".join(_pb_bytes(1, pb_node(*n)) for n in nodes)
+            + _pb_bytes(4, _pb_int(1, producer)))
+
+
+def graph_const(name, arr, dtype=None):
+    """A Const node as tests/test_inception_frozen.py: _const makes it."""
+    import numpy as np
+    arr = np.asarray(arr, dtype or np.float32)
+    return (name, "Const", [], {
+        "dtype": TF_INT32 if arr.dtype == np.int32 else TF_FLOAT,
+        "value": arr})
+
+
+def graph_node(name, op, inputs, **attrs):
+    """A node with tests/test_inception_frozen.py: _node's defaults."""
+    if "T" not in attrs and op not in ("Placeholder", "Const"):
+        attrs["T"] = TF_FLOAT
+    if op in ("ConcatV2", "Concat"):
+        attrs.setdefault("Tidx", TF_INT32)
+    if op == "Reshape":
+        attrs.setdefault("Tshape", TF_INT32)
+    if op == "ExpandDims":
+        attrs.setdefault("Tdim", TF_INT32)
+    return (name, op, list(inputs), attrs)
+
+
+def graph_feed(name="ExpandDims"):
+    return (name, "Placeholder", [], {"dtype": TF_FLOAT})
+
+
+class V3Graph:
+    """The 2015 graph's op pattern, as tests/test_inception_full_graph.py:
+    _V3Builder emits it: each conv is Conv2D -> BatchNormWithGlobal
+    Normalization (scale_after_normalization False) -> Relu, branches
+    join in a Concat whose axis is input 0."""
+
+    def __init__(self, seed: int):
+        import numpy as np
+        self.rng = np.random.RandomState(seed)
+        self.nodes = []
+        self.channels = {}
+
+    def conv(self, name, src, cin, cout, kh, kw, stride=1, padding=b"SAME"):
+        import numpy as np
+        r = self.rng
+        self.nodes += [
+            graph_const(f"{name}/w",
+                        (r.randn(kh, kw, cin, cout)
+                         * (0.35 / np.sqrt(kh * kw * cin))).astype(
+                             np.float32)),
+            graph_node(f"{name}/conv", "Conv2D", [src, f"{name}/w"],
+                       strides=[1, stride, stride, 1], padding=padding),
+            graph_const(f"{name}/bn/m",
+                        r.randn(cout).astype(np.float32) * 0.1),
+            graph_const(f"{name}/bn/v",
+                        r.rand(cout).astype(np.float32) * 0.5 + 0.75),
+            graph_const(f"{name}/bn/beta",
+                        r.randn(cout).astype(np.float32) * 0.1),
+            graph_const(f"{name}/bn/gamma", np.ones(cout, np.float32)),
+            graph_node(f"{name}/bn", "BatchNormWithGlobalNormalization",
+                       [f"{name}/conv", f"{name}/bn/m", f"{name}/bn/v",
+                        f"{name}/bn/beta", f"{name}/bn/gamma"],
+                       variance_epsilon=0.001,
+                       scale_after_normalization=False, T=TF_FLOAT),
+            graph_node(name, "Relu", [f"{name}/bn"]),
+        ]
+        self.channels[name] = cout
+        return name
+
+    def maxpool(self, name, src, stride=2, padding=b"VALID"):
+        self.nodes.append(graph_node(name, "MaxPool", [src],
+                                     ksize=[1, 3, 3, 1],
+                                     strides=[1, stride, stride, 1],
+                                     padding=padding))
+        self.channels[name] = self.channels[src]
+        return name
+
+    def avgpool(self, name, src):
+        self.nodes.append(graph_node(name, "AvgPool", [src],
+                                     ksize=[1, 3, 3, 1],
+                                     strides=[1, 1, 1, 1], padding=b"SAME"))
+        self.channels[name] = self.channels[src]
+        return name
+
+    def concat(self, name, srcs):
+        import numpy as np
+        self.nodes += [
+            graph_const(f"{name}/axis", np.asarray(3, np.int32), np.int32),
+            graph_node(name, "Concat", [f"{name}/axis"] + list(srcs),
+                       N=len(srcs)),
+        ]
+        self.channels[name] = sum(self.channels[s] for s in srcs)
+        return name
+
+    def mixed_35(self, name, src, pool_proj):
+        cin = self.channels[src]
+        b0 = self.conv(f"{name}/b0", src, cin, 64, 1, 1)
+        b1 = self.conv(f"{name}/b1a", src, cin, 48, 1, 1)
+        b1 = self.conv(f"{name}/b1b", b1, 48, 64, 5, 5)
+        b2 = self.conv(f"{name}/b2a", src, cin, 64, 1, 1)
+        b2 = self.conv(f"{name}/b2b", b2, 64, 96, 3, 3)
+        b2 = self.conv(f"{name}/b2c", b2, 96, 96, 3, 3)
+        b3 = self.avgpool(f"{name}/b3pool", src)
+        b3 = self.conv(f"{name}/b3", b3, cin, pool_proj, 1, 1)
+        return self.concat(name, [b0, b1, b2, b3])
+
+    def mixed_17(self, name, src, c7):
+        cin = self.channels[src]
+        b0 = self.conv(f"{name}/b0", src, cin, 192, 1, 1)
+        b1 = self.conv(f"{name}/b1a", src, cin, c7, 1, 1)
+        b1 = self.conv(f"{name}/b1b", b1, c7, c7, 1, 7)
+        b1 = self.conv(f"{name}/b1c", b1, c7, 192, 7, 1)
+        b2 = self.conv(f"{name}/b2a", src, cin, c7, 1, 1)
+        b2 = self.conv(f"{name}/b2b", b2, c7, c7, 7, 1)
+        b2 = self.conv(f"{name}/b2c", b2, c7, c7, 1, 7)
+        b2 = self.conv(f"{name}/b2d", b2, c7, c7, 7, 1)
+        b2 = self.conv(f"{name}/b2e", b2, c7, 192, 1, 7)
+        b3 = self.avgpool(f"{name}/b3pool", src)
+        b3 = self.conv(f"{name}/b3", b3, cin, 192, 1, 1)
+        return self.concat(name, [b0, b1, b2, b3])
+
+    def mixed_8x8(self, name, src):
+        cin = self.channels[src]
+        b0 = self.conv(f"{name}/b0", src, cin, 320, 1, 1)
+        b1 = self.conv(f"{name}/b1a", src, cin, 384, 1, 1)
+        b1l = self.conv(f"{name}/b1b", b1, 384, 384, 1, 3)
+        b1r = self.conv(f"{name}/b1c", b1, 384, 384, 3, 1)
+        b1 = self.concat(f"{name}/b1cat", [b1l, b1r])
+        b2 = self.conv(f"{name}/b2a", src, cin, 448, 1, 1)
+        b2 = self.conv(f"{name}/b2b", b2, 448, 384, 3, 3)
+        b2l = self.conv(f"{name}/b2c", b2, 384, 384, 1, 3)
+        b2r = self.conv(f"{name}/b2d", b2, 384, 384, 3, 1)
+        b2 = self.concat(f"{name}/b2cat", [b2l, b2r])
+        b3 = self.avgpool(f"{name}/b3pool", src)
+        b3 = self.conv(f"{name}/b3", b3, cin, 192, 1, 1)
+        return self.concat(name, [b0, b1, b2, b3])
+
+
+def inception_v3_2015_nodes(seed: int = 0, n_classes: int = 1008,
+                            stages: int = 4):
+    """The nodes of tests/test_inception_full_graph.py:
+    build_inception_v3_2015(seed, n_classes): the input pipeline (Cast,
+    legacy ResizeBilinear to 299, Sub 128, Mul 1/128), the stem, 3 mixed
+    35x35 modules, mixed_3, 4 mixed 17x17, mixed_8, 2 mixed 8x8, pool_3
+    and the bias-free 2048 x n_classes head. ``stages`` < 4 stops after the
+    stem (1), the 35x35 modules (2) or the 17x17 ones (3), pool_3 then
+    averaging the whole map (the tests' reduced graphs)."""
+    import numpy as np
+    b = V3Graph(seed)
+    b.nodes += [
+        graph_feed(),
+        graph_node("Cast", "Cast", ["ExpandDims"], SrcT=TF_FLOAT,
+                   DstT=TF_FLOAT),
+        graph_const("resize/size", np.asarray([299, 299], np.int32),
+                    np.int32),
+        graph_node("ResizeBilinear", "ResizeBilinear",
+                   ["Cast", "resize/size"]),
+        graph_const("Sub/y", 128.0),
+        graph_node("Sub", "Sub", ["ResizeBilinear", "Sub/y"]),
+        graph_const("Mul/y", 1.0 / 128.0),
+        graph_node("Mul", "Mul", ["Sub", "Mul/y"]),
+    ]
+    b.channels["Mul"] = 3
+    h = b.conv("conv", "Mul", 3, 32, 3, 3, stride=2, padding=b"VALID")
+    h = b.conv("conv_1", h, 32, 32, 3, 3, padding=b"VALID")
+    h = b.conv("conv_2", h, 32, 64, 3, 3)
+    h = b.maxpool("pool", h)
+    h = b.conv("conv_3", h, 64, 80, 1, 1, padding=b"VALID")
+    h = b.conv("conv_4", h, 80, 192, 3, 3, padding=b"VALID")
+    h = b.maxpool("pool_1", h)
+    grid = 35
+    if stages >= 2:
+        h = b.mixed_35("mixed", h, pool_proj=32)
+        h = b.mixed_35("mixed_1", h, pool_proj=64)
+        h = b.mixed_35("mixed_2", h, pool_proj=64)
+    if stages >= 3:
+        cin = b.channels[h]
+        r0 = b.conv("mixed_3/b0", h, cin, 384, 3, 3, stride=2,
+                    padding=b"VALID")
+        r1 = b.conv("mixed_3/b1a", h, cin, 64, 1, 1)
+        r1 = b.conv("mixed_3/b1b", r1, 64, 96, 3, 3)
+        r1 = b.conv("mixed_3/b1c", r1, 96, 96, 3, 3, stride=2,
+                    padding=b"VALID")
+        r2 = b.maxpool("mixed_3/b2pool", h)
+        h = b.concat("mixed_3", [r0, r1, r2])
+        h = b.mixed_17("mixed_4", h, c7=128)
+        h = b.mixed_17("mixed_5", h, c7=160)
+        h = b.mixed_17("mixed_6", h, c7=160)
+        h = b.mixed_17("mixed_7", h, c7=192)
+        grid = 17
+    if stages >= 4:
+        cin = b.channels[h]
+        r0 = b.conv("mixed_8/b0a", h, cin, 192, 1, 1)
+        r0 = b.conv("mixed_8/b0b", r0, 192, 320, 3, 3, stride=2,
+                    padding=b"VALID")
+        r1 = b.conv("mixed_8/b1a", h, cin, 192, 1, 1)
+        r1 = b.conv("mixed_8/b1b", r1, 192, 192, 1, 7)
+        r1 = b.conv("mixed_8/b1c", r1, 192, 192, 7, 1)
+        r1 = b.conv("mixed_8/b1d", r1, 192, 192, 3, 3, stride=2,
+                    padding=b"VALID")
+        r2 = b.maxpool("mixed_8/b2pool", h)
+        h = b.concat("mixed_8", [r0, r1, r2])
+        h = b.mixed_8x8("mixed_9", h)
+        h = b.mixed_8x8("mixed_10", h)
+        grid = 8
+    c = b.channels[h]
+    rng = b.rng
+    b.nodes += [
+        graph_node("pool_3", "AvgPool", [h], ksize=[1, grid, grid, 1],
+                   strides=[1, 1, 1, 1], padding=b"VALID"),
+        graph_const("softmax/w",
+                    (rng.randn(c, n_classes) * 0.05).astype(np.float32)),
+        graph_const("pool_3/shape", np.asarray([-1, c], np.int32), np.int32),
+        graph_node("pool_3/reshaped", "Reshape", ["pool_3", "pool_3/shape"],
+                   T=TF_FLOAT),
+        graph_node("softmax/logits/MatMul", "MatMul",
+                   ["pool_3/reshaped", "softmax/w"]),
+        graph_node("softmax", "Softmax", ["softmax/logits/MatMul"]),
+    ]
+    return b.nodes
+
+
+def inception_v3_2015_graphdef(seed: int = 0, n_classes: int = 1008,
+                               stages: int = 4) -> bytes:
+    """``inception_v3_2015_nodes`` serialized (about 95 MB in full)."""
+    return pb_graphdef(inception_v3_2015_nodes(seed, n_classes, stages))
+
+
+# ---------------------------------------------------------------------------
+# this slice's phases: the frozen Inception-2015 scorer on the card, the
+# bf16-vs-f32 quality tool, and the library ops no model uses
+
+FROZEN_BATCH = 100      # the reference's IS batch (inception_score.py:34)
+FROZEN_HW = 32          # cifar10's images, resized to 299 in the graph
+FROZEN_TIME_CALLS = 5
+FROZEN_PARITY_N = 8
+# the card (cuDNN, no TF32) against the CPU on the same graph and images:
+# ~100 chained f32 conv + BN layers summed in other orders
+FROZEN_POOL_REL_L2 = 1e-4
+FROZEN_PROB_REL_L2 = 1e-4
+FROZEN_SCORE_ARGS = ["--dataset", "cifar10", "--mode", "wali-gp",
+                     "--n-samples", "200", "--splits", "2"]
+# tools/quality_run.py at the published width, cut in depth
+QUALITY_ITERS = 100
+QUALITY_SAMPLES = 1000
+QUALITY_KEYS = {"dtype", "iters", "params_finite", "losses_finite", "final",
+                "disc_cost_windows", "train_throughput_img_per_sec",
+                "wall_seconds", "fid_vs_train", "hermetic_is"}
+# a part-B op on the card against its CPU run: each output elementwise
+# (f32 sums in other orders, K1's in the convs; atol of the array's largest
+# magnitude), each gradient by its relative L2 error within GRAD_RTOL, as
+# train-parity holds gradients: cuDNN's f32 weight gradient of a 5x5
+# stride-1 conv is Winograd's (winogradWgrad*9x9_5x5, deterministic or
+# not), 5.8e-4 of the norm off the f64 result and 2.1e-3 of the largest
+# element, where the CPU's and cuDNN-off's are 1.5e-7 (H100 80GB HBM3,
+# 700 W); a wrong gradient formula is off by O(1)
+LIB_RTOL = 1e-4
+LIB_ATOL_REL = 1e-5
+
+
+def _frozen_dir():
+    return os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
+                        "smoke_frozen")
+
+
+def _valid_taps(n: int, k: int, s: int, padding: str) -> int:
+    """Taps of a k-wide window at stride s over n inputs that land inside
+    the input, summed over one axis's outputs (TF's SAME or VALID)."""
+    if padding == "VALID":
+        return ((n - k) // s + 1) * k
+    from graphical_gan_tpu_torch.ops.kernels.fused_conv import same_pads
+    return conv_valid_taps(n, k, s, same_pads(n, k, s)[0])
+
+
+def frozen_flops(nodes, batch: int, hw: int = FROZEN_HW) -> dict:
+    """The operations one forward of the frozen graph needs at ``batch``
+    images of hw x hw: each Conv2D's products and sums, the taps in its
+    padding left out, and the bias-free head's product, from the tensor
+    shapes of a run on the meta device (no compute)."""
+    import torch
+    from graphical_gan_tpu_torch.metrics.inception_frozen import (
+        FrozenInceptionClassifier as Frozen, GraphInterpreter)
+    interp = GraphInterpreter(nodes, "meta")
+    counts = {"conv": 0.0, "n_conv": 0}
+    evaluate = interp._eval_node
+
+    def counted(node, ref):
+        if node.op == "Conv2D":
+            x, w = ref(node.inputs[0]), ref(node.inputs[1])  # NHWC, HWIO
+            kh, kw, cin, cout = w.shape
+            _, sh, sw, _ = node.attr("strides")
+            pad = node.attr("padding").decode()
+            counts["conv"] += 2.0 * x.shape[0] * cin * cout \
+                * _valid_taps(x.shape[1], kh, sh, pad) \
+                * _valid_taps(x.shape[2], kw, sw, pad)
+            counts["n_conv"] += 1
+        return evaluate(node, ref)
+
+    interp._eval_node = counted
+    w_ref = interp.nodes[Frozen.LOGITS_MATMUL].inputs[1]
+    pool, w = interp.make_fn(Frozen.FEED, [Frozen.POOL, w_ref])(
+        torch.zeros((batch, hw, hw, 3), device="meta"))
+    head = 2.0 * batch * w.shape[0] * w.shape[1]
+    return {"flops": counts["conv"] + head, "conv_flops": counts["conv"],
+            "head_flops": head, "n_conv": counts["n_conv"],
+            "pool_3": list(pool.shape)}
+
+
+class _FrozenCalls:
+    """Counts ``FrozenInceptionClassifier.pool3_and_probs`` calls by the
+    device of their input, wherever the classifier was built."""
+
+    def __init__(self):
+        from graphical_gan_tpu_torch.metrics.inception_frozen import (
+            FrozenInceptionClassifier)
+        self.cls = FrozenInceptionClassifier
+        self.orig = FrozenInceptionClassifier.pool3_and_probs
+        self.calls = {}
+
+    def __enter__(self):
+        orig, calls = self.orig, self.calls
+
+        def counted(clf, x):
+            calls[x.device.type] = calls.get(x.device.type, 0) + 1
+            return orig(clf, x)
+        self.cls.pool3_and_probs = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.pool3_and_probs = self.orig
+
+
+def phase_frozen_inception(launch_totals, frozen_out):
+    """The frozen Inception-2015 scorer on the card: the complete v3
+    architecture written as a GraphDef (``inception_v3_2015_graphdef``,
+    random weights from seed 0), read by the port's reader into
+    ``FrozenInceptionClassifier(device="cuda")``; images/s at batch
+    FROZEN_BATCH of 32x32x3 images in [0, 255] from CUDA events against the
+    f32 bound of its operations (readings beside it: the time with cuDNN
+    free to pick non-deterministic algorithms, and ``_profile``'s device
+    ms by kernel group); then ``default_is_classifier("cuda")`` with
+    ``GGAN_INCEPTION_PB`` naming the file and ``tools/score_samples.py
+    --classifier frozen`` on a full-width cifar10 wali-gp checkpoint, both
+    through the frozen head on the card. ``frozen_out`` keeps the graph's
+    nodes and the card's classifier for ``phase_frozen_parity``."""
+    import numpy as np
+    import torch
+    from graphical_gan_tpu_torch.core.config import gan_inference_defaults
+    from graphical_gan_tpu_torch.metrics import inception
+    from graphical_gan_tpu_torch.metrics.graphdef import load_graphdef
+    from graphical_gan_tpu_torch.metrics.inception_frozen import (
+        FrozenInceptionClassifier)
+    from graphical_gan_tpu_torch.models.gan_inference import (
+        GanInferenceModel)
+    from graphical_gan_tpu_torch.tools import score_samples
+    from graphical_gan_tpu_torch.train.checkpoint import save_params
+    base = _frozen_dir()
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    pb = os.path.join(base, "classify_image_graph_def.pb")
+    t0 = time.perf_counter()
+    data = inception_v3_2015_graphdef(seed=0)
+    with open(pb, "wb") as f:
+        f.write(data)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nodes = load_graphdef(pb)
+    t_parse = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clf = FrozenInceptionClassifier(nodes, device="cuda")
+    torch.cuda.synchronize()
+    t_upload = time.perf_counter() - t0
+    count = frozen_flops(nodes, FROZEN_BATCH)
+    consts = sum(v.numel() * v.element_size()
+                 for v in clf.interp.consts.values())
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.rand(FROZEN_BATCH, FROZEN_HW, FROZEN_HW, 3)
+                         .astype(np.float32) * 255).cuda()
+    t0 = time.perf_counter()
+    pool, probs = clf.pool3_and_probs(x)  # picks cuDNN's algorithms
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    misses = []
+    if tuple(probs.shape) != (FROZEN_BATCH, 1008) or \
+            not bool(torch.isfinite(probs).all()) or \
+            not bool(torch.isfinite(pool).all()):
+        misses.append(f"outputs {tuple(probs.shape)} not finite")
+    elif abs(float(probs.sum(dim=1).max()) - 1.0) > 1e-5:
+        misses.append("probabilities do not sum to 1")
+    def windows():
+        """ms per batch in 3 CUDA-event windows of FROZEN_TIME_CALLS."""
+        clf.pool3_and_probs(x)
+        out = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(FROZEN_TIME_CALLS):
+                clf.pool3_and_probs(x)
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end) / FROZEN_TIME_CALLS)
+        return out
+
+    ms = windows()
+    batch_ms = statistics.median(ms)
+    # readings: cuDNN free to choose non-deterministic algorithms, and the
+    # device time by kernel group under the profiler
+    torch.backends.cudnn.deterministic = False
+    try:
+        ms_free = statistics.median(windows())
+    finally:
+        torch.backends.cudnn.deterministic = True
+    busy, groups, top, kernels_per_call = _profile(
+        lambda _, xx: clf.pool3_and_probs(xx), x)
+    nbytes = consts + x.numel() * 4 + FROZEN_BATCH * 1008 * 4
+    bound_ms, bound_by = bound(count["flops"], nbytes, "float32")
+    rec = {"phase": "frozen-inception", "batch": FROZEN_BATCH,
+           "image_hw": FROZEN_HW, "nodes": len(nodes),
+           "conv2d": count["n_conv"], "consts_mb": round(consts / 1e6, 3),
+           "graph_mb": round(len(data) / 1e6, 3),
+           "flops_per_image": count["flops"] / FROZEN_BATCH,
+           "ms_per_batch": batch_ms, "ms_windows": ms,
+           "images_per_s": FROZEN_BATCH / batch_ms * 1e3,
+           "ms_per_batch_cudnn_nondeterministic": ms_free,
+           "busy_share": busy, "device_ms_by_group": groups,
+           "kernels_per_call_by_group": kernels_per_call,
+           "top_kernels_ms": top,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_share": bound_ms / batch_ms,
+           "bound_images_per_s": FROZEN_BATCH / bound_ms * 1e3,
+           "write_s": t_write, "parse_s": t_parse, "upload_s": t_upload,
+           "first_call_s": t_first,
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(rec)
+    frozen_out.update(nodes=nodes, clf=clf, rec=rec)
+
+    # the two entries that pick the frozen head
+    prev = os.environ.get("GGAN_INCEPTION_PB")
+    os.environ["GGAN_INCEPTION_PB"] = pb
+    try:
+        with _FrozenCalls() as seen:
+            t0 = time.perf_counter()
+            hook_clf = inception.default_is_classifier("cuda")
+            if not isinstance(hook_clf, FrozenInceptionClassifier) or \
+                    hook_clf.device.type != "cuda":
+                misses.append(f"default_is_classifier gave {hook_clf!r}")
+            got = hook_clf(x[:10].cpu().numpy())
+            if not np.allclose(got, probs[:10].cpu().numpy(), rtol=0,
+                               atol=1e-6):
+                misses.append("default_is_classifier's probabilities")
+            del hook_clf
+            t_hook = time.perf_counter() - t0
+            model = GanInferenceModel(gan_inference_defaults("cifar10",
+                                                             "wali-gp"))
+            ckpt = save_params(os.path.join(base, "ckpt_0.npz"),
+                               model.init(0, "cuda"), {"iteration": 0})
+            t0 = time.perf_counter()
+            score, got_l = _path_launches(
+                score_samples.main, ["--ckpt", ckpt] + FROZEN_SCORE_ARGS
+                + ["--classifier", "frozen", "--classifier-ckpt", pb])
+            t_score = time.perf_counter() - t0
+    finally:
+        if prev is None:
+            os.environ.pop("GGAN_INCEPTION_PB")
+        else:
+            os.environ["GGAN_INCEPTION_PB"] = prev
+    _add(launch_totals, got_l)
+    if score["classifier"] != f"frozen-inception-2015:{pb}" or \
+            not math.isfinite(score["inception_score"]):
+        misses.append(f"score_samples: {score}")
+    # 1 call from the hook, one per IS batch from the tool
+    want_calls = 1 + -(-score["n_samples"] // _clf_batch_sizes()[2])
+    if seen.calls != {"cuda": want_calls}:
+        misses.append(f"frozen head calls {seen.calls}, want "
+                      f"{{'cuda': {want_calls}}}")
+    missing = [k for k in ("bn_stats", "bn_apply") if not got_l.get(k)]
+    if missing:
+        misses.append(f"score_samples' generator launched no {missing}")
+    log({"check": "frozen head through the entries",
+         "default_is_classifier_s": t_hook, "score_samples_s": t_score,
+         "score": score, "frozen_calls": seen.calls, "launches": got_l,
+         "misses": misses})
+    if misses:
+        fail(f"frozen-inception: {misses}")
+
+
+def phase_frozen_parity(frozen_out):
+    """``pool_3`` and the probabilities of the card's classifier against
+    the same graph's classifier on the CPU, FROZEN_PARITY_N images, TF32
+    off on the card (relative L2 within FROZEN_POOL_REL_L2 and
+    FROZEN_PROB_REL_L2)."""
+    import numpy as np
+    import torch
+    from graphical_gan_tpu_torch.metrics.inception_frozen import (
+        FrozenInceptionClassifier)
+    x = torch.from_numpy(np.random.RandomState(2).rand(
+        FROZEN_PARITY_N, FROZEN_HW, FROZEN_HW, 3).astype(np.float32) * 255)
+    cpu = FrozenInceptionClassifier(frozen_out["nodes"], device="cpu")
+    want_pool, want = cpu.pool3_and_probs(x)
+    got_pool, got = (t.cpu() for t in frozen_out["clf"].pool3_and_probs(
+        x.cuda()))
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
+
+    rec = {"check": "frozen-inception card vs CPU", "n": FROZEN_PARITY_N,
+           "pool_3_rel_l2": rel(got_pool, want_pool),
+           "pool_3_bound": FROZEN_POOL_REL_L2,
+           "probs_rel_l2": rel(got, want), "probs_bound": FROZEN_PROB_REL_L2,
+           "probs_max_abs": float((got - want).abs().max()),
+           "tf32": torch.backends.cudnn.allow_tf32}
+    log(rec)
+    if not (rec["pool_3_rel_l2"] <= FROZEN_POOL_REL_L2
+            and rec["probs_rel_l2"] <= FROZEN_PROB_REL_L2) or rec["tf32"]:
+        fail(f"frozen-inception parity: {rec}")
+
+
+def phase_quality_run(launch_totals):
+    """``tools/quality_run.py`` at the published cifar10 wali-gp width in
+    bf16 and f32, QUALITY_ITERS iterations and QUALITY_SAMPLES metric
+    samples each: both records finite, with the JAX tool's keys, and the
+    training kernels launched. It runs beside the side phases: its
+    throughput is read beside them."""
+    import numpy as np
+    from graphical_gan_tpu_torch.tools import quality_run
+    base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
+                        "smoke_quality")
+    shutil.rmtree(base, ignore_errors=True)
+    recs, got = _path_launches(quality_run.main, [
+        "--iters", str(QUALITY_ITERS), "--n-metric-samples",
+        str(QUALITY_SAMPLES), "--outdir", base])
+    _add(launch_totals, got)
+    misses = []
+    for rec in recs:
+        log({"phase": "quality-run", **rec})
+        if set(rec) != QUALITY_KEYS:
+            misses.append(f"{rec['dtype']} keys {sorted(rec)}")
+        finite = [rec["fid_vs_train"], rec["train_throughput_img_per_sec"]] \
+            + list(rec["hermetic_is"]) + list(rec["disc_cost_windows"]) \
+            + list(rec["final"].values())
+        if not (rec["params_finite"] and rec["losses_finite"]
+                and np.isfinite(finite).all()):
+            misses.append(f"{rec['dtype']} not finite")
+    if [r["dtype"] for r in recs] != ["bfloat16", "float32"]:
+        misses.append(f"dtypes {[r['dtype'] for r in recs]}")
+    missing = [k for k in TRAIN_KERNELS if not got.get(k)]
+    if missing:
+        misses.append(f"kernels never launched {missing}")
+    log({"check": "quality-run", "launches": got, "misses": misses})
+    if misses:
+        fail(f"quality-run: {misses}")
+
+
+def quality_run_batches() -> tuple:
+    """The metric classifier's batch sizes in ``phase_quality_run``: the
+    feature passes over QUALITY_SAMPLES rows and the IS batches."""
+    _, _, is_b = _clf_batch_sizes()
+    return tuple(sorted({QUALITY_SAMPLES} | _batches_of(QUALITY_SAMPLES,
+                                                        is_b)))
+
+
+def _check_quality_run(gen, errs, misses, seen):
+    """K1 and K2a/K2b at the shapes only ``phase_quality_run`` gives them:
+    its metric classifier (JAX's default width 64, f32, cifar10) and G's BN
+    where its bf16 model samples (f32 is in ``_check_classifier``)."""
+    import torch
+    from graphical_gan_tpu_torch.metrics.classifier import MetricClassifier
+    from graphical_gan_tpu_torch.tools.quality_run import _draw_samples
+    dim = _default(MetricClassifier.__init__, "dim")
+    batches = quality_run_batches()
+    log({"check": "quality-run batches", "B": list(batches), "dim": dim})
+    for b in batches:
+        conv, bn = classifier_shapes(b, 32, 3, dim)
+        for name, shape, cout, act in conv:
+            x, w, bias = _conv_inputs(shape, cout, torch.float32, gen, 3)
+            _check_conv(f"{name} dim {dim} B={b}", x, w, bias, 2, "SAME",
+                        act, errs, misses, seen)
+        for name, rc, act in bn:
+            x, scale, offset = _bn_inputs(rc, torch.float32, gen)
+            _check_bn(f"{name} dim {dim} B={b}", x, scale, offset, act, 0.0,
+                      errs, misses)
+    b = _default(_draw_samples, "batch")
+    for name, rc, act in bn_shapes(b):
+        if name.startswith("G."):
+            x, scale, offset = _bn_inputs(rc, torch.bfloat16, gen)
+            _check_bn(f"{name} bf16 sample B={b}", x, scale, offset, act,
+                      0.0, errs, misses)
+
+
+def _library_cases():
+    """(label, specs, fn(params, *inputs), inputs) of the part-B ops at
+    small shapes; parameters from ``init_params`` (seed 0, CPU), inputs
+    from a numpy seed."""
+    import numpy as np
+    import torch
+    from graphical_gan_tpu_torch.objectives import gan as gan_objs
+    from graphical_gan_tpu_torch.objectives import gan_inference as gi
+    from graphical_gan_tpu_torch.ops import conv, layout, norm, special
+    from graphical_gan_tpu_torch.ops.linear import linear, linear_specs
+    rng = np.random.RandomState(0)
+
+    def arr(*shape, shift=0.0):
+        return torch.from_numpy(np.asarray(rng.randn(*shape) + shift,
+                                           np.float32))
+
+    moving = (arr(16), arr(16).abs() + 0.5)
+    labels = torch.from_numpy(rng.randint(0, 5, 8))
+    cases = [
+        ("batchnorm_moving_stats train", norm.batchnorm_specs("bn", 16),
+         lambda p, x, m, v: norm.batchnorm_moving_stats(
+             p, "bn", x, True, 3, m, v), (arr(8, 6, 6, 16, shift=0.5),)
+         + moving),
+        ("batchnorm_moving_stats inference", norm.batchnorm_specs("bn", 16),
+         lambda p, x, m, v: norm.batchnorm_moving_stats(
+             p, "bn", x, False, 3, m, v), (arr(8, 6, 6, 16),) + moving),
+        ("layernorm", norm.layernorm_specs("ln", 16),
+         lambda p, x: norm.layernorm(p, "ln", [1, 2, 3], x),
+         (arr(8, 16, 5, 5),)),
+        ("cond_batchnorm", norm.cond_batchnorm_specs("cbn", 5, 16),
+         lambda p, x: norm.cond_batchnorm(p, "cbn", x, labels.to(x.device),
+                                          5), (arr(8, 6, 6, 16),)),
+        ("minibatch_layer", special.minibatch_specs("mb", 64, 8, 5),
+         lambda p, x: special.minibatch_layer(p, "mb", x),
+         (arr(16, 64) * 0.05,)),
+        ("ladder", special.ladder_specs("lad", 32),
+         lambda p, z, u: special.ladder(p, "lad", (z, u)),
+         (arr(8, 32), arr(8, 32))),
+        ("linear weightnorm orthogonal",
+         linear_specs("l", 64, 64, initialization="orthogonal",
+                      weightnorm=True),
+         lambda p, x: linear(p, "l", x, weightnorm=True),
+         (arr(8, 64),)),
+        ("conv2d mask a, weightnorm, no bias",
+         conv.conv2d_specs("c", 64, 64, 5, mask_type=("a", 3),
+                           weightnorm=True, biases=False),
+         lambda p, x: conv.conv2d(p, "c", x, 1, "SAME", "leaky_relu",
+                                  ("a", 3), True, False),
+         (arr(8, 16, 16, 64),)),
+        ("conv2d mask b, stride 2", conv.conv2d_specs(
+            "c", 32, 64, 3, mask_type=("b", 1), stride=2),
+         lambda p, x: conv.conv2d(p, "c", x, 2, "SAME", None, ("b", 1)),
+         (arr(8, 16, 16, 32),)),
+        ("conv1d mask b, weightnorm", conv.conv1d_specs(
+            "c", 32, 48, 5, mask_type=("b", 2), weightnorm=True),
+         lambda p, x: conv.conv1d(p, "c", x, 1, ("b", 2), True),
+         (arr(8, 40, 32),)),
+        ("wgan", {}, lambda p, f, r: gan_objs.wgan(f, r),
+         (arr(64, 1), arr(64, 1))),
+        ("wgan_gp", {}, lambda p, f, r, g: gan_objs.wgan_gp(f, r, g),
+         (arr(64, 1), arr(64, 1), arr().abs())),
+        ("gan", {}, lambda p, f, r: gan_objs.gan(f, r),
+         (arr(64, 1), arr(64, 1))),
+        ("local_ep_dynamic 0 zz", {},
+         lambda p, f, r: gi.local_ep_dynamic([], [], f, r),
+         (arr(64, 1), arr(64, 1))),
+        ("local_ep_dynamic 2 zz", {},
+         lambda p, a, b, c, d, f, r, rec: gi.local_ep_dynamic(
+             [a, b], [c, d], f, r, rec),
+         tuple(arr(64, 1) for _ in range(6)) + (arr().abs(),)),
+        ("nchw_to_nhwc", {}, lambda p, x: layout.nchw_to_nhwc(x),
+         (arr(4, 3, 8, 8),)),
+    ]
+    for k in (3, 4, 5):
+        for s in (1, 2):
+            cases.append((
+                f"deconv2d VALID k{k} s{s}", conv.deconv2d_specs(
+                    "d", 32, 16, k, weightnorm=(k + s) % 2 == 0,
+                    biases=k != 4, stride=s),
+                lambda p, x, k=k, s=s: conv.deconv2d(
+                    p, "d", x, s, "VALID", (k + s) % 2 == 0, k != 4),
+                (arr(8, 7, 7, 32),)))
+    return cases
+
+
+def _library_run(fn, params, inputs, device):
+    """Outputs and the gradients of sum(out * c) w.r.t. the parameters and
+    float inputs, on ``device``; c is a fixed random cotangent per output
+    (a constant one would leave a normalization's input gradient at 0,
+    rounding noise only)."""
+    import torch
+    p = {k: v.to(device).requires_grad_(True) for k, v in params.items()}
+    xs = [x.to(device).requires_grad_(x.is_floating_point())
+          for x in inputs]
+    outs = fn(p, *xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    leaves = list(p.values()) + [x for x in xs if x.requires_grad]
+    gen = torch.Generator().manual_seed(1)
+    total = sum((o.float() * torch.randn(o.shape, generator=gen).to(device))
+                .sum() for o in outs if o.requires_grad)
+    grads = torch.autograd.grad(total, leaves, allow_unused=True) \
+        if leaves and isinstance(total, torch.Tensor) else ()
+    return ([o.detach().cpu() for o in outs],
+            [g.cpu() for g in grads if g is not None])
+
+
+def phase_library_ops(launch_totals):
+    """Each op of ``_library_cases`` on the card against its CPU run
+    (outputs within LIB_RTOL with LIB_ATOL_REL of the largest magnitude,
+    gradients within GRAD_RTOL relative L2), the conv2d cases' K1
+    launches counted from zero; and
+    ``epoch_batches_ondevice`` on the card, a permutation without
+    replacement."""
+    import torch
+    from graphical_gan_tpu_torch.data.ondevice import epoch_batches_ondevice
+    from graphical_gan_tpu_torch.ops import initializers
+    from graphical_gan_tpu_torch.ops import kernels
+    misses, worst, grad_l2 = [], {}, {}
+    kernels.reset_launches()
+    for label, specs, fn, inputs in _library_cases():
+        params = initializers.init_params(specs, 0, "cpu")
+        want_out, want_grads = _library_run(fn, params, inputs, "cpu")
+        got_out, got_grads = _library_run(fn, params, inputs, "cuda")
+        if [t.shape for t in got_out + got_grads] != \
+                [t.shape for t in want_out + want_grads]:
+            misses.append(f"{label}: shapes differ")
+            continue
+        err, l2 = 0.0, 0.0
+        for g, w in zip(got_out, want_out):
+            scale = float(w.abs().max()) if w.numel() else 0.0
+            diff = (g - w).abs()
+            if bool((diff > LIB_RTOL * w.abs() + LIB_ATOL_REL * scale).any()):
+                misses.append(f"{label}: output")
+            if w.numel():
+                err = max(err, float(diff.max()) / max(scale, 1e-30))
+        for k, (g, w) in enumerate(zip(got_grads, want_grads)):
+            rel = float(torch.linalg.vector_norm(g - w)
+                        / max(float(torch.linalg.vector_norm(w)), 1e-30))
+            if not rel <= GRAD_RTOL:
+                misses.append(f"{label}: gradient {k}")
+            l2 = max(l2, rel)
+        worst[label], grad_l2[label] = err, l2
+    got_l = kernels.launches()
+    _add(launch_totals, got_l)
+    data = torch.arange(1000, device="cuda").reshape(100, 10)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ep = epoch_batches_ondevice(data, 16, gen)
+    rows = (ep[..., 0] // 10).flatten().tolist()
+    if tuple(ep.shape) != (6, 16, 10) or len(set(rows)) != 96:
+        misses.append(f"epoch_batches_ondevice {tuple(ep.shape)}")
+    if not got_l.get("fused_conv2d_bias_act"):
+        misses.append("K1 never launched by the conv2d cases")
+    log({"check": "library-ops card vs CPU", "cases": len(worst),
+         "output_max_rel_err": worst, "rtol": LIB_RTOL,
+         "atol_of_max": LIB_ATOL_REL, "grad_rel_l2": grad_l2,
+         "grad_rtol": GRAD_RTOL, "launches": got_l, "misses": misses})
+    if misses:
+        fail(f"library-ops: {misses}")
 
 
 def _timed(name, fn, *args):
@@ -5198,8 +6071,9 @@ def main(argv=None) -> int:
                     "step_options": {}, "family2": {}, "cluster": {},
                     "family2_learn": {}, "family3": {}, "family3_serve": {},
                     "family3_learn": {}, "tools": {}, "fault4": {},
-                    "phase_deconv": {}, "int8": {}}
-        int8_out = {}
+                    "phase_deconv": {}, "int8": {}, "frozen": {},
+                    "quality_run": {}, "library": {}}
+        int8_out, frozen_out = {}, {}
         _timed("build", phase_build)
         _timed("check", phase_check, errs)
         _timed("time", phase_time, timings)
@@ -5225,8 +6099,15 @@ def main(argv=None) -> int:
         _timed("family3", phase_family3, launches["family3"])
         _timed("tools", phase_tools, launches["tools"], data)
         _timed("phase-deconv", phase_phase_deconv, launches["phase_deconv"])
+        _timed("frozen-inception", phase_frozen_inception,
+               launches["frozen"], frozen_out)
         # the side phases from here on beside the untimed phases
         side.start()
+        _timed("frozen-parity", phase_frozen_parity, frozen_out)
+        frozen_out.clear()
+        torch.cuda.empty_cache()
+        _timed("library-ops", phase_library_ops, launches["library"])
+        _timed("quality-run", phase_quality_run, launches["quality_run"])
         _timed("train-parity", phase_train_parity)
         _timed("train-repeat", phase_train_repeat, data)
         _timed("family1-parity", phase_family1_parity)
@@ -5253,7 +6134,10 @@ def main(argv=None) -> int:
                            ("tools", TRAIN_KERNELS),
                            ("fault4", TRAIN_KERNELS),
                            ("phase_deconv", ("fused_conv2d_bias_act",)),
-                           ("int8", INT8_KERNELS)):
+                           ("int8", INT8_KERNELS),
+                           ("frozen", ("bn_stats", "bn_apply")),
+                           ("quality_run", TRAIN_KERNELS),
+                           ("library", ("fused_conv2d_bias_act",))):
             missing = [k for k in want if not launches[path].get(k)]
             if missing:
                 fail(f"kernels never launched on the {path} path: "

@@ -362,3 +362,30 @@ def ssgan_defaults(dataset: str, mode: str = "local_ep", **overrides
 
 def asdict(cfg) -> dict:
     return dataclasses.asdict(cfg)
+
+
+def print_model_settings(locals_: dict, logfile: str = None) -> str:
+    """The reference's settings dump (``tflib/__init__.py:100-114``): the
+    UPPERCASE names of a namespace, sorted, printed and, with ``logfile``,
+    appended to it. Scripts written in the reference's UPPERCASE style keep
+    it; the config dataclasses make it mostly unneeded."""
+    skip = ("T", "SETTINGS", "ALL_SETTINGS")
+    rows = sorted((k, v) for k, v in locals_.items()
+                  if k.isupper() and k not in skip)
+    lines = ["Uppercase local vars:"]
+    lines += [f"\t{k}: {v}" for k, v in rows]
+    text = "\n".join(lines)
+    print(text)
+    if logfile is not None:
+        with open(logfile, "a") as f:
+            f.write(text + "\n")
+    return text
+
+
+def print_model_settings_dict(settings: dict) -> str:
+    """``tflib/__init__.py:116-121``."""
+    rows = sorted(settings.items())
+    lines = ["Settings dict:"] + [f"\t{k}: {v}" for k, v in rows]
+    text = "\n".join(lines)
+    print(text)
+    return text

@@ -36,3 +36,19 @@ def sample_batches(data, n_batches: int, batch_size: int,
     return tree.tree_map(
         lambda x: x.index_select(0, idx).reshape(
             (n_batches, batch_size) + tuple(x.shape[1:])), data)
+
+
+def epoch_batches_ondevice(data, batch_size: int,
+                           generator: torch.Generator):
+    """One shuffled epoch as [n_batches, batch_size, ...]: a permutation
+    without replacement drawn on the data's device from ``generator`` (the
+    reference's epoch semantics, ``tflib/cifar10.py:32-39``), the remainder
+    dropped; one permutation for every leaf of a dict."""
+    first = tree.first_leaf(data)
+    n = first.shape[0]
+    n_batches = n // batch_size
+    perm = torch.randperm(n, generator=generator,
+                          device=first.device)[:n_batches * batch_size]
+    return tree.tree_map(
+        lambda x: x.index_select(0, perm).reshape(
+            (n_batches, batch_size) + tuple(x.shape[1:])), data)

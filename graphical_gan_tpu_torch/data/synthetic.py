@@ -23,6 +23,13 @@ def labels(n: int, n_classes: int, seed: int = 1) -> np.ndarray:
         0, n_classes, size=(n,)).astype("int64")
 
 
+def videos_unit(n: int, seq_len: int, output_dim: int, seed: int = 0
+                ) -> np.ndarray:
+    """float32 in [0,1]: [n, seq_len, output_dim] flat frames."""
+    return np.random.RandomState(seed).rand(
+        n, seq_len, output_dim).astype("float32")
+
+
 def structured_images_labeled(n: int, image_hw=(32, 32), channels: int = 3,
                               n_classes: int = 10, seed: int = 0):
     """A learnable K-class image family: class k is a 2-D sinusoid whose

@@ -7,8 +7,10 @@ Inception-2015 GraphDef and computes the 10-split exp-mean-KL
 ``inception_score_from_probs``; the classifier is any callable
 ``images[N, H, W, C] in [0, 255] -> probs[N, K]``: the port's
 ``MetricClassifier`` (``metrics/classifier.py``) where no Inception weights
-are on the machine, or ``TorchInceptionClassifier`` where torchvision's are.
-IS numbers compare only under the same classifier.
+are on the machine, the frozen Inception-2015 graph
+(``metrics/inception_frozen.py``) where its ``.pb`` is, or
+``TorchInceptionClassifier`` where torchvision's weights are. IS numbers
+compare only under the same classifier.
 """
 
 from __future__ import annotations
@@ -61,16 +63,16 @@ def get_inception_score(images: Sequence[np.ndarray],
 def default_is_classifier(device: str = "cuda"):
     """The IS hook's classifier, in the JAX package's order: the frozen
     Inception-2015 graph where its ``.pb`` is (``GGAN_INCEPTION_PB`` or
-    ``DEFAULT_PB``), else torchvision's InceptionV3 on ``device``. The port
-    has no GraphDef interpreter yet, so a present ``.pb`` raises
-    ``NotImplementedError``; a machine without torchvision or its weights
-    raises from ``TorchInceptionClassifier``."""
+    ``DEFAULT_PB``), as ``metrics/inception_frozen.py:
+    FrozenInceptionClassifier`` on ``device`` (the reference's own IS
+    instrument), else torchvision's InceptionV3 on ``device``; a machine
+    without torchvision or its weights raises from
+    ``TorchInceptionClassifier``."""
     pb = os.environ.get("GGAN_INCEPTION_PB", DEFAULT_PB)
     if os.path.isfile(pb):
-        raise NotImplementedError(
-            f"{pb}: the frozen Inception-2015 graph needs the GraphDef "
-            "interpreter (metrics/graphdef.py, inception_frozen.py), which "
-            "the port does not have yet (ROADMAP.md §1 item 6)")
+        from graphical_gan_tpu_torch.metrics.inception_frozen import (
+            FrozenInceptionClassifier)
+        return FrozenInceptionClassifier(pb, device)
     return TorchInceptionClassifier(device)
 
 

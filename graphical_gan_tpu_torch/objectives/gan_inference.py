@@ -106,6 +106,31 @@ def vegan_wgan_gp(disc_fake: torch.Tensor, disc_real: torch.Tensor,
     return gen_cost, disc_cost
 
 
+def local_ep_dynamic(disc_fake_zz: Sequence[torch.Tensor],
+                     disc_real_zz: Sequence[torch.Tensor],
+                     disc_fake_xz: torch.Tensor, disc_real_xz: torch.Tensor,
+                     rec_penalty: Optional[torch.Tensor] = None) -> Pair:
+    """A list of zz-pair discriminators and one xz discriminator
+    (``gan_inference.py:246-304``): the zz sum is divided by its length +
+    1, and the xz terms are added after that division, as the reference
+    does."""
+    gen_cost = torch.zeros((), device=disc_fake_xz.device)
+    disc_cost = torch.zeros((), device=disc_fake_xz.device)
+    for df, dr in zip(disc_fake_zz, disc_real_zz):
+        gen_cost = gen_cost + sigmoid_ce(df, 1.0) + sigmoid_ce(dr, 0.0)
+        disc_cost = disc_cost + sigmoid_ce(df, 0.0) + sigmoid_ce(dr, 1.0)
+    if len(disc_fake_zz) > 0:
+        gen_cost = gen_cost / (len(disc_fake_zz) + 1)
+        disc_cost = disc_cost / (len(disc_fake_zz) + 1)
+    gen_cost = gen_cost + sigmoid_ce(disc_fake_xz, 1.0) \
+        + sigmoid_ce(disc_real_xz, 0.0)
+    disc_cost = disc_cost + sigmoid_ce(disc_fake_xz, 0.0) \
+        + sigmoid_ce(disc_real_xz, 1.0)
+    if rec_penalty is not None:
+        gen_cost = gen_cost + rec_penalty
+    return gen_cost, disc_cost
+
+
 def weighted_local_epce(disc_fake_list: Sequence[torch.Tensor],
                         disc_real_list: Sequence[torch.Tensor],
                         ratio_list,

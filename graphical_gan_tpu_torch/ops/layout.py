@@ -22,3 +22,11 @@ def flatten_image(x_nhwc: torch.Tensor) -> torch.Tensor:
     """[B, H, W, C] -> [B, C*H*W] flat in NCHW order."""
     b, h, w, c = x_nhwc.shape
     return x_nhwc.permute(0, 3, 1, 2).reshape(b, c * h * w)
+
+
+def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2).contiguous()

@@ -8,17 +8,19 @@ compare only under the same instrument:
         --ckpt RUN/ckpt_199999.npz --dataset cifar10 --mode ali \\
         [--classifier torch]       # torchvision InceptionV3, local weights
         [--classifier jax --classifier-ckpt clf.npz]
+        [--classifier frozen --classifier-ckpt classify_image_graph_def.pb]
         [--quantize int8] [--device cpu]
 
 ``--classifier jax`` reads a metric classifier's ``.npz`` in the JAX
 package's layout (``tools/train_classifier.py`` of either package writes
 one) into ``metrics/classifier.py``; ``--classifier torch`` is
 torchvision's InceptionV3 from weights already on the machine
-(``metrics/inception.py``); ``--classifier frozen`` (the reference's
-Inception-2015 graph) is not ported. ``--quantize int8`` draws the samples
-through the int8 serving path (``ops/quant.py``), calibrated on 4 batches
-from seed 1234 as the JAX tool does. Runs on ``cuda`` unless ``--device
-cpu``.
+(``metrics/inception.py``); ``--classifier frozen`` is the reference's
+frozen Inception-2015 graph read from the ``.pb`` that
+``--classifier-ckpt`` names (``metrics/inception_frozen.py``).
+``--quantize int8`` draws the samples through the int8 serving path
+(``ops/quant.py``), calibrated on 4 batches from seed 1234 as the JAX tool
+does. Runs on ``cuda`` unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -68,10 +70,10 @@ def make_classifier(kind: str, classifier_ckpt: Optional[str], image_hw,
                     device="cuda"):
     """(probability function of HWC images, the instrument's identity)."""
     if kind == "frozen":
-        raise NotImplementedError(
-            "--classifier frozen (the reference's Inception-2015 graph, "
-            "metrics/inception_frozen.py) is not ported yet: ROADMAP.md §1 "
-            "item 6")
+        from graphical_gan_tpu_torch.metrics.inception_frozen import (
+            FrozenInceptionClassifier)
+        return (FrozenInceptionClassifier(classifier_ckpt, device),
+                f"frozen-inception-2015:{classifier_ckpt}")
     if kind == "torch":
         from graphical_gan_tpu_torch.metrics.inception import (
             TorchInceptionClassifier)
@@ -114,7 +116,8 @@ def main(argv=None) -> dict:
                    default="torch",
                    help="torch: torchvision InceptionV3 (local weights); "
                         "jax: a metric classifier npz (--classifier-ckpt); "
-                        "frozen: not ported")
+                        "frozen: the Inception-2015 GraphDef "
+                        "(--classifier-ckpt names the .pb)")
     p.add_argument("--classifier-ckpt", default=None)
     p.add_argument("--classifier-dim", type=int, default=64)
     p.add_argument("--dim", type=int, default=None)

@@ -71,7 +71,11 @@ def params_from_jax(np_params: Dict[str, np.ndarray],
     """JAX parameters (``{name: ndarray}``, e.g. ``{k: np.asarray(v)}`` of a
     JAX ``init`` or the params of a JAX checkpoint) as the port's tensors on
     ``device``. Names, shapes and layouts carry over unchanged: conv HWIO,
-    deconv ``(k, k, out, in)``, linear ``[in, out]``."""
+    deconv ``(k, k, out, in)``, conv1d WIO, linear ``[in, out]``,
+    weight normalization's ``.g`` ``[out]``, ``cond_batchnorm``'s
+    per-label ``.offset`` / ``.scale`` ``[n_labels, C]``, minibatch
+    discrimination's 3-D ``.W`` ``[in, kernels, dim]``, the ladder's
+    ``.a1``-``.c4``: every name the port's ops read is the JAX op's."""
     from graphical_gan_tpu_torch.core.device import resolve_device
     dev = resolve_device(device)
     return {name: _to_tensor(np.asarray(arr), dev)

@@ -155,7 +155,10 @@ class Trainer:
     ``lr_scale(t)`` scales Adam's step size at its step count t (the
     linear decay of ``cfg.decay``, ``runs/gan_inference.py``).
     ``checkpoints_to_keep``, ``max_rollbacks`` and ``async_checkpoint``
-    are the failure handling of the module docstring. Any model of
+    are the failure handling of the module docstring. ``render_curves``
+    (default: ``GGAN_RENDER_CURVES``, on unless "0") writes the
+    logger's curve images into ``outf`` at each flush
+    (``report/plot.py``). Any model of
     the port trains: it gives ``gen_loss`` / ``disc_loss`` with their aux
     (``gen_cost``, ``rec_cost``), ``opt_specs``, the players' names and
     ``DISC_ONLY_DRAWS`` (``models/gan_inference.py``, ``models/
@@ -170,7 +173,8 @@ class Trainer:
                  lr_scale: Optional[Callable[[float], float]] = None,
                  batch_sampler: Optional[Callable] = None,
                  checkpoints_to_keep: int = 3, max_rollbacks: int = 0,
-                 async_checkpoint: Optional[bool] = None):
+                 async_checkpoint: Optional[bool] = None,
+                 render_curves: Optional[bool] = None):
         if resident_data is None and train_gen_factory is None:
             raise ValueError("the Trainer needs resident_data or, for the "
                              "host-fed path, train_gen_factory")
@@ -196,6 +200,12 @@ class Trainer:
         self.eval_hooks = {e: h for e, h in (eval_hooks or {}).items()
                            if e > 0}
         self.generator = torch.Generator(device=self.device)
+        # each flush re-renders one curve image per metric into outf, as the
+        # reference does (tflib/plot.py:22-41), where matplotlib imports;
+        # GGAN_RENDER_CURVES=0 turns it off, the argument wins over it
+        if render_curves is None:
+            render_curves = os.environ.get("GGAN_RENDER_CURVES", "1") != "0"
+        self.render_curves = render_curves
         self.logger = MetricLogger()
         self.state = None
         self._start_iter = 0
@@ -352,7 +362,8 @@ class Trainer:
         # hooks fire after the window's flush: what they plotted at the last
         # boundary is written here
         if self.logger.pending:
-            self.logger.flush(self.logfile)
+            self.logger.flush(self.outf, self.logfile,
+                              render=self.render_curves)
 
     # -- loop -----------------------------------------------------------------
 
@@ -570,7 +581,8 @@ class Trainer:
         if iteration % 100 == 99 and self.dev_gen_factory is not None:
             self._dev_sweep(iteration)
         if flush:
-            self.logger.flush(self.logfile)
+            self.logger.flush(self.outf, self.logfile,
+                              render=self.render_curves)
         self.logger.tick()
         for hook in hooks:
             hook(self, iteration)

@@ -1,6 +1,8 @@
-"""The port imports neither JAX nor the JAX package: an AST scan of every
-module of graphical_gan_tpu_torch and of chip_smoke.py, and a subprocess
-that imports every port module and then finds neither in ``sys.modules``.
+"""The port imports neither JAX nor the JAX package, nor TensorFlow or
+protobuf (the frozen Inception graph is read and written without them): an
+AST scan of every module of graphical_gan_tpu_torch and of chip_smoke.py,
+and a subprocess that imports every port module and then finds none of
+them in ``sys.modules``.
 """
 
 import ast
@@ -13,7 +15,10 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "graphical_gan_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "graphical_gan_tpu")
+FORBIDDEN = ("jax", "jaxlib", "graphical_gan_tpu", "tensorflow", "google")
+# in sys.modules: protobuf by its package (other google.* namespace
+# packages load with torch)
+FORBIDDEN_MODULES = FORBIDDEN[:-1] + ("google.protobuf",)
 
 
 def _port_files():
@@ -57,8 +62,8 @@ def test_importing_every_port_module_loads_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{FORBIDDEN!r})\n"
+        "bad = sorted(m for m in sys.modules if any(m == f or "
+        f"m.startswith(f + '.') for f in {FORBIDDEN_MODULES!r}))\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad or len(names) < 20 else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

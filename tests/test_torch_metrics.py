@@ -55,11 +55,15 @@ def test_get_inception_score_refuses_what_is_no_image_list():
 
 
 def test_default_is_classifier_refuses_a_frozen_graph(tmp_path, monkeypatch):
+    """A present ``.pb`` is read as the frozen Inception-2015 graph (no
+    fall back to torchvision): one that is not a GraphDef is refused by
+    the reader (tests/test_torch_inception_frozen.py scores with a real
+    one)."""
     pb = tmp_path / "graph.pb"
     pb.write_bytes(b"\0")
     monkeypatch.setenv("GGAN_INCEPTION_PB", str(pb))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        inception.default_is_classifier()
+    with pytest.raises((IndexError, ValueError)):
+        inception.default_is_classifier("cpu")
 
 
 # -- FID -------------------------------------------------------------------------------

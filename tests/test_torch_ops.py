@@ -112,9 +112,19 @@ def test_deconv2d_same_stride2(hin, cin, cout, dtype):
 
 
 def test_deconv2d_valid_waits():
-    with pytest.raises(NotImplementedError):
-        tops.deconv2d({"d.Filters": torch.zeros(5, 5, 2, 2)}, "d",
-                      torch.zeros(1, 4, 4, 2), padding="VALID")
+    """deconv2d's VALID padding, once refused, is lax.conv_transpose's:
+    [B, H*s + max(k - s, 0), ...] (tests/test_torch_conv_library.py holds
+    it to JAX at more shapes, with gradients)."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((1, 4, 4, 2)).astype(np.float32)
+    params = {"d.Filters": rng.standard_normal((5, 5, 3, 2)).astype(
+        np.float32), "d.Biases": rng.standard_normal(3).astype(np.float32)}
+    want = _run_jax(lambda: jops.deconv2d("d", 2, 3, 5, jnp.asarray(x),
+                                          padding="VALID"), params)
+    got = tops.deconv2d(_tp(params), "d", torch.from_numpy(x),
+                        padding="VALID")
+    assert got.shape == (1, 11, 11, 3)
+    _assert_close(got, want, "float32")
 
 
 BN_CASES = [

@@ -11,7 +11,8 @@
 - ``tools/score_samples.py``: a metric classifier written by the JAX
   package (``checkpoint.save`` of its ``MetricClassifier``) loads into the
   port and gives JAX's probabilities; the CLI scores float and int8
-  samples at n = 40; ``--classifier frozen`` names its ROADMAP item.
+  samples at n = 40; ``--classifier frozen`` reads the ``.pb`` it is
+  given (tests/test_torch_inception_frozen.py scores with one).
 - ``tools/quality_ab.py`` at n = 40 with 5 classifier steps: one line per
   arm and the delta line.
 """
@@ -136,8 +137,9 @@ def test_jax_metric_classifier_loads_into_the_port(tmp_path):
     imgs = np.random.default_rng(0).random((6, 32, 32, 3)) * 255
     np.testing.assert_array_equal(prob_fn(imgs),
                                   clf.as_prob_fn(params)(imgs))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
-        score_samples.make_classifier("frozen", "x.pb", (32, 32), 3)
+    with pytest.raises(FileNotFoundError):  # the frozen graph's .pb
+        score_samples.make_classifier("frozen", str(tmp_path / "x.pb"),
+                                      (32, 32), 3, device="cpu")
     jax_ckpt.save(path, {"Classifier.1.Filters": jnp.zeros((3, 3, 3, 8))})
     with pytest.raises(KeyError, match="lacks the classifier's"):
         score_samples.make_classifier("jax", path, (32, 32), 3, clf_dim=8,
