@@ -205,14 +205,31 @@ nothing of JAX or of the JAX package, and does in order:
    ``local_ep_dynamic``, the layout transposes) on the card against its
    CPU run, outputs and gradients; ``epoch_batches_ondevice`` on the card;
    K1's launches counted;
-31. prints one JSON line per kernel summary, the card line, and last
+31. split-kernels: K2a's and K2c+K2d's split modes (batch statistics
+   over the rows of several ranks: ``bn_stats_local``, ``bn_stats_merge``,
+   ``bn_bwd_reduce``, ``bn_bwd_apply``) at the training BN shapes of B=64
+   over 2 ranks' rows, f32 and bf16: each kernel twice against its plain
+   version, the chains against the one-process plain versions over the
+   whole batch, and each timed at one rank's rows beside the one-launch
+   kernels over the whole batch;
+32. int8-deconv: the int8 transposed conv of every stride and padding
+   (``ops/quant.py: intercept_deconv2d``) at cifar10's G deconvs, on the
+   card bit-equal to the CPU, its Q2 call against Q2's plain version, and
+   timed on ``q2_plan``'s route;
+33. parallel: ``tools/parallel_check.py``: dp, tp, sp, ep and composed at
+   world size 1 over NCCL bit for bit against the one-device step, then
+   dp, tp (cifar10 wali-gp), ep (GMGAN mnist local_ep) and sp (SSGAN
+   moving-MNIST local_ep, BN on) on 2 gloo ranks on this card at the
+   published widths against the one-device step, the replicas bit-identical;
+   rank 0's launches are the split kernels' main path;
+34. prints one JSON line per kernel summary, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 The numbers name the phases; the run takes them in another order. First,
 one at a time, the phases that time the card: 1-9 (but train-parity and
-train-repeat), 10, 15, 19, 23, 25 and 27. Then the side phases, failure
-(26), learn (13), family2-learn (18) and family3-learn (22), start, each
-in a process of its own (``SidePhases``: they are bound by the host, so
+train-repeat; 31 and 32 right after 4), 10, 15, 19, 23, 25 and 27. Then
+the side phases, failure (26), learn (13), family2-learn (18),
+family3-learn (22) and parallel (33), start, each in a process of its own (``SidePhases``: they are bound by the host, so
 they overlap on a machine of several cores; failure's readings are so
 taken beside the others), and beside them the rest run in this process:
 28, 30, 29 (its throughput so read beside the side phases), train-parity,
@@ -3400,8 +3417,9 @@ SERVER_REQUESTS = 10     # bench_server: requests per client
 DET_CHUNK_ITERS = 4
 DET_TRAINER_ITERS = 6
 # GMGAN trainer iterations of the process replay (200 before the
-# frozen-inception phase took that time)
-REPLAY_ITERS = 100
+# frozen-inception phase took that time, 100 before the split-kernels and
+# int8-deconv phases did)
+REPLAY_ITERS = 60
 # GMGAN mnist local_ep at its published width: the config of the learning
 # check (ROADMAP §3 fault 1)
 REPLAY_DIM, REPLAY_B = 64, 50
@@ -4994,8 +5012,41 @@ def summary(errs, timings, launches, int8_out):
         if name == "bn_bwd":  # max_abs_err is dx's; red sums R terms
             out[-1]["red_max_abs_err"] = errs["bn_bwd_red"]
             out[-1]["rows"] = _bn_rows(timings, name)
+    out += _split_summary(errs, timings, launches["parallel"])
     out += _int8_summary(launches["int8"], int8_out)
     return {"kernels": out}
+
+
+def _split_summary(errs, timings, launches):
+    """K2a's and K2c+K2d's split modes: times summed over one training
+    iteration's 5 BN shapes at one rank's rows of B=64 over SPLIT_RANKS
+    ranks, f32; launches from the parallel phase's 2-rank runs (rank 0);
+    ``rows`` every timed shape with the one-launch kernels' times over the
+    whole batch beside it."""
+    out = []
+    for name, (src, replaces) in SPLIT_SOURCES.items():
+        rows = [r for r in timings if r["kernel"] == name]
+        main = [r for r in rows if r["dtype"] == "float32"]
+        ops_ms = sum(r["bound_ms"] for r in main
+                     if r["bound_by"] == "operations")
+        bytes_ms = sum(r["bound_ms"] for r in main
+                       if r["bound_by"] == "bytes")
+        lib = [r["library_ms"] for r in main]
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches.get(name, 0),
+            "max_abs_err": errs[name],
+            "ms": sum(r["ms"] for r in main),
+            "plain_ms": sum(r["plain_ms"] for r in main),
+            "bound_ms": sum(r["bound_ms"] for r in main),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None if None in lib else sum(lib),
+            "summed_over": f"one training iteration's 5 BN shapes, one "
+                           f"rank's rows of B={SPLIT_B} over {SPLIT_RANKS} "
+                           "ranks, f32",
+            "rows": [{k: r[k] for k in r if k not in ("kernel", "card")}
+                     for r in rows]})
+    return out
 
 
 INT8_SOURCES = {
@@ -5900,6 +5951,323 @@ def phase_library_ops(launch_totals):
         fail(f"library-ops: {misses}")
 
 
+# ---------------------------------------------------------------------------
+# parallelism: K2a's and K2c+K2d's split modes, the int8 transposed conv at
+# every stride and padding, and the strategies over torch.distributed
+
+# the split modes' kernels: K2a's phase 1 (the rank's f64 triples) and its
+# finalize kernel, K2c's sums and K2d's dx
+SPLIT_SOURCES = {
+    "bn_stats_local": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
+                       "graphical_gan_tpu/ops/pallas/fused_norm.py:143"),
+    "bn_stats_merge": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
+                       "graphical_gan_tpu/ops/pallas/fused_norm.py:143"),
+    "bn_bwd_reduce": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
+                      "graphical_gan_tpu/ops/pallas/fused_norm.py:212"),
+    "bn_bwd_apply": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
+                     "graphical_gan_tpu/ops/pallas/fused_norm.py:223"),
+}
+SPLIT_KERNELS = tuple(SPLIT_SOURCES)
+SPLIT_RANKS = 2   # the ranks the training batch is split over
+SPLIT_B = 64      # the published global batch
+
+
+def _split_bounds(r: int, c: int, itemsize: int, ranks: int):
+    """(bound ms, what bounds it) of each split kernel over one rank's r
+    rows of [*, c]: local reads x once and writes 3·C f64; merge reads the
+    ranks' 3·C f64 and writes 3·C f32; reduce reads g and x once and the
+    four per-channel vectors, and writes 2·C f32; apply reads g, x, the
+    vectors and red, and writes dx. Operations as the one-launch kernels
+    count them (bn_stats_bound, bn_bwd_bound), split between the phases."""
+    return {
+        "bn_stats_local": bound(3.0 * r * c, r * c * itemsize + 3 * c * 8,
+                                "float32"),
+        "bn_stats_merge": bound(10.0 * ranks * c, ranks * 3 * c * 8
+                                + 3 * c * 4, "float32"),
+        "bn_bwd_reduce": bound(10.0 * r * c, 2 * r * c * itemsize
+                               + 6 * c * 4, "float32"),
+        "bn_bwd_apply": bound(14.0 * r * c, 3 * r * c * itemsize
+                              + 6 * c * 4, "float32"),
+    }
+
+
+def phase_split_kernels(errs, timings, card):
+    """K2a's and K2c+K2d's split modes at the training BN shapes of B=64
+    split over SPLIT_RANKS ranks (each rank's rows one part), f32 and bf16.
+    Check: each kernel against its plain version on the same inputs
+    (``bn_stats_local_plain``, ``bn_stats_merge_plain``,
+    ``bn_bwd_reduce_plain``, ``bn_bwd_apply_plain``), each called twice for
+    the same bits; and the chain (local on each part, merge of the parts'
+    triples; reduce on each part, the sums added, apply on each part)
+    against K2a's and K2c+K2d's plain versions over the concatenated rows.
+    Time: each kernel at one rank's rows beside its plain version (K2a's
+    phase 1 beside ``torch.var_mean``), with the one-launch K2a and
+    K2c+K2d over the whole batch as readings (what world size 1 runs)."""
+    import torch
+    from graphical_gan_tpu_torch.ops.kernels import fused_norm as fn
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    worst = {k: 0.0 for k in SPLIT_KERNELS}
+    misses = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for name, rc, act in bn_shapes(SPLIT_B):
+            x, scale, offset = _bn_inputs(rc, dtype, gen, mean=3.0)
+            g = torch.randn(rc, generator=gen, device="cuda").to(dtype)
+            xs, gs = x.chunk(SPLIT_RANKS), g.chunk(SPLIT_RANKS)
+            r_part = xs[0].shape[0]
+            label = f"{name} {dn}"
+            # K2a split
+            loc = [fn.bn_stats_local(p) for p in xs]
+            again = fn.bn_stats_local(xs[0])
+            if not torch.equal(loc[0], again):
+                misses.append(f"{label}: bn_stats_local differs between "
+                              "two calls")
+            for p, got in zip(xs, loc):
+                want = fn.bn_stats_local_plain(p)
+                d = float(((got - want).abs() / (1.0 + want.abs())).max())
+                worst["bn_stats_local"] = max(worst["bn_stats_local"], d)
+                if not d <= 1e-9:
+                    misses.append(f"{label}: bn_stats_local {d}")
+            parts = torch.stack(loc)
+            merged = fn.bn_stats_merge(parts)
+            if not torch.equal(merged, fn.bn_stats_merge(parts)):
+                misses.append(f"{label}: bn_stats_merge differs between "
+                              "two calls")
+            atol, rtol = TOL[("stats", dn)]
+            e, bad = max_err(merged, fn.bn_stats_merge_plain(parts), atol,
+                             rtol)
+            worst["bn_stats_merge"] = max(worst["bn_stats_merge"], e)
+            whole = torch.stack(fn.bn_stats_plain(x))
+            e2, bad2 = max_err(merged, whole, atol, rtol)
+            if bad or bad2:
+                misses.append(f"{label}: bn_stats_merge {e}, against the "
+                              f"whole batch {e2}")
+            # K2c+K2d split, at the merged statistics
+            mean, inv = merged[0], merged[2]
+            reds = [fn.bn_bwd_reduce(gp, xp, mean, inv, scale, offset, act)
+                    for gp, xp in zip(gs, xs)]
+            if not torch.equal(reds[0], fn.bn_bwd_reduce(
+                    gs[0], xs[0], mean, inv, scale, offset, act)):
+                misses.append(f"{label}: bn_bwd_reduce differs between two "
+                              "calls")
+            for gp, xp, got in zip(gs, xs, reds):
+                want = fn.bn_bwd_reduce_plain(gp, xp, mean, inv, scale,
+                                              offset, act)
+                gz, xhat = fn._gz_xhat(gp, xp, mean, inv, scale, offset, act)
+                mag = torch.stack([gz.abs().sum(0), (gz * xhat).abs().sum(0)])
+                d = float(((got - want).abs() / (1.0 + mag)).max())
+                worst["bn_bwd_reduce"] = max(worst["bn_bwd_reduce"], d)
+                if not d <= RED_RTOL:
+                    misses.append(f"{label}: bn_bwd_reduce {d}")
+            total = reds[0].clone()
+            for r in reds[1:]:
+                total += r
+            dxs = [fn.bn_bwd_apply(gp, xp, mean, inv, scale, offset, total,
+                                   act, rc[0]) for gp, xp in zip(gs, xs)]
+            if not torch.equal(dxs[0], fn.bn_bwd_apply(
+                    gs[0], xs[0], mean, inv, scale, offset, total, act,
+                    rc[0])):
+                misses.append(f"{label}: bn_bwd_apply differs between two "
+                              "calls")
+            atol, rtol = TOL[("bwd_apply", dn)]
+            for gp, xp, got in zip(gs, xs, dxs):
+                want = fn.bn_bwd_apply_plain(gp, xp, mean, inv, scale,
+                                             offset, total, act, rc[0])
+                e, bad = max_err(got, want, atol, rtol)
+                worst["bn_bwd_apply"] = max(worst["bn_bwd_apply"], e)
+                if bad:
+                    misses.append(f"{label}: bn_bwd_apply {e}")
+            whole_dx, _ = fn.bn_bwd_plain(g, x, mean, inv, scale, offset, act)
+            e, bad = max_err(torch.cat(dxs), whole_dx, atol, rtol)
+            if bad:
+                misses.append(f"{label}: the split backward against the "
+                              f"whole batch {e}")
+            # times at one rank's rows, one-launch kernels as readings
+            bounds = _split_bounds(r_part, rc[1], dtype.itemsize,
+                                   SPLIT_RANKS)
+            g0, x0 = gs[0], xs[0]
+            t = {
+                "bn_stats_local": (
+                    lambda a: fn.bn_stats_local(a),
+                    lambda a: fn.bn_stats_local_plain(a),
+                    lambda a: torch.var_mean(a.float(), dim=0,
+                                             correction=0), [x0]),
+                "bn_stats_merge": (
+                    lambda a: fn.bn_stats_merge(a),
+                    lambda a: fn.bn_stats_merge_plain(a), None, [parts]),
+                "bn_bwd_reduce": (
+                    lambda a, b: fn.bn_bwd_reduce(a, b, mean, inv, scale,
+                                                  offset, act),
+                    lambda a, b: fn.bn_bwd_reduce_plain(
+                        a, b, mean, inv, scale, offset, act), None,
+                    [g0, x0]),
+                "bn_bwd_apply": (
+                    lambda a, b: fn.bn_bwd_apply(a, b, mean, inv, scale,
+                                                 offset, total, act, rc[0]),
+                    lambda a, b: fn.bn_bwd_apply_plain(
+                        a, b, mean, inv, scale, offset, total, act, rc[0]),
+                    None, [g0, x0]),
+            }
+            one = {"bn_stats_one_launch_ms": time_ms(
+                       lambda a: fn.bn_stats(a), [x]),
+                   "bn_bwd_one_launch_ms": time_ms(
+                       lambda a, b: fn.bn_bwd(a, b, mean, inv, scale,
+                                              offset, act), [g, x])}
+            for kname, (kern, plain, lib, args) in t.items():
+                t_b, by = bounds[kname]
+                row = {"kernel": kname, "shape": name, "B": SPLIT_B,
+                       "rank_rows": r_part, "ranks": SPLIT_RANKS,
+                       "dtype": dn, "card": card,
+                       "ms": time_ms(kern, args),
+                       "plain_ms": time_ms(plain, args, 3, 5),
+                       "library_ms": None if lib is None
+                       else time_ms(lib, args),
+                       "bound_ms": t_b, "bound_by": by, **one}
+                timings.append(row)
+                log({"timing": row})
+    errs.update(worst)
+    log({"check": "K2a/K2c+K2d split modes", "ranks": SPLIT_RANKS,
+         "max_err": worst, "misses": misses})
+    if misses:
+        fail(f"split kernels: {misses[:8]}")
+
+
+# (input NHWC, O, k) of cifar10's G deconvs at the serving bucket 64, and
+# the strides and paddings JAX's int8 intercept takes beyond stride 2 SAME
+INT8_DECONV_SHAPES = (((64, 4, 4, 256), 128, 5), ((64, 8, 8, 128), 64, 5))
+INT8_DECONV_CASES = ((1, "SAME"), (1, "VALID"), (2, "VALID"), (3, "SAME"),
+                     (3, "VALID"))
+
+
+def _deconv_products(b, h, w, cin, cout, k, s, lo_h, lo_w, oh, ow):
+    """The int8 products a transposed conv needs, 2 ops each: the taps of
+    the stride-1 conv over the zero-dilated input that land on an input
+    element (not on an inserted zero or in the padding)."""
+    def axis(n_out, n_in, lo):
+        span = (n_in - 1) * s + 1
+        return sum(1 for o in range(n_out) for t in range(k)
+                   if 0 <= o - lo + t < span and (o - lo + t) % s == 0)
+    return 2.0 * b * axis(oh, h, lo_h) * axis(ow, w, lo_w) * cin * cout
+
+
+def phase_int8_deconv(card, timings):
+    """The int8 transposed conv at every stride and padding (ROADMAP fault
+    4's repair, ``ops/quant.py: intercept_deconv2d``): at cifar10's G
+    deconvs (bucket 64) for each of INT8_DECONV_CASES, in f32 and bf16, the
+    intercept on the card bit-equal to the same intercept on the CPU (the
+    plain versions), and its one Q2 call (the zero-dilated int8 input, the
+    flipped HWIO filter, stride 1) twice against Q2's plain version
+    (``_check_q2``); in f32, Q2's time on ``q2_plan``'s route beside its
+    bound (the products the transposed conv needs, over the int8 peak, or
+    bytes)."""
+    import torch
+    from graphical_gan_tpu_torch.ops import quant as tq
+    from graphical_gan_tpu_torch.ops.kernels import quant as kq
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(41)
+    misses, worst = [], [0, 0.0]
+    for shape, cout, k in INT8_DECONV_SHAPES:
+        for stride, padding in INT8_DECONV_CASES:
+            x = torch.randn(shape, generator=gen, device="cuda")
+            w = 0.05 * torch.randn((k, k, cout, shape[-1]), generator=gen,
+                                   device="cuda")
+            bias = torch.randn((cout,), generator=gen, device="cuda")
+            s_x = float(x.abs().max()) / 127.0
+            for dtype in (torch.float32, torch.bfloat16):
+                dn = str(dtype).split(".")[1]
+                label = f"deconv {list(shape)} s{stride} {padding} {dn}"
+                xd = x.to(dtype)
+                with tq.quantized({"d": s_x}):
+                    got = tq.intercept_deconv2d("d", xd, w, stride, padding,
+                                                bias)
+                with tq.quantized({"d": s_x}):
+                    want = tq.intercept_deconv2d("d", xd.cpu(), w.cpu(),
+                                                 stride, padding, bias.cpu())
+                if not _same_bits(got.cpu(), want):
+                    misses.append(f"{label}: card != CPU")
+                s_w = tq.weight_scales(w, 2)
+                wq = kq.quantize_int8(w.contiguous(), s_w.float(), axis=2)
+                pf = kq.pack_filter(wq.flip(0, 1).permute(0, 1, 3, 2)
+                                    .contiguous())
+                factor = tq._factor(s_x, s_w)
+                lo, hi = tq.conv_transpose_pads(k, stride, padding)
+                xq = tq.dilate_rows_cols(kq.quantize_int8(xd, s_x), stride)
+                pads = ((lo, hi), (lo, hi))
+                e_sum, e_out, route = _check_q2(xq, pf, factor, 1, pads,
+                                                dtype, bias, None, misses,
+                                                label)
+                worst[0] = max(worst[0], e_sum)
+                worst[1] = max(worst[1], e_out)
+                if dtype != torch.float32:
+                    continue
+                b, h, wd, cin = shape
+                oh, ow = got.shape[1:3]
+                ops = _deconv_products(b, h, wd, cin, cout, k, stride, lo,
+                                       lo, oh, ow)
+                nbytes = (b * h * wd * cin + k * k * cin * cout + 8 * cout
+                          + b * oh * ow * cout * 4)
+                t_ops = ops / PEAK_INT8 * 1e3
+                t_bytes = nbytes / HBM_BYTES_S * 1e3
+                plan = _q2_plan_of(xq, pf, 1, pads)
+                row = {"kernel": "int8_conv", "use": "int8 deconv",
+                       "shape": [list(shape), cout, k], "stride": stride,
+                       "padding": padding, "dtype": dn, "card": card,
+                       "route": plan.route,
+                       "plan": {kk: v for kk, v in plan.as_dict().items()
+                                if kk in ("bm", "bn", "bk", "stages",
+                                          "splits")},
+                       "dilated_input": list(xq.shape),
+                       "ms": time_ms(lambda a, wk: kq.int8_conv_packed(
+                           a, pf._replace(wk=wk), factor, 1, pads, dtype,
+                           bias), [xq, pf.wk], 5, 10),
+                       "plain_ms": time_ms(lambda a: kq.int8_conv_plain(
+                           a, kq.unpack_filter(pf), factor, 1, pads, dtype,
+                           bias), [xq], 3, 3),
+                       "bound_ms": max(t_ops, t_bytes),
+                       "bound_by": "operations" if t_ops >= t_bytes
+                       else "bytes", "library_ms": None}
+                timings.append(row)
+                log({"timing": row})
+    log({"check": "int8 deconv (every stride and padding)",
+         "sums_max_abs_err": worst[0], "out_max_abs_err": worst[1],
+         "misses": misses})
+    if misses:
+        fail(f"int8 deconv: {misses[:8]}")
+
+
+def phase_parallel(launch_totals):
+    """The strategies over torch.distributed on this card
+    (``tools/parallel_check.py``): each of dp, tp, sp, ep and composed at
+    world size 1 over NCCL bit for bit against the one-device step, then
+    dp and tp (cifar10 wali-gp), ep (GMGAN mnist local_ep) and sp (SSGAN
+    moving-MNIST local_ep, BN on) on 2 gloo ranks on cuda:0 at the
+    published widths against the one-device step, replicas bit-identical.
+    The launches of rank 0's strategy runs (counts set to 0 just before
+    them) are the split kernels' main path."""
+    from graphical_gan_tpu_torch.tools import parallel_check
+    out = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
+                       "parallel_check.json")
+    try:
+        doc = parallel_check.main(["--device", "cuda", "--out", out,
+                                   "--timeout", "600"])
+    except SystemExit:
+        with open(out) as f:
+            doc = json.load(f)
+        fail(f"parallel: {doc['misses']}")
+    ranks = doc["ranks"]
+    log({"phase": "parallel", "world1": [
+        {k: c[k] for k in ("strategy", "mesh", "bit_identical", "seconds")}
+        for c in doc["world1"]["cases"]],
+         "ranks": [{k: c[k] for k in ("strategy", "mesh", "dataset",
+                                      "batch_size", "misses", "sign_flips",
+                                      "replicas_bit_identical", "seconds")}
+                   for c in ranks["cases"]],
+         "backend": ranks["backend"], "gloo_takes": ranks["gloo_takes"],
+         "launches": ranks["launches"]})
+    _add(launch_totals, ranks["launches"])
+
+
 def _timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -5921,7 +6289,8 @@ def _timed(name, fn, *args):
 SIDE_PHASES = {"failure": ("phase_failure_side", None),
                "learn": ("phase_learn", "learn"),
                "family2-learn": ("phase_family2_learn", "family2_learn"),
-               "family3-learn": ("phase_family3_learn", "family3_learn")}
+               "family3-learn": ("phase_family3_learn", "family3_learn"),
+               "parallel": ("phase_parallel", "parallel")}
 SIDE_TIMEOUT = 900    # seconds from the join to the last side phase's exit
 _SIDE_CODE = """
 import sys
@@ -6072,11 +6441,13 @@ def main(argv=None) -> int:
                     "family2_learn": {}, "family3": {}, "family3_serve": {},
                     "family3_learn": {}, "tools": {}, "fault4": {},
                     "phase_deconv": {}, "int8": {}, "frozen": {},
-                    "quality_run": {}, "library": {}}
+                    "quality_run": {}, "library": {}, "parallel": {}}
         int8_out, frozen_out = {}, {}
         _timed("build", phase_build)
         _timed("check", phase_check, errs)
         _timed("time", phase_time, timings)
+        _timed("split-kernels", phase_split_kernels, errs, timings, card)
+        _timed("int8-deconv", phase_int8_deconv, card, timings)
         run_dirs = _timed("serve", phase_serve, launches["serve"],
                           launches["k1"])
         missing = [k for k in SERVE_KERNELS if not launches["serve"].get(k)]
@@ -6137,7 +6508,8 @@ def main(argv=None) -> int:
                            ("int8", INT8_KERNELS),
                            ("frozen", ("bn_stats", "bn_apply")),
                            ("quality_run", TRAIN_KERNELS),
-                           ("library", ("fused_conv2d_bias_act",))):
+                           ("library", ("fused_conv2d_bias_act",)),
+                           ("parallel", TRAIN_KERNELS + SPLIT_KERNELS)):
             missing = [k for k in want if not launches[path].get(k)]
             if missing:
                 fail(f"kernels never launched on the {path} path: "

@@ -273,6 +273,8 @@ struct StatsArgs {
   int rows, n_rb;  // rows per row block, row blocks
   int units;       // n_ct * n_rb; unit u is (row block u / n_ct, tile u % n_ct)
   float eps;
+  double* local;   // split mode: [3, C] f64 (n, mean, M2) of these rows, in
+                   // place of out (nullptr: the one-launch statistics)
 };
 
 // Shared memory of a K2a launch: the block sum's scratch (two f64 values a
@@ -298,6 +300,22 @@ __device__ __forceinline__ void stats_write(float* out, int64_t C, int c, int R,
   out[2 * C + c] = 1.0f / sqrtf(var + eps);
 }
 
+// The end of a channel's statistics: mean, var and inv to `out`, or in the
+// split mode (SPLIT: a separate instantiation, so the one-launch kernel is
+// the code it was) the rows' count, unshifted mean and M2 in f64 to
+// `local`, for the merge over ranks (ggan_bn_stats_merge).
+template <bool SPLIT, typename T>
+__device__ __forceinline__ void stats_finish(const StatsArgs<T>& a, int c, double shift,
+                                             double mean_d, double m2) {
+  if constexpr (SPLIT) {
+    a.local[c] = double(a.R);
+    a.local[a.C + c] = shift + mean_d;
+    a.local[2 * int64_t(a.C) + c] = m2;
+  } else {
+    stats_write(a.out, a.C, c, a.R, shift, mean_d, m2, a.eps);
+  }
+}
+
 // K2a in one cooperative launch. Phase 1, per unit of the block: each
 // thread sums d = x - x[0, c] and d² over its rows in row order, in f64 (d
 // is exact there); a block sum gives the unit's n, Σd, Σd², and so its
@@ -305,7 +323,7 @@ __device__ __forceinline__ void stats_write(float* out, int64_t C, int c, int R,
 // inv to `out`). One grid-wide barrier. Phase 2: the block of row block 0
 // of each channel tile merges the tile's partials in row-block order
 // (Chan's formula, in f64) and writes mean, var and inv.
-template <typename T, int VEC>
+template <typename T, int VEC, bool SPLIT>
 __global__ void __launch_bounds__(kThreads<VEC>, 1) bn_stats_fused_kernel(const StatsArgs<T> a) {
   using P = Pack<T, VEC>;
   constexpr int U = STATS_UNROLL<VEC>;
@@ -364,7 +382,7 @@ __global__ void __launch_bounds__(kThreads<VEC>, 1) bn_stats_fused_kernel(const 
         const double mean_d = sd / n_u;
         const double m2 = fmax(total[CT + tx * VEC + q] - sd * mean_d, 0.0);
         if (a.n_rb == 1) {
-          stats_write(a.out, C, c0 + q, a.R, shift[q], mean_d, m2, a.eps);
+          stats_finish<SPLIT>(a, c0 + q, shift[q], mean_d, m2);
         } else {
           a.part[int64_t(rb) * 2 * C + c0 + q] = mean_d;
           a.part[(int64_t(rb) * 2 + 1) * C + c0 + q] = m2;
@@ -424,13 +442,39 @@ __global__ void __launch_bounds__(kThreads<VEC>, 1) bn_stats_fused_kernel(const 
       chan_merge(mean_d, m2, staged[p * 2 * CT + k], staged[(p * 2 + 1) * CT + k],
                  weights[2 * p], weights[2 * p + 1]);
     }
-    stats_write(a.out, C, c, a.R, to_f32(a.x[c]), mean_d, m2, a.eps);
+    stats_finish<SPLIT>(a, c, to_f32(a.x[c]), mean_d, m2);
   }
+}
+
+// K2a's split mode, phase 2: channel c's (n, mean, M2) of W ranks, [W, 3, C]
+// f64, merged in rank order by Chan's formula in f64 (the same weights as
+// chan_merge), then mean and var rounded once to f32 and inv from the
+// rounded var, as stats_write writes them. One thread a channel.
+__global__ void __launch_bounds__(256)
+bn_stats_merge_kernel(const double* __restrict__ parts, float* __restrict__ out, int W, int C,
+                      float eps) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const int64_t stride = 3 * int64_t(C);
+  double n = parts[c], mean = parts[C + c], m2 = parts[2 * int64_t(C) + c];
+  for (int r = 1; r < W; ++r) {
+    const double nb = parts[r * stride + c];
+    const double tot = n + nb;
+    const double fb = nb / tot;
+    chan_merge(mean, m2, parts[r * stride + C + c], parts[r * stride + 2 * int64_t(C) + c], fb,
+               n * fb);
+    n = tot;
+  }
+  const float var = float(m2 / n);
+  out[c] = float(mean);
+  out[C + c] = var;
+  out[2 * C + c] = 1.0f / sqrtf(var + eps);
 }
 
 template <typename T, int VEC>
 int run_stats(const void* x, double* part, float* out, int R, int C, int tx, int rows,
-              int n_rb, long long smem, int grid, float eps, cudaStream_t st) {
+              int n_rb, long long smem, int grid, float eps, cudaStream_t st,
+              double* local = nullptr) {
   const int n_ct = (C + tx * VEC - 1) / (tx * VEC);
   const int units = n_ct * n_rb;
   // the merge stages a channel tile's partials with threads that keep one
@@ -438,8 +482,12 @@ int run_stats(const void* x, double* part, float* out, int R, int C, int tx, int
   if (!plan_ok<VEC>(R, C, tx, rows, n_rb, 0, grid, units) ||
       (n_rb > 1 && kThreads<VEC> % (tx * VEC)) || stats_smem<VEC>(tx, n_rb) != size_t(smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  StatsArgs<T> a{static_cast<const T*>(x), part, out, R, C, tx, n_ct, rows, n_rb, units, eps};
-  return launch_cooperative(bn_stats_fused_kernel<T, VEC>, a, grid, kThreads<VEC>,
+  StatsArgs<T> a{static_cast<const T*>(x), part, out, R, C, tx, n_ct, rows, n_rb, units, eps,
+                 local};
+  if (local != nullptr)
+    return launch_cooperative(bn_stats_fused_kernel<T, VEC, true>, a, grid, kThreads<VEC>,
+                              size_t(smem), st);
+  return launch_cooperative(bn_stats_fused_kernel<T, VEC, false>, a, grid, kThreads<VEC>,
                             size_t(smem), st);
 }
 
@@ -485,8 +533,9 @@ __device__ __forceinline__ void bwd_load_params(const BwdArgs<T>& a, int c0, flo
 
 // The end of a unit once its channels' sums are in block_red: red (by the
 // block of row block 0), then dx of the unit's rows from the g and x kept
-// in `slot` (rows past cache_rows read again).
-template <typename T, int VEC, int UNROLL>
+// in `slot` (rows past cache_rows read again); with REDUCE_ONLY (the split
+// mode's phase 1, a separate instantiation) red alone.
+template <typename T, int VEC, int UNROLL, bool REDUCE_ONLY>
 __device__ __forceinline__ void bwd_finish_unit(const BwdArgs<T>& a, const Pack<T, VEC>* slot,
                                                 int rb, int ct, int c0, int r0, int r1, int tx,
                                                 int ty, int TX, const float* block_red,
@@ -503,7 +552,7 @@ __device__ __forceinline__ void bwd_finish_unit(const BwdArgs<T>& a, const Pack<
       if (c < a.C) a.red[(t / CT) * C + c] = block_red[t];
     }
   }
-  if (c0 >= a.C) return;
+  if (REDUCE_ONLY || c0 >= a.C) return;
   const float rows_f = float(a.R);
   // dx = (gz - Σgz/R - d·inv·Σ(gz·xhat)/R)·inv·scale, as mg and ivm below
   float mg[VEC], ivm[VEC];
@@ -555,7 +604,7 @@ __device__ __forceinline__ void bwd_finish_unit(const BwdArgs<T>& a, const Pack<
 // row block (n_rb == 1, e.g. G.BN1's [B, 4096]), a unit's sums are its
 // channels' totals already: the block writes dx right after phase 1, and no
 // block waits at the barrier.
-template <typename T, int VEC>
+template <typename T, int VEC, bool REDUCE_ONLY>
 __global__ void __launch_bounds__(kThreads<VEC>, 1) bn_bwd_fused_kernel(const BwdArgs<T> a) {
   using P = Pack<T, VEC>;
   constexpr int UNROLL = BWD_UNROLL;
@@ -613,8 +662,8 @@ __global__ void __launch_bounds__(kThreads<VEC>, 1) bn_bwd_fused_kernel(const Bw
     }
     block_sum<VEC, 2>(s, scratch, tx, ty, TX);
     if (a.n_rb == 1) {
-      bwd_finish_unit<T, VEC, UNROLL>(a, slot, rb, ct, c0, r0, r1, tx, ty, TX, block_red, m, iv,
-                                      sa, of);
+      bwd_finish_unit<T, VEC, UNROLL, REDUCE_ONLY>(a, slot, rb, ct, c0, r0, r1, tx, ty, TX,
+                                                   block_red, m, iv, sa, of);
     } else {
       for (int t = threadIdx.x; t < 2 * CT; t += kThreads<VEC>) {
         const int c = ct * CT + t % CT;
@@ -651,8 +700,8 @@ __global__ void __launch_bounds__(kThreads<VEC>, 1) bn_bwd_fused_kernel(const Bw
     }
   }
   block_sum<VEC, 2>(s, scratch, tx, ty, TX);
-  bwd_finish_unit<T, VEC, UNROLL>(a, cache, rb, ct, c0, r0, r1, tx, ty, TX, block_red, m, iv,
-                                  sa, of);
+  bwd_finish_unit<T, VEC, UNROLL, REDUCE_ONLY>(a, cache, rb, ct, c0, r0, r1, tx, ty, TX,
+                                               block_red, m, iv, sa, of);
 }
 
 // Shared memory of a K2c+K2d launch: the block sums' scratch, then `slots`
@@ -668,7 +717,7 @@ template <typename T, int VEC>
 int run_bwd(const void* g, const void* x, const float* mean, const float* inv,
             const float* scale, const float* offset, float* part, float* red, void* dx,
             int R, int C, int tx, int rows, int n_rb, int slots, int cache_rows,
-            long long smem, int grid, int act, cudaStream_t st) {
+            long long smem, int grid, int act, cudaStream_t st, int reduce_only = 0) {
   const int CT = tx * VEC;
   const int n_ct = (C + CT - 1) / CT;
   const int units = n_ct * n_rb;
@@ -679,12 +728,156 @@ int run_bwd(const void* g, const void* x, const float* mean, const float* inv,
   BwdArgs<T> a{static_cast<const T*>(g), static_cast<const T*>(x), mean, inv, scale,
                offset, part, red, static_cast<T*>(dx), R, C, tx, n_ct, rows, n_rb,
                units, slots, cache_rows, act};
-  return launch_cooperative(bn_bwd_fused_kernel<T, VEC>, a, grid, kThreads<VEC>, size_t(smem),
-                            st);
+  if (reduce_only)
+    return launch_cooperative(bn_bwd_fused_kernel<T, VEC, true>, a, grid, kThreads<VEC>,
+                              size_t(smem), st);
+  return launch_cooperative(bn_bwd_fused_kernel<T, VEC, false>, a, grid, kThreads<VEC>,
+                            size_t(smem), st);
+}
+
+// K2c+K2d's split mode, phase 2: dx of every element from the group's
+// summed red ([Σgz; Σgz·xhat] over `rows` rows), with the one-launch
+// kernel's arithmetic (bwd_finish_unit): y and act' recomputed as K2b
+// computes them, dx = (gz - Σgz/N - d·inv·Σ(gz·xhat)/N)·inv·scale. One
+// elementwise pass: g and x read once, dx written once.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(256)
+bn_bwd_apply_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                    const float* __restrict__ mean, const float* __restrict__ inv,
+                    const float* __restrict__ scale, const float* __restrict__ offset,
+                    const float* __restrict__ red, T* __restrict__ dx, int64_t n_packs, int C,
+                    float rows, int act) {
+  const Pack<T, VEC>* gp = reinterpret_cast<const Pack<T, VEC>*>(g);
+  const Pack<T, VEC>* xp = reinterpret_cast<const Pack<T, VEC>*>(x);
+  Pack<T, VEC>* dp = reinterpret_cast<Pack<T, VEC>*>(dx);
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n_packs; i += stride) {
+    const int c0 = int((i * VEC) % C);  // C % VEC == 0: a pack never wraps a row
+    const Pack<T, VEC> gi = gp[i], xi = xp[i];
+    Pack<T, VEC> out;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const int c = c0 + k;
+      const float sa = inv[c] * scale[c];
+      const float d = to_f32(xi.v[k]) - mean[c];
+      const float gz = to_f32(gi.v[k]) * act_grad(pre_act(d, sa, offset[c]), act);
+      const float mg = red[c] / rows;
+      const float ivm = inv[c] * (red[C + c] / rows);
+      out.v[k] = from_f32<T>((gz - mg - d * ivm) * sa);
+    }
+    dp[i] = out;
+  }
+}
+
+template <typename T, int VEC>
+void launch_bwd_apply(const void* g, const void* x, const float* mean, const float* inv,
+                      const float* scale, const float* offset, const float* red, void* dx,
+                      int64_t numel, int C, float rows, int act, cudaStream_t st) {
+  const int64_t n_packs = numel / VEC;
+  bn_bwd_apply_kernel<T, VEC><<<apply_grid(n_packs), 256, 0, st>>>(
+      static_cast<const T*>(g), static_cast<const T*>(x), mean, inv, scale, offset, red,
+      static_cast<T*>(dx), n_packs, C, rows, act);
 }
 
 }  // namespace
 }  // namespace ggan
+
+// K2a's split mode, phase 1: as ggan_bn_stats (the same plan and launch),
+// writing local [3, C] f64 (the rows' count, mean and M2 per channel) in
+// place of the statistics.
+extern "C" int ggan_bn_stats_local(const void* x, void* part, void* local, int dtype, int R,
+                                   int C, int vec, int tx, int rows, int n_rb, long long smem,
+                                   int grid, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  double* pt = static_cast<double*>(part);
+  double* lc = static_cast<double*>(local);
+  if (dtype == ggan::kFloat32 && vec == 4) {
+    return ggan::run_stats<float, 4>(x, pt, nullptr, R, C, tx, rows, n_rb, smem, grid, 0.0f,
+                                     st, lc);
+  } else if (dtype == ggan::kFloat32 && vec == 1) {
+    return ggan::run_stats<float, 1>(x, pt, nullptr, R, C, tx, rows, n_rb, smem, grid, 0.0f,
+                                     st, lc);
+  } else if (dtype == ggan::kBFloat16 && vec == 8) {
+    return ggan::run_stats<__nv_bfloat16, 8>(x, pt, nullptr, R, C, tx, rows, n_rb, smem, grid,
+                                             0.0f, st, lc);
+  } else if (dtype == ggan::kBFloat16 && vec == 1) {
+    return ggan::run_stats<__nv_bfloat16, 1>(x, pt, nullptr, R, C, tx, rows, n_rb, smem, grid,
+                                             0.0f, st, lc);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K2a's split mode, phase 2: parts [W, 3, C] f64 -> out [3, C] f32 (mean,
+// var, inv).
+extern "C" int ggan_bn_stats_merge(const void* parts, void* out, int W, int C, float eps,
+                                   void* stream) {
+  if (W < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  ggan::bn_stats_merge_kernel<<<(C + 255) / 256, 256, 0, st>>>(
+      static_cast<const double*>(parts), static_cast<float*>(out), W, C, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2c+K2d's split mode, phase 1: as ggan_bn_bwd with no rows kept on chip
+// (cache_rows 0) and reduce_only 1: red alone, dx untouched.
+extern "C" int ggan_bn_bwd_split(const void* g, const void* x, const void* mean,
+                                 const void* inv, const void* scale, const void* offset,
+                                 void* part, void* red, void* dx, int dtype, int R, int C,
+                                 int vec, int tx, int rows, int n_rb, int slots,
+                                 long long smem, int grid, int act, int reduce_only,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mean);
+  const float* iv = static_cast<const float*>(inv);
+  const float* sc = static_cast<const float*>(scale);
+  const float* of = static_cast<const float*>(offset);
+  float* pt = static_cast<float*>(part);
+  float* rd = static_cast<float*>(red);
+  if (dtype == ggan::kFloat32 && vec == 4) {
+    return ggan::run_bwd<float, 4>(g, x, m, iv, sc, of, pt, rd, dx, R, C, tx, rows, n_rb,
+                                   slots, 0, smem, grid, act, st, reduce_only);
+  } else if (dtype == ggan::kFloat32 && vec == 1) {
+    return ggan::run_bwd<float, 1>(g, x, m, iv, sc, of, pt, rd, dx, R, C, tx, rows, n_rb,
+                                   slots, 0, smem, grid, act, st, reduce_only);
+  } else if (dtype == ggan::kBFloat16 && vec == 8) {
+    return ggan::run_bwd<__nv_bfloat16, 8>(g, x, m, iv, sc, of, pt, rd, dx, R, C, tx, rows,
+                                           n_rb, slots, 0, smem, grid, act, st, reduce_only);
+  } else if (dtype == ggan::kBFloat16 && vec == 1) {
+    return ggan::run_bwd<__nv_bfloat16, 1>(g, x, m, iv, sc, of, pt, rd, dx, R, C, tx, rows,
+                                           n_rb, slots, 0, smem, grid, act, st, reduce_only);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K2c+K2d's split mode, phase 2: g and x [R, C] in one dtype; mean, inv,
+// scale and offset [C] f32; red [2, C] f32, the group's sums over `rows`
+// rows; dx has x's dtype and shape. vec is 4 (C % 4 == 0 and 16-byte aligned
+// g, x and dx) or 1.
+extern "C" int ggan_bn_bwd_apply(const void* g, const void* x, const void* mean,
+                                 const void* inv, const void* scale, const void* offset,
+                                 const void* red, void* dx, int dtype, long long numel, int C,
+                                 float rows, int act, int vec, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mean);
+  const float* iv = static_cast<const float*>(inv);
+  const float* sc = static_cast<const float*>(scale);
+  const float* of = static_cast<const float*>(offset);
+  const float* rd = static_cast<const float*>(red);
+  if (dtype == ggan::kFloat32 && vec == 4) {
+    ggan::launch_bwd_apply<float, 4>(g, x, m, iv, sc, of, rd, dx, numel, C, rows, act, st);
+  } else if (dtype == ggan::kFloat32 && vec == 1) {
+    ggan::launch_bwd_apply<float, 1>(g, x, m, iv, sc, of, rd, dx, numel, C, rows, act, st);
+  } else if (dtype == ggan::kBFloat16 && vec == 4) {
+    ggan::launch_bwd_apply<__nv_bfloat16, 4>(g, x, m, iv, sc, of, rd, dx, numel, C, rows, act,
+                                             st);
+  } else if (dtype == ggan::kBFloat16 && vec == 1) {
+    ggan::launch_bwd_apply<__nv_bfloat16, 1>(g, x, m, iv, sc, of, rd, dx, numel, C, rows, act,
+                                             st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // K2a. x is [R, C]; part is [n_rb, 2, C] f64 scratch; out is [3, C] f32:
 // mean, var and inv. vec is 16 / sizeof(dtype) (C a multiple of it, x

@@ -10,10 +10,15 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from graphical_gan_tpu_torch.parallel import context
 from graphical_gan_tpu_torch.ops.activations import activation
 from graphical_gan_tpu_torch.ops.norm import batchnorm_act
 
 _log = threading.local()
+
+#: the draws of family 1's aggregated-posterior objectives, over
+#: ``z_samples`` rows, not the batch's (``models/gan_inference.py``)
+NOT_ROW_DRAWS = frozenset({"mix_idx", "mix_eps", "z_prior"})
 
 
 @contextmanager
@@ -45,17 +50,41 @@ class Draws:
     package's draws) is used as it is, cast to the asked dtype and moved to
     the asked device; any other is drawn from ``generator`` (the global
     stream when it is None). The JAX package draws each from its own key of
-    the registry's stream, so the names stand where the keys stood there."""
+    the registry's stream, so the names stand where the keys stood there.
+
+    Where the batch's rows are sharded over ranks (``parallel/context.py``),
+    a draw over the rows is made at the global batch, from the seed every
+    rank shares, and the rank keeps its own rows; a given draw may come at
+    the global batch too. The draws over no batch rows
+    (``NOT_ROW_DRAWS``) are made whole on every rank."""
 
     def __init__(self, given: Optional[Dict[str, torch.Tensor]] = None,
                  generator: Optional[torch.Generator] = None):
         self.given = dict(given or {})
         self.generator = generator
 
+    @staticmethod
+    def _rows(name: str, shape):
+        """(data group, the global batch's shape) where the batch's rows
+        are sharded (``parallel/context.py``) and ``name`` is a draw over
+        them, else (None, shape)."""
+        group = context.rows_group()
+        if group is None or name in NOT_ROW_DRAWS or not shape:
+            return None, tuple(shape)
+        return group, (shape[0] * group.size,) + tuple(shape[1:])
+
+    @staticmethod
+    def _own(t: torch.Tensor, group, n: int) -> torch.Tensor:
+        return t if group is None else t[group.index * n:
+                                         (group.index + 1) * n]
+
     def _given(self, name, shape, dtype, device):
         t = self.given.get(name)
         if t is None:
             return None
+        group, full = self._rows(name, shape)
+        if group is not None and tuple(t.shape) == full:
+            t = self._own(t, group, shape[0])
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"draw {name!r}: given {tuple(t.shape)}, the "
                              f"model needs {tuple(shape)}")
@@ -65,9 +94,11 @@ class Draws:
                device) -> torch.Tensor:
         t = self._given(name, shape, dtype, device)
         if t is None:
-            _logged("normal", name, shape, dtype)
-            t = torch.randn(tuple(shape), generator=self.generator,
-                            device=device, dtype=dtype)
+            group, full = self._rows(name, shape)
+            _logged("normal", name, full, dtype)
+            t = self._own(torch.randn(full, generator=self.generator,
+                                      device=device, dtype=dtype),
+                          group, shape[0] if shape else 0)
         return t
 
     def uniform(self, name: str, shape: Sequence[int], device
@@ -75,9 +106,11 @@ class Draws:
         """U[0, 1) in f32."""
         t = self._given(name, shape, torch.float32, device)
         if t is None:
-            _logged("uniform", name, shape, torch.float32)
-            t = torch.rand(tuple(shape), generator=self.generator,
-                           device=device)
+            group, full = self._rows(name, shape)
+            _logged("uniform", name, full, torch.float32)
+            t = self._own(torch.rand(full, generator=self.generator,
+                                     device=device),
+                          group, shape[0] if shape else 0)
         return t
 
     def randint(self, name: str, high: int, shape: Sequence[int], device
@@ -85,9 +118,12 @@ class Draws:
         """Integers in [0, high), int64."""
         t = self._given(name, shape, torch.int64, device)
         if t is None:
-            _logged("randint", name, shape, torch.int64, high)
-            t = torch.randint(0, high, tuple(shape), generator=self.generator,
-                              device=device)
+            group, full = self._rows(name, shape)
+            _logged("randint", name, full, torch.int64, high)
+            t = self._own(torch.randint(0, high, full,
+                                        generator=self.generator,
+                                        device=device),
+                          group, shape[0] if shape else 0)
         return t
 
 

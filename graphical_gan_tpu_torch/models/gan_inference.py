@@ -49,6 +49,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from graphical_gan_tpu_torch.core import shard_ctx
 from graphical_gan_tpu_torch.core.config import (
     VEGAN_CODE_MODES, GanInferenceConfig)
 from graphical_gan_tpu_torch.models import networks
@@ -327,7 +328,10 @@ class GanInferenceModel:
         """vegan-kl / -ikl / -jsd (``gan_inference.py:159-179``): the prior
         moments are z_samples-shaped, n_coms is the runtime batch."""
         cfg, mode = self.cfg, self.cfg.mode
-        q_mean, q_std = t["q_z_mean"], t["q_z_std"]
+        # the aggregated posterior couples every row of the batch: gathered
+        # over the batch's ranks (identity on one rank)
+        q_mean = shard_ctx.gather_batch(t["q_z_mean"])
+        q_std = shard_ctx.gather_batch(t["q_z_std"])
         dev = q_mean.device
         shape = (cfg.z_samples, cfg.dim_latent)
         p_mean = torch.zeros(shape, device=dev)
@@ -372,7 +376,9 @@ class GanInferenceModel:
         elif mode == "wali-gp":
             g, _ = objs.wali_gp(t["disc_fake"], t["disc_real"], zero)
         elif mode == "vegan-mmd":
-            g = mmd.vegan_mmd(t["q_z"], t["p_z"], rec, cfg.lambda_)
+            g = mmd.vegan_mmd(shard_ctx.gather_batch(t["q_z"]),
+                              shard_ctx.gather_batch(t["p_z"]), rec,
+                              cfg.lambda_)
         elif mode in KL_MODES:
             g = self._kl_cost(t, rec, d)
         elif mode == "vae":

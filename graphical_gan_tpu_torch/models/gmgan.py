@@ -57,6 +57,7 @@ from graphical_gan_tpu_torch.models import networks
 from graphical_gan_tpu_torch.models.common import Draws, normalize_input
 from graphical_gan_tpu_torch.models.gan_inference import (
     _conv, _linear, encoder_generator_specs)
+from graphical_gan_tpu_torch.core import shard_ctx
 from graphical_gan_tpu_torch.objectives import discrete
 from graphical_gan_tpu_torch.objectives import gan_inference as objs
 from graphical_gan_tpu_torch.objectives import penalties
@@ -145,13 +146,18 @@ class GMGanModel:
         """``p_z = k @ Mu + eps`` in f32 (``gmgan_inference_mnist.py:
         142-145``); a plain product, as JAX computes it outside any Pallas
         kernel."""
-        return torch.matmul(k.float(), params[MU].float()) + noise.float()
+        # EP: the rank's block of components times its means, summed over
+        # the expert group (identity on one rank)
+        k = shard_ctx.constrain_components(k.float())
+        return shard_ctx.sum_components(
+            torch.matmul(k, params[MU].float())) + noise.float()
 
     def component_logits(self, params: Params, z: torch.Tensor
                          ) -> torch.Tensor:
         """q(k|z)'s logits [B, n_coms], f32: -|z - Mu_k|^2 / 2 + log(1/K)
         (``:148-165``)."""
-        sq = (z.float()[:, None, :] - params[MU].float()[None]).square()
+        zf = shard_ctx.to_components(z.float())  # EP: the rank's means
+        sq = (zf[:, None, :] - params[MU].float()[None]).square()
         return -0.5 * sq.sum(dim=-1) + math.log(1.0 / self.cfg.n_coms)
 
     def posterior_sample(self, logits: torch.Tensor, draws: Draws,
@@ -161,26 +167,34 @@ class GMGanModel:
         cfg = self.cfg
         mk = cfg.mode_k
         if mk in ("REINFORCE", "STRAIGHT_THROUGHT"):
-            hard = F.one_hot(logits.argmax(dim=-1), cfg.n_coms).to(
-                logits.dtype)
+            hard = shard_ctx.component_argmax_one_hot(logits, cfg.n_coms)
             if mk == "REINFORCE":
                 return hard
             return (hard - logits).detach() + logits
-        u = draws.uniform(name, logits.shape, logits.device)
-        k = torch.softmax((logits + sample_gumbel(u)) / cfg.temp, dim=-1)
+        # drawn whole, the rank's block of components kept (EP)
+        u = shard_ctx.constrain_components(draws.uniform(
+            name, (logits.shape[0], cfg.n_coms), logits.device))
+        k = shard_ctx.component_softmax((logits + sample_gumbel(u))
+                                        / cfg.temp)
         if mk == "CONCRETE":
             return k
-        hard = F.one_hot(k.argmax(dim=-1), cfg.n_coms).to(k.dtype)
+        hard = shard_ctx.component_argmax_one_hot(k, cfg.n_coms)
         return (hard - k).detach() + k
 
     # -- discriminators -------------------------------------------------------
+
+    def _whole_k(self, k: torch.Tensor) -> torch.Tensor:
+        """k over every component: under EP a block of them is gathered."""
+        if k.shape[-1] == self.cfg.n_coms:
+            return k
+        return shard_ctx.gather_components(k)
 
     def hyper_discriminator(self, params: Params, z: torch.Tensor,
                             k: torch.Tensor) -> torch.Tensor:
         """D(z, k): an MLP of 512 units (``gmgan_inference_mnist.py:
         249-265``); [B] scores."""
         dr = self.cfg.dropout_rate
-        h = torch.cat([z, k.to(z.dtype)], dim=1)
+        h = torch.cat([z, self._whole_k(k).to(z.dtype)], dim=1)
         for name in ("HyperInput", "Hyper2", "Hyper3"):
             h = dropout(leaky_relu(linear(params, f"Discriminator.{name}",
                                           h)), dr)
@@ -214,7 +228,7 @@ class GMGanModel:
         """ali/alice's joint D(x, z, k) (``:301-330``)."""
         dr = self.cfg.dropout_rate
         h = self._conv_trunk(params, x_flat, "Discriminator.x")
-        hzk = torch.cat([z, k.to(z.dtype)], dim=1)
+        hzk = torch.cat([z, self._whole_k(k).to(z.dtype)], dim=1)
         hzk = dropout(leaky_relu(linear(params, "Discriminator.zk1", hzk)),
                       dr)
         h = torch.cat([h, hzk], dim=1)
@@ -272,7 +286,8 @@ class GMGanModel:
         """The REINFORCE surrogate's mean (``:355-372``)."""
         if self.cfg.mode_k != "REINFORCE":
             return None
-        p_max = torch.softmax(t["q_k_logits"], dim=1).max(dim=1).values
+        p_max = shard_ctx.gather_components(shard_ctx.component_softmax(
+            t["q_k_logits"])).max(dim=1).values
         f_k = t["disc_real_list"][0] if "disc_real_list" in t \
             else t["disc_real"]
         return discrete.score_function(f_k, p_max,

@@ -27,6 +27,12 @@ The reference (``ssgan_inference_moving_mnist.py``):
   convs, then a VALID 4x4 conv to one z_g-sized vector per frame) or
   ``3dcnn`` (four Conv3D layers over NDHWC).
 
+Under SP (``parallel/sequence.py``) the frame networks take the rank's
+block of each video's frames at JAX's fold points (``core/shard_ctx.py:
+constrain_frames``: the folded frame codes, the frame batches of E, the
+frame D and concat_z's D) and gather their outputs over ``seq`` again
+(``gather_frames``) for the latent chains and the costs.
+
 Convs go through ``ops.conv2d`` (the K1 kernel), with the leaky ReLU in
 K1's epilogue exactly where JAX fuses it (``Extractor.1``,
 ``Extractor.G.1``, ``Discriminator.1``); BN (``cfg.bn``, off by default)
@@ -53,6 +59,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from graphical_gan_tpu_torch.core import shard_ctx
 from graphical_gan_tpu_torch.core.config import (
     ALI_MODES, POS_MODES, SSGAN_MODES, SSGanConfig)
 from graphical_gan_tpu_torch.models.common import (
@@ -269,7 +276,18 @@ class SSGanModel:
                  z_l.reshape(-1, cfg.dim_latent_l).to(z_g.dtype)]
         if cfg.conditional:
             parts.append(self._tiled(labels, z_g.dtype))
-        return torch.cat(parts, dim=1)
+        # SP fold point (JAX ssgan.py:205, 291): the rank's frames
+        return shard_ctx.constrain_frames(torch.cat(parts, dim=1),
+                                          cfg.seq_len)
+
+    def _frame_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """The folded frames of a video batch for a frame network: SP's
+        fold point (JAX ssgan.py:226, 279, 383), the rank's frames."""
+        return shard_ctx.constrain_frames(self._frames(x), self.cfg.seq_len)
+
+    def _frame_labels(self, labels: torch.Tensor, dtype) -> torch.Tensor:
+        return shard_ctx.constrain_frames(self._tiled(labels, dtype),
+                                          self.cfg.seq_len)
 
     def _conv_stack(self, params: Params, prefix: str, h: torch.Tensor
                     ) -> torch.Tensor:
@@ -315,18 +333,20 @@ class SSGanModel:
             h = deconv2d(params, f"Generator.{i}", h)
             h = bn_act(cfg.bn, params, f"Generator.BN{i}", h, "relu")
         h = torch.tanh(deconv2d(params, "Generator.5", h))
-        return flatten_image(h).reshape(b, cfg.seq_len, cfg.output_dim)
+        h = shard_ctx.gather_frames(flatten_image(h), cfg.seq_len)
+        return h.reshape(b, cfg.seq_len, cfg.output_dim)
 
     def frame_extractor(self, params: Params, x: torch.Tensor,
                         labels: Optional[torch.Tensor]) -> torch.Tensor:
         """Per-frame conv stack -> the motion pre-codes [B, LEN, dl]
         (``:207-235``)."""
         cfg = self.cfg
-        h = self._conv_stack(params, "Extractor.", self._frames(x))
+        h = self._conv_stack(params, "Extractor.", self._frame_batch(x))
         h = h.reshape(h.shape[0], -1)
         if cfg.conditional:
-            h = torch.cat([h, self._tiled(labels, h.dtype)], dim=1)
-        out = linear(params, "Extractor.Output", h)
+            h = torch.cat([h, self._frame_labels(labels, h.dtype)], dim=1)
+        out = shard_ctx.gather_frames(linear(params, "Extractor.Output", h),
+                                      cfg.seq_len)
         return out.reshape(x.shape[0], cfg.seq_len, cfg.dim_latent_l)
 
     def g_extractor(self, params: Params, x: torch.Tensor,
@@ -358,11 +378,13 @@ class SSGanModel:
                             ) -> torch.Tensor:
         """Per-frame joint D(x, z_g, z_l, y) at B·LEN (``:265-311``)."""
         cfg = self.cfg
-        h = self._conv_stack(params, "Discriminator.", self._frames(x))
+        h = self._conv_stack(params, "Discriminator.", self._frame_batch(x))
         h = h.reshape(h.shape[0], -1)
-        lab = self._tiled(labels, z_g.dtype) if cfg.conditional else None
-        return self._joint_head(params, h,
-                                self._frame_codes(z_g, z_l, labels), lab)
+        lab = self._frame_labels(labels, z_g.dtype) if cfg.conditional \
+            else None
+        out = self._joint_head(params, h,
+                               self._frame_codes(z_g, z_l, labels), lab)
+        return shard_ctx.gather_frames(out, cfg.seq_len)
 
     def _mlp(self, params: Params, prefix: str, names, h: torch.Tensor
              ) -> torch.Tensor:
@@ -403,10 +425,12 @@ class SSGanModel:
             h = self._conv_stack(params, "Discriminator.",
                                  self._video_image(x))
         elif cfg.ali_mode == "concat_z":
-            h = self._conv_stack(params, "Discriminator.", self._frames(x))
+            h = self._conv_stack(params, "Discriminator.",
+                                 self._frame_batch(x))
             # the first VALID K1 on a model path: 4x4 -> 1x1
-            h = conv2d(params, "Discriminator.5", h, stride=1,
-                       padding="VALID")
+            h = shard_ctx.gather_frames(
+                conv2d(params, "Discriminator.5", h, stride=1,
+                       padding="VALID"), L)
             if cfg.conditional:
                 head_labels = labels
         else:

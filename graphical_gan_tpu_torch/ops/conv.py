@@ -30,6 +30,11 @@ init_params`` specs, with the JAX op's fan arithmetic.
   ``ops/conv.py: 171-179``) a stride-2 SAME deconv takes the phase route
   instead: one stride-1 conv on K1 to 4x the channels, the bias in K1's
   epilogue, then a depth-to-space (``ops/phase_deconv.py``).
+- Under TP (``parallel/sharding_rules.py``) ``conv2d`` and ``deconv2d``
+  whose filter is held in slices of its output channels run at the rank's
+  slice (K1 at the sharded Cout, through its ``plan()``) on the replicated
+  input, and gather the output channels (``parallel/collectives.py``:
+  the input's gradient summed over the ranks, the output's sliced).
 - ``conv1d`` is ``F.conv1d`` on the NWC tensor viewed as NCW, TF's SAME
   pads applied first, as the JAX package computes it outside any Pallas
   kernel (``ops/conv.py:192-224``).
@@ -55,6 +60,8 @@ from graphical_gan_tpu_torch.ops.kernels.fused_conv import (
 from graphical_gan_tpu_torch.ops.norm import weight_normalized
 from graphical_gan_tpu_torch.ops.phase_deconv import (
     conv_transpose_phase, use_phase_deconv)
+from graphical_gan_tpu_torch.parallel import collectives as col
+from graphical_gan_tpu_torch.parallel import context as shard_ctx
 
 
 Specs = Dict[str, Tuple[str, Tuple[int, ...], Tuple]]
@@ -114,7 +121,13 @@ def conv2d(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
     q = quant.intercept_conv2d(name, x, w, stride, padding, bias, act)
     if q is not None:
         return q
-    return conv2d_bias_act(x.contiguous(), w, bias, stride, padding, act)
+    tp = shard_ctx.model_shard(name + ".Filters")
+    if tp is None:
+        return conv2d_bias_act(x.contiguous(), w, bias, stride, padding, act)
+    # TP: K1 at the rank's slice of the output channels, then all of them
+    y = conv2d_bias_act(col.copy_to_shards(x, tp[0]).contiguous(), w, bias,
+                        stride, padding, act)
+    return col.gather_replicated(y, tp[0], dim=-1)
 
 
 def conv2d_specs(name: str, input_dim: int, output_dim: int,
@@ -155,9 +168,14 @@ def deconv2d(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
     q = quant.intercept_deconv2d(name, x, w, stride, padding, bias)
     if q is not None:
         return q
+    tp = shard_ctx.model_shard(name + ".Filters")
+    if tp is not None:  # TP: the rank's slice of the output channels
+        x = col.copy_to_shards(x, tp[0])
     if stride == 2 and padding == "SAME" and use_phase_deconv():
-        return conv_transpose_phase(x, w, bias)
-    return conv_transpose(x, w, bias, stride, padding)
+        y = conv_transpose_phase(x, w, bias)
+    else:
+        y = conv_transpose(x, w, bias, stride, padding)
+    return y if tp is None else col.gather_replicated(y, tp[0], dim=-1)
 
 
 def deconv2d_specs(name: str, input_dim: int, output_dim: int,

@@ -12,7 +12,8 @@ from graphical_gan_tpu_torch.ops.kernels.conv_gemm import (  # noqa: F401
 from graphical_gan_tpu_torch.ops.kernels.fused_conv import (  # noqa: F401
     conv2d_bias_act, fused_conv2d_bias_act)
 from graphical_gan_tpu_torch.ops.kernels.fused_norm import (  # noqa: F401
-    bn_apply, bn_apply_q8, bn_bwd, bn_stats, fused_batchnorm_act)
+    bn_apply, bn_apply_q8, bn_bwd, bn_bwd_apply, bn_bwd_reduce, bn_stats,
+    bn_stats_local, bn_stats_merge, fused_batchnorm_act)
 from graphical_gan_tpu_torch.ops.kernels.quant import (  # noqa: F401
     int8_conv, quantize_int8)
 
@@ -28,10 +29,18 @@ WRAPPERS = {
     "int8_conv": int8_conv,
     "bn_apply_q8": bn_apply_q8,
 }
+#: K2a's and K2c+K2d's split modes (batch statistics over several ranks,
+#: ``parallel/``), whose launches only a parallel run makes
+SPLIT_WRAPPERS = {
+    "bn_stats_local": bn_stats_local,
+    "bn_stats_merge": bn_stats_merge,
+    "bn_bwd_reduce": bn_bwd_reduce,
+    "bn_bwd_apply": bn_bwd_apply,
+}
 
 
 def reset_launches() -> None:
-    for fn in WRAPPERS.values():
+    for fn in list(WRAPPERS.values()) + list(SPLIT_WRAPPERS.values()):
         fn.launches = 0
     for route in int8_conv.routes:  # Q2's launches per q2_plan route
         int8_conv.routes[route] = 0
@@ -39,3 +48,8 @@ def reset_launches() -> None:
 
 def launches() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def split_launches() -> dict:
+    """The split modes' launches (:data:`SPLIT_WRAPPERS`)."""
+    return {name: fn.launches for name, fn in SPLIT_WRAPPERS.items()}

@@ -82,6 +82,19 @@ _SIGNATURES = {
     # stream
     "ggan_bn_apply_q8": [_P] * 7 + [ctypes.c_float, _I, ctypes.c_longlong,
                                     _I, _I, _I, _P],
+    # x, part, local, dtype, R, C, vec, tx, rows, n_rb, smem, grid, stream
+    "ggan_bn_stats_local": [_P] * 3 + [_I] * 7 + [ctypes.c_longlong, _I,
+                                                  _P],
+    # parts, out, W, C, eps, stream
+    "ggan_bn_stats_merge": [_P, _P, _I, _I, ctypes.c_float, _P],
+    # g, x, mean, inv, scale, offset, part, red, dx, dtype, R, C, vec, tx,
+    # rows, n_rb, slots, smem, grid, act, reduce_only, stream
+    "ggan_bn_bwd_split": [_P] * 9 + [_I] * 8 + [ctypes.c_longlong, _I, _I,
+                                                _I, _P],
+    # g, x, mean, inv, scale, offset, red, dx, dtype, numel, C, rows, act,
+    # vec, stream
+    "ggan_bn_bwd_apply": [_P] * 8 + [_I, ctypes.c_longlong, _I,
+                                     ctypes.c_float, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -21,6 +21,17 @@ Three kernels in ``csrc/fused_norm.cu``, each behind its own wrapper:
   barrier, then ``dx = (gz - Σgz/R - xhat·Σ(gz·xhat)/R)·inv·scale`` in x's
   dtype from the g and x each block kept in shared memory.
 
+Split modes, for batch statistics over the rows of several ranks
+(``parallel/``: DP, SP): a grid barrier cannot wait for another process,
+so each kernel's two phases become two steps with the cross-rank sums
+between them. K2a: :func:`bn_stats_local` (the one launch's phase 1 and
+in-rank merge, writing the rank's f64 (n, mean, M2) unshifted), an
+exchange of those [3, C] triples, :func:`bn_stats_merge` (the finalize
+kernel: Chan's merge in rank order). K2c+K2d: :func:`bn_bwd_reduce` (the
+launch's sums, no dx), the sums added over the ranks in rank order,
+:func:`bn_bwd_apply` (dx from the summed red over the group's rows). At
+one rank the one-launch kernels run as before.
+
 K2a's and K2c+K2d's work units come from one tiling (:func:`_unit_tiling`,
 a function of the shape alone; :func:`bn_stats_plan`, :func:`bn_bwd_plan`)
 and their partials merge in a fixed order, so the bits do not depend on
@@ -362,11 +373,13 @@ def bn_bwd_reduce_plain(g2d: torch.Tensor, x2d: torch.Tensor,
 def bn_bwd_apply_plain(g2d: torch.Tensor, x2d: torch.Tensor,
                        mean: torch.Tensor, inv: torch.Tensor,
                        scale: torch.Tensor, offset: torch.Tensor,
-                       red: torch.Tensor, act: Optional[str] = None
-                       ) -> torch.Tensor:
-    """dx = (gz - Σgz/R - xhat·Σ(gz·xhat)/R)·inv·scale, in x's dtype."""
+                       red: torch.Tensor, act: Optional[str] = None,
+                       rows: Optional[int] = None) -> torch.Tensor:
+    """dx = (gz - Σgz/R - xhat·Σ(gz·xhat)/R)·inv·scale, in x's dtype; R is
+    ``rows`` where the sums in ``red`` run over more rows than x's (the
+    split mode's phase 2), else x's rows."""
     gz, xhat = _gz_xhat(g2d, x2d, mean, inv, scale, offset, act)
-    r = x2d.shape[0]
+    r = x2d.shape[0] if rows is None else int(rows)
     dx = (gz - red[0] / r - xhat * (red[1] / r)) * inv * scale.float()
     return dx.to(x2d.dtype)
 
@@ -428,30 +441,218 @@ def bn_bwd(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
     return dx, red
 
 
+# -- split modes: batch statistics over the rows of several ranks ----------
+
+
+def bn_stats_local_plain(x2d: torch.Tensor) -> torch.Tensor:
+    """[3, C] f64: the rows' count n, mean and M2 = Σ(x - mean)² per
+    column, unshifted (each rank's own ``x[0, c]`` shift would differ)."""
+    x64 = x2d.double()
+    mean = x64.mean(dim=0)
+    m2 = (x64 - mean).square().sum(dim=0)
+    return torch.stack([torch.full_like(mean, float(x2d.shape[0])), mean,
+                        m2])
+
+
+def bn_stats_merge_plain(parts: torch.Tensor, eps: float = EPS
+                         ) -> torch.Tensor:
+    """[3, C] f32 (mean, var, inv) of the ranks' [W, 3, C] f64 (n, mean,
+    M2), merged in rank order by Chan's formula in f64; mean and var are
+    rounded once to f32 and inv is taken in f32 from the rounded var, as
+    K2a's one launch writes them."""
+    n, mean, m2 = parts[0, 0], parts[0, 1], parts[0, 2]
+    for r in range(1, parts.shape[0]):
+        nb, mb, m2b = parts[r, 0], parts[r, 1], parts[r, 2]
+        tot = n + nb
+        fb = nb / tot
+        d = mb - mean
+        mean = mean + d * fb
+        m2 = m2 + m2b + d * d * (n * fb)
+        n = tot
+    var = (m2 / n).float()
+    return torch.stack([mean.float(), var, torch.rsqrt(var + eps)])
+
+
+def bn_stats_local(x2d: torch.Tensor) -> torch.Tensor:
+    """K2a's split mode, phase 1: this rank's [3, C] f64 (n, mean, M2) per
+    column of [R, C] (its units merged in the launch, as in the one-launch
+    K2a, then the shift added back to the mean). One cooperative launch."""
+    if x2d.device.type == "cpu":
+        return bn_stats_local_plain(x2d)
+    _check_2d(x2d, "bn_stats_local")
+    r, c = x2d.shape
+    p = bn_stats_plan(r, c, x2d.dtype, x2d.data_ptr() % 16 == 0)
+    part = torch.empty((max(p.n_rb, 1) * 2 + 3) * c, dtype=torch.float64,
+                       device=x2d.device)
+    local = part[p.n_rb * 2 * c:].view(3, c)
+    code = build.lib().ggan_bn_stats_local(
+        x2d.data_ptr(), part.data_ptr(), local.data_ptr(),
+        build.DTYPE_CODES[_DTYPES[x2d.dtype]], r, c, p.vec, p.tx, p.rows,
+        p.n_rb, p.smem, p.grid, build.stream_ptr(x2d.device))
+    build.check(code, "ggan_bn_stats_local")
+    bn_stats_local.launches += 1
+    return local
+
+
+def bn_stats_merge(parts: torch.Tensor, eps: float = EPS) -> torch.Tensor:
+    """K2a's split mode, phase 2: the finalize kernel, one thread a channel,
+    over the gathered [W, 3, C] f64 triples in rank order -> [3, C] f32
+    (mean, var, inv)."""
+    if parts.device.type == "cpu":
+        return bn_stats_merge_plain(parts, eps)
+    if parts.device.type != "cuda" or parts.dtype != torch.float64 \
+            or parts.ndim != 3 or parts.shape[1] != 3:
+        raise ValueError("bn_stats_merge takes [W, 3, C] f64 on cuda, got "
+                         f"{parts.dtype} {tuple(parts.shape)} on "
+                         f"{parts.device}")
+    parts = parts.contiguous()
+    w, _, c = parts.shape
+    out = torch.empty((3, c), dtype=torch.float32, device=parts.device)
+    code = build.lib().ggan_bn_stats_merge(
+        parts.data_ptr(), out.data_ptr(), w, c, float(eps),
+        build.stream_ptr(parts.device))
+    build.check(code, "ggan_bn_stats_merge")
+    bn_stats_merge.launches += 1
+    return out
+
+
+def bn_stats_group(x2d: torch.Tensor, group, eps: float = EPS
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mean, var, inv) per column over the rows of every rank of
+    ``group`` (``parallel/collectives.py``): :func:`bn_stats_local`, the
+    triples gathered, :func:`bn_stats_merge`; identical bits on every
+    rank. One rank: K2a's one launch."""
+    if group is None or group.size == 1:
+        return bn_stats(x2d, eps)
+    from graphical_gan_tpu_torch.parallel.collectives import gather_stack
+    out = bn_stats_merge(gather_stack(bn_stats_local(x2d), group), eps)
+    return out[0], out[1], out[2]
+
+
+def bn_bwd_reduce(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
+                  inv: torch.Tensor, scale: torch.Tensor,
+                  offset: torch.Tensor, act: Optional[str] = None
+                  ) -> torch.Tensor:
+    """K2c+K2d's split mode, phase 1: this rank's red = [Σgz, Σgz·xhat]
+    per column, f32 [2, C] (K2c+K2d's launch, with no dx written). One
+    cooperative launch."""
+    if x2d.device.type == "cpu":
+        return bn_bwd_reduce_plain(g2d, x2d, mean, inv, scale, offset, act)
+    _check_2d(x2d, "bn_bwd_reduce")
+    if act not in build.ACT_CODES:
+        raise ValueError(f"unknown activation {act!r}")
+    g2d = _same_layout(g2d, x2d, "bn_bwd_reduce")
+    chan = _chan_f32(x2d, mean, inv, scale, offset)
+    r, c = x2d.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (g2d, x2d))
+    p = bn_bwd_plan(r, c, x2d.dtype, aligned)._replace(cache_rows=0)
+    p = p._replace(smem=_block_sum_bytes(p, 2, 4))
+    f32 = dict(dtype=torch.float32, device=x2d.device)
+    part = torch.empty((p.n_rb, 2, c), **f32)
+    red = torch.empty((2, c), **f32)
+    code = build.lib().ggan_bn_bwd_split(
+        g2d.data_ptr(), x2d.data_ptr(), *[t.data_ptr() for t in chan],
+        part.data_ptr(), red.data_ptr(), 0,
+        build.DTYPE_CODES[_DTYPES[x2d.dtype]], r, c, p.vec, p.tx, p.rows,
+        p.n_rb, p.slots, p.smem, p.grid, build.ACT_CODES[act], 1,
+        build.stream_ptr(x2d.device))
+    build.check(code, "ggan_bn_bwd_split")
+    bn_bwd_reduce.launches += 1
+    return red
+
+
+def bn_bwd_apply(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
+                 inv: torch.Tensor, scale: torch.Tensor,
+                 offset: torch.Tensor, red: torch.Tensor,
+                 act: Optional[str] = None,
+                 rows: Optional[int] = None) -> torch.Tensor:
+    """K2c+K2d's split mode, phase 2: dx = (gz - Σgz/N - xhat·Σ(gz·xhat)/N)
+    ·inv·scale in x's dtype from the group's summed ``red`` [2, C], N =
+    ``rows`` (the group's rows; default x's). One elementwise launch."""
+    n = x2d.shape[0] if rows is None else int(rows)
+    if x2d.device.type == "cpu":
+        return bn_bwd_apply_plain(g2d, x2d, mean, inv, scale, offset, red,
+                                  act, n)
+    _check_2d(x2d, "bn_bwd_apply")
+    if act not in build.ACT_CODES:
+        raise ValueError(f"unknown activation {act!r}")
+    g2d = _same_layout(g2d, x2d, "bn_bwd_apply")
+    chan = _chan_f32(x2d, mean, inv, scale, offset)
+    red = red.to(device=x2d.device, dtype=torch.float32).contiguous()
+    r, c = x2d.shape
+    dx = torch.empty_like(x2d)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (g2d, x2d, dx))
+    vec = 4 if c % 4 == 0 and aligned else 1
+    code = build.lib().ggan_bn_bwd_apply(
+        g2d.data_ptr(), x2d.data_ptr(), *[t.data_ptr() for t in chan],
+        red.data_ptr(), dx.data_ptr(), build.DTYPE_CODES[_DTYPES[x2d.dtype]],
+        x2d.numel(), c, float(n), build.ACT_CODES[act], vec,
+        build.stream_ptr(x2d.device))
+    build.check(code, "ggan_bn_bwd_apply")
+    bn_bwd_apply.launches += 1
+    return dx
+
+
+def bn_bwd_group(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
+                 inv: torch.Tensor, scale: torch.Tensor,
+                 offset: torch.Tensor, act: Optional[str], group
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, this rank's red) of a BN whose statistics ran over ``group``:
+    :func:`bn_bwd_reduce`, the sums added over the group in rank order,
+    :func:`bn_bwd_apply` over the group's rows. The rank's own red is what
+    its scale and offset gradients are (the step averages them over the
+    group). One rank: K2c+K2d's one launch."""
+    if group is None or group.size == 1:
+        return bn_bwd(g2d, x2d, mean, inv, scale, offset, act)
+    from graphical_gan_tpu_torch.parallel.collectives import (
+        sum_in_rank_order)
+    red = bn_bwd_reduce(g2d, x2d, mean, inv, scale, offset, act)
+    total = sum_in_rank_order(red, group)
+    dx = bn_bwd_apply(g2d, x2d, mean, inv, scale, offset, total, act,
+                      x2d.shape[0] * group.size)
+    return dx, red
+
+
 bn_stats.launches = 0
 bn_apply.launches = 0
 bn_apply_q8.launches = 0
 bn_bwd.launches = 0
+bn_stats_local.launches = 0
+bn_stats_merge.launches = 0
+bn_bwd_reduce.launches = 0
+bn_bwd_apply.launches = 0
 
 
 def bn_act_backward_plain(g: torch.Tensor, x: torch.Tensor,
                           scale: torch.Tensor, offset: torch.Tensor,
-                          act: Optional[str] = None, eps: float = EPS):
+                          act: Optional[str] = None, eps: float = EPS,
+                          group=None):
     """(dx, dscale, doffset) of ``act(batchnorm(x))`` at cotangent g, from
     the statistics up, in plain differentiable PyTorch: what autograd
     differentiates for the second-order term, as JAX differentiates its
     ``jnp`` BN twice (``ops/norm.py:84-89``). act' is piecewise constant,
-    so its mask carries no gradient."""
+    so its mask carries no gradient. With ``group`` the statistics and the
+    backward's sums run over the rows of every rank of the group (through
+    the differentiable ``parallel/collectives.py: group_sum``); dscale and
+    doffset are this rank's sums."""
+    from graphical_gan_tpu_torch.parallel.collectives import group_sum
     c = x.shape[-1]
     x2d, g2d = x.reshape(-1, c).float(), g.reshape(-1, c).float()
-    mean = x2d.mean(dim=0)
+    n = x2d.shape[0] * (1 if group is None else group.size)
+
+    def mean_rows(t):
+        if group is None or group.size == 1:
+            return t.mean(dim=0)
+        return group_sum(t.sum(dim=0), group) / n
+
+    mean = mean_rows(x2d)
     d = x2d - mean
-    inv = torch.rsqrt(d.square().mean(dim=0) + eps)
+    inv = torch.rsqrt(mean_rows(d.square()) + eps)
     xhat = d * inv
     y = xhat * scale.float() + offset.float()
     gz = g2d * activation_grad(act, y.detach())
-    dgx = (gz * xhat).mean(dim=0)
-    dx = (gz - gz.mean(dim=0) - xhat * dgx) * inv * scale.float()
+    dgx = mean_rows(gz * xhat)
+    dx = (gz - mean_rows(gz) - xhat * dgx) * inv * scale.float()
     return (dx.to(x.dtype).reshape(x.shape),
             (gz * xhat).sum(dim=0).to(scale.dtype),
             gz.sum(dim=0).to(offset.dtype))
@@ -465,12 +666,13 @@ class _BatchNormActBackward(torch.autograd.Function):
     either). A third order raises."""
 
     @staticmethod
-    def forward(ctx, g, x, scale, offset, mean, inv, act, eps):
+    def forward(ctx, g, x, scale, offset, mean, inv, act, eps, group=None):
         c = x.shape[-1]
         x2d, g2d = x.reshape(-1, c), g.reshape(-1, c)
-        dx, red = bn_bwd(g2d, x2d, mean, inv, scale, offset, act)
+        dx, red = bn_bwd_group(g2d, x2d, mean, inv, scale, offset, act,
+                               group)
         ctx.save_for_backward(g, x, scale, offset)
-        ctx.conf = (act, eps)
+        ctx.conf = (act, eps, group)
         return (dx.reshape(x.shape), red[1].to(scale.dtype),
                 red[0].to(offset.dtype))
 
@@ -488,7 +690,7 @@ class _BatchNormActBackward(torch.autograd.Function):
                 [o for o, _ in pairs], wrt, [go for _, go in pairs],
                 allow_unused=True) if wrt else ())
         out = [next(grads) if t.requires_grad else None for t in leaves]
-        return (*out, None, None, None, None)
+        return (*out, None, None, None, None, None)
 
 
 class FusedBatchNormAct(torch.autograd.Function):
@@ -503,13 +705,13 @@ class FusedBatchNormAct(torch.autograd.Function):
     second-order term is plain PyTorch."""
 
     @staticmethod
-    def forward(ctx, x, scale, offset, act, eps):
+    def forward(ctx, x, scale, offset, act, eps, group=None):
         c = x.shape[-1]
         x2d = x.reshape(-1, c)
-        mean, _, inv = bn_stats(x2d, eps)
+        mean, _, inv = bn_stats_group(x2d, group, eps)
         y = bn_apply(x2d, mean, inv, scale, offset, act)
         ctx.save_for_backward(x, scale, offset, mean, inv)
-        ctx.conf = (act, eps)
+        ctx.conf = (act, eps, group)
         return y.reshape(x.shape)
 
     @staticmethod
@@ -517,16 +719,19 @@ class FusedBatchNormAct(torch.autograd.Function):
         x, scale, offset, mean, inv = ctx.saved_tensors
         dx, dscale, doffset = _BatchNormActBackward.apply(
             g, x, scale, offset, mean, inv, *ctx.conf)
-        return dx, dscale, doffset, None, None
+        return dx, dscale, doffset, None, None, None
 
 
 def fused_batchnorm_act(x: torch.Tensor, scale: torch.Tensor,
                         offset: torch.Tensor, act: Optional[str] = None,
-                        eps: float = EPS) -> torch.Tensor:
+                        eps: float = EPS, group=None) -> torch.Tensor:
     """act(batchnorm(x)) over channels-last x with batch statistics.
 
-    x: [..., C] contiguous; scale/offset: [C]. Output in x's dtype."""
-    return FusedBatchNormAct.apply(x, scale, offset, act, eps)
+    x: [..., C] contiguous; scale/offset: [C]. Output in x's dtype. With
+    ``group`` (``parallel/collectives.py: Group``) the statistics are those
+    of the rows of every rank of the group: K2a and K2c+K2d run in their
+    split modes, the cross-rank sums between their phases."""
+    return FusedBatchNormAct.apply(x, scale, offset, act, eps, group)
 
 
 def batchnorm_act_q8(x: torch.Tensor, scale: torch.Tensor,

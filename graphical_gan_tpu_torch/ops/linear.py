@@ -8,6 +8,12 @@ L2 norms first (``linear.py:45-55``). Inside an int8 context
 (``ops/quant.py``) the 2-D product runs on Q1/Q2 instead, as JAX's
 ``linear.py:59-69`` intercepts it.
 
+Under TP (``parallel/sharding_rules.py``) a layer whose ``W`` is held in
+column slices multiplies the replicated input by the rank's columns and
+gathers the output's columns: the flat ``[B, out]`` whole again before
+any reshape reads it (``Generator.Input``'s columns are a contiguous run
+of the flat NHWC feature, not a channel slice).
+
 ``linear_specs`` gives the parameters with the JAX op's six init schemes:
 lecun / glorot (the default) / he / glorot_he scaled-uniform, 'orthogonal'
 and ``('uniform', r)``.
@@ -22,6 +28,8 @@ import torch
 from graphical_gan_tpu_torch.ops import quant
 from graphical_gan_tpu_torch.ops.initializers import linear_stdev
 from graphical_gan_tpu_torch.ops.norm import weight_normalized
+from graphical_gan_tpu_torch.parallel import collectives as col
+from graphical_gan_tpu_torch.parallel import context as shard_ctx
 
 
 def linear(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
@@ -35,9 +43,14 @@ def linear(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
     q = quant.intercept_linear(name, x2d, w, b)  # the bias in Q2's epilogue
     if q is not None:
         return q.reshape(*lead, w.shape[1])
+    tp = shard_ctx.model_shard(name + ".W")
+    if tp is not None:  # TP: the rank's output columns, then all of them
+        x2d = col.copy_to_shards(x2d, tp[0])
     out = torch.matmul(x2d, w.to(x.dtype)).reshape(*lead, w.shape[1])
     if biases:
         out = out + b.to(out.dtype)
+    if tp is not None:
+        out = col.gather_replicated(out, tp[0], dim=-1)
     return out
 
 

@@ -13,6 +13,12 @@ uses them; ``ops/norm.py:104-206``) are plain tensor math with autograd's
 gradients, as the JAX package computes them in plain ``jnp``. The moving
 statistics are explicit inputs and outputs, never parameters (the
 reference marked them ``trainable=False``).
+
+Under a parallel step (``parallel/context.py``) the batch statistics are
+those of the whole batch, whose rows lie on every rank of the batch group
+(K2a and K2c+K2d in their split modes), as GSPMD's mean over a sharded
+batch is in JAX; under TP a BN whose channels are held in slices
+normalizes the rank's channels and gathers them again.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from graphical_gan_tpu_torch.ops import quant
 from graphical_gan_tpu_torch.ops.activations import activation
 from graphical_gan_tpu_torch.ops.kernels.fused_norm import (
     EPS, batchnorm_act_q8, fused_batchnorm_act)
+from graphical_gan_tpu_torch.parallel import collectives as col
+from graphical_gan_tpu_torch.parallel import context as shard_ctx
 
 
 def _is_channels_last(x: torch.Tensor, axes) -> bool:
@@ -49,7 +57,19 @@ def batchnorm_act(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
                                     EPS)
             quant.bn_produced(name, y, q)
             return y
-        y = fused_batchnorm_act(x.contiguous(), scale, offset, act, EPS)
+        # the batch group where the batch's rows lie on several ranks
+        stats = shard_ctx.stats_group()
+        kw = {} if stats is None else {"group": stats}
+        tp = shard_ctx.model_shard(name + ".scale")
+        if tp is not None:
+            # TP holds this BN's channels in slices: its statistics are the
+            # rank's channels' own, then the channels are gathered again
+            group, _ = tp
+            xs = col.slice_replicated(x, group, dim=-1)
+            y = fused_batchnorm_act(xs, scale, offset, act, EPS, **kw)
+            return col.gather_replicated(y, group, dim=-1)
+        y = fused_batchnorm_act(x.contiguous(), scale, offset, act, EPS,
+                                **kw)
         quant.bn_produced(name, y)
         return y
     return activation(act)(batchnorm(params, name, x, axes))
@@ -63,8 +83,16 @@ def batchnorm(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
         return batchnorm_act(params, name, x, None, axes)
     axes = tuple(axes)
     x32 = x.float()
-    mean = x32.mean(dim=axes, keepdim=True)
-    var = (x32 - mean).square().mean(dim=axes, keepdim=True)
+    group = shard_ctx.stats_group() if 0 in axes else None
+    if group is None:
+        mean = x32.mean(dim=axes, keepdim=True)
+        var = (x32 - mean).square().mean(dim=axes, keepdim=True)
+    else:  # the batch's rows lie on every rank of the group
+        n = int(np.prod([x.shape[a] for a in axes])) * group.size
+        mean = col.group_sum(x32.sum(dim=axes, keepdim=True), group) / n
+        var = col.group_sum((x32 - mean).square().sum(dim=axes,
+                                                      keepdim=True),
+                            group) / n
     inv = torch.rsqrt(var + EPS) * params[name + ".scale"]
     return ((x32 - mean) * inv + params[name + ".offset"]).to(x.dtype)
 

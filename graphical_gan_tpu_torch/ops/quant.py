@@ -21,10 +21,12 @@ Scheme (static PTQ, the JAX package's):
   epilogue (``bias_act_plain`` is their plain version).
 
 A transposed conv quantizes its whole ``(k, k, O, I)`` filter per ``o``
-first and then gathers the int8 taps of its phase filter
+first. At stride 2 SAME it then gathers the int8 taps of its phase filter
 (``ops/phase_deconv.py: _phase_kernel``): one stride-1 Q2 conv to 4·O
 channels, each taking its ``o``'s factor and bias, then the
-depth-to-space. A dense layer is a 1x1 Q2 conv over ``[M, 1, 1, K]``.
+depth-to-space. Any other stride and padding runs ``lax.conv_transpose``'s
+own definition: one stride-1 Q2 conv of the spatially flipped filter over
+the zero-dilated int8 input (:func:`intercept_deconv2d`). A dense layer is a 1x1 Q2 conv over ``[M, 1, 1, K]``.
 Each filter is kept K-major (``pack_filter``), as Q2 reads it.
 
 With no context active (the default, and always in training) every
@@ -50,7 +52,7 @@ import json
 import sys
 import threading
 from contextlib import contextmanager
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -170,6 +172,11 @@ def _prepared(name: str, w: torch.Tensor, kind: str, s_x: float):
         wq_full = quantize_int8(w.contiguous(), s_w.float(), axis=2)
         wq = _phase_kernel(wq_full, int(w.shape[0]))[0]
         factor = _factor(s_x, s_w).repeat(4)
+    elif kind == "deconv2d_flip":  # (k, k, O, I): per o, then flipped HWIO
+        s_w = weight_scales(w, 2)
+        wq_full = quantize_int8(w.contiguous(), s_w.float(), axis=2)
+        wq = wq_full.flip(0, 1).permute(0, 1, 3, 2).contiguous()
+        factor = _factor(s_x, s_w)
     else:                         # linear [in, out] as a 1x1 HWIO filter
         s_w = weight_scales(w, 1)
         wq = quantize_int8(w.contiguous(), s_w.float(), axis=1)
@@ -247,26 +254,63 @@ def intercept_conv2d(name: str, x: torch.Tensor, w: torch.Tensor,
                             stride, pads, x.dtype, bias, act)
 
 
+def conv_transpose_pads(k: int, s: int, padding: str) -> Tuple[int, int]:
+    """The edge pads of the stride-1 conv that ``lax.conv_transpose``
+    runs over the input dilated by ``s`` (``s - 1`` zeros between rows and
+    between columns): SAME gives ``H·s`` rows, VALID ``H·s + max(k - s,
+    0)``."""
+    if padding == "SAME":
+        total = k + s - 2
+        lo = k - 1 if s > k - 1 else -(-total // 2)
+    elif padding == "VALID":
+        total = k + s - 2 + max(k - s, 0)
+        lo = k - 1
+    else:
+        raise ValueError(f"padding {padding!r}: SAME or VALID")
+    return lo, total - lo
+
+
+def dilate_rows_cols(x: torch.Tensor, s: int) -> torch.Tensor:
+    """NHWC x with ``s - 1`` zero rows and columns inserted between its
+    rows and its columns: [B, (H-1)·s + 1, (W-1)·s + 1, C]."""
+    if s == 1:
+        return x
+    b, h, w, c = x.shape
+    out = x.new_zeros((b, (h - 1) * s + 1, (w - 1) * s + 1, c))
+    out[:, ::s, ::s, :] = x
+    return out
+
+
 def intercept_deconv2d(name: str, x: torch.Tensor, w: torch.Tensor,
                        stride: int, padding: str,
                        bias: Optional[torch.Tensor] = None
                        ) -> Optional[torch.Tensor]:
-    """int8 path of ``ops.conv.deconv2d`` (``(k, k, O, I)`` filter), SAME
-    at stride 2, through the phase route: one stride-1 Q2 conv to 4·O
+    """int8 path of ``ops.conv.deconv2d`` (``(k, k, O, I)`` filter), as
+    ``lax.conv_transpose(..., transpose_kernel=True)`` defines it.
+
+    Stride 2 SAME takes the phase route: one stride-1 Q2 conv to 4·O
     channels (the bias tiled 4x into its epilogue where given), then the
-    depth-to-space."""
+    depth-to-space. Every other stride and padding runs one stride-1 Q2
+    conv over the int8 input with ``stride - 1`` zero rows and columns
+    inserted (an int8 0 is an exact quantized 0), the edge pads of
+    :func:`conv_transpose_pads`, and the filter flipped spatially as an
+    HWIO ``[k, k, I, O]`` filter; the int32 sums are exact and Q2's
+    epilogue dequantizes per o and adds the bias."""
     mode = _mode()
     if mode is None:
         return None
     if mode == "calib":
         _record(name, x)
         return None
-    if stride != 2 or padding != "SAME":
-        raise NotImplementedError(
-            "the int8 transposed conv takes the phase route: stride 2, SAME "
-            f"(got stride {stride}, {padding!r})")
-    from graphical_gan_tpu_torch.ops.phase_deconv import _phase_plan
     s_x = _act_scale(name)
+    if stride != 2 or padding != "SAME":
+        pf, factor, first = _prepared(name, w, "deconv2d_flip", s_x)
+        lo, hi = conv_transpose_pads(int(w.shape[0]), stride, padding)
+        lo_w, hi_w = conv_transpose_pads(int(w.shape[1]), stride, padding)
+        xq = dilate_rows_cols(_input_q8(name, x, s_x, first), stride)
+        return int8_conv_packed(xq, pf, factor, 1, ((lo, hi), (lo_w, hi_w)),
+                                x.dtype, bias)
+    from graphical_gan_tpu_torch.ops.phase_deconv import _phase_plan
     pf, factor, first = _prepared(name, w, "deconv2d", s_x)
     pl, pr = _phase_plan(int(w.shape[0]))[:2]
     out4 = int8_conv_packed(_input_q8(name, x, s_x, first), pf, factor, 1,

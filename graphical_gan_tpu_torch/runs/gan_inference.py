@@ -43,8 +43,19 @@ rolls a non-finite training cost back to the latest checkpoint on a new
 random stream, up to N times; ``GGAN_ASYNC_CKPT=1`` writes checkpoints on a
 worker thread; ``--compile-cache DIR`` builds and loads the CUDA kernels in
 DIR (``core/compile_cache.py``); ``--checkpoint-backend`` takes ``npz``,
-the one format the port writes, so JAX command lines parse. Meshes and
-multi-iteration dispatch (JAX's ``--chunk-size``) come in later slices.
+the one format the port writes, so JAX command lines parse.
+Multi-iteration dispatch (JAX's ``--chunk-size``) comes in a later slice.
+
+Parallel training (``parallel/``): ``--n-devices N`` with ``--parallel
+dp|tp|sp|ep|composed`` and ``--mesh-shape``, parsed as JAX's
+``_maybe_mesh`` parses them, one process per rank:
+
+    torchrun --nproc-per-node 2 -m graphical_gan_tpu_torch.runs.gan_inference \
+        --dataset cifar10 --mode wali-gp --n-devices 2 --parallel tp
+
+(NCCL on the card, each rank on ``cuda:{LOCAL_RANK}``; gloo with
+``--device cpu``). A mesh of N ranks outside a process group of N ranks
+raises with the torchrun line; ``--parallel pp`` comes in a later slice.
 """
 
 from __future__ import annotations
@@ -65,7 +76,8 @@ from graphical_gan_tpu_torch.data.common import materialize_epoch
 from graphical_gan_tpu_torch.models.common import Draws
 from graphical_gan_tpu_torch.models.gan_inference import GanInferenceModel
 from graphical_gan_tpu_torch.report.save_images import save_images
-from graphical_gan_tpu_torch.train.trainer import Trainer, make_run_dir
+from graphical_gan_tpu_torch.train.trainer import (
+    PARALLEL_CHOICES, Trainer, shared_run_dir)
 
 # the eval generators' salts (``Trainer.eval_generator``; the dev sweep
 # takes 1)
@@ -377,6 +389,67 @@ def check_backend(checkpoint_backend: str) -> None:
                          "port writes npz (orbax comes in a later slice)")
 
 
+def add_parallel_flags(p: argparse.ArgumentParser) -> None:
+    """The training CLIs' mesh flags (JAX ``runs/gan_inference.py:
+    452-466``)."""
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="train over N ranks, one process each: launch "
+                        "with `torchrun --nproc-per-node N -m ...` "
+                        "(params replicated under dp)")
+    p.add_argument("--parallel", default="dp",
+                   choices=list(PARALLEL_CHOICES) + ["pp"],
+                   help="strategy over the mesh: dp (batch), tp (channel "
+                        "sharding, data x model), sp (video frames, data x "
+                        "seq), ep (mixture components, data x expert), "
+                        "composed (named --mesh-shape); pp comes in a "
+                        "later slice")
+    p.add_argument("--mesh-shape", default=None,
+                   help="mesh dims: 'd,m' for tp/sp/ep, or named for "
+                        "composed, e.g. data=2,model=2")
+
+
+def parallel_kwargs(args) -> Dict:
+    return {"n_devices": args.n_devices, "parallel": args.parallel,
+            "mesh_shape": args.mesh_shape}
+
+
+def maybe_mesh(n_devices: Optional[int], parallel: str = "dp",
+               mesh_shape: Optional[str] = None, device: str = "cuda"):
+    """This rank's mesh for the strategy, or None for one device (JAX
+    ``_maybe_mesh``, ``runs/gan_inference.py:80-122``): ``mesh_shape``
+    "d,m" (data x model / seq / expert) or named ("data=2,seq=2,model=2");
+    defaults dp = 1-D over ``n_devices``, tp/sp/ep = 2 x (n_devices / 2).
+    A mesh of N ranks outside a process group of N ranks raises with the
+    torchrun line (``parallel/mesh.py: make_mesh``)."""
+    if parallel == "pp":
+        raise NotImplementedError("--parallel pp (pipeline parallelism) "
+                                  "comes in a later slice")
+    if mesh_shape is None and (not n_devices or n_devices <= 1):
+        return None
+    from graphical_gan_tpu_torch.parallel.mesh import make_mesh
+    if parallel == "dp":
+        return make_mesh(n_devices, device=device)
+    if mesh_shape and "=" in mesh_shape:
+        pairs = [kv.split("=") for kv in mesh_shape.split(",")]
+        axes = tuple(kk for kk, _ in pairs)
+        dims = tuple(int(v) for _, v in pairs)
+    else:
+        axes = {"tp": ("data", "model"), "sp": ("data", "seq"),
+                "ep": ("data", "expert")}.get(parallel)
+        if axes is None:
+            raise ValueError(
+                f"--parallel {parallel} needs a named --mesh-shape "
+                f"(e.g. data=2,seq=2,model=2)")
+        if mesh_shape:
+            dims = tuple(int(v) for v in mesh_shape.split(","))
+        else:
+            import torch.distributed as dist
+            world = n_devices or (dist.get_world_size()
+                                  if dist.is_initialized() else 1)
+            dims = (2, world // 2)
+    return make_mesh(shape=dims, axis_names=axes, device=device)
+
+
 def run(dataset: str = "mnist", mode: str = "ali",
         iters: Optional[int] = None, data_dir: Optional[str] = None,
         outdir: str = "result", run_dir: Optional[str] = None,
@@ -386,11 +459,16 @@ def run(dataset: str = "mnist", mode: str = "ali",
         inception_every: int = 10000, data_pipeline: Optional[str] = None,
         device: str = "cuda", max_rollbacks: int = 0,
         compile_cache: Optional[str] = None,
-        checkpoint_backend: str = "npz", **overrides):
+        checkpoint_backend: str = "npz", n_devices: Optional[int] = None,
+        parallel: str = "dp", mesh_shape: Optional[str] = None,
+        **overrides):
     """Train; returns ``(trainer, last metrics)``. ``run_dir`` reuses a
-    run directory and resumes from its latest checkpoint."""
+    run directory and resumes from its latest checkpoint; ``n_devices``,
+    ``parallel`` and ``mesh_shape`` train this rank of a mesh
+    (:func:`maybe_mesh`)."""
     check_backend(checkpoint_backend)
     enable_compile_cache(compile_cache)
+    mesh = maybe_mesh(n_devices, parallel, mesh_shape, device)
     cfg = gan_inference_defaults(dataset, mode, **overrides)
     model = GanInferenceModel(cfg)
     train_gen, dev_gen, structured_pools = _loaders(cfg, data_dir)
@@ -400,8 +478,9 @@ def run(dataset: str = "mnist", mode: str = "ali",
     resident = resident_data(cfg, data_dir, train_gen) \
         if data_pipeline == "resident" else None
 
-    outf = run_dir or make_run_dir(outdir, f"gan_inference_{dataset}",
-                                   {"MODE": mode})
+    outf = run_dir or shared_run_dir(mesh, outdir,
+                                     f"gan_inference_{dataset}",
+                                     {"MODE": mode})
     if dataset == "cifar10" and data_dir != "structured":
         # the fixed seed-1234 test-set reconstruction batch
         # (tflib/cifar10.py:14-19; gan_inference_cifar10.py:400-404)
@@ -430,7 +509,8 @@ def run(dataset: str = "mnist", mode: str = "ali",
                       train_gen_factory=None if resident is not None
                       else train_gen, lr_scale=decay_scale(cfg),
                       checkpoints_to_keep=checkpoints_to_keep,
-                      max_rollbacks=max_rollbacks)
+                      max_rollbacks=max_rollbacks, mesh=mesh,
+                      parallel=parallel)
     # SIGTERM checkpoints and stops cleanly (no-op off the main thread)
     trainer.install_preempt_handlers()
     return trainer, trainer.train(iters)
@@ -484,6 +564,7 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
     add_failure_flags(p)
+    add_parallel_flags(p)
     args = p.parse_args(argv)
     overrides = {k: v for k, v in (("batch_size", args.batch_size),
                                    ("dim", args.dim),
@@ -496,7 +577,7 @@ def main(argv=None):
         outdir=args.outdir, run_dir=args.run_dir, seed=args.seed,
         checkpoint_every=args.checkpoint_every,
         data_pipeline=args.data_pipeline, device=args.device,
-        **failure_kwargs(args), **overrides)
+        **failure_kwargs(args), **parallel_kwargs(args), **overrides)
 
 
 if __name__ == "__main__":

@@ -48,8 +48,9 @@ from graphical_gan_tpu_torch.models.gmgan import GMGanModel
 from graphical_gan_tpu_torch.report.save_images import save_images
 from graphical_gan_tpu_torch.runs.gan_inference import (
     _grid_shape, _missing_module, _to_grid_scale, add_failure_flags,
-    check_backend, failure_kwargs, resident_data, sample_images)
-from graphical_gan_tpu_torch.train.trainer import Trainer, make_run_dir
+    add_parallel_flags, check_backend, failure_kwargs, maybe_mesh,
+    parallel_kwargs, resident_data, sample_images)
+from graphical_gan_tpu_torch.train.trainer import Trainer, shared_run_dir
 
 # the eval generators' salts (``Trainer.eval_generator``; the dev sweep
 # takes 1)
@@ -264,13 +265,16 @@ def run(dataset: str = "mnist", mode: str = "local_ep",
         checkpoints_to_keep: int = 3, eval_every: int = 5000,
         data_pipeline: Optional[str] = None, device: str = "cuda",
         max_rollbacks: int = 0, compile_cache: Optional[str] = None,
-        checkpoint_backend: str = "npz", **overrides):
+        checkpoint_backend: str = "npz", n_devices: Optional[int] = None,
+        parallel: str = "dp", mesh_shape: Optional[str] = None,
+        **overrides):
     """Train; returns ``(trainer, last metrics)``. ``run_dir`` reuses a
     run directory and resumes from its latest checkpoint; SIGTERM,
     ``max_rollbacks`` and ``compile_cache`` are the failure handling of
     ``runs/gan_inference.py``."""
     check_backend(checkpoint_backend)
     enable_compile_cache(compile_cache)
+    mesh = maybe_mesh(n_devices, parallel, mesh_shape, device)
     cfg = gmgan_defaults(dataset, mode, **overrides)
     model = GMGanModel(cfg)
     train_gen, dev_gen, test_gen = _loaders(cfg, data_dir)
@@ -279,8 +283,9 @@ def run(dataset: str = "mnist", mode: str = "local_ep",
         raise ValueError(f"data_pipeline {data_pipeline!r}: resident or host")
     resident = resident_data(cfg, data_dir, train_gen) \
         if data_pipeline == "resident" else None
-    outf = run_dir or make_run_dir(outdir, f"gmgan_inference_{dataset}",
-                                   {"MODE": mode, "N_COMS": cfg.n_coms})
+    outf = run_dir or shared_run_dir(mesh, outdir,
+                                     f"gmgan_inference_{dataset}",
+                                     {"MODE": mode, "N_COMS": cfg.n_coms})
     fixed_dev = next(iter(dev_gen()))
     if isinstance(fixed_dev, tuple):
         fixed_dev = fixed_dev[0]
@@ -301,12 +306,14 @@ def run(dataset: str = "mnist", mode: str = "local_ep",
                       train_gen_factory=None if resident is not None
                       else train_gen,
                       checkpoints_to_keep=checkpoints_to_keep,
-                      max_rollbacks=max_rollbacks)
+                      max_rollbacks=max_rollbacks, mesh=mesh,
+                      parallel=parallel)
     trainer.install_preempt_handlers()
     metrics = trainer.train(iters)
     if dataset != "celeba":
         final = (iters if iters is not None else cfg.iters) - 1
-        tsne_visualizations(trainer, model, dev_gen, final)
+        trainer.on_rank0(lambda: tsne_visualizations(
+            trainer, model, dev_gen, final), full=True)
     return trainer, metrics
 
 
@@ -342,6 +349,7 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
     add_failure_flags(p)
+    add_parallel_flags(p)
     args = p.parse_args(argv)
     overrides = {k: v for k, v in (("n_coms", args.n_coms),
                                    ("compute_dtype", args.compute_dtype),
@@ -352,7 +360,8 @@ def main(argv=None):
         outdir=args.outdir, run_dir=args.run_dir, seed=args.seed,
         checkpoint_every=args.checkpoint_every, eval_every=args.eval_every,
         data_pipeline=args.data_pipeline, device=args.device,
-        mode_k=args.mode_k, **failure_kwargs(args), **overrides)
+        mode_k=args.mode_k, **failure_kwargs(args),
+        **parallel_kwargs(args), **overrides)
 
 
 if __name__ == "__main__":

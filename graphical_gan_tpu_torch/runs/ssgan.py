@@ -46,8 +46,9 @@ from graphical_gan_tpu_torch.data.common import materialize_epoch
 from graphical_gan_tpu_torch.models.ssgan import SSGanModel
 from graphical_gan_tpu_torch.report.save_images import save_gifs, save_images
 from graphical_gan_tpu_torch.runs.gan_inference import (
-    add_failure_flags, check_backend, failure_kwargs)
-from graphical_gan_tpu_torch.train.trainer import Trainer, make_run_dir
+    add_failure_flags, add_parallel_flags, check_backend, failure_kwargs,
+    maybe_mesh, parallel_kwargs)
+from graphical_gan_tpu_torch.train.trainer import Trainer, shared_run_dir
 
 # the eval hook's generator salt (``Trainer.eval_generator``; the dev sweep
 # takes 1)
@@ -213,7 +214,9 @@ def run(dataset: str = "moving_mnist", mode: str = "local_ep",
         data_pipeline: str = "host", device: str = "cuda",
         stream: str = "native", max_rollbacks: int = 0,
         compile_cache: Optional[str] = None,
-        checkpoint_backend: str = "npz", **overrides):
+        checkpoint_backend: str = "npz", n_devices: Optional[int] = None,
+        parallel: str = "dp", mesh_shape: Optional[str] = None,
+        **overrides):
     """Train; returns ``(trainer, last metrics)``. ``run_dir`` reuses a run
     directory and resumes from its latest checkpoint; ``overrides`` are
     config fields (``pos_mode``, ``ali_mode``, ``bn``, ``compute_dtype``,
@@ -221,6 +224,7 @@ def run(dataset: str = "moving_mnist", mode: str = "local_ep",
     handling of ``runs/gan_inference.py``."""
     check_backend(checkpoint_backend)
     enable_compile_cache(compile_cache)
+    mesh = maybe_mesh(n_devices, parallel, mesh_shape, device)
     if data_pipeline not in PIPELINES:
         raise ValueError(f"data_pipeline {data_pipeline!r}: one of "
                          f"{PIPELINES}")
@@ -238,9 +242,10 @@ def run(dataset: str = "moving_mnist", mode: str = "local_ep",
             make_video_sampler)
         resident = device_pool(cfg, data_dir)
         sampler = make_video_sampler(cfg.seq_len)
-    outf = run_dir or make_run_dir(outdir, f"ssgan_inference_{dataset}",
-                                   {"MODE": mode, "ALI_MODE": cfg.ali_mode,
-                                    "LEN": cfg.seq_len})
+    outf = run_dir or shared_run_dir(mesh, outdir,
+                                     f"ssgan_inference_{dataset}",
+                                     {"MODE": mode, "ALI_MODE": cfg.ali_mode,
+                                      "LEN": cfg.seq_len})
     fixed_dev = next(iter(dev_gen()))
     trainer = Trainer(model, resident, outf, seed=seed, device=device,
                       checkpoint_every=checkpoint_every,
@@ -250,11 +255,12 @@ def run(dataset: str = "moving_mnist", mode: str = "local_ep",
                       train_gen_factory=None if resident is not None
                       else train_gen, batch_sampler=sampler,
                       checkpoints_to_keep=checkpoints_to_keep,
-                      max_rollbacks=max_rollbacks)
+                      max_rollbacks=max_rollbacks, mesh=mesh,
+                      parallel=parallel)
     # the counts need the state
     if trainer.state is None and not trainer.try_resume():
-        trainer.state = trainer.init_state(model.init(seed, trainer.device))
-    log_player_param_counts(trainer)
+        trainer.state = trainer.fresh_state()
+    trainer.on_rank0(lambda: log_player_param_counts(trainer), full=True)
     trainer.install_preempt_handlers()
     metrics = trainer.train(iters)
     return trainer, metrics
@@ -292,6 +298,7 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
     add_failure_flags(p)
+    add_parallel_flags(p)
     args = p.parse_args(argv)
     overrides = {"pos_mode": args.pos_mode, "ali_mode": args.ali_mode}
     overrides.update({k: v for k, v in (
@@ -303,7 +310,8 @@ def main(argv=None):
                run_dir=args.run_dir, seed=args.seed,
                checkpoint_every=args.checkpoint_every,
                eval_every=args.eval_every, data_pipeline=args.data_pipeline,
-               device=args.device, **failure_kwargs(args), **overrides)
+               device=args.device, **failure_kwargs(args),
+        **parallel_kwargs(args), **overrides)
 
 
 if __name__ == "__main__":

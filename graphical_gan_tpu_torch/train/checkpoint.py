@@ -15,7 +15,12 @@ carries JAX parameters or a whole JAX state into the port
 (:func:`params_from_jax`, :func:`state_from_jax`). :class:`AsyncWriter`
 writes a checkpoint on an ordered worker thread from a snapshot the caller
 took on the card, and :func:`remove` deletes one (JAX ``train/
-checkpoint.py:121-160, 192-210``). The orbax and pipeline-parallel layouts
+checkpoint.py:121-160, 192-210``). A parallel run's state (TP's and EP's
+parameters held in slices) is gathered whole on every rank and written
+by rank 0 in this same layout, and a resume reads the npz and cuts each
+rank's slices again (``parallel/mesh.py: make_sharded_step``'s
+``gather_state`` and ``place``; ``train/trainer.py``), so a JAX npz
+still loads into a sharded run. The orbax and pipeline-parallel layouts
 come in a later slice.
 """
 

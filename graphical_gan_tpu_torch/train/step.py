@@ -91,7 +91,7 @@ def _rematerialized(loss_fn, generator: Optional[torch.Generator]):
 
 
 def make_train_step(model, lr_scale: Optional[Callable[[float], float]]
-                    = None):
+                    = None, sync=None):
     """``(step, init_state)``; k is ``model.cfg.critic_iters``.
 
     ``step(state, raw_batches, do_gen, generator=None, noise=None)`` updates
@@ -106,6 +106,11 @@ def make_train_step(model, lr_scale: Optional[Callable[[float], float]]
     (``do_gen`` False) the G loss is then the mean over the microbatches,
     where the JAX step evaluates it once on the whole batch. The metrics
     are device scalars.
+
+    ``sync`` (``parallel/mesh.py``, one rank of a parallel step) averages
+    each update's gradients over the ranks that hold the batch's other
+    rows, ``sync.grads(list) -> list``, before the optimizer reads them,
+    and each cost, ``sync.loss(t) -> t``.
     """
     cfg = model.cfg
     k = cfg.critic_iters
@@ -169,6 +174,9 @@ def make_train_step(model, lr_scale: Optional[Callable[[float], float]]
             loss = loss * (1.0 / accum)
             torch._foreach_mul_(sums, 1.0 / accum)
             grads = [s.to(p.dtype) for s, p in zip(sums, leaves.values())]
+        if sync is not None:
+            grads = sync.grads(list(grads))
+            loss = sync.loss(loss.detach())
         opt.update(dict(zip(leaves, grads)), opt_state, player)
         if clip is not None:
             # wali: clip every D parameter after its update
@@ -214,6 +222,8 @@ def make_train_step(model, lr_scale: Optional[Callable[[float], float]]
                     for j, raw_j in enumerate(
                         tree.chunk(tree.index(raw_batches, 0), accum))
                 ) * (1.0 / accum)
+        if sync is not None and not do_gen:
+            metrics["gen_cost"] = sync.loss(metrics["gen_cost"])
         if disc_opt is not None:
             for i in range(k):
                 metrics["disc_cost"] = update(

@@ -63,8 +63,28 @@ Failure handling (JAX ``train/trainer.py:45-66, 229-330, 365-420,
   and rollback and at the end of ``train()``.
 - ``checkpoints_to_keep`` checkpoints are kept (0 or less keeps all).
 
-Left for later slices: orbax checkpoints, meshes and multi-iteration
-dispatch (in the port, a CUDA graph over several iterations).
+Parallel training (``mesh=``, ``parallel=``; JAX ``train/trainer.py:
+97-175``): one Trainer per rank, each on its rank's device, over a
+``parallel/mesh.py: Mesh``, with JAX's strategies ``dp``, ``tp``, ``sp``,
+``ep`` and ``composed`` (pipeline parallelism comes in a later slice).
+Every rank draws the iteration's global batch and noise from the one seed
+and the strategy's step keeps its rows (``parallel/mesh.py``). Rank 0
+alone logs, plots, runs the dev sweep and the eval hooks (on the full
+parameters, which every rank gathers first) and writes checkpoints (the
+full state, gathered on every rank first, also for the async writer, so a
+sharded run writes the npz a one-device run writes; a resume reads it
+and shards it again); the others wait at a barrier. A preemption request
+and the divergence guard's verdict are agreed over the ranks (a max over
+the ranks of the flag), so no rank stops alone while the others wait in a
+collective; a restore (resume, rollback) waits until rank 0's writer has
+joined and takes the checkpoint rank 0 lists, so every rank restores the
+same iteration. These agreements and the barriers run over the mesh's
+host group (gloo on CPU tensors), so the per-iteration preemption check
+syncs no device.
+
+Left for later slices: orbax checkpoints, pipeline parallelism and
+multi-iteration dispatch (in the port, a CUDA graph over several
+iterations).
 """
 
 from __future__ import annotations
@@ -112,12 +132,55 @@ class _PreemptStop(Exception):
         self.metrics = dict(metrics)
 
 
+PARALLEL_CHOICES = ("dp", "tp", "sp", "ep", "composed")
+
+
+def parallel_factory(model, mesh, parallel: str, lr_scale=None):
+    """``(step, init_state, place, gather_state)`` of strategy ``parallel``
+    over ``mesh`` (JAX ``train/trainer.py:135-172``)."""
+    from graphical_gan_tpu_torch import parallel as par
+    if parallel == "dp":
+        return par.make_parallel_train_step(model, mesh, lr_scale)
+    if parallel == "tp":
+        return par.make_tp_train_step(model, mesh, lr_scale=lr_scale)
+    if parallel == "sp":
+        return par.make_sp_train_step(model, mesh, lr_scale=lr_scale)
+    if parallel == "ep":
+        return par.make_ep_train_step(model, mesh, lr_scale=lr_scale)
+    if parallel == "composed":
+        return par.make_composed_train_step(
+            model, mesh, data_axis="data" if "data" in mesh.shape else None,
+            seq_axis="seq" if "seq" in mesh.shape else None,
+            model_axis="model" if "model" in mesh.shape else None,
+            lr_scale=lr_scale)
+    if parallel == "pp":
+        raise NotImplementedError("--parallel pp (pipeline parallelism) "
+                                  "comes in a later slice")
+    raise ValueError(f"unknown parallel strategy {parallel!r}")
+
+
 def make_run_dir(base: str, script: str, tags: Dict) -> str:
     parts = [script] + [f"{k}-{v}" for k, v in tags.items()] \
         + [str(int(time.time()))]
     outf = os.path.join(base, ".".join(parts))
     os.makedirs(outf, exist_ok=True)
     return outf
+
+
+def shared_run_dir(mesh, base: str, script: str, tags: Dict) -> str:
+    """:func:`make_run_dir` on rank 0, its path on every rank of ``mesh``
+    (None: this process alone)."""
+    if mesh is None or mesh.size == 1:
+        return make_run_dir(base, script, tags)
+    from graphical_gan_tpu_torch.parallel.collectives import gather_stack
+    buf = torch.zeros(4096, dtype=torch.uint8, device=mesh.device)
+    if mesh.rank == 0:
+        raw = make_run_dir(base, script, tags).encode()
+        if len(raw) >= buf.numel():
+            raise ValueError(f"run directory path over {buf.numel()} bytes")
+        buf[:len(raw)] = torch.tensor(list(raw), dtype=torch.uint8)
+    row = gather_stack(buf, mesh.world)[0].cpu().numpy()
+    return bytes(row[:int((row != 0).sum())]).decode()
 
 
 def dump_settings(outf: str, cfg, logfile: str) -> None:
@@ -174,22 +237,34 @@ class Trainer:
                  batch_sampler: Optional[Callable] = None,
                  checkpoints_to_keep: int = 3, max_rollbacks: int = 0,
                  async_checkpoint: Optional[bool] = None,
-                 render_curves: Optional[bool] = None):
+                 render_curves: Optional[bool] = None,
+                 mesh=None, parallel: str = "dp"):
         if resident_data is None and train_gen_factory is None:
             raise ValueError("the Trainer needs resident_data or, for the "
                              "host-fed path, train_gen_factory")
         self.model = model
         self.cfg = model.cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.parallel = parallel if mesh is not None else "dp"
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
+        self.rank0 = mesh is None or mesh.rank == 0
         set_numerics()
         self.outf = outf
-        os.makedirs(outf, exist_ok=True)
         self.logfile = os.path.join(outf, "logfile.txt")
-        dump_settings(outf, self.cfg, self.logfile)
+        if self.rank0:
+            os.makedirs(outf, exist_ok=True)
+            dump_settings(outf, self.cfg, self.logfile)
         self.seed = int(seed)
         self.checkpoint_every = checkpoint_every
         self.k = self.cfg.critic_iters
-        self.step_fn, self.init_state = make_train_step(model, lr_scale)
+        if mesh is None:
+            self.step_fn, self.init_state = make_train_step(model, lr_scale)
+            self._place = self._gather = lambda state: state
+        else:
+            self.step_fn, self.init_state, self._place, self._gather = \
+                parallel_factory(model, mesh, parallel, lr_scale)
+        self._full_params = None
         self.data = None if resident_data is None else to_device(
             resident_data, self.device)
         self.batch_sampler = batch_sampler or (
@@ -226,14 +301,88 @@ class Trainer:
                              else None)
 
     def _log(self, line: str) -> None:
+        if not self.rank0:
+            return
         print(line)
         with open(self.logfile, "a") as f:
             f.write(line + "\n")
 
+    def fresh_state(self):
+        """A fresh TrainState from ``model.init(seed)``, placed on the mesh
+        (each rank's slices) where there is one."""
+        return self._place(self.init_state(self.model.init(self.seed,
+                                                           self.device)))
+
     @property
     def params(self):
-        """The current parameters (what eval hooks and tools read)."""
+        """The current parameters (what eval hooks and tools read): under
+        a mesh the full ones rank 0 holds while its hooks run."""
+        if self._full_params is not None:
+            return self._full_params
         return self.state.params
+
+    # -- ranks --------------------------------------------------------------
+
+    def _multi(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
+
+    def _barrier(self) -> None:
+        """Every rank here before any goes on; over the mesh's host group,
+        so it waits for no device work."""
+        if self._multi():
+            from graphical_gan_tpu_torch.parallel.collectives import (
+                sum_in_rank_order)
+            sum_in_rank_order(torch.zeros(1), self.mesh.host)
+
+    def _any_rank(self, flag: bool) -> bool:
+        """``flag`` of any rank, agreed on every rank (host group: no
+        device sync)."""
+        if not self._multi():
+            return bool(flag)
+        from graphical_gan_tpu_torch.parallel.collectives import all_max
+        return bool(all_max(torch.tensor([1.0 if flag else 0.0]),
+                            self.mesh.host).item() > 0)
+
+    def _latest(self) -> Optional[str]:
+        """The latest checkpoint once every write in flight is on disk: the
+        one rank 0 (the writer) sees, on every rank."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.join()  # never restore a checkpoint mid-write
+        if not self._multi():
+            return ckpt_lib.latest(self.outf)
+        from graphical_gan_tpu_torch.parallel.collectives import broadcast
+        self._barrier()  # rank 0's writer has joined
+        ckpts = ckpt_lib.list_checkpoints(self.outf)
+        pick = torch.tensor([1, ckpts[-1][0]] if ckpts else [0, 0],
+                            dtype=torch.int64)
+        has, step = broadcast(pick, self.mesh.host).tolist()
+        if not has:
+            return None
+        path = dict(ckpts).get(step)
+        if path is None:
+            raise RuntimeError(f"checkpoint {step} of {self.outf} is not "
+                               f"visible to rank {self.mesh.rank}")
+        return path
+
+    def _full_state(self):
+        """The whole TrainState (every rank gathers the slices)."""
+        return self._gather(self.state)
+
+    def on_rank0(self, fn, full: bool = False) -> None:
+        """Run ``fn()`` on rank 0 alone, outside the step's sharding, with
+        the full parameters where ``full`` (gathered on every rank first);
+        the other ranks wait at a barrier."""
+        if self.mesh is None:
+            fn()
+            return
+        params = self._full_state().params if full else None
+        if self.rank0:
+            self._full_params = params
+            try:
+                fn()
+            finally:
+                self._full_params = None
+        self._barrier()
 
     def eval_generator(self, salt: int, iteration: int) -> torch.Generator:
         """A generator on the device for an evaluation at ``iteration``,
@@ -295,30 +444,35 @@ class Trainer:
                  "rng_count": iteration + 1, "rng_salt": self._salt,
                  "rng_salt_high": max(self._salt_high, self._salt)}
         path = os.path.join(self.outf, f"ckpt_{iteration}.npz")
+        # a sharded state is gathered on every rank, and rank 0 writes it
+        state = self._full_state()
         if self._ckpt_writer is not None:
-            leaves, ready = ckpt_lib.snapshot(self.state)
-            self._ckpt_writer.submit(path, leaves, extra, ready,
-                                     after=self._gc_checkpoints)
+            if self.rank0:
+                leaves, ready = ckpt_lib.snapshot(state)
+                self._ckpt_writer.submit(path, leaves, extra, ready,
+                                         after=self._gc_checkpoints)
             return path
-        ckpt_lib.save_state(path, self.state, extra)
-        self._gc_checkpoints()
+        if self.rank0:
+            ckpt_lib.save_state(path, state, extra)
+            self._gc_checkpoints()
+        self._barrier()
         return path
 
     def _gc_checkpoints(self) -> None:
-        if not self.checkpoints_to_keep or self.checkpoints_to_keep <= 0:
+        if not self.rank0 or not self.checkpoints_to_keep \
+                or self.checkpoints_to_keep <= 0:
             return
         for _, old in ckpt_lib.list_checkpoints(
                 self.outf)[:-self.checkpoints_to_keep]:
             ckpt_lib.remove(old)
 
     def try_resume(self) -> bool:
-        if self._ckpt_writer is not None:
-            self._ckpt_writer.join()  # never restore a checkpoint mid-write
-        path = ckpt_lib.latest(self.outf)
+        path = self._latest()
         if path is None:
             return False
         like = self.init_state(self.model.init(self.seed, self.device))
-        self.state, extra = ckpt_lib.restore_state(path, like)
+        state, extra = ckpt_lib.restore_state(path, like)
+        self.state = self._place(state)
         self._start_iter = int(extra["iteration"]) + 1
         self._salt = int(extra.get("rng_salt", 0))
         self._salt_high = max(self._salt_high, self._salt,
@@ -332,9 +486,7 @@ class Trainer:
         :class:`DivergenceError` where there is nothing to restore, the
         budget is spent or the checkpoint lies past the divergence."""
         self._rollbacks += 1
-        if self._ckpt_writer is not None:
-            self._ckpt_writer.join()  # a write in flight is a checkpoint
-        path = ckpt_lib.latest(self.outf)
+        path = self._latest()  # a write in flight is a checkpoint
         msg = (f"divergence guard: non-finite training cost at iteration "
                f"{iteration}; rollback {self._rollbacks}/"
                f"{self.max_rollbacks}")
@@ -361,7 +513,7 @@ class Trainer:
     def _final_flush(self) -> None:
         # hooks fire after the window's flush: what they plotted at the last
         # boundary is written here
-        if self.logger.pending:
+        if self.rank0 and self.logger.pending:
             self.logger.flush(self.outf, self.logfile,
                               render=self.render_curves)
 
@@ -426,7 +578,7 @@ class Trainer:
         gen = self.eval_generator(DEV_SALT, iteration)
         gens, recs = [], []
         for i in range(tree.first_leaf(self._dev_data).shape[0]):
-            g, aux = self.model.gen_loss(self.state.params,
+            g, aux = self.model.gen_loss(self.params,
                                          tree.index(self._dev_data, i),
                                          generator=gen)
             gens.append(g.float())
@@ -453,22 +605,22 @@ class Trainer:
         iters = iters if iters is not None else self.cfg.iters
         fresh = False
         if self.state is None and not (resume and self.try_resume()):
-            self.state = self.init_state(
-                self.model.init(self.seed, self.device))
+            self.state = self.fresh_state()
             fresh = True
-        total = sum(p.numel() for p in self.state.params.values())
+        total = sum(p.numel() for p in self._full_state().params.values())
         self._log(f"Total number of parameters {total}")
         if self.max_rollbacks > 0:
             # the guard's anchor: with no checkpoint yet, an early NaN would
             # have nothing to roll back to (ckpt_-1 resumes at iteration 0)
-            if fresh and ckpt_lib.latest(self.outf) is not None:
+            anchor = self._latest()
+            if fresh and anchor is not None:
                 raise ValueError(
                     "divergence guard: resume=False would train afresh in "
                     f"a directory that already holds checkpoints "
                     f"({self.outf}); a rollback would restore the old "
                     "run's state. Pass resume=True or use a clean run "
                     "directory.")
-            if ckpt_lib.latest(self.outf) is None:
+            if anchor is None:
                 self.save(self._start_iter - 1)
 
         while True:
@@ -515,15 +667,16 @@ class Trainer:
 
     def _drain(self, pend, inject: bool) -> None:
         """Fetch the pending device costs in one copy, check them where the
-        guard is on (after ``GGAN_FAULT_NAN_AT``'s poison, where ``inject``)
-        and plot them."""
+        guard is on (after ``GGAN_FAULT_NAN_AT``'s poison, where ``inject``;
+        the verdict agreed over the ranks) and plot them."""
         vals = torch.stack([v.float() for _, _, v in pend]).cpu().numpy()
         hit = [i for i, (it, _, _) in enumerate(pend)
                if it == self._fault_nan_at]
         if inject and hit and not self._fault_fired:
             self._fault_fired = True
             vals[hit[0]] = np.nan
-        if self.max_rollbacks and not np.isfinite(vals).all():
+        if self.max_rollbacks and self._any_rank(
+                not np.isfinite(vals).all()):
             raise _Diverged(next(it for (it, _, _), v in zip(pend, vals)
                                  if not np.isfinite(v)))
         for (it, name, _), val in zip(pend, vals.tolist()):
@@ -579,16 +732,19 @@ class Trainer:
         if (flush or ckpt or hooks) and pend:
             self._drain(pend, inject=True)
         if iteration % 100 == 99 and self.dev_gen_factory is not None:
-            self._dev_sweep(iteration)
-        if flush:
+            self.on_rank0(lambda: self._dev_sweep(iteration), full=True)
+        if flush and self.rank0:
             self.logger.flush(self.outf, self.logfile,
                               render=self.render_curves)
         self.logger.tick()
-        for hook in hooks:
-            hook(self, iteration)
+        if hooks:
+            def run_hooks():
+                for hook in hooks:
+                    hook(self, iteration)
+            self.on_rank0(run_hooks, full=True)
         if ckpt:
             self.save(iteration)
-        if self._preempt.is_set():
+        if self._any_rank(self._preempt.is_set()):
             # the boundary drain's check first: a preemption after a
             # NaN rolls back instead of checkpointing it
             if pend:

@@ -77,3 +77,55 @@ def test_chip_smoke_alone_fails_without_result(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+PARALLEL_MODULES = ["parallel/__init__.py", "parallel/mesh.py",
+                    "parallel/context.py",
+                    "parallel/collectives.py", "parallel/input.py",
+                    "parallel/sharding_rules.py", "parallel/sequence.py",
+                    "parallel/expert.py", "parallel/composed.py",
+                    "core/shard_ctx.py"]
+
+
+@pytest.mark.parametrize("rel", PARALLEL_MODULES)
+def test_parallel_modules_are_scanned_and_import_no_jax(rel):
+    path = os.path.join(PKG, rel)
+    assert path in _port_files()
+    assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+@pytest.mark.parametrize("n,parallel,shape,size", [
+    (2, "dp", None, 2), (None, "tp", "1,2", 2), (4, "ep", None, 4),
+    (None, "composed", "data=2,model=2", 4)])
+def test_mesh_outside_a_process_group_raises_with_torchrun_line(
+        n, parallel, shape, size, monkeypatch):
+    """``--n-devices N`` (or a ``--mesh-shape`` of N ranks) in a process
+    that is no rank of a group of N: an error that says how to launch it,
+    never a run on one device."""
+    import torch.distributed as dist
+    from graphical_gan_tpu_torch.runs.gan_inference import maybe_mesh
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match=f"torchrun --nproc-per-node "
+                                           f"{size}"):
+        maybe_mesh(n, parallel, shape, "cpu")
+
+
+def test_cli_n_devices_outside_torchrun_exits_with_the_line():
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    res = subprocess.run(
+        [sys.executable, "-m", "graphical_gan_tpu_torch.runs.gan_inference",
+         "--n-devices", "2", "--device", "cpu", "--iters", "1", "--dim",
+         "8", "--outdir", os.devnull], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert "torchrun --nproc-per-node 2" in res.stderr
+    assert "iter 0" not in res.stdout
+
+
+def test_pp_is_refused_for_a_later_slice():
+    from graphical_gan_tpu_torch.runs.gan_inference import maybe_mesh
+    with pytest.raises(NotImplementedError, match="later slice"):
+        maybe_mesh(2, "pp", None, "cpu")
