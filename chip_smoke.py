@@ -221,7 +221,16 @@ nothing of JAX or of the JAX package, and does in order:
    dp, tp (cifar10 wali-gp), ep (GMGAN mnist local_ep) and sp (SSGAN
    moving-MNIST local_ep, BN on) on 2 gloo ranks on this card at the
    published widths against the one-device step, the replicas bit-identical;
-   rank 0's launches are the split kernels' main path;
+   rank 0's launches are the split kernels' main path; tp's state saved
+   through the sharded checkpoint backend and resumed, bit for bit with
+   the uninterrupted run, in both; the pipeline on 2 gloo ranks (cifar10
+   wali-gp, GMGAN mnist local_ep) and on 4 (the 4-stage cifar10 ali cut)
+   at the published widths against the one-process staged step, each
+   rank's launches (K1 on the ranks with convolutions, K2a/K2b/K2c+K2d on
+   the ranks with E's and G's BNs, no split kernel), seconds and bubble
+   share; standard -> pp -> standard and back bit for bit; the server's
+   ``--dp-devices 2`` on 2 gloo ranks, a bucket-64 dispatch float and
+   int8 against one rank's, K2a's split mode launched;
 34. prints one JSON line per kernel summary, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -6256,6 +6265,9 @@ def phase_parallel(launch_totals):
             doc = json.load(f)
         fail(f"parallel: {doc['misses']}")
     ranks = doc["ranks"]
+    sharded = {run: [c.get("sharded_resume_bit_identical")
+                     for c in doc[run]["cases"] if c["strategy"] == "tp"]
+               for run in ("world1", "ranks")}
     log({"phase": "parallel", "world1": [
         {k: c[k] for k in ("strategy", "mesh", "bit_identical", "seconds")}
         for c in doc["world1"]["cases"]],
@@ -6264,8 +6276,31 @@ def phase_parallel(launch_totals):
                                       "replicas_bit_identical", "seconds")}
                    for c in ranks["cases"]],
          "backend": ranks["backend"], "gloo_takes": ranks["gloo_takes"],
-         "launches": ranks["launches"]})
+         "launches": ranks["launches"],
+         "tp_sharded_resume_bit_identical": sharded})
     _add(launch_totals, ranks["launches"])
+    for run in ("pp", "pp4"):
+        res = doc[run]
+        log({"phase": "parallel", "run": run, "cases": [
+            {k: c.get(k) for k in ("dataset", "mode", "batch_size", "dim",
+                                   "critic_iters", "microbatches",
+                                   "stages", "seconds", "warm_seconds",
+                                   "misses", "t", "gpipe_bubble")}
+            for c in res[0]["cases"]],
+             "migration": res[0].get("migration"),
+             "ranks": [{"rank": i, "launches": r["launches"],
+                        "bubble_share": [c["bubble_share"]
+                                         for c in r["cases"]],
+                        "warm_bubble_share": [c["warm_bubble_share"]
+                                              for c in r["cases"]],
+                        "wait_seconds": [c["wait_seconds"]
+                                         for c in r["cases"]]}
+                       for i, r in enumerate(res)]})
+        _add(launch_totals, res[0]["launches"])
+    serve = doc["serve"][0]
+    log({"phase": "parallel", "run": "serve", "bucket": serve["bucket"],
+         "cases": serve["cases"],
+         "served_by_rank1": [c["served"] for c in doc["serve"][1]["cases"]]})
 
 
 def _timed(name, fn, *args):

@@ -736,12 +736,15 @@ def fused_batchnorm_act(x: torch.Tensor, scale: torch.Tensor,
 
 def batchnorm_act_q8(x: torch.Tensor, scale: torch.Tensor,
                      offset: torch.Tensor, act: Optional[str], s_x: float,
-                     eps: float = EPS) -> Tuple[torch.Tensor, torch.Tensor]:
+                     eps: float = EPS, group=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """act(batchnorm(x)) over channels-last x with batch statistics, and
     its int8 copy at ``s_x``: K2a, then K2b with its second output. For the
-    int8 serving path only (no gradient)."""
+    int8 serving path only (no gradient). With ``group`` the statistics
+    are the whole batch's over its ranks (K2a's split mode,
+    :func:`bn_stats_group`), as a data-parallel server needs."""
     c = x.shape[-1]
     x2d = x.reshape(-1, c)
-    mean, _, inv = bn_stats(x2d, eps)
+    mean, _, inv = bn_stats_group(x2d, group, eps)
     y, q = bn_apply_q8(x2d, mean, inv, scale, offset, act, s_x)
     return y.reshape(x.shape), q.reshape(x.shape)

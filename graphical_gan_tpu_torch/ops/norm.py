@@ -51,15 +51,15 @@ def batchnorm_act(params: Dict[str, torch.Tensor], name: str, x: torch.Tensor,
     same pass (``fused_norm.batchnorm_act_q8``)."""
     if _is_channels_last(x, axes):
         scale, offset = params[name + ".scale"], params[name + ".offset"]
-        s_q = quant.bn_consumer_scale(name)
-        if s_q is not None:
-            y, q = batchnorm_act_q8(x.contiguous(), scale, offset, act, s_q,
-                                    EPS)
-            quant.bn_produced(name, y, q)
-            return y
         # the batch group where the batch's rows lie on several ranks
         stats = shard_ctx.stats_group()
         kw = {} if stats is None else {"group": stats}
+        s_q = quant.bn_consumer_scale(name)
+        if s_q is not None:
+            y, q = batchnorm_act_q8(x.contiguous(), scale, offset, act, s_q,
+                                    EPS, **kw)
+            quant.bn_produced(name, y, q)
+            return y
         tp = shard_ctx.model_shard(name + ".scale")
         if tp is not None:
             # TP holds this BN's channels in slices: its statistics are the

@@ -1,6 +1,6 @@
 """Parallel training over ``torch.distributed`` (``graphical_gan_tpu/
-parallel``): DP, TP, SP, EP and their composition, one process per rank.
-Pipeline parallelism (``make_pp_train_step``) is not ported yet.
+parallel``): DP, TP, SP, EP, their composition and pipeline parallelism
+(``make_pp_train_step``, one stage per rank), one process per rank.
 
 The names are JAX's, loaded at first use: the ops layer imports
 ``parallel.collectives`` and ``parallel.context`` alone, and a process
@@ -18,6 +18,7 @@ _EXPORTS = {
     "make_sp_train_step": "sequence", "video_batch_spec": "sequence",
     "make_composed_train_step": "composed",
     "make_ep_train_step": "expert", "ep_param_shardings": "expert",
+    "make_pp_train_step": "pipeline",
 }
 __all__ = sorted(_EXPORTS)
 

@@ -47,7 +47,9 @@ from graphical_gan_tpu_torch.parallel import context
 from graphical_gan_tpu_torch.parallel.collectives import (
     Group, broadcast, gather_stack, sum_in_rank_order)
 
-AXES = ("data", "seq", "model", "expert")
+AXES = ("data", "seq", "model", "expert", "stage")
+# the separator before a parameter's name in a checkpoint keypath
+SEP_K = "|k:"
 
 
 def torchrun_line(n: int) -> str:
@@ -336,7 +338,22 @@ def make_sharded_step(model, mesh: Mesh, *, stats_axes=("data",),
                              dim=dim)
         return _map_state(state, full)
 
+    def shard_spec(state):
+        """keypath -> (dim, index, count) of the leaves this rank holds in
+        slices: each sliced parameter and its optimizer leaves
+        (``train/checkpoint_orbax.py``)."""
+        from graphical_gan_tpu_torch.train.checkpoint import state_leaves
+        out = {}
+        for key, leaf in state_leaves(state).items():
+            name = key.rsplit(SEP_K, 1)[-1]
+            if name in layout and key.split("|")[0] != "n:step":
+                g, dim = layout[name]
+                if torch.as_tensor(leaf).ndim > dim:
+                    out[key] = (dim, g.index, g.size)
+        return out
+
     step.layout = layout  # name -> (group, dim), set by place
+    step.shard_spec = shard_spec
     return step, init_state, place, gather_state
 
 

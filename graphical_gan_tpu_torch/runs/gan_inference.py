@@ -42,20 +42,24 @@ in flight and exits 0 (resume with ``--run-dir``); ``--max-rollbacks N``
 rolls a non-finite training cost back to the latest checkpoint on a new
 random stream, up to N times; ``GGAN_ASYNC_CKPT=1`` writes checkpoints on a
 worker thread; ``--compile-cache DIR`` builds and loads the CUDA kernels in
-DIR (``core/compile_cache.py``); ``--checkpoint-backend`` takes ``npz``,
-the one format the port writes, so JAX command lines parse.
+DIR (``core/compile_cache.py``); ``--checkpoint-backend npz|orbax``
+picks the checkpoint format (``orbax``: ``ckpt_<iter>.orbax`` directories
+that each rank writes its part of, ``train/checkpoint_orbax.py``).
 Multi-iteration dispatch (JAX's ``--chunk-size``) comes in a later slice.
 
 Parallel training (``parallel/``): ``--n-devices N`` with ``--parallel
-dp|tp|sp|ep|composed`` and ``--mesh-shape``, parsed as JAX's
+dp|tp|sp|ep|composed|pp`` and ``--mesh-shape``, parsed as JAX's
 ``_maybe_mesh`` parses them, one process per rank:
 
     torchrun --nproc-per-node 2 -m graphical_gan_tpu_torch.runs.gan_inference \
         --dataset cifar10 --mode wali-gp --n-devices 2 --parallel tp
 
 (NCCL on the card, each rank on ``cuda:{LOCAL_RANK}``; gloo with
-``--device cpu``). A mesh of N ranks outside a process group of N ranks
-raises with the torchrun line; ``--parallel pp`` comes in a later slice.
+``--device cpu``). ``--parallel pp`` alone is the 2-stage pipeline (ali,
+wali-gp), ``--parallel pp --mesh-shape 4`` the 4-stage cut (cifar10 and
+svhn ali), on as many ranks. A mesh of N ranks outside a process group of
+N ranks raises with the torchrun line. The GMGAN and SSGAN CLIs do not
+offer pp, as in JAX (GMGAN's pipeline is the Trainer's ``parallel="pp"``).
 """
 
 from __future__ import annotations
@@ -372,9 +376,12 @@ def add_failure_flags(p: argparse.ArgumentParser) -> None:
                    help="build and load the CUDA kernel library in DIR, so "
                         "a restart or another checkout pointing there runs "
                         "no nvcc (also GGAN_COMPILE_CACHE; the flag wins)")
-    p.add_argument("--checkpoint-backend", default="npz", choices=["npz"],
-                   help="checkpoint format: npz (atomic single file), the "
-                        "one the port writes")
+    p.add_argument("--checkpoint-backend", default="npz",
+                   choices=["npz", "orbax"],
+                   help="checkpoint format: npz (atomic single file, "
+                        "written by rank 0) or orbax (a directory each "
+                        "rank writes its part of, torch.distributed."
+                        "checkpoint)")
 
 
 def failure_kwargs(args) -> Dict:
@@ -384,28 +391,32 @@ def failure_kwargs(args) -> Dict:
 
 
 def check_backend(checkpoint_backend: str) -> None:
-    if checkpoint_backend != "npz":
-        raise ValueError(f"checkpoint_backend {checkpoint_backend!r}: the "
-                         "port writes npz (orbax comes in a later slice)")
+    if checkpoint_backend not in ("npz", "orbax"):
+        raise ValueError(f"unknown checkpoint_backend "
+                         f"{checkpoint_backend!r} (npz|orbax)")
 
 
-def add_parallel_flags(p: argparse.ArgumentParser) -> None:
+def add_parallel_flags(p: argparse.ArgumentParser, pp: bool = False
+                       ) -> None:
     """The training CLIs' mesh flags (JAX ``runs/gan_inference.py:
-    452-466``)."""
+    452-466``); ``pp`` offers the pipeline (family 1's CLI only, as in
+    JAX)."""
     p.add_argument("--n-devices", type=int, default=None,
                    help="train over N ranks, one process each: launch "
                         "with `torchrun --nproc-per-node N -m ...` "
                         "(params replicated under dp)")
-    p.add_argument("--parallel", default="dp",
-                   choices=list(PARALLEL_CHOICES) + ["pp"],
+    choices = [c for c in PARALLEL_CHOICES if pp or c != "pp"]
+    p.add_argument("--parallel", default="dp", choices=choices,
                    help="strategy over the mesh: dp (batch), tp (channel "
                         "sharding, data x model), sp (video frames, data x "
                         "seq), ep (mixture components, data x expert), "
-                        "composed (named --mesh-shape); pp comes in a "
-                        "later slice")
+                        "composed (named --mesh-shape)"
+                        + ("; pp (pipeline stages: 2, or --mesh-shape 4)"
+                           if pp else ""))
     p.add_argument("--mesh-shape", default=None,
-                   help="mesh dims: 'd,m' for tp/sp/ep, or named for "
-                        "composed, e.g. data=2,model=2")
+                   help="mesh dims: 'd,m' for tp/sp/ep, named for "
+                        "composed, e.g. data=2,model=2"
+                        + (", the stage count for pp" if pp else ""))
 
 
 def parallel_kwargs(args) -> Dict:
@@ -418,15 +429,17 @@ def maybe_mesh(n_devices: Optional[int], parallel: str = "dp",
     """This rank's mesh for the strategy, or None for one device (JAX
     ``_maybe_mesh``, ``runs/gan_inference.py:80-122``): ``mesh_shape``
     "d,m" (data x model / seq / expert) or named ("data=2,seq=2,model=2");
-    defaults dp = 1-D over ``n_devices``, tp/sp/ep = 2 x (n_devices / 2).
-    A mesh of N ranks outside a process group of N ranks raises with the
-    torchrun line (``parallel/mesh.py: make_mesh``)."""
-    if parallel == "pp":
-        raise NotImplementedError("--parallel pp (pipeline parallelism) "
-                                  "comes in a later slice")
-    if mesh_shape is None and (not n_devices or n_devices <= 1):
+    defaults dp = 1-D over ``n_devices``, tp/sp/ep = 2 x (n_devices / 2),
+    pp = 2 stages (``--parallel pp`` alone builds it; ``mesh_shape`` "4"
+    the 4-stage cut). A mesh of N ranks outside a process group of N ranks
+    raises with the torchrun line (``parallel/mesh.py: make_mesh``)."""
+    if mesh_shape is None and (not n_devices or n_devices <= 1) \
+            and parallel != "pp":
         return None
     from graphical_gan_tpu_torch.parallel.mesh import make_mesh
+    if parallel == "pp":
+        return make_mesh(shape=(int(mesh_shape) if mesh_shape else 2,),
+                         axis_names=("stage",), device=device)
     if parallel == "dp":
         return make_mesh(n_devices, device=device)
     if mesh_shape and "=" in mesh_shape:
@@ -510,7 +523,8 @@ def run(dataset: str = "mnist", mode: str = "ali",
                       else train_gen, lr_scale=decay_scale(cfg),
                       checkpoints_to_keep=checkpoints_to_keep,
                       max_rollbacks=max_rollbacks, mesh=mesh,
-                      parallel=parallel)
+                      parallel=parallel,
+                      checkpoint_backend=checkpoint_backend)
     # SIGTERM checkpoints and stops cleanly (no-op off the main thread)
     trainer.install_preempt_handlers()
     return trainer, trainer.train(iters)
@@ -564,7 +578,7 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
     add_failure_flags(p)
-    add_parallel_flags(p)
+    add_parallel_flags(p, pp=True)
     args = p.parse_args(argv)
     overrides = {k: v for k, v in (("batch_size", args.batch_size),
                                    ("dim", args.dim),

@@ -307,7 +307,8 @@ def run(dataset: str = "mnist", mode: str = "local_ep",
                       else train_gen,
                       checkpoints_to_keep=checkpoints_to_keep,
                       max_rollbacks=max_rollbacks, mesh=mesh,
-                      parallel=parallel)
+                      parallel=parallel,
+                      checkpoint_backend=checkpoint_backend)
     trainer.install_preempt_handlers()
     metrics = trainer.train(iters)
     if dataset != "celeba":

@@ -256,7 +256,8 @@ def run(dataset: str = "moving_mnist", mode: str = "local_ep",
                       else train_gen, batch_sampler=sampler,
                       checkpoints_to_keep=checkpoints_to_keep,
                       max_rollbacks=max_rollbacks, mesh=mesh,
-                      parallel=parallel)
+                      parallel=parallel,
+                      checkpoint_backend=checkpoint_backend)
     # the counts need the state
     if trainer.state is None and not trainer.try_resume():
         trainer.state = trainer.fresh_state()

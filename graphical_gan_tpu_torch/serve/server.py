@@ -40,7 +40,23 @@ activation scales calibrated on prior latents from seed 11
 (``serve/quantize.py``), as the JAX server does. ``--export-dir`` serves
 an artifact of ``serve/export.py`` instead of a run directory: the
 program and its manifest, no model code, on the device it was exported on.
-``--dp-devices`` of the JAX server is not offered yet.
+
+``--dp-devices N`` (JAX ``serve/server.py:158-168, 396-455, 584-617``)
+serves one replica over N ranks, launched as the training CLIs are::
+
+    torchrun --nproc-per-node 2 -m graphical_gan_tpu_torch.serve.server \
+        --run-dir R --dp-devices 2
+
+Rank 0 runs the HTTP front and the batcher and broadcasts each dispatch's
+seed and inputs at the global batch; every rank runs its block of rows
+under the data-parallel context (``parallel/context.py``), so the
+batch-statistics BNs reduce over the whole dispatched batch (K2a's split
+mode, also on the int8 path where K2b writes the int8 copy) and a draw
+is made at the global batch and cut; rank 0 gathers the rows in order.
+The outputs equal one rank's up to the reduction order of the statistics.
+Every bucket, and every exact-mode request, must divide by N; the
+run-directory backend only (``--export-dir`` is refused). NCCL on
+``cuda:{LOCAL_RANK}``, gloo with ``--device cpu``.
 
 HTTP surface (identical to the JAX server's; see ``serve/client.py``):
 
@@ -151,13 +167,20 @@ class BatchingSampler:
     def __init__(self, call, kinds: Sequence[str],
                  input_shapes: Sequence[Tuple[int, ...]],
                  buckets: Sequence[int] = (8, 64, 256),
-                 max_wait_ms: float = 5.0, base_seed: int = 0):
+                 max_wait_ms: float = 5.0, base_seed: int = 0,
+                 dp_devices: int = 1):
         self.call = call
         self.kinds = list(kinds)
         self.input_shapes = [tuple(s) for s in input_shapes]
         self.buckets = sorted(set(int(b) for b in buckets))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"need positive bucket sizes, got {buckets}")
+        self.dp = max(int(dp_devices), 1)
+        if any(b % self.dp for b in self.buckets):
+            raise ValueError(
+                f"every bucket must be divisible by dp_devices={self.dp} "
+                f"(got {self.buckets}): dispatched batches split over the "
+                "ranks")
         self.max_wait = max_wait_ms / 1e3
         self.base_seed = int(base_seed)
         self._q: "queue.Queue[Optional[_Request]]" = queue.Queue()
@@ -216,6 +239,11 @@ class BatchingSampler:
         """Reproducible path: dispatch this request alone, unpadded, with
         draws that depend only on ``seed``."""
         inputs = self._inputs(inputs, n, seed)
+        if inputs[0].shape[0] % self.dp:
+            raise ValueError(
+                f"an exact-mode request of {inputs[0].shape[0]} rows does "
+                f"not divide over dp_devices={self.dp}: it dispatches "
+                "unpadded")
         out = self.call(int(seed), *inputs)
         with self._lock:
             self.stats["exact_requests"] += 1
@@ -252,9 +280,14 @@ class BatchingSampler:
         return s
 
     def close(self) -> None:
+        """Stop the loop; an entry served over several ranks
+        (:class:`DataParallelEntry`) ends their loops too."""
         self._stop.set()
         self._q.put(None)
         self._thread.join(timeout=5)
+        stop = getattr(self.call, "stop", None)
+        if stop is not None:
+            stop()
 
     # -- batcher loop --------------------------------------------------------
 
@@ -363,17 +396,95 @@ class BatchingSampler:
 # --------------------------------------------------------------------------
 # backend
 
+class DataParallelEntry:
+    """An entry served over the ranks of a 1-D ``data`` mesh
+    (``--dp-devices``). ``call(seed, *inputs)`` on rank 0 broadcasts the
+    dispatch (a header over the host group, the inputs over the world),
+    runs rank 0's block of rows and returns every rank's rows in order;
+    :meth:`serve` is the other ranks' loop, which :meth:`stop` (rank 0)
+    ends."""
+
+    def __init__(self, fn, params, mesh, input_shapes):
+        self.fn, self.params, self.mesh = fn, params, mesh
+        self.group = mesh.group("data")
+        self.rank = mesh.rank
+        self.size = mesh.size
+        self.input_shapes = [tuple(s) for s in input_shapes]
+        self._lock = threading.Lock()
+        self._stopped = False
+
+    def _head(self, values=None) -> List[int]:
+        from graphical_gan_tpu_torch.parallel.collectives import broadcast
+        head = torch.tensor(values or [0, 0, 0], dtype=torch.int64)
+        return broadcast(head, self.mesh.host).tolist()
+
+    def _run(self, seed: int, inputs: List[torch.Tensor]) -> torch.Tensor:
+        from graphical_gan_tpu_torch.parallel import context
+        from graphical_gan_tpu_torch.parallel.collectives import (
+            broadcast, gather_stack)
+        for t in inputs:
+            broadcast(t, self.mesh.world)
+        n = inputs[0].shape[0]
+        k, i = n // self.size, self.group.index
+        own = [t[i * k:(i + 1) * k] for t in inputs]
+        with context.sharding(context.Sharding(rows=self.group,
+                                               stats=self.group)), \
+                torch.inference_mode():
+            out = self.fn(self.params, seed, *own).float().contiguous()
+        rows = gather_stack(out, self.group)
+        return rows.reshape((n,) + tuple(out.shape[1:]))
+
+    def __call__(self, seed: int, *inputs: np.ndarray) -> np.ndarray:
+        n = inputs[0].shape[0]
+        if n % self.size:
+            raise ValueError(f"a dispatch of {n} rows does not divide over "
+                             f"{self.size} ranks")
+        with self._lock:
+            self._head([1, int(seed), n])
+            ts = [torch.tensor(a, dtype=torch.float32,
+                               device=self.mesh.device) for a in inputs]
+            return self._run(int(seed), ts).cpu().numpy()
+
+    def serve(self) -> int:
+        """A rank > 0's loop: each dispatch rank 0 broadcasts, until
+        :meth:`stop`; returns the dispatches served."""
+        served = 0
+        while True:
+            go, seed, n = self._head()
+            if not go:
+                return served
+            ts = [torch.empty((n,) + shape[1:], dtype=torch.float32,
+                              device=self.mesh.device)
+                  for shape in self.input_shapes]
+            self._run(seed, ts)
+            served += 1
+
+    def stop(self) -> None:
+        """Rank 0: end the other ranks' loops (once)."""
+        if self.rank == 0:
+            with self._lock:
+                if not self._stopped:
+                    self._stopped = True
+                    self._head([0, 0, 0])
+
+
 def sampler_from_run_dir(run_dir: str, entry: str = "sampler",
                          device: Union[str, torch.device] = "cuda",
                          ckpt: Optional[str] = None,
-                         quantize: Optional[str] = None):
+                         quantize: Optional[str] = None,
+                         dp_devices: Optional[int] = None, mesh=None):
     """(call, kinds, input_shapes, identity) from a trained run directory.
 
     ``call(seed, *inputs)`` takes numpy inputs, runs the entry on
     ``device`` (``cuda`` unless the caller asks for ``cpu``; a missing card
     raises) and returns a float32 numpy array. Calls are serialized.
     ``quantize="int8"`` calibrates the sampler (seed 11) and serves it on
-    the int8 path (JAX ``serve/server.py:423-436``).
+    the int8 path (JAX ``serve/server.py:423-436``). ``dp_devices=N > 1``
+    (or a ``data`` ``mesh`` of N ranks) serves over N ranks, one process
+    each: ``call`` is then a :class:`DataParallelEntry` on every rank,
+    rank 0's to call and the others' to :meth:`~DataParallelEntry.serve`
+    (JAX ``serve/server.py:396-455``), and ``identity["dp_devices"]`` is
+    N.
     """
     from graphical_gan_tpu_torch.core.device import (
         resolve_device, set_numerics)
@@ -382,6 +493,11 @@ def sampler_from_run_dir(run_dir: str, entry: str = "sampler",
     from graphical_gan_tpu_torch.train import checkpoint as ckpt_lib
 
     dev = resolve_device(device)
+    if mesh is None and dp_devices and dp_devices > 1:
+        from graphical_gan_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(dp_devices, device=dev.type)
+    if mesh is not None:
+        dev = mesh.device
     set_numerics()
     family, cfg, model = rebuild(run_dir)
     path = ckpt or ckpt_lib.latest(run_dir)
@@ -398,6 +514,17 @@ def sampler_from_run_dir(run_dir: str, entry: str = "sampler",
         fn = quantized_entry(fn, calibrate(family, model, params, 11))
     elif quantize not in (None, "none"):
         raise ValueError(f"unknown quantize mode {quantize!r}")
+    identity = {"family": family, "entry": entry, "backend": "run_dir",
+                "output": ENTRY_OUTPUT.get(entry, "images"),
+                "checkpoint": os.path.basename(path),
+                "iteration": int(extra.get("iteration", -1)),
+                "quantization": quantize or "none", "device": str(dev),
+                "compute_dtype": cfg.compute_dtype}
+    shapes = [tuple(a.shape) for a in example]
+    if mesh is not None:
+        identity["dp_devices"] = mesh.size
+        return DataParallelEntry(fn, params, mesh, shapes), kinds, shapes, \
+            identity
     lock = threading.Lock()
 
     def call(seed: int, *inputs: np.ndarray) -> np.ndarray:
@@ -406,13 +533,7 @@ def sampler_from_run_dir(run_dir: str, entry: str = "sampler",
                   for a in inputs]
             return fn(params, seed, *ts).float().cpu().numpy()
 
-    identity = {"family": family, "entry": entry, "backend": "run_dir",
-                "output": ENTRY_OUTPUT.get(entry, "images"),
-                "checkpoint": os.path.basename(path),
-                "iteration": int(extra.get("iteration", -1)),
-                "quantization": quantize or "none", "device": str(dev),
-                "compute_dtype": cfg.compute_dtype}
-    return call, kinds, [tuple(a.shape) for a in example], identity
+    return call, kinds, shapes, identity
 
 
 def sampler_from_export(export_dir: str):
@@ -534,20 +655,26 @@ def serve_run_dir(run_dir: Optional[str] = None, entry: str = "sampler",
                   max_wait_ms: float = 5.0, host: str = "127.0.0.1",
                   port: int = 8787, warmup: bool = True,
                   quantize: Optional[str] = None,
-                  export_dir: Optional[str] = None):
+                  export_dir: Optional[str] = None,
+                  dp_devices: int = 1, mesh=None):
     """(httpd, batcher, identity, warmup_s): the server ``main`` runs, not
     yet serving, over ``run_dir`` or, given ``export_dir``, an exported
     program (which carries its entry, quantization and device); the caller
     runs ``httpd.serve_forever()`` and, at the end, ``httpd.server_close()``
-    and ``batcher.close()``."""
+    and ``batcher.close()``. With ``dp_devices`` > 1 (over ``mesh``, or
+    one made from torchrun's environment) this is rank 0's (the other
+    ranks run :func:`serve_ranks`); ``batcher.close()`` ends theirs."""
     if export_dir is not None:
+        if dp_devices > 1:
+            raise ValueError("--dp-devices applies to the run-dir backend "
+                             "(an export artifact runs where it was made)")
         call, kinds, shapes, identity = sampler_from_export(export_dir)
     else:
         call, kinds, shapes, identity = sampler_from_run_dir(
             run_dir, entry=entry, device=device, ckpt=ckpt,
-            quantize=quantize)
+            quantize=quantize, dp_devices=dp_devices, mesh=mesh)
     batcher = BatchingSampler(call, kinds, shapes, buckets=buckets,
-                              max_wait_ms=max_wait_ms)
+                              max_wait_ms=max_wait_ms, dp_devices=dp_devices)
     warmup_s = None
     try:
         if warmup:
@@ -559,6 +686,18 @@ def serve_run_dir(run_dir: Optional[str] = None, entry: str = "sampler",
         batcher.close()
         raise
     return httpd, batcher, identity, warmup_s
+
+
+def serve_ranks(run_dir: str, mesh, entry: str = "sampler",
+                device: Union[str, torch.device] = "cuda",
+                ckpt: Optional[str] = None, quantize: Optional[str] = None
+                ) -> int:
+    """A rank > 0 of a ``--dp-devices`` server: its entry, then its
+    share of every dispatch until rank 0 closes; the dispatches served."""
+    call, _, _, _ = sampler_from_run_dir(run_dir, entry=entry, device=device,
+                                         ckpt=ckpt, quantize=quantize,
+                                         mesh=mesh)
+    return call.serve()
 
 
 def main(argv=None) -> int:
@@ -593,20 +732,39 @@ def main(argv=None) -> int:
     p.add_argument("--compile-cache", default=None, metavar="DIR",
                    help="build and load the CUDA kernel library in DIR "
                         "(also GGAN_COMPILE_CACHE; the flag wins)")
+    p.add_argument("--dp-devices", type=int, default=1,
+                   help="serve over N ranks, one process each (launch with "
+                        "`torchrun --nproc-per-node N -m ...`): each "
+                        "dispatch's rows split over them, BN over the whole "
+                        "batch; run-dir backend; buckets must divide by N")
     args = p.parse_args(argv)
     if args.export_dir and (args.quantize or args.ckpt
                             or args.entry != "sampler"):
         p.error("--export-dir serves the artifact as exported; --quantize, "
                 "--ckpt and --entry belong to --run-dir")
+    if args.export_dir and args.dp_devices > 1:
+        p.error("--dp-devices applies to the run-dir backend (an export "
+                "artifact runs where it was made)")
     from graphical_gan_tpu_torch.core import compile_cache
     compile_cache.enable_compile_cache(args.compile_cache)
+    mesh = None
+    if args.dp_devices > 1:
+        import torch.distributed as dist
+        from graphical_gan_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(args.dp_devices, device=args.device)
+        if mesh.rank != 0:
+            serve_ranks(args.run_dir, mesh, entry=args.entry,
+                        device=args.device, ckpt=args.ckpt,
+                        quantize=args.quantize)
+            dist.destroy_process_group()
+            return 0
 
     httpd, batcher, identity, warmup_s = serve_run_dir(
         args.run_dir, entry=args.entry, device=args.device, ckpt=args.ckpt,
         buckets=[int(b) for b in args.buckets.split(",")],
         max_wait_ms=args.max_wait_ms, host=args.host, port=args.port,
         warmup=not args.no_warmup, quantize=args.quantize,
-        export_dir=args.export_dir)
+        export_dir=args.export_dir, dp_devices=args.dp_devices, mesh=mesh)
     if warmup_s is not None:
         print(json.dumps({"warmup_s": round(warmup_s, 3),
                           "buckets": batcher.buckets}), flush=True)

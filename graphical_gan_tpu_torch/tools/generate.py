@@ -13,8 +13,8 @@ disentanglement montages and GIFs of its hook (``runs/ssgan.py:
 make_eval_hook``). The reconstruction (and ssgan's whole hook) needs a dev
 batch from the family's loaders (synthetic where the files are absent);
 ``--no-data`` skips it, which ssgan refuses. Runs restore from npz
-checkpoints; the orbax format and the pipeline-parallel packed layout come
-in later slices.
+checkpoints, sharded ``.orbax`` directories and pipeline runs' packed
+rows at any stage count (:func:`restore_params`).
 """
 
 from __future__ import annotations
@@ -69,23 +69,34 @@ def rebuild(run_dir: str) -> Tuple[str, object, object]:
 def restore_params(model, ckpt_path: str,
                    device: Union[str, torch.device] = "cuda"
                    ) -> Tuple[Dict[str, torch.Tensor], Dict]:
-    """(params on ``device``, extra) from an npz checkpoint written by the
-    JAX trainer (a whole TrainState) or by ``save_params``. Every parameter
-    the model has must be there with its shape."""
-    flat, extra = ckpt_lib.load_raw(ckpt_path)
-    if "k:packed" in flat:
-        raise NotImplementedError(
-            f"{ckpt_path!r} holds a pipeline-parallel packed state; the port "
-            "reads the standard layout (pp comes in a later slice)")
-    raw = ckpt_lib.params_of(flat)
-    for name, (_, shape, _) in model.param_specs().items():
-        if name not in raw:
+    """(params on ``device``, extra) from any checkpoint either package's
+    trainers write (JAX ``:97-118``): a whole TrainState or ``save_params``'
+    npz, a sharded ``.orbax`` directory, or a pipeline run's packed rows
+    at any stage count (``parallel/pipeline.py: restore_pp_params``).
+    Every parameter the model has must be there with its shape."""
+    from graphical_gan_tpu_torch.core.device import resolve_device
+    dev = resolve_device(device)
+    shapes = ckpt_lib.leaf_shapes(ckpt_path)
+    if "k:packed" in shapes:
+        from graphical_gan_tpu_torch.parallel import pipeline as pp
+        return pp.restore_pp_params(model, ckpt_path, dev)
+    specs = model.param_specs()
+    for name, (_, shape, _) in specs.items():
+        key = ckpt_lib.PARAMS_PREFIX + name
+        if key not in shapes:
             raise KeyError(f"checkpoint {ckpt_path!r} has no parameter "
                            f"{name!r}")
-        if tuple(np.shape(raw[name])) != tuple(shape):
+        if tuple(shapes[key]) != tuple(shape):
             raise ValueError(f"shape mismatch for {name!r}: checkpoint "
-                             f"{np.shape(raw[name])} vs model {shape}")
-    return ckpt_lib.params_from_jax(raw, device), extra
+                             f"{shapes[key]} vs model {shape}")
+    if ckpt_lib.is_orbax(ckpt_path):
+        from graphical_gan_tpu_torch.train import checkpoint_orbax
+        keys = [ckpt_lib.PARAMS_PREFIX + n for n in specs]
+        got = checkpoint_orbax.read_leaves(ckpt_path, keys)
+        return ({n: got[ckpt_lib.PARAMS_PREFIX + n].to(dev) for n in specs},
+                checkpoint_orbax.read_extra(ckpt_path))
+    flat, extra = ckpt_lib.load_raw(ckpt_path)
+    return ckpt_lib.params_from_jax(ckpt_lib.params_of(flat), dev), extra
 
 
 class _Shim:

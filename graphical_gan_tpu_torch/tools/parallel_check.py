@@ -29,9 +29,38 @@ so the ranks load it and none builds it):
    collectives gloo takes on the ranks' tensors (``all_gather``,
    ``reduce_scatter``, ``all_to_all``, ``barrier``) are reported.
 
+   In both runs the tp strategy also saves its state mid-run through the
+   sharded checkpoint backend (``train/checkpoint_orbax.py``: each rank
+   writes its slices), restores and places it, and the resumed iteration
+   must equal the uninterrupted one bit for bit
+   (``sharded_resume_bit_identical``);
+3. ``pp``: 2 gloo ranks on ``cuda:0``, one pipeline stage each
+   (``parallel/pipeline.py``, 4 microbatches, GMGAN's batch of 50 in 5):
+   cifar10 wali-gp and GMGAN mnist local_ep at the published widths, 2
+   iterations, held to the
+   one-process staged step (``make_staged_reference_step``) as the
+   strategies of run 2 are held to theirs; each rank's launches (set to
+   0 just before the pipelines run), the seconds of the 2 iterations and
+   of 2 more (warm) and each rank's bubble share in both (the seconds it
+   waited at its boundaries over its steps' seconds, beside GPipe's
+   (S-1)/(M+S-1)). Rank 0 also
+   converts the one-device step's state to the packed state and back,
+   and a packed state to the standard one and back: bit for bit
+   (``migration``);
+4. ``pp4``: the same on 4 gloo ranks, the 4-stage cut of cifar10 ali;
+5. ``serve``: the server's ``--dp-devices 2`` (``serve/server.py:
+   DataParallelEntry``) on 2 gloo ranks on ``cuda:0``, a cifar10 wali-gp
+   run directory at the published width: one bucket-64 dispatch, float
+   and int8, against the one-rank server's (float within DP_SERVE_ATOL;
+   int8 within it at all but DP_SERVE_INT8_SHARE of the elements, where
+   a merged statistic may move a value across an int8 rounding step),
+   rank 0's launches of the dispatch (K2a's split mode, no one-launch
+   K2a) and both servers' ms per dispatch.
+
 Each run prints one JSON line; ``--out`` also writes them as one JSON
-document. Exits nonzero if a check fails. Runs on ``cuda`` unless
-``--device cpu``; without a card it raises.
+document; ``--runs`` picks runs (default all). Exits nonzero if a check
+fails. Runs on ``cuda`` unless ``--device cpu``; without a card it
+raises.
 """
 
 from __future__ import annotations
@@ -61,6 +90,25 @@ RANK_CASES = (("dp", "gan", "cifar10", "wali-gp", ("data",)),
 WORLD1_CASES = RANK_CASES + (
     ("composed", "gan", "cifar10", "wali-gp", ("data", "model")),)
 ITERS = 2
+# the pipeline's cases (family, dataset, mode) per stage count, and its
+# microbatches
+PP_CASES = {2: (("gan", "cifar10", "wali-gp"), ("gmgan", "mnist",
+                                                 "local_ep")),
+            4: (("gan", "cifar10", "ali"),)}
+MICROBATCHES = (4, 5, 2)
+
+
+def microbatches(batch_size: int) -> int:
+    """The pipeline's microbatch count: 4 (JAX's default) where it divides
+    the batch, else the first of 5 and 2 that does (GMGAN mnist's
+    published batch is 50)."""
+    return next((m for m in MICROBATCHES if batch_size % m == 0), 1)
+RUNS = ("world1", "ranks", "pp", "pp4", "serve")
+# the dp server against the one-rank one: float outputs (tanh, in
+# [-1, 1]) within this; int8 outputs too, but for this share of the
+# elements
+DP_SERVE_ATOL = 1e-5
+DP_SERVE_INT8_SHARE = 1e-3
 
 
 def _free_port() -> int:
@@ -75,7 +123,7 @@ def _overrides(family: str, small: bool) -> Dict:
                                 if small else {}))
     if not small:
         return {}
-    kw = dict(dim=8, batch_size=4)
+    kw = dict(dim=8, batch_size=8)
     if family == "gmgan":
         kw["n_coms"] = 6
     return kw
@@ -311,6 +359,16 @@ def rank_main(rank: int, world: int, job: Dict) -> Dict:
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=job["init"], rank=rank,
                             world_size=world)
+    if job["run"] in ("pp", "pp4"):
+        try:
+            return _pp_main(rank, world, job, device)
+        finally:
+            dist.destroy_process_group()
+    if job["run"] == "serve":
+        try:
+            return _serve_main(rank, world, job, device)
+        finally:
+            dist.destroy_process_group()
     result = {"run": job["run"], "backend": backend, "world": world,
               "cases": []}
     try:
@@ -372,6 +430,9 @@ def rank_main(rank: int, world: int, job: Dict) -> Dict:
                         {k.split("/", 1)[1]: v for k, v in init.items()},
                         rec["sign_flips"])
                 rec["costs"] = costs
+            if strategy == "tp":
+                rec["sharded_resume_bit_identical"] = _sharded_resume(
+                    model, mesh, device, job["tmp"])
             result["cases"].append(rec)
         result["launches"] = launches
         return result
@@ -379,12 +440,211 @@ def rank_main(rank: int, world: int, job: Dict) -> Dict:
         dist.destroy_process_group()
 
 
+def _sharded_resume(model, mesh, device, tmp: str) -> bool:
+    """tp for 1 iteration, its state saved through the sharded backend
+    (each rank its slices), then iteration 1 from the live state and from
+    the restored and placed one: the same bits?"""
+    from graphical_gan_tpu_torch.train import checkpoint_orbax
+    from graphical_gan_tpu_torch.train.trainer import parallel_factory
+    step, init_state, place, gather = parallel_factory(model, mesh, "tp")
+    gen = torch.Generator(device=device)
+
+    def iterate(state, it):
+        gen.manual_seed((7 << 32) + it)
+        return step(state, _raw(model, it, device), it > 0, gen)[0]
+
+    state = iterate(place(init_state(model.init(0, device))), 0)
+    path = os.path.join(tmp, f"tp_{model.cfg.dataset}.orbax")
+    checkpoint_orbax.save(path, state, {"iteration": 0},
+                          step.shard_spec(state))
+    live = _leaves(gather(iterate(state, 1)))
+    full, extra = checkpoint_orbax.restore(
+        path, init_state(model.init(0, device)))
+    resumed = _leaves(gather(iterate(place(full), 1)))
+    return extra == {"iteration": 0} and all(
+        torch.equal(live[k], resumed[k]) for k in live)
+
+
+def _pp_misses_of(model, costs, ref_costs, full, ref, init):
+    """:func:`_misses` of a pipeline run's full state against the staged
+    reference's, both unpacked into the standard layout."""
+    from graphical_gan_tpu_torch.parallel import pipeline as pp
+    from graphical_gan_tpu_torch.train.step import make_train_step
+    std_init = make_train_step(model)[1]
+    return _misses(model, costs, ref_costs,
+                   pp.train_state_from_pp_state(model, full, std_init),
+                   pp.train_state_from_pp_state(model, ref, std_init),
+                   init, {})
+
+
+def _migration(model, device) -> Dict[str, bool]:
+    """The one-device step's state (2 iterations: both players' moments
+    and counts) packed and unpacked again at 2 stages, and a packed state
+    unpacked and packed again: bit for bit?"""
+    from graphical_gan_tpu_torch.parallel import pipeline as pp
+    from graphical_gan_tpu_torch.train.step import make_train_step
+    std_init = make_train_step(model)[1]
+    ts, _ = _reference(model, device)
+    packed = pp.pp_state_from_train_state(model, ts, 2)
+    back = pp.train_state_from_pp_state(model, packed, std_init)
+    a, b = _leaves(ts), _leaves(back)
+    to_pp = all(torch.equal(a[k], b[k]) for k in a) \
+        and ts.step == back.step \
+        and all(int(getattr(ts, f)["t"]) == int(getattr(back, f)["t"])
+                for f in ("gen_opt", "disc_opt"))
+    again = pp.pp_state_from_train_state(model, back, 2)
+    to_std = all(torch.equal(packed[k], again[k])
+                 for k in ("packed", "m", "v", "t"))
+    return {"standard_pp_standard": bool(to_pp),
+            "pp_standard_pp": bool(to_std)}
+
+
+def _pp_main(rank: int, world: int, job: Dict, device) -> Dict:
+    """One rank of a pipeline run: the cases of ``PP_CASES[world]``."""
+    from graphical_gan_tpu_torch.ops import kernels
+    from graphical_gan_tpu_torch.parallel import make_mesh
+    from graphical_gan_tpu_torch.parallel import pipeline as pp
+    small = job["small"]
+    cases = [_model(*c, small) for c in PP_CASES[world]]
+    refs = []
+    result = {"run": job["run"], "backend": "gloo", "world": world,
+              "cases": []}
+    if rank == 0:  # the staged references, before any counting
+        for model in cases:
+            step, init = pp.make_staged_reference_step(
+                model, microbatches=microbatches(model.cfg.batch_size),
+                n_stages=world)
+            state, costs = _run(step, init(model.init(0, device)), model,
+                                device)
+            refs.append((state, costs))
+        if world == 2:
+            result["migration"] = {
+                m.cfg.dataset: _migration(m, device) for m in cases}
+    kernels.reset_launches()
+    runs = []
+    for model in cases:
+        mesh = make_mesh(shape=(world,), axis_names=("stage",),
+                         device=device.type, devices=[device] * world,
+                         backend="gloo")
+        m = microbatches(model.cfg.batch_size)
+        step, init, place, read = pp.make_pp_train_step(
+            model, mesh, microbatches=m)
+        state = place(init(model.init(0, device)))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state, costs = _run(step, state, model, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        secs = time.perf_counter() - t0
+        runs.append((model, step, step.gather_state(state), costs, secs, m,
+                     state))
+    result["launches"] = {**kernels.launches(), **kernels.split_launches()}
+    for i, (model, step, full, costs, secs, m, state) in enumerate(runs):
+        clock = step.clock
+        rec = {"dataset": model.cfg.dataset, "mode": model.cfg.mode,
+               "batch_size": model.cfg.batch_size, "dim": model.cfg.dim,
+               "critic_iters": model.cfg.critic_iters,
+               "microbatches": m, "stages": world,
+               "seconds": secs, "wait_seconds": clock.wait,
+               "bubble_share": clock.wait / max(clock.total, 1e-9),
+               "gpipe_bubble": (world - 1) / (m + world - 1),
+               "row": step.stage}
+        # 2 iterations more, warm: the seconds and the bubble of a
+        # pipeline whose kernels and plans are all made
+        clock.wait = clock.total = 0.0
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        _run(step, state, model, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        rec.update(warm_seconds=time.perf_counter() - t0,
+                   warm_wait_seconds=clock.wait,
+                   warm_bubble_share=clock.wait / max(clock.total, 1e-9))
+        if rank == 0:
+            ref_state, ref_costs = refs[i]
+            rec["misses"] = _pp_misses_of(
+                model, costs, ref_costs, full, ref_state,
+                {n: v for n, v in model.init(0, device).items()})
+            rec["costs"] = costs
+            rec["t"] = full["t"].tolist()
+        result["cases"].append(rec)
+    return result
+
+
+def write_run_dir(path: str, small: bool) -> str:
+    """A cifar10 wali-gp run directory (the published width, or
+    ``small``'s) of the seed-0 parameters, for the ``serve`` run."""
+    from graphical_gan_tpu_torch.core.config import asdict
+    from graphical_gan_tpu_torch.train import checkpoint
+    model = _model("gan", "cifar10", "wali-gp", small)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(asdict(model.cfg), f)
+    checkpoint.save_params(os.path.join(path, "ckpt_0.npz"),
+                           model.init(0, "cpu"), {"iteration": 0})
+    return path
+
+
+def _serve_main(rank: int, world: int, job: Dict, device) -> Dict:
+    """One rank of the dp server run: per quantization, rank 0 times the
+    one-rank server and the dp one on one bucket of seeded latents and
+    compares them; the other ranks serve."""
+    from graphical_gan_tpu_torch.ops import kernels
+    from graphical_gan_tpu_torch.parallel import make_mesh
+    from graphical_gan_tpu_torch.serve.server import sampler_from_run_dir
+    mesh = make_mesh(shape=(world,), axis_names=("data",),
+                     device=device.type, devices=[device] * world,
+                     backend="gloo")
+    bucket = 8 if job["small"] else 64
+    result = {"run": "serve", "backend": "gloo", "world": world,
+              "bucket": bucket, "cases": []}
+
+    def timed(call, z, n=5):
+        call(3, z)  # warm
+        t0 = time.perf_counter()
+        for _ in range(n):
+            out = call(3, z)
+        return out, (time.perf_counter() - t0) / n * 1e3
+
+    for q in (None, "int8"):
+        call, _, shapes, ident = sampler_from_run_dir(
+            job["run_dir"], device=device, quantize=q, mesh=mesh)
+        if rank:
+            result["cases"].append({"quantize": q, "served": call.serve()})
+            continue
+        z = np.random.RandomState(5).randn(
+            bucket, shapes[0][1]).astype(np.float32)
+        one, _, _, _ = sampler_from_run_dir(job["run_dir"], device=device,
+                                            quantize=q)
+        want, one_ms = timed(one, z)
+        call(3, z)  # warm
+        kernels.reset_launches()
+        got = call(3, z)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        launches = {**kernels.launches(), **kernels.split_launches()}
+        got, dp_ms = timed(call, z)
+        call.stop()
+        diff = np.abs(got - want)
+        result["cases"].append({
+            "quantize": q, "dp_devices": ident.get("dp_devices"),
+            "max_abs_err": float(diff.max()),
+            "over_atol_share": float((diff > DP_SERVE_ATOL).mean()),
+            "one_rank_ms": one_ms, "dp_ms": dp_ms, "launches": launches,
+            "shape": list(got.shape)})
+    return result
+
+
 def _spawn(run: str, world: int, device: str, small: bool,
            timeout: float) -> List[Dict]:
     """The ranks of ``run`` in processes of their own; their results."""
     with tempfile.TemporaryDirectory() as tmp:
-        job = {"run": run, "device": device, "small": small,
+        job = {"run": run, "device": device, "small": small, "tmp": tmp,
                "init": f"tcp://localhost:{_free_port()}"}
+        if run == "serve":
+            job["run_dir"] = write_run_dir(os.path.join(tmp, "run"), small)
         procs = []
         for rank in range(world):
             out = os.path.join(tmp, f"rank{rank}.json")
@@ -417,24 +677,91 @@ def _spawn(run: str, world: int, device: str, small: bool,
         return [json.load(open(out)) for _, out in procs]
 
 
-def misses_of(world1: Dict, ranks: Dict, device: str = "cuda"
-              ) -> List[str]:
-    """What the two runs' rank-0 results miss of the checks (on the CPU
-    the split kernels run their plain versions: no launches)."""
+K1 = "fused_conv2d_bias_act"
+K2 = ("bn_stats", "bn_apply", "bn_bwd")
+SPLIT = ("bn_stats_local", "bn_stats_merge", "bn_bwd_reduce",
+         "bn_bwd_apply")
+# the ranks of a pipeline run that hold convolutions (K1) and the BNs of
+# E and G (K2a, K2b, K2c+K2d at one launch): by stage count
+PP_K1_RANKS = {2: (0, 1), 4: (0, 1, 2)}
+PP_K2_RANKS = {2: (0,), 4: (0, 1)}
+
+
+def misses_of(doc: Dict, device: str = "cuda") -> List[str]:
+    """What the runs' results miss of the checks (on the CPU the kernels
+    run their plain versions: no launches are counted)."""
     out = []
-    for rec in world1["cases"]:
+    card = device != "cpu"
+    world1, ranks = doc.get("world1"), doc.get("ranks")
+    for rec in (world1 or {}).get("cases", []):
         if not rec.get("bit_identical"):
             out.append(f"world1 {rec['strategy']}: not bit-identical to the "
                        "one-device step")
-    for rec in ranks["cases"]:
+    for name, run in (("world1", world1), ("ranks", ranks)):
+        for rec in (run or {}).get("cases", []):
+            if rec["strategy"] == "tp" \
+                    and not rec.get("sharded_resume_bit_identical"):
+                out.append(f"{name} tp: the sharded checkpoint's resume "
+                           "differs from the uninterrupted run")
+    for rec in (ranks or {}).get("cases", []):
         if rec.get("misses"):
             out.append(f"ranks {rec['strategy']}: {rec['misses'][:5]}")
         if not rec["replicas_bit_identical"]:
             out.append(f"ranks {rec['strategy']}: replicas differ")
-    for name in ("bn_stats_local", "bn_stats_merge", "bn_bwd_reduce",
-                 "bn_bwd_apply"):
-        if device != "cpu" and not ranks["launches"].get(name):
-            out.append(f"ranks: {name} never launched")
+    if ranks is not None:
+        for name in SPLIT:
+            if card and not ranks["launches"].get(name):
+                out.append(f"ranks: {name} never launched")
+    for run in ("pp", "pp4"):
+        res = doc.get(run)
+        if res is None:
+            continue
+        world = len(res)
+        for rec in res[0]["cases"]:
+            if rec["misses"]:
+                out.append(f"{run} {rec['dataset']} {rec['mode']}: "
+                           f"{rec['misses'][:5]}")
+        for data, checks in res[0].get("migration", {}).items():
+            for what, ok in checks.items():
+                if not ok:
+                    out.append(f"{run} migration {data} {what}: not bit "
+                               "for bit")
+        if not card:
+            continue
+        for rank, r in enumerate(res):
+            got = r["launches"]
+            want = ([K1] if rank in PP_K1_RANKS[world] else []) + \
+                (list(K2) if rank in PP_K2_RANKS[world] else [])
+            missing = [k for k in want if not got.get(k)]
+            if missing:
+                out.append(f"{run} rank {rank}: {missing} never launched")
+            split = [k for k in SPLIT if got.get(k)]
+            if split:
+                out.append(f"{run} rank {rank}: split kernels {split} "
+                           "launched (microbatch statistics are one "
+                           "rank's)")
+    serve = doc.get("serve")
+    if serve is not None:
+        for rec in serve[0]["cases"]:
+            q = rec["quantize"]
+            if q is None and rec["max_abs_err"] > DP_SERVE_ATOL:
+                out.append(f"serve float: {rec['max_abs_err']} over "
+                           f"{DP_SERVE_ATOL}")
+            if q == "int8" and rec["over_atol_share"] > DP_SERVE_INT8_SHARE:
+                out.append(f"serve int8: {rec['over_atol_share']} of the "
+                           f"elements over {DP_SERVE_ATOL}")
+            if card:
+                got = rec["launches"]
+                want = ["bn_stats_local", "bn_stats_merge"] + (
+                    ["bn_apply_q8"] if q == "int8" else ["bn_apply"])
+                missing = [k for k in want if not got.get(k)]
+                if missing or got.get("bn_stats"):
+                    out.append(f"serve {q}: {missing} never launched, "
+                               f"bn_stats {got.get('bn_stats')}")
+        served = [c["served"] for c in serve[1]["cases"]]
+        # the counted dispatch and its warm-up, 5 timed and theirs
+        if served != [8, 8]:
+            out.append(f"serve: rank 1 served {served} dispatches")
     return out
 
 
@@ -445,8 +772,14 @@ def main(argv=None) -> Dict:
     p.add_argument("--small", action="store_true",
                    help="narrow widths and small batches (the CPU)")
     p.add_argument("--timeout", type=float, default=600.0)
+    p.add_argument("--runs", default=",".join(RUNS),
+                   help=f"the runs to make, of {','.join(RUNS)}")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
+    runs = [r for r in args.runs.split(",") if r]
+    unknown = set(runs) - set(RUNS)
+    if unknown:
+        p.error(f"unknown runs {sorted(unknown)}")
     from graphical_gan_tpu_torch.core.device import resolve_device
     dev = resolve_device(args.device)
     if dev.type == "cuda":
@@ -455,12 +788,18 @@ def main(argv=None) -> Dict:
         device = "cuda:0"
     else:
         device = "cpu"
-    world1 = _spawn("world1", 1, device, args.small, args.timeout)[0]
-    print(json.dumps(world1), flush=True)
-    ranks = _spawn("ranks", args.ranks, device, args.small, args.timeout)
-    print(json.dumps(ranks[0]), flush=True)
-    doc = {"world1": world1, "ranks": ranks[0],
-           "misses": misses_of(world1, ranks[0], device)}
+    worlds = {"world1": 1, "ranks": args.ranks, "pp": 2, "pp4": 4,
+              "serve": 2}
+    doc = {}
+    for run in RUNS:
+        if run not in runs:
+            continue
+        t0 = time.perf_counter()
+        res = _spawn(run, worlds[run], device, args.small, args.timeout)
+        print(json.dumps(dict(res[0], run_seconds=time.perf_counter() - t0)),
+              flush=True)
+        doc[run] = res[0] if run in ("world1", "ranks") else res
+    doc["misses"] = misses_of(doc, device)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(doc, f)

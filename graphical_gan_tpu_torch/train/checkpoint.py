@@ -20,8 +20,12 @@ parameters held in slices) is gathered whole on every rank and written
 by rank 0 in this same layout, and a resume reads the npz and cuts each
 rank's slices again (``parallel/mesh.py: make_sharded_step``'s
 ``gather_state`` and ``place``; ``train/trainer.py``), so a JAX npz
-still loads into a sharded run. The orbax and pipeline-parallel layouts
-come in a later slice.
+still loads into a sharded run. A pipeline run's state (``parallel/
+pipeline.py``, a dict ``{packed, m, v, t, step}``) goes under JAX's keys
+of a dict, ``k:packed`` and so on. :func:`save_state` and
+:func:`restore_state` take either state and dispatch on the path: a
+``ckpt_<step>.orbax`` directory is the sharded backend
+(``train/checkpoint_orbax.py``), anything else the npz file.
 """
 
 from __future__ import annotations
@@ -46,11 +50,13 @@ def is_orbax(path: str) -> bool:
 
 def load_raw(path: str) -> Tuple[Dict[str, np.ndarray], Dict]:
     """The flat ``{keypath: array}`` dict of an npz checkpoint and its
-    ``extra`` metadata."""
+    ``extra`` metadata (npz only: a sharded directory is read by
+    structure, :func:`restore`, or its keys by :func:`leaf_shapes`)."""
     if is_orbax(path):
-        raise NotImplementedError(
-            f"{path!r} is an orbax checkpoint; the port reads the npz format "
-            "(orbax comes in a later slice)")
+        raise ValueError(
+            f"{path!r} is an orbax (sharded) checkpoint; raw keypath "
+            "inspection reads the npz format: restore it by structure, or "
+            "list its leaves with leaf_shapes")
     with np.load(path, allow_pickle=False) as data:
         header = json.loads(str(data["__header__"]))
         flat = {k: data[k] for k in data.files if k != "__header__"}
@@ -258,8 +264,15 @@ def _flatten(tree: Any, prefix: str, out: Dict[str, Any]) -> None:
 
 
 def state_leaves(state) -> Dict[str, Any]:
-    """``{keypath: leaf}`` of a TrainState (``step`` as an int32 scalar)."""
+    """``{keypath: leaf}`` of a TrainState, or of a dict state (a
+    pipeline run's, ``k:<field>``); ``step`` as an int32 scalar."""
     out: Dict[str, Any] = {}
+    if isinstance(state, dict):
+        for field, value in state.items():
+            if field == "step":
+                value = torch.tensor(int(value), dtype=torch.int32)
+            _flatten(value, f"k:{field}", out)
+        return out
     for field in _FIELDS:
         value = getattr(state, field)
         if field == "step":
@@ -268,9 +281,35 @@ def state_leaves(state) -> Dict[str, Any]:
     return out
 
 
+def unflatten_like(leaves: Dict[str, Any], like):
+    """The state of ``like``'s kind from its ``{keypath: leaf}``."""
+    if not isinstance(like, dict):
+        return _unflatten(leaves)
+    out: Dict[str, Any] = {}
+    for key, leaf in leaves.items():
+        parts = [p[len("k:"):] for p in key.split(SEP)]
+        node = out
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+    if "step" in out:
+        out["step"] = int(out["step"])
+    return out
+
+
+def leaf_shapes(path: str) -> Dict[str, Tuple[int, ...]]:
+    """keypath -> shape of every leaf of a checkpoint, npz or sharded."""
+    if is_orbax(path):
+        from graphical_gan_tpu_torch.train import checkpoint_orbax
+        return checkpoint_orbax.leaf_shapes(path)
+    with np.load(path, allow_pickle=False) as data:
+        return {k: tuple(data[k].shape) for k in data.files
+                if k != "__header__"}
+
+
 def _unflatten(leaves: Dict[str, Any]):
     from graphical_gan_tpu_torch.train.step import TrainState
-    top: Dict[str, Any] = {"disc_opt": {}}
+    top: Dict[str, Any] = {"gen_opt": {}, "disc_opt": {}}
     for key, leaf in leaves.items():
         parts = key.split(SEP)
         field = parts[0][len("n:"):]
@@ -286,15 +325,25 @@ def _unflatten(leaves: Dict[str, Any]):
 
 
 def save_state(path: str, state, extra: Optional[Dict] = None) -> str:
-    """Atomically write a whole TrainState in the JAX npz format."""
+    """Atomically write a whole TrainState (or a pipeline state) in the
+    JAX npz format, or through the sharded backend for a ``.orbax`` path
+    (in a process group every rank calls it)."""
+    if is_orbax(path):
+        from graphical_gan_tpu_torch.train import checkpoint_orbax
+        return checkpoint_orbax.save(path, state, extra)
     return _save_flat(path, {k: _to_numpy(t)
                              for k, t in state_leaves(state).items()}, extra)
 
 
 def restore_state(path: str, like) -> Tuple[Any, Dict]:
-    """(TrainState, extra) from an npz checkpoint of either trainer, into
-    the structure of ``like``: every leaf of ``like`` must be there with its
-    shape; each comes back on the device and in the dtype of ``like``'s."""
+    """(state, extra) from a checkpoint of either trainer, into the
+    structure of ``like`` (a TrainState or a pipeline state): every leaf
+    of ``like`` must be there with its shape; each comes back on the
+    device and in the dtype of ``like``'s. A ``.orbax`` directory reads
+    through ``train/checkpoint_orbax.py``."""
+    if is_orbax(path):
+        from graphical_gan_tpu_torch.train import checkpoint_orbax
+        return checkpoint_orbax.restore(path, like)
     flat, extra = load_raw(path)
     leaves = {}
     for key, ref in state_leaves(like).items():
@@ -305,7 +354,7 @@ def restore_state(path: str, like) -> Tuple[Any, Dict]:
             raise ValueError(f"shape mismatch for {key!r}: checkpoint "
                              f"{arr.shape} vs state {tuple(ref.shape)}")
         leaves[key] = _to_tensor(arr, ref.device).to(ref.dtype)
-    return _unflatten(leaves), extra
+    return unflatten_like(leaves, like), extra
 
 
 def state_from_jax(jax_state, device: Union[str, torch.device] = "cuda"):

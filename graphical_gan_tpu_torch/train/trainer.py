@@ -66,9 +66,12 @@ Failure handling (JAX ``train/trainer.py:45-66, 229-330, 365-420,
 Parallel training (``mesh=``, ``parallel=``; JAX ``train/trainer.py:
 97-175``): one Trainer per rank, each on its rank's device, over a
 ``parallel/mesh.py: Mesh``, with JAX's strategies ``dp``, ``tp``, ``sp``,
-``ep`` and ``composed`` (pipeline parallelism comes in a later slice).
-Every rank draws the iteration's global batch and noise from the one seed
-and the strategy's step keeps its rows (``parallel/mesh.py``). Rank 0
+``ep``, ``composed`` and ``pp`` (``parallel/pipeline.py``: a ``stage``
+axis of 2 or 4 ranks; its state is the packed ``{packed, m, v, t,
+step}``, which ``read_params`` unpacks for the hooks and the parameter
+count; no ``lr_scale``). Every rank draws the iteration's global batch
+and noise from the one seed and the strategy's step keeps its rows
+(``parallel/mesh.py``; pp's stage 0 takes the batch). Rank 0
 alone logs, plots, runs the dev sweep and the eval hooks (on the full
 parameters, which every rank gathers first) and writes checkpoints (the
 full state, gathered on every rank first, also for the async writer, so a
@@ -82,9 +85,22 @@ same iteration. These agreements and the barriers run over the mesh's
 host group (gloo on CPU tensors), so the per-iteration preemption check
 syncs no device.
 
-Left for later slices: orbax checkpoints, pipeline parallelism and
-multi-iteration dispatch (in the port, a CUDA graph over several
-iterations).
+Checkpoints (JAX ``train/trainer.py:215-226, 394-470``):
+``checkpoint_backend="npz"`` (default) writes ``ckpt_<iter>.npz`` of the
+full state from rank 0; ``"orbax"`` writes ``ckpt_<iter>.orbax``
+directories in which every rank writes its own part, the slices it holds
+(``train/checkpoint_orbax.py``; synchronous, also with
+``async_checkpoint``). Both formats may lie in one run directory: a
+resume takes the latest of either and reads it into the full state,
+which ``place`` cuts for the run's layout, so a run resumes under another
+strategy or backend. A pipeline checkpoint and a standard one convert
+into each other (``parallel/pipeline.py: pp_state_from_train_state``,
+``train_state_from_pp_state``): a dp, tp or one-device run resumes under
+pp at 2 or 4 stages, a pp run resumes unsharded or at another stage
+count.
+
+Left for later slices: multi-iteration dispatch (in the port, a CUDA
+graph over several iterations).
 """
 
 from __future__ import annotations
@@ -132,12 +148,14 @@ class _PreemptStop(Exception):
         self.metrics = dict(metrics)
 
 
-PARALLEL_CHOICES = ("dp", "tp", "sp", "ep", "composed")
+PARALLEL_CHOICES = ("dp", "tp", "sp", "ep", "composed", "pp")
 
 
 def parallel_factory(model, mesh, parallel: str, lr_scale=None):
     """``(step, init_state, place, gather_state)`` of strategy ``parallel``
-    over ``mesh`` (JAX ``train/trainer.py:135-172``)."""
+    over ``mesh`` (JAX ``train/trainer.py:135-172``); for ``pp``
+    ``(step, init_state, place, read_params)``, its ``gather_state``
+    being ``step.gather_state``."""
     from graphical_gan_tpu_torch import parallel as par
     if parallel == "dp":
         return par.make_parallel_train_step(model, mesh, lr_scale)
@@ -154,8 +172,10 @@ def parallel_factory(model, mesh, parallel: str, lr_scale=None):
             model_axis="model" if "model" in mesh.shape else None,
             lr_scale=lr_scale)
     if parallel == "pp":
-        raise NotImplementedError("--parallel pp (pipeline parallelism) "
-                                  "comes in a later slice")
+        if lr_scale is not None:
+            raise NotImplementedError(
+                "pipeline parallelism does not support lr_scale")
+        return par.make_pp_train_step(model, mesh)
     raise ValueError(f"unknown parallel strategy {parallel!r}")
 
 
@@ -238,10 +258,15 @@ class Trainer:
                  checkpoints_to_keep: int = 3, max_rollbacks: int = 0,
                  async_checkpoint: Optional[bool] = None,
                  render_curves: Optional[bool] = None,
-                 mesh=None, parallel: str = "dp"):
+                 mesh=None, parallel: str = "dp",
+                 checkpoint_backend: str = "npz"):
         if resident_data is None and train_gen_factory is None:
             raise ValueError("the Trainer needs resident_data or, for the "
                              "host-fed path, train_gen_factory")
+        if checkpoint_backend not in ("npz", "orbax"):
+            raise ValueError(f"unknown checkpoint_backend "
+                             f"{checkpoint_backend!r} (npz|orbax)")
+        self.checkpoint_backend = checkpoint_backend
         self.model = model
         self.cfg = model.cfg
         self.mesh = mesh
@@ -258,9 +283,16 @@ class Trainer:
         self.seed = int(seed)
         self.checkpoint_every = checkpoint_every
         self.k = self.cfg.critic_iters
+        # the name-keyed parameters of a (full) state: pp unpacks its rows
+        self._read_params = lambda state: state.params
         if mesh is None:
             self.step_fn, self.init_state = make_train_step(model, lr_scale)
             self._place = self._gather = lambda state: state
+        elif self.parallel == "pp":
+            self.step_fn, self.init_state, self._place, \
+                self._read_params = parallel_factory(model, mesh, "pp",
+                                                     lr_scale)
+            self._gather = self.step_fn.gather_state
         else:
             self.step_fn, self.init_state, self._place, self._gather = \
                 parallel_factory(model, mesh, parallel, lr_scale)
@@ -319,7 +351,7 @@ class Trainer:
         a mesh the full ones rank 0 holds while its hooks run."""
         if self._full_params is not None:
             return self._full_params
-        return self.state.params
+        return self._read_params(self.state)
 
     # -- ranks --------------------------------------------------------------
 
@@ -375,7 +407,7 @@ class Trainer:
         if self.mesh is None:
             fn()
             return
-        params = self._full_state().params if full else None
+        params = self._read_params(self._full_state()) if full else None
         if self.rank0:
             self._full_params = params
             try:
@@ -443,7 +475,10 @@ class Trainer:
         extra = {"iteration": iteration, "seed": self.seed,
                  "rng_count": iteration + 1, "rng_salt": self._salt,
                  "rng_salt_high": max(self._salt_high, self._salt)}
-        path = os.path.join(self.outf, f"ckpt_{iteration}.npz")
+        path = os.path.join(self.outf,
+                            f"ckpt_{iteration}.{self.checkpoint_backend}")
+        if self.checkpoint_backend == "orbax":
+            return self._save_sharded(path, extra)
         # a sharded state is gathered on every rank, and rank 0 writes it
         state = self._full_state()
         if self._ckpt_writer is not None:
@@ -455,6 +490,20 @@ class Trainer:
         if self.rank0:
             ckpt_lib.save_state(path, state, extra)
             self._gc_checkpoints()
+        self._barrier()
+        return path
+
+    def _save_sharded(self, path: str, extra: Dict) -> str:
+        """Every rank writes its part of the state into the ``.orbax``
+        directory (the slices it holds, ``step.shard_spec``); synchronous,
+        after any npz write in flight."""
+        from graphical_gan_tpu_torch.train import checkpoint_orbax
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.join()
+        spec = getattr(self.step_fn, "shard_spec", None)
+        checkpoint_orbax.save(path, self.state, extra,
+                              spec(self.state) if spec is not None else None)
+        self._gc_checkpoints()
         self._barrier()
         return path
 
@@ -471,7 +520,11 @@ class Trainer:
         if path is None:
             return False
         like = self.init_state(self.model.init(self.seed, self.device))
-        state, extra = ckpt_lib.restore_state(path, like)
+        try:
+            state, extra = ckpt_lib.restore_state(path, like)
+        except (KeyError, ValueError):
+            # pp packs its state differently: convert pp <-> standard
+            state, extra = self._restore_converted(path)
         self.state = self._place(state)
         self._start_iter = int(extra["iteration"]) + 1
         self._salt = int(extra.get("rng_salt", 0))
@@ -479,6 +532,38 @@ class Trainer:
                               int(extra.get("rng_salt_high", 0)))
         self.logger.restore(self._start_iter)
         return True
+
+    def _restore_converted(self, path: str):
+        """(state, extra) of a checkpoint in the other layout, converted
+        for this run (JAX ``train/trainer.py:419-470``): a standard
+        checkpoint packed for a pp run, a pp checkpoint (of any stage
+        count) unpacked for another strategy or repacked for this run's
+        stage count."""
+        from graphical_gan_tpu_torch.parallel import pipeline as pp_lib
+        is_pp_run = self.mesh is not None and self.parallel == "pp"
+        shapes = ckpt_lib.leaf_shapes(path)
+        is_pp_ckpt = "k:packed" in shapes
+        run_stages = int(self.mesh.shape["stage"]) if is_pp_run else None
+        ckpt_stages = int(shapes["k:packed"][0]) if is_pp_ckpt else None
+        if is_pp_ckpt == is_pp_run and ckpt_stages == run_stages:
+            raise ValueError(
+                f"checkpoint {path!r} does not match the current model "
+                "state structure (and is not a pp<->standard format "
+                "difference)")
+        std_init = make_train_step(self.model)[1]
+        if is_pp_ckpt:
+            pp_state, extra = ckpt_lib.restore_state(
+                path, pp_lib.pp_state_like(self.model, ckpt_stages,
+                                           self.device))
+            state = pp_lib.train_state_from_pp_state(self.model, pp_state,
+                                                     std_init)
+        else:
+            state, extra = ckpt_lib.restore_state(
+                path, std_init(self.model.init(self.seed, self.device)))
+        if is_pp_run:
+            state = pp_lib.pp_state_from_train_state(self.model, state,
+                                                     run_stages)
+        return state, extra
 
     def _rollback(self, iteration: int) -> None:
         """Restore the latest checkpoint after a non-finite cost at
@@ -607,7 +692,8 @@ class Trainer:
         if self.state is None and not (resume and self.try_resume()):
             self.state = self.fresh_state()
             fresh = True
-        total = sum(p.numel() for p in self._full_state().params.values())
+        total = sum(p.numel() for p in
+                    self._read_params(self._full_state()).values())
         self._log(f"Total number of parameters {total}")
         if self.max_rollbacks > 0:
             # the guard's anchor: with no checkpoint yet, an early NaN would

@@ -144,6 +144,40 @@ def strategy_case(p: Dict):
             "sharded": sorted(step.layout)}
 
 
+def pipeline_worker(rank: int, world: int, cases: List[Dict]):
+    """Per case, this rank's stage of ``make_pp_train_step`` over a
+    ``stage`` axis of the world: ``p['iters']`` iterations from
+    ``p['params']`` with the global ``p['raws'][it]`` and
+    ``p['noises'][it]``; the costs, the full state gathered from the
+    rows, and the shape of the row this rank held."""
+    import torch.distributed as dist
+    from graphical_gan_tpu_torch.parallel import make_mesh
+    from graphical_gan_tpu_torch.parallel import pipeline as pp
+    from graphical_gan_tpu_torch.tools.parallel_check import build_model
+    from graphical_gan_tpu_torch.train.checkpoint import params_from_jax
+    out = []
+    for p in cases:
+        model = build_model(p["family"], p["dataset"], p["mode"], **p["kw"])
+        mesh = make_mesh(shape=(p["n_stages"],), axis_names=("stage",),
+                         device="cpu")
+        step, init_state, place, read = pp.make_pp_train_step(
+            model, mesh, microbatches=p["microbatches"])
+        state = place(init_state(params_from_jax(p["params"], "cpu")))
+        costs = []
+        for it, (raw, noise) in enumerate(zip(p["raws"], p["noises"])):
+            state, met = step(state, _as_torch(raw), it > 0,
+                              noise=_as_torch(noise))
+            costs.append({n: float(v) for n, v in met.items()})
+        full = step.gather_state(state)
+        params = read(state)
+        out.append({"rank": dist.get_rank(), "costs": costs,
+                    "row": tuple(state["packed"].shape),
+                    "full": {f: np.asarray(full[f]) for f in
+                             ("packed", "m", "v", "t")},
+                    "n_params": sum(v.numel() for v in params.values())})
+    return out
+
+
 def bn_sync_worker(rank: int, world: int, cases: List[Dict]):
     """Per case: this rank's rows of ``x`` through ``fused_batchnorm_act``
     with the world as its BN group (K2a and K2c+K2d in their split modes,
@@ -195,6 +229,72 @@ def cli_worker(rank: int, world: int, p: Dict):
                    for d, _, fs in os.walk(run_dir) for f in fs)
     return {"rank": rank, "files": files,
             "ok": out is None or isinstance(out, tuple)}
+
+
+def _numpy_state(state) -> Dict[str, np.ndarray]:
+    if isinstance(state, dict):  # a pipeline state
+        return {k: np.asarray(state[k]) for k in ("packed", "m", "v", "t")}
+    return state_numpy(state)
+
+
+def trainer_worker(rank: int, world: int, p: Dict):
+    """Per run of ``p['runs']``, in order: a Trainer
+    (``_torch_trainer.make_trainer``, resident rows; ``dataset``/``mode``
+    over its mnist ali) on a gloo mesh of ``shape`` x ``axes`` with
+    ``parallel`` and ``backend``, checkpointing every ``every`` in
+    ``outf``, trained to ``iters``: the iteration it started at, its last
+    costs and the full state (``_numpy_state``) with its parameters. A run
+    ``{"cli": p}`` is :func:`cli_worker`'s ``p`` instead."""
+    from _torch_trainer import make_trainer
+    from graphical_gan_tpu_torch.parallel import make_mesh
+    out = []
+    for r in p["runs"]:
+        if "cli" in r:  # a training CLI's main on the ranks instead
+            out.append(cli_worker(rank, world, r["cli"]))
+            continue
+        mesh = make_mesh(shape=r["shape"], axis_names=r["axes"],
+                         device="cpu")
+        tr = make_trainer(r["outf"], resident=True, mesh=mesh,
+                          parallel=r["parallel"],
+                          checkpoint_backend=r["backend"],
+                          checkpoint_every=r["every"], render_curves=False,
+                          **r.get("model", {}))
+        last = tr.train(iters=r["iters"])
+        full = tr._full_state()
+        out.append({"rank": rank, "start": tr._start_iter, "last": last,
+                    "full": _numpy_state(full),
+                    "params": {n: v.numpy() for n, v in
+                               tr._read_params(full).items()}})
+    return out
+
+
+def server_dp_worker(rank: int, world: int, p: Dict):
+    """A ``--dp-devices`` server's entry over the world (a ``data`` mesh
+    of gloo ranks on the CPU), per quantization of ``p['quantize']``:
+    rank 0 calls it on each ``(seed, inputs)`` of ``p['requests']`` and
+    once through a ``BatchingSampler`` (a 5-row request padded to the
+    bucket of 8), whose close stops the others, which serve meanwhile."""
+    from graphical_gan_tpu_torch.parallel import make_mesh
+    from graphical_gan_tpu_torch.serve.server import (
+        BatchingSampler, sampler_from_run_dir)
+    mesh = make_mesh(world, device="cpu")
+    out = {}
+    for q in p["quantize"]:
+        call, kinds, shapes, ident = sampler_from_run_dir(
+            p["run_dir"], device="cpu", quantize=q, mesh=mesh)
+        if rank:
+            out[str(q)] = {"served": call.serve()}
+            continue
+        outs = [call(seed, *inputs) for seed, inputs in p["requests"]]
+        batcher = BatchingSampler(call, kinds, shapes, buckets=(8,),
+                                  dp_devices=world)
+        try:
+            batched = batcher.submit(n=5, seed=3).wait(60)
+        finally:
+            batcher.close()  # and the other ranks' loops
+        out[str(q)] = {"outs": outs, "batched": batched,
+                       "identity": ident}
+    return out
 
 
 def rollback_worker(rank: int, world: int, p: Dict):

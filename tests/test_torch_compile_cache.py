@@ -161,8 +161,15 @@ def test_cli_mains_forward_compile_cache(monkeypatch):
     gi.main(["--dataset", "cifar10"])
     assert calls["gi"]["compile_cache"] is None
     assert calls["gi"]["max_rollbacks"] == 0
+    # the sharded backend is offered by all three (checkpoint_orbax.py)
+    gi.main(["--checkpoint-backend", "orbax"])
+    assert calls["gi"]["checkpoint_backend"] == "orbax"
+    gm.main(["--checkpoint-backend", "orbax"])
+    assert calls["gm"]["checkpoint_backend"] == "orbax"
+    ss.main(["--checkpoint-backend", "orbax"])
+    assert calls["ss"]["checkpoint_backend"] == "orbax"
     with pytest.raises(SystemExit):
-        gi.main(["--checkpoint-backend", "orbax"])
+        gi.main(["--checkpoint-backend", "tensorstore"])
 
 
 def test_serve_cli_forwards_compile_cache(monkeypatch):

@@ -84,7 +84,9 @@ PARALLEL_MODULES = ["parallel/__init__.py", "parallel/mesh.py",
                     "parallel/collectives.py", "parallel/input.py",
                     "parallel/sharding_rules.py", "parallel/sequence.py",
                     "parallel/expert.py", "parallel/composed.py",
-                    "core/shard_ctx.py"]
+                    "core/shard_ctx.py", "parallel/pipeline.py",
+                    "train/checkpoint_orbax.py", "serve/server.py",
+                    "data/common.py"]
 
 
 @pytest.mark.parametrize("rel", PARALLEL_MODULES)
@@ -125,7 +127,17 @@ def test_cli_n_devices_outside_torchrun_exits_with_the_line():
     assert "iter 0" not in res.stdout
 
 
-def test_pp_is_refused_for_a_later_slice():
+def test_pp_is_refused_for_a_later_slice(monkeypatch):
+    """pp is offered now (``parallel/pipeline.py``): ``--parallel pp``
+    alone asks for the 2-stage mesh and ``--mesh-shape 4`` the 4-stage
+    one, and outside a process group of that many ranks each raises with
+    the torchrun line, as the other strategies do."""
+    import torch.distributed as dist
     from graphical_gan_tpu_torch.runs.gan_inference import maybe_mesh
-    with pytest.raises(NotImplementedError, match="later slice"):
-        maybe_mesh(2, "pp", None, "cpu")
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    assert not dist.is_initialized()
+    for shape, size in ((None, 2), ("4", 4)):
+        with pytest.raises(RuntimeError,
+                           match=f"torchrun --nproc-per-node {size}"):
+            maybe_mesh(None, "pp", shape, "cpu")

@@ -83,3 +83,85 @@ def test_the_gate_admits_only_flips_at_small_gradients(kind, admitted):
 def test_update_bound(m_max, per):
     assert pc.update_bound(LR, 3, m_max, 1e-4) == pytest.approx(
         per * LR * 3)
+
+
+def _pp_rank(launches, misses=(), migration=None):
+    rec = {"cases": [{"dataset": "cifar10", "mode": "wali-gp",
+                      "misses": list(misses)}],
+           "launches": dict(launches)}
+    if migration is not None:
+        rec["migration"] = migration
+    return rec
+
+
+K2_ALL = {k: 3 for k in pc.K2}
+
+
+@pytest.mark.parametrize("change, missed", [
+    (None, False), ("rank 1 no K1", True), ("rank 0 no K2", True),
+    ("split launched", True), ("misses", True), ("migration", True)])
+def test_misses_of_a_pipeline_run(change, missed):
+    """The card's pipeline gate (``parallel_check.misses_of``): K1 on the
+    ranks with convolutions, K2a/K2b/K2c+K2d on stage 0, no split kernel,
+    no miss against the staged step, migration bit for bit."""
+    r0 = dict(K2_ALL, fused_conv2d_bias_act=5)
+    r1 = {"fused_conv2d_bias_act": 7}
+    mig = {"cifar10": {"standard_pp_standard": True,
+                       "pp_standard_pp": True}}
+    misses = []
+    if change == "rank 1 no K1":
+        r1 = {}
+    elif change == "rank 0 no K2":
+        r0 = {"fused_conv2d_bias_act": 5}
+    elif change == "split launched":
+        r1["bn_stats_local"] = 1
+    elif change == "misses":
+        misses = ["params/x: 1 > 0"]
+    elif change == "migration":
+        mig["cifar10"]["pp_standard_pp"] = False
+    doc = {"pp": [_pp_rank(r0, misses, mig), _pp_rank(r1)]}
+    assert bool(pc.misses_of(doc, "cuda")) == missed
+    # on the CPU the launches are not held (the plain versions run)
+    if change in ("rank 1 no K1", "rank 0 no K2", "split launched"):
+        assert pc.misses_of(doc, "cpu") == []
+
+
+def _serve(err, share, launches):
+    return [{"cases": [dict(quantize=None, max_abs_err=err,
+                            over_atol_share=0.0, launches=launches),
+                       dict(quantize="int8", max_abs_err=1.0,
+                            over_atol_share=share,
+                            launches=dict(launches, bn_apply_q8=1))]},
+            {"cases": [{"served": 8}, {"served": 8}]}]
+
+
+@pytest.mark.parametrize("err, share, launches, missed", [
+    (0.0, 0.0, {"bn_stats_local": 1, "bn_stats_merge": 1, "bn_apply": 1},
+     False),
+    (2e-5, 0.0, {"bn_stats_local": 1, "bn_stats_merge": 1, "bn_apply": 1},
+     True),
+    (0.0, 2e-3, {"bn_stats_local": 1, "bn_stats_merge": 1, "bn_apply": 1},
+     True),
+    (0.0, 0.0, {"bn_stats": 1, "bn_apply": 1}, True)])
+def test_misses_of_the_dp_server(err, share, launches, missed):
+    """The dp server's gate: float within DP_SERVE_ATOL, int8 past it at
+    most DP_SERVE_INT8_SHARE of the elements, K2a's split mode launched
+    and never its one launch."""
+    doc = {"serve": _serve(err, share, launches)}
+    assert bool(pc.misses_of(doc, "cuda")) == missed
+
+
+@pytest.mark.parametrize("b, m", [(64, 4), (50, 5), (8, 4), (6, 2), (7, 1)])
+def test_microbatches(b, m):
+    assert pc.microbatches(b) == m
+
+
+def test_serve_run_on_the_cpu():
+    """``--runs serve`` end to end on 2 gloo ranks on the CPU (small):
+    the dp server's float and int8 dispatches equal one rank's."""
+    doc = pc.main(["--device", "cpu", "--small", "--runs", "serve"])
+    assert doc["misses"] == [] and set(doc) == {"serve", "misses"}
+    cases = doc["serve"][0]["cases"]
+    assert [c["quantize"] for c in cases] == [None, "int8"]
+    assert all(c["dp_devices"] == 2 and c["shape"] == [8, 3072]
+               for c in cases)
