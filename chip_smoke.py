@@ -81,8 +81,9 @@ nothing of JAX or of the JAX package, and does in order:
    straight (as eager calls run) and through their ``torch.library`` ops'
    dispatcher (as traced calls run; a reading);
 9. bench-conv: K3's own path, ``tools/bench_conv_kernel.main()`` (four
-   bf16 shapes, the library arm beside K3a and K3b); K3a must run its TMA
-   mainloop there, and K1's counter must not count K3's calls;
+   bf16 shapes, the library arm beside K3a and K3b; ``--reps 0 --rounds 5
+   --n-inputs 4``); K3a must run its TMA mainloop there, and K1's counter
+   must not count K3's calls;
 10. family1: 3 Trainer iterations of each of the 13 modes on mnist (B=50,
    DIM=64) and of celeba ali (B=128, dim 32) at published widths on
    resident synthetic data: finite costs, each mode's kernels launched,
@@ -147,7 +148,9 @@ nothing of JAX or of the JAX package, and does in order:
    ``GGAN_PROFILE`` trace (its device ms per iteration within
    TRACE_AGREE of ``profile_train``'s) and over SSGAN moving-MNIST
    local_ep f32's (its top kernels with the ops and shapes that launched
-   them); ``mfu`` for gan f32 and bf16, gmgan and ssgan f32 (0 < mfu <=
+   them), each divided by the iterations the trace's name says it holds
+   (the trace is aligned to the chunked loop's dispatches); ``mfu`` for
+   gan f32 and bf16, gmgan and ssgan f32 (0 < mfu <=
    1); ``memory`` for gan f32 (the peak above the state and data, within
    the card's memory); ``determinism`` for gan (DIM 64, B 64) and gmgan
    mnist local_ep at its published width (all five checks bit-identical);
@@ -168,8 +171,9 @@ nothing of JAX or of the JAX package, and does in order:
    at the eight shapes of ``tools/bench_phase_deconv.py``, forward, dx and
    dw in f32 and bf16 at K1's tolerances, one K1 launch per call (the
    check phase holds K1 itself at those stride-1 shapes, their routes in
-   the coverage check); the bench tool on the card; an SSGAN moving-MNIST
-   f32 iteration and an f32 sampler dispatch at B 256 with
+   the coverage check); the bench tool on the card, and with ``--k 3`` at
+   two shapes; an SSGAN moving-MNIST f32 iteration and an f32 sampler
+   dispatch at B 256 with
    ``GGAN_PHASE_DECONV`` off and on;
 26. failure: the CLI at the published cifar10 wali-gp config in
    subprocesses: SIGTERM after iteration 4 (exit 0, resumed to 60 bit for
@@ -223,7 +227,9 @@ nothing of JAX or of the JAX package, and does in order:
    published widths against the one-device step, the replicas bit-identical;
    rank 0's launches are the split kernels' main path; tp's state saved
    through the sharded checkpoint backend and resumed, bit for bit with
-   the uninterrupted run, in both; the pipeline on 2 gloo ranks (cifar10
+   the uninterrupted run, in both; dp's ``Trainer`` on the 2 ranks at
+   ``chunk_size`` 2 against 1, bit for bit; the pipeline on 2 gloo ranks
+   (cifar10
    wali-gp, GMGAN mnist local_ep) and on 4 (the 4-stage cifar10 ali cut)
    at the published widths against the one-process staged step, each
    rank's launches (K1 on the ranks with convolutions, K2a/K2b/K2c+K2d on
@@ -231,12 +237,26 @@ nothing of JAX or of the JAX package, and does in order:
    share; standard -> pp -> standard and back bit for bit; the server's
    ``--dp-devices 2`` on 2 gloo ranks, a bucket-64 dispatch float and
    int8 against one rank's, K2a's split mode launched;
-34. prints one JSON line per kernel summary, the card line, and last
+34. chunk: the trainer's chunked resident loop (JAX's dispatches of up
+   to ``chunk_size`` iterations between host events): the published
+   cifar10 wali-gp Trainer in f32 and bf16 at chunk_size None against 1
+   over 12 iterations with checkpoints at 7 and 11 and a hook at 5 and
+   11, bit for bit (parameters, Adam's m, v and t, step, every logged
+   cost, every checkpoint array), its launches exactly PER_ITER's; in
+   f32 a resume at a window boundary and a rollback through
+   ``GGAN_FAULT_NAN_AT`` inside a window, each bit for bit against its
+   reference; GMGAN mnist local_ep and SSGAN moving-MNIST local_ep on the
+   device pipeline's sampler, 9 iterations at chunk 3 against 1; then
+   per dtype the warm host ms per iteration of one 30-iteration window
+   at chunk_size None and at 1 and each one's busy share over 5 (a
+   reading);
+35. prints one JSON line per kernel summary, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 The numbers name the phases; the run takes them in another order. First,
 one at a time, the phases that time the card: 1-9 (but train-parity and
-train-repeat; 31 and 32 right after 4), 10, 15, 19, 23, 25 and 27. Then
+train-repeat; 31 and 32 right after 4, 34 right after 8), 10, 15, 19,
+23, 25 and 27. Then
 the side phases, failure (26), learn (13), family2-learn (18),
 family3-learn (22) and parallel (33), start, each in a process of its own (``SidePhases``: they are bound by the host, so
 they overlap on a machine of several cores; failure's readings are so
@@ -2185,11 +2205,269 @@ def phase_train_repeat(data):
 
 
 # ---------------------------------------------------------------------------
+# chunk: the trainer's chunked resident loop (train/trainer.py), JAX's
+# dispatches of up to chunk_size iterations between host events
+
+CHUNK_ITERS = 12        # windows 0-4 alone, 5, 6-7, 8-11
+CHUNK_CKPT_EVERY = 8    # checkpoints at 7 and 11, inside the windows' ends
+CHUNK_HOOK_EVERY = 6    # a hook at 5 and 11
+CHUNK_RESUME_AT = 8     # a run stopped here resumes at a window boundary
+CHUNK_NAN_AT = 9        # GGAN_FAULT_NAN_AT: inside the window 8-11
+# GMGAN and SSGAN: 9 iterations (0-4 alone, then 5-8) at chunk 3 against 1
+CHUNK_FAMILY_ITERS = 9
+CHUNK_FAMILY_SIZE = 3
+CHUNK_TIME_ITERS = 30   # one warm window per chunk size, timed
+CHUNK_PROFILE_ITERS = 5
+
+
+def _raw_bytes(t):
+    """A tensor's or array's bytes, for a bit-for-bit comparison."""
+    import numpy as np
+    import torch
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().contiguous().reshape(-1).view(
+            torch.uint8).numpy().tobytes()
+    return np.ascontiguousarray(t).tobytes()
+
+
+def _run_arrays(tr):
+    """Every array of ``tr``'s state and of each checkpoint in its run
+    directory, its step and its logged costs."""
+    from graphical_gan_tpu_torch.train import checkpoint as ckpt_lib
+    out = {f"state/{k}": _raw_bytes(v)
+           for k, v in ckpt_lib.state_leaves(tr.state).items()}
+    out["step"] = tr.state.step
+    for it, path in ckpt_lib.list_checkpoints(tr.outf):
+        flat, extra = ckpt_lib.load_raw(path)
+        out.update({f"ckpt_{it}/{k}": _raw_bytes(v)
+                    for k, v in flat.items()})
+        out[f"ckpt_{it}/extra"] = sorted(extra.items())
+    for name in ("train disc cost", "train gen cost"):
+        out[name] = sorted(tr.logger.history(name).items())
+    return out
+
+
+def _differ(a, b):
+    """The keys of two ``_run_arrays`` that differ (all, where the key sets
+    differ)."""
+    if set(a) != set(b):
+        return sorted(set(a) ^ set(b))
+    return sorted(k for k in a if a[k] != b[k])
+
+
+def _chunk_trainer(model, data, path, chunk, **kw):
+    """A Trainer at ``chunk_size`` ``chunk`` that records its dispatch
+    sizes (``.sizes``) and its hooks' iterations (``.hook_its``)."""
+    from graphical_gan_tpu_torch.train.trainer import Trainer
+    hook_its, sizes = [], []
+    kw.setdefault("checkpoint_every", CHUNK_CKPT_EVERY)
+    kw.setdefault("eval_hooks", {CHUNK_HOOK_EVERY:
+                                 lambda t, i: hook_its.append(i)})
+    tr = Trainer(model, data, path, seed=0, device="cuda",
+                 checkpoints_to_keep=0, chunk_size=chunk,
+                 render_curves=False, **kw)
+    dispatch = tr.dispatch
+
+    def counted(start, n, pend):
+        sizes.append(n)
+        return dispatch(start, n, pend)
+
+    tr.dispatch, tr.sizes, tr.hook_its = counted, sizes, hook_its
+    return tr
+
+
+def _chunk_pair(label, make, iters, chunks, launch_totals, misses,
+                want=None):
+    """A run per chunk size of ``chunks`` (``make(chunk)`` builds its
+    Trainer), counts set to 0 just before each and read just after:
+    the runs' arrays must be equal bit for bit and their launches equal
+    (and equal to ``want`` where given). Returns the first run's
+    trainer."""
+    from graphical_gan_tpu_torch.ops import kernels
+    runs = []
+    for chunk in chunks:
+        tr = make(chunk)
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        tr.train(iters)
+        got = kernels.launches()
+        _add(launch_totals, got)
+        runs.append((chunk, tr, got, time.perf_counter() - t0,
+                     _run_arrays(tr)))
+    (c0, tr0, got0, _, arr0), (c1, tr1, got1, _, arr1) = runs
+    differ = _differ(arr0, arr1)
+    log({"phase": "chunk", "run": label, "iters": iters,
+         "chunk_sizes": [c0, c1], "dispatches": [tr0.sizes, tr1.sizes],
+         "hook_iterations": [tr0.hook_its, tr1.hook_its],
+         "seconds": [round(r[3], 3) for r in runs],
+         "arrays_compared": len(arr0), "bit_identical": not differ,
+         "differing": differ[:5], "launches": got0,
+         "launches_equal": got0 == got1,
+         **({"launches_per_iter_exact": got0 == want} if want else {})})
+    if differ or got0 != got1 or (want and got0 != want) \
+            or tr0.sizes == tr1.sizes:
+        misses.append(f"{label}: differing {differ[:5]}, launches {got0} / "
+                      f"{got1} (want {want}), dispatches {tr0.sizes} / "
+                      f"{tr1.sizes}")
+    return tr0
+
+
+def _run_window(tr, n):
+    """``n`` iterations from the state's step as the trainer's resident
+    loop runs one window of them: dispatches of at most ``chunk_size``
+    (100 at None), then the queued costs fetched in one copy."""
+    cap = 100 if tr.chunk_size is None else tr.chunk_size
+    start, pend = tr.state.step, []
+    for it in range(start, start + n, cap):
+        tr.dispatch(it, min(cap, start + n - it), pend)
+    tr._drain(pend, inject=False)
+
+
+def _window_busy(tr, n):
+    """(device busy / wall time, device ms per iteration) of one ``n``-
+    iteration window (``_run_window``) under ``torch.profiler``
+    with CUDA activity only: the host runs nearly as it does unprofiled,
+    and the profile's processing takes seconds, not the tens of seconds
+    of ``trace_report.profile_train``'s host events (which read the same
+    device ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _run_window(tr, n)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(
+        getattr(ev, "self_device_time_total",
+                getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+        for ev in prof.key_averages() if ev.device_type != DeviceType.CPU)
+    return busy_ms / wall_ms, busy_ms / n
+
+
+def _chunk_timing(tr, dtype):
+    """Warm host ms per iteration of one CHUNK_TIME_ITERS window at
+    chunk_size None and 1 (``_run_window``, bounded by
+    synchronizes), and the busy share of a CHUNK_PROFILE_ITERS window at
+    each (``_window_busy``): readings."""
+    import torch
+    rec = {"phase": "chunk", "run": "timing", "dtype": dtype,
+           "window": CHUNK_TIME_ITERS, "profiled": CHUNK_PROFILE_ITERS}
+    for chunk in (None, 1):
+        tr.chunk_size = chunk
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _run_window(tr, CHUNK_TIME_ITERS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / CHUNK_TIME_ITERS
+        busy, dev_ms = _window_busy(tr, CHUNK_PROFILE_ITERS)
+        key = "none" if chunk is None else str(chunk)
+        rec.update({f"ms_per_iter_chunk_{key}": ms,
+                    f"busy_share_chunk_{key}": busy,
+                    f"device_ms_per_iter_chunk_{key}": dev_ms})
+    rec["ms_ratio_none_over_1"] = (rec["ms_per_iter_chunk_none"]
+                                   / rec["ms_per_iter_chunk_1"])
+    log(rec)
+
+
+def phase_chunk(launch_totals, data):
+    """The chunked resident loop on the card: per compute dtype, the
+    published cifar10 wali-gp Trainer at chunk_size None against 1 over
+    CHUNK_ITERS iterations (checkpoints, a hook and the early boundaries
+    inside), bit for bit (parameters, Adam's m, v and t, step, every
+    logged cost, every checkpoint array), its launches PER_ITER's; then the
+    timing readings. In f32 a resume at a window boundary and a rollback
+    through GGAN_FAULT_NAN_AT inside a window, each bit for bit against
+    its reference. GMGAN mnist local_ep (resident) and SSGAN moving-MNIST
+    local_ep (the device pipeline's sampler) at chunk 3 against 1."""
+    from graphical_gan_tpu_torch.core.config import gmgan_defaults
+    from graphical_gan_tpu_torch.runs import gmgan as gm
+    from graphical_gan_tpu_torch.runs.gan_inference import resident_data
+    base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
+                        "smoke_chunk")
+    shutil.rmtree(base, ignore_errors=True)
+    misses = []
+    want = {k: a * CHUNK_ITERS + b for k, (a, b) in PER_ITER.items()}
+    refs = {}
+    for dtype in ("float32", "bfloat16"):
+        model = _published(dtype)
+        refs[dtype] = _chunk_pair(
+            f"cifar10 wali-gp {dtype}",
+            lambda c: _chunk_trainer(model, data, os.path.join(
+                base, f"{dtype}_{c}"), c),
+            CHUNK_ITERS, (None, 1), launch_totals, misses, want)
+        if refs[dtype].hook_its != [5, 11]:
+            misses.append(f"{dtype}: hooks at {refs[dtype].hook_its}")
+    model = _published("float32")
+    # resume: a run stopped at a window boundary, continued by a new Trainer
+    path = os.path.join(base, "resume")
+    _chunk_trainer(model, data, path, None).train(CHUNK_RESUME_AT)
+    resumed = _chunk_trainer(model, data, path, None)
+    resumed.train(CHUNK_ITERS)
+    ref = _run_arrays(refs["float32"])
+    for name in ("train disc cost", "train gen cost"):  # the resumed span
+        ref[name] = [kv for kv in ref[name] if kv[0] >= CHUNK_RESUME_AT]
+    differ = _differ(ref, _run_arrays(resumed))
+    log({"phase": "chunk", "run": "resume", "resumed_at":
+         resumed._start_iter, "dispatches": resumed.sizes,
+         "bit_identical": not differ, "differing": differ[:5]})
+    if differ or resumed._start_iter != CHUNK_RESUME_AT:
+        misses.append(f"resume at {resumed._start_iter}: {differ[:5]}")
+    # rollback: the poison inside the window 8-11, the same at chunk 1
+    old = os.environ.get("GGAN_FAULT_NAN_AT")
+    os.environ["GGAN_FAULT_NAN_AT"] = str(CHUNK_NAN_AT)
+    try:
+        tr = _chunk_pair(
+            "rollback cifar10 wali-gp float32",
+            lambda c: _chunk_trainer(model, data, os.path.join(
+                base, f"rollback_{c}"), c, max_rollbacks=1),
+            CHUNK_ITERS, (None, 1), launch_totals, misses)
+    finally:
+        if old is None:
+            os.environ.pop("GGAN_FAULT_NAN_AT", None)
+        else:
+            os.environ["GGAN_FAULT_NAN_AT"] = old
+    with open(tr.logfile) as f:
+        lines = [ln for ln in f if "divergence guard" in ln]
+    log({"phase": "chunk", "run": "rollback", "rollbacks": tr._rollbacks,
+         "salt": tr._salt, "guard_lines": [ln.strip() for ln in lines]})
+    if tr._rollbacks != 1 or tr._salt != 1 or len(lines) != 1 \
+            or f"iteration {CHUNK_NAN_AT};" not in lines[0]:
+        misses.append(f"rollback: {tr._rollbacks} rollbacks, salt "
+                      f"{tr._salt}, lines {lines}")
+    # GMGAN (resident) and SSGAN (the device pipeline's sampler)
+    gcfg = gmgan_defaults("mnist", "local_ep")
+    gdata = resident_data(gcfg, None, gm._loaders(gcfg, None)[0])
+    scfg = _ssgan_model("moving_mnist", "local_ep").cfg
+    sdata, sampler = _family3_data(scfg, {})
+    for label, build, d, kw in (
+            ("gmgan mnist local_ep", lambda: _gmgan_model("mnist",
+                                                          "local_ep"),
+             gdata, {}),
+            ("ssgan moving-MNIST local_ep device", lambda: _ssgan_model(
+                "moving_mnist", "local_ep"), sdata,
+             {"batch_sampler": sampler})):
+        m = build()
+        _chunk_pair(label, lambda c: _chunk_trainer(
+            m, d, os.path.join(base, f"{label.split()[0]}_{c}"), c,
+            checkpoint_every=0, eval_hooks={}, **kw),
+            CHUNK_FAMILY_ITERS, (CHUNK_FAMILY_SIZE, 1), launch_totals,
+            misses)
+    for dtype in ("float32", "bfloat16"):
+        _chunk_timing(refs[dtype], dtype)
+    if misses:
+        fail(f"chunk: {misses}")
+
+
+# ---------------------------------------------------------------------------
 # K3's own path and the rest of family 1
 
 def phase_bench_conv(launch_totals):
     """K3's path: the port's ``tools/bench_conv_kernel.main()`` at its four
-    bf16 shapes, counts set to 0 before and read after."""
+    bf16 shapes (its defaults ``--reps 0 --rounds 5 --n-inputs 4``: calls
+    per timed run scaled to the shape, the median of 5 runs, 4 input
+    sets), counts set to 0 before and read after."""
     from graphical_gan_tpu_torch.ops import kernels
     from graphical_gan_tpu_torch.tools import bench_conv_kernel
     kernels.reset_launches()
@@ -3457,8 +3735,9 @@ np.savez({out!r}, **params)
 
 
 def _trace_run(base, tag, tr, first, n):
-    """``n`` iterations of ``tr`` traced by the trainer's GGAN_PROFILE hook
-    from iteration ``first``; returns the trace's directory."""
+    """``n`` iterations of ``tr`` or more traced by the trainer's
+    GGAN_PROFILE hook from iteration ``first`` (the trace ends with the
+    dispatch that reaches ``first + n``); returns the trace's directory."""
     out = os.path.join(base, tag)
     env = {"GGAN_PROFILE": out, "GGAN_PROFILE_START": str(first),
            "GGAN_PROFILE_STEPS": str(n)}
@@ -3488,11 +3767,13 @@ def _tool_trace(base, data):
                  seed=0, device="cuda", checkpoint_every=0)
     trace_dir = _trace_run(base, "gan_trace", tr, TOOL_PROFILE_START,
                            TOOL_PROFILE_ITERS)
-    rep = trace_report.report(trace_dir, iters=TOOL_PROFILE_ITERS, top=8)
+    traced = trace_report.traced_iterations(trace_dir)
+    rep = trace_report.report(trace_dir, iters=traced, top=8)
     dev_ms = trace_report.profile_train(tr, TOOL_PROFILE_ITERS)[1]
     rel = abs(rep["busy_ms_per_iter"] - dev_ms) / dev_ms
     log({"phase": "tools", "tool": "trace_report", "config":
-         "cifar10 wali-gp f32", **trace_report.summary_line(rep),
+         "cifar10 wali-gp f32", "traced_iterations": traced,
+         **trace_report.summary_line(rep),
          "by_op_ms_per_iter": {g["group"]: g["ms_per_iter"]
                                for g in rep["by_op"]},
          "top_ops": rep["top_ops"],
@@ -3503,9 +3784,11 @@ def _tool_trace(base, data):
     tr = make_trainer("ssgan", "float32", os.path.join(base, "ssgan"),
                       "cuda", data_rows=200)
     trace_dir = _trace_run(base, "ssgan_trace", tr, 1, SSGAN_TRACE_ITERS)
-    rep = trace_report.report(trace_dir, iters=SSGAN_TRACE_ITERS, top=8)
+    traced = trace_report.traced_iterations(trace_dir)
+    rep = trace_report.report(trace_dir, iters=traced, top=8)
     log({"phase": "tools", "tool": "trace_report", "config":
-         "ssgan moving-MNIST local_ep f32", **trace_report.summary_line(rep),
+         "ssgan moving-MNIST local_ep f32", "traced_iterations": traced,
+         **trace_report.summary_line(rep),
          "by_op_ms_per_iter": {g["group"]: g["ms_per_iter"]
                                for g in rep["by_op"]},
          "top_ops": rep["top_ops"]})
@@ -3886,6 +4169,13 @@ def phase_phase_deconv(launch_totals):
              f"not run K1: {misses}")
     for rec in bench_phase_deconv.main([]):
         log({"phase": "phase-deconv", "tool": "bench_phase_deconv", **rec})
+    # the tool's --k: 3x3 transpose filters at two shapes
+    recs = bench_phase_deconv.main(["--k", "3", "--shapes", "gen2,ss3",
+                                    "--dtype", "bfloat16"])
+    for rec in recs:
+        log({"phase": "phase-deconv", "tool": "bench_phase_deconv", **rec})
+    if [r["k"] for r in recs] != [3] * 4:
+        fail(f"bench_phase_deconv --k 3: {[r['k'] for r in recs]}")
     _gate_readings(base)
 
 
@@ -3896,6 +4186,9 @@ def phase_phase_deconv(launch_totals):
 # 100 before the frozen-inception phase took that time
 FAIL_ITERS = 60
 FAIL_CKPT_EVERY = 50
+# the SIGTERM drill's dispatches: at the default chunk size iterations 5-49
+# are one dispatch, which a SIGTERM cannot cut before the periodic ckpt_49
+FAIL_CHUNK = 4
 FAIL_NAN_AT = 7
 SAVE_REPS = 3
 _NVCC_WRAPPER = """#!/bin/sh
@@ -3952,6 +4245,12 @@ def _ckpt_equal(a, b):
     return sorted(k for k in fa if not np.array_equal(fa[k], fb[k]))
 
 
+def _preempted(text):
+    """The iterations the ``preempted:`` lines of a run's output name."""
+    return [int(ln.split("iteration ")[1].split(";")[0])
+            for ln in text.splitlines() if ln.startswith("preempted:")]
+
+
 def _costs(text):
     return [float(ln.split("train disc cost\t")[1].split("\t")[0])
             for ln in text.splitlines()
@@ -4001,10 +4300,13 @@ def phase_failure(data):
     calls are logged:
 
     1. an uninterrupted run, the first into the empty cache: it builds;
-    2. a run sent SIGTERM one second after its iteration-4 line: exit 0,
-       the ``preempted`` line, no ``nvcc`` call (the cache loads); resumed
-       with ``--run-dir`` to iteration 100, its ckpt_99 equals run 1's bit
-       for bit;
+    2. a run at ``--chunk-size 4`` sent SIGTERM one second after its
+       iteration-4 line: exit 0, one ``preempted`` line naming an
+       iteration below 49 (a mid-run checkpoint, not the periodic one), no
+       ``nvcc`` call (the cache loads); resumed with ``--run-dir`` at the
+       same chunk size to iteration 60, its ckpt_59 equals run 1's bit for
+       bit; then the same SIGTERM to a run at the default chunk size (a
+       reading: its stop waits for the dispatch 5-49);
     3. ``GGAN_FAULT_NAN_AT=7 --max-rollbacks 1``: one ``rollback 1/1``
        line, finite costs and checkpoint, ``rng_salt_high`` 1;
     4. ``GGAN_FAULT_NAN_AT=7`` without the guard and with
@@ -4042,7 +4344,8 @@ def phase_failure(data):
         with open(nvcc_log) as f:
             return f.read().splitlines()
 
-    run = {k: os.path.join(base, k) for k in ("straight", "cut", "rollback",
+    run = {k: os.path.join(base, k) for k in ("straight", "cut",
+                                               "cut_default", "rollback",
                                                "inert")}
     misses = []
     rc, out, first_cold, _ = _run_cli(_cli(run["straight"], cache), env)
@@ -4054,19 +4357,20 @@ def phase_failure(data):
         fail(f"failure: the uninterrupted run (rc {rc}, {len(built)} nvcc "
              f"calls): {out[-3000:]}")
 
-    rc, out, first_cached, exit_s = _run_cli(_cli(run["cut"], cache), env,
-                                             sigterm_after=1.0)
-    stopped = [ln for ln in out.splitlines() if ln.startswith("preempted:")]
+    chunk = ("--chunk-size", str(FAIL_CHUNK))
+    rc, out, first_cached, exit_s = _run_cli(
+        _cli(run["cut"], cache, *chunk), env, sigterm_after=1.0)
+    stopped = _preempted(out)
     cached_clean = nvcc_calls() == built
-    log({"phase": "failure", "run": "sigterm", "rc": rc,
-         "seconds_to_iter_0": first_cached,
-         "sigterm_stop_to_exit_s": exit_s, "preempted_line": stopped,
+    log({"phase": "failure", "run": "sigterm", "chunk_size": FAIL_CHUNK,
+         "rc": rc, "seconds_to_iter_0": first_cached,
+         "sigterm_stop_to_exit_s": exit_s, "preempted_at": stopped,
          "nvcc_calls_after_cold_build": len(nvcc_calls()) - len(built)})
-    if rc != 0 or len(stopped) != 1:
-        misses.append(f"SIGTERM: rc {rc}, preempted lines {stopped}")
+    if rc != 0 or len(stopped) != 1 or stopped[0] >= FAIL_CKPT_EVERY - 1:
+        misses.append(f"SIGTERM: rc {rc}, preempted at {stopped}")
     if not cached_clean:
         misses.append("the cached library ran nvcc again")
-    rc2, out2, _, _ = _run_cli(_cli(run["cut"], cache), env)
+    rc2, out2, _, _ = _run_cli(_cli(run["cut"], cache, *chunk), env)
     final = os.path.join(run["cut"], f"ckpt_{FAIL_ITERS - 1}.npz")
     differ = (_ckpt_equal(os.path.join(run["straight"],
                                        f"ckpt_{FAIL_ITERS - 1}.npz"), final)
@@ -4076,6 +4380,15 @@ def phase_failure(data):
          "differing_leaves": differ[:5]})
     if rc2 != 0 or differ:
         misses.append(f"SIGTERM resume: rc {rc2}, differing {differ[:5]}")
+    rc, out, _, exit_s = _run_cli(_cli(run["cut_default"], cache), env,
+                                  sigterm_after=1.0)
+    stopped = _preempted(out)
+    log({"phase": "failure", "run": "sigterm", "chunk_size": None,
+         "rc": rc, "sigterm_stop_to_exit_s": exit_s,
+         "preempted_at": stopped})
+    if rc != 0 or len(stopped) != 1:
+        misses.append(f"SIGTERM at the default chunk size: rc {rc}, "
+                      f"preempted at {stopped}")
 
     nan_env = dict(env, GGAN_FAULT_NAN_AT=str(FAIL_NAN_AT))
     rc, out, _, _ = _run_cli(_cli(run["rollback"], cache, "--max-rollbacks",
@@ -6476,7 +6789,8 @@ def main(argv=None) -> int:
                     "family2_learn": {}, "family3": {}, "family3_serve": {},
                     "family3_learn": {}, "tools": {}, "fault4": {},
                     "phase_deconv": {}, "int8": {}, "frozen": {},
-                    "quality_run": {}, "library": {}, "parallel": {}}
+                    "quality_run": {}, "library": {}, "parallel": {},
+                    "chunk": {}}
         int8_out, frozen_out = {}, {}
         _timed("build", phase_build)
         _timed("check", phase_check, errs)
@@ -6496,6 +6810,7 @@ def main(argv=None) -> int:
         missing = [k for k in TRAIN_KERNELS if not launches["train"].get(k)]
         if missing:
             fail(f"kernels never launched on the training path: {missing}")
+        _timed("chunk", phase_chunk, launches["chunk"], data)
         _timed("bench-conv", phase_bench_conv, launches["bench"])
         missing = [k for k in K3_KERNELS if not launches["bench"].get(k)]
         if missing:
@@ -6544,7 +6859,8 @@ def main(argv=None) -> int:
                            ("frozen", ("bn_stats", "bn_apply")),
                            ("quality_run", TRAIN_KERNELS),
                            ("library", ("fused_conv2d_bias_act",)),
-                           ("parallel", TRAIN_KERNELS + SPLIT_KERNELS)):
+                           ("parallel", TRAIN_KERNELS + SPLIT_KERNELS),
+                           ("chunk", TRAIN_KERNELS)):
             missing = [k for k in want if not launches[path].get(k)]
             if missing:
                 fail(f"kernels never launched on the {path} path: "

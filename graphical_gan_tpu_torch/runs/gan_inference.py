@@ -45,7 +45,10 @@ worker thread; ``--compile-cache DIR`` builds and loads the CUDA kernels in
 DIR (``core/compile_cache.py``); ``--checkpoint-backend npz|orbax``
 picks the checkpoint format (``orbax``: ``ckpt_<iter>.orbax`` directories
 that each rank writes its part of, ``train/checkpoint_orbax.py``).
-Multi-iteration dispatch (JAX's ``--chunk-size``) comes in a later slice.
+
+``--chunk-size N``: iterations per dispatch of the resident path
+(``train/trainer.py``; default: up to the next logging, eval or checkpoint
+boundary, at most 100). Every N gives the same bits.
 
 Parallel training (``parallel/``): ``--n-devices N`` with ``--parallel
 dp|tp|sp|ep|composed|pp`` and ``--mesh-shape``, parsed as JAX's
@@ -474,9 +477,10 @@ def run(dataset: str = "mnist", mode: str = "ali",
         compile_cache: Optional[str] = None,
         checkpoint_backend: str = "npz", n_devices: Optional[int] = None,
         parallel: str = "dp", mesh_shape: Optional[str] = None,
-        **overrides):
+        chunk_size: Optional[int] = None, **overrides):
     """Train; returns ``(trainer, last metrics)``. ``run_dir`` reuses a
-    run directory and resumes from its latest checkpoint; ``n_devices``,
+    run directory and resumes from its latest checkpoint; ``chunk_size``
+    is the resident path's iterations per dispatch; ``n_devices``,
     ``parallel`` and ``mesh_shape`` train this rank of a mesh
     (:func:`maybe_mesh`)."""
     check_backend(checkpoint_backend)
@@ -524,7 +528,8 @@ def run(dataset: str = "mnist", mode: str = "ali",
                       checkpoints_to_keep=checkpoints_to_keep,
                       max_rollbacks=max_rollbacks, mesh=mesh,
                       parallel=parallel,
-                      checkpoint_backend=checkpoint_backend)
+                      checkpoint_backend=checkpoint_backend,
+                      chunk_size=chunk_size)
     # SIGTERM checkpoints and stops cleanly (no-op off the main thread)
     trainer.install_preempt_handlers()
     return trainer, trainer.train(iters)
@@ -553,6 +558,10 @@ def main(argv=None):
                    choices=["resident", "host"],
                    help="resident (default): the train split on the device; "
                         "host: per-iteration host batches, prefetched")
+    p.add_argument("--chunk-size", type=int, default=None,
+                   help="iterations fused per device dispatch in resident "
+                        "mode (default: auto — fuse up to the next "
+                        "logging/eval event boundary)")
     p.add_argument("--outdir", default="result")
     p.add_argument("--run-dir", default=None,
                    help="reuse a run directory and resume from its latest "
@@ -590,8 +599,9 @@ def main(argv=None):
     run(args.dataset, args.mode, iters=args.iters, data_dir=args.data_dir,
         outdir=args.outdir, run_dir=args.run_dir, seed=args.seed,
         checkpoint_every=args.checkpoint_every,
-        data_pipeline=args.data_pipeline, device=args.device,
-        **failure_kwargs(args), **parallel_kwargs(args), **overrides)
+        data_pipeline=args.data_pipeline, chunk_size=args.chunk_size,
+        device=args.device, **failure_kwargs(args), **parallel_kwargs(args),
+        **overrides)
 
 
 if __name__ == "__main__":

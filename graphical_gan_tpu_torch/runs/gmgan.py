@@ -9,8 +9,9 @@ CONCRETE (the default), STRAIGHT_THROUGHT_CONCRETE, STRAIGHT_THROUGHT or
 REINFORCE. Runs on the card unless ``--device cpu`` is given.
 
 Data as in ``runs/gan_inference.py``: the dataset's files in ``--data-dir``
-or the loader's synthetic fallback, resident on the device or host-fed
-(``--data-pipeline host``); ``--data-dir structured`` trains on the
+or the loader's synthetic fallback, resident on the device (dispatches of
+``--chunk-size`` iterations) or host-fed (``--data-pipeline host``);
+``--data-dir structured`` trains on the
 learnable labeled family (20,000 train, 2,000 dev and 2,000 test rows of
 ``structured_images_labeled(24000, ..., seed 0)``, each split's epochs
 seeded 1, 2, 3), where the clustering accuracy is a real number.
@@ -267,9 +268,10 @@ def run(dataset: str = "mnist", mode: str = "local_ep",
         max_rollbacks: int = 0, compile_cache: Optional[str] = None,
         checkpoint_backend: str = "npz", n_devices: Optional[int] = None,
         parallel: str = "dp", mesh_shape: Optional[str] = None,
-        **overrides):
+        chunk_size: Optional[int] = None, **overrides):
     """Train; returns ``(trainer, last metrics)``. ``run_dir`` reuses a
-    run directory and resumes from its latest checkpoint; SIGTERM,
+    run directory and resumes from its latest checkpoint; ``chunk_size``
+    is the resident path's iterations per dispatch; SIGTERM,
     ``max_rollbacks`` and ``compile_cache`` are the failure handling of
     ``runs/gan_inference.py``."""
     check_backend(checkpoint_backend)
@@ -308,7 +310,8 @@ def run(dataset: str = "mnist", mode: str = "local_ep",
                       checkpoints_to_keep=checkpoints_to_keep,
                       max_rollbacks=max_rollbacks, mesh=mesh,
                       parallel=parallel,
-                      checkpoint_backend=checkpoint_backend)
+                      checkpoint_backend=checkpoint_backend,
+                      chunk_size=chunk_size)
     trainer.install_preempt_handlers()
     metrics = trainer.train(iters)
     if dataset != "celeba":
@@ -332,6 +335,7 @@ def main(argv=None):
                         "labeled family)")
     p.add_argument("--data-pipeline", default=None,
                    choices=["resident", "host"])
+    p.add_argument("--chunk-size", type=int, default=None)
     p.add_argument("--outdir", default="result")
     p.add_argument("--run-dir", default=None,
                    help="reuse a run directory and resume from its latest "
@@ -360,8 +364,8 @@ def main(argv=None):
     run(args.dataset, args.mode, iters=args.iters, data_dir=args.data_dir,
         outdir=args.outdir, run_dir=args.run_dir, seed=args.seed,
         checkpoint_every=args.checkpoint_every, eval_every=args.eval_every,
-        data_pipeline=args.data_pipeline, device=args.device,
-        mode_k=args.mode_k, **failure_kwargs(args),
+        data_pipeline=args.data_pipeline, chunk_size=args.chunk_size,
+        device=args.device, mode_k=args.mode_k, **failure_kwargs(args),
         **parallel_kwargs(args), **overrides)
 
 

@@ -18,7 +18,8 @@ pipelines (``--data-pipeline``): ``host`` (the default, as in JAX: a fresh
 epoch synthesized on the host and copied ahead), ``resident`` (one epoch
 frozen on the card) and ``device`` (moving-MNIST only: the digit pool on
 the card and the videos synthesized there each iteration,
-``data/ondevice_moving_mnist.py``).
+``data/ondevice_moving_mnist.py``); the last two run in dispatches of
+``--chunk-size`` iterations (``train/trainer.py``).
 
 Instruments, as the reference's (``ssgan_inference_moving_mnist.py``): the
 parameter count of each player at the start (``:635-641``); the dev costs
@@ -216,9 +217,10 @@ def run(dataset: str = "moving_mnist", mode: str = "local_ep",
         compile_cache: Optional[str] = None,
         checkpoint_backend: str = "npz", n_devices: Optional[int] = None,
         parallel: str = "dp", mesh_shape: Optional[str] = None,
-        **overrides):
+        chunk_size: Optional[int] = None, **overrides):
     """Train; returns ``(trainer, last metrics)``. ``run_dir`` reuses a run
-    directory and resumes from its latest checkpoint; ``overrides`` are
+    directory and resumes from its latest checkpoint; ``chunk_size`` is the
+    resident and device paths' iterations per dispatch; ``overrides`` are
     config fields (``pos_mode``, ``ali_mode``, ``bn``, ``compute_dtype``,
     ...); SIGTERM, ``max_rollbacks`` and ``compile_cache`` are the failure
     handling of ``runs/gan_inference.py``."""
@@ -257,7 +259,8 @@ def run(dataset: str = "moving_mnist", mode: str = "local_ep",
                       checkpoints_to_keep=checkpoints_to_keep,
                       max_rollbacks=max_rollbacks, mesh=mesh,
                       parallel=parallel,
-                      checkpoint_backend=checkpoint_backend)
+                      checkpoint_backend=checkpoint_backend,
+                      chunk_size=chunk_size)
     # the counts need the state
     if trainer.state is None and not trainer.try_resume():
         trainer.state = trainer.fresh_state()
@@ -281,6 +284,7 @@ def main(argv=None):
                    help="the dataset's files (omit for the synthetic "
                         "fallback; 'structured' for the learnable digits)")
     p.add_argument("--data-pipeline", default="host", choices=PIPELINES)
+    p.add_argument("--chunk-size", type=int, default=None)
     p.add_argument("--outdir", default="result")
     p.add_argument("--run-dir", default=None,
                    help="reuse a run directory and resume from its latest "
@@ -311,7 +315,8 @@ def main(argv=None):
                run_dir=args.run_dir, seed=args.seed,
                checkpoint_every=args.checkpoint_every,
                eval_every=args.eval_every, data_pipeline=args.data_pipeline,
-               device=args.device, **failure_kwargs(args),
+               chunk_size=args.chunk_size, device=args.device,
+               **failure_kwargs(args),
         **parallel_kwargs(args), **overrides)
 
 

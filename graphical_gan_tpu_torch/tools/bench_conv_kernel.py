@@ -2,18 +2,25 @@
 K3b im2col) against the library conv, at the discriminator-stack shapes of
 ``graphical_gan_tpu/tools/bench_conv_kernel.py``.
 
-    python -m graphical_gan_tpu_torch.tools.bench_conv_kernel [--dtype bfloat16]
+    python -m graphical_gan_tpu_torch.tools.bench_conv_kernel \
+        [--dtype bfloat16] [--reps 0] [--rounds 5] [--n-inputs 4]
 
 Three arms compute one function, a SAME 5x5 stride-2 conv + bias +
 LeakyReLU(0.2): ``library`` (cuDNN's ``F.conv2d`` on channels-last input
 padded beforehand, + leaky), ``k3_taps`` and ``k3_im2col``. Each arm is
-timed with CUDA events over inputs rotated out of L2 (``tools/timing.py``)
-and held against ``conv_gemm_plain`` (f32 accumulation) by its largest
-error relative to max(1, max |ref|). Each K3 arm records its route
+timed with CUDA events (``tools/timing.py: time_ms``): ``--rounds`` timed
+runs of ``--reps`` back-to-back calls (0: enough calls for about 1e12
+operations, 20 to 1000; the record's ``reps``), the median run per call.
+The calls rotate over ``--n-inputs`` input sets drawn from the seed, and
+over copies of them up to twice the L2 cache, so no call reads the inputs
+of the call before it from L2. Each arm is held against
+``conv_gemm_plain`` (f32 accumulation) by its largest error relative to
+max(1, max |ref|), on the first input set. Each K3 arm records its route
 (``conv_gemm.route``: the mainloop ``path``, the ``tile`` and the K
 ``splits``). One JSON line per shape, with the card's ``nvidia-smi
 --query-gpu=name,power.limit`` line. Runs on the card; without one it
-raises.
+raises. ``--device cpu`` runs the plain versions at a toy shape on the
+host's clock (for its test) and names no device time.
 """
 
 from __future__ import annotations
@@ -41,7 +48,34 @@ SHAPES = [
     ("disc2_b512", 512, 16, 64, 128),
     ("disc3_b512", 512, 8, 128, 256),
 ]
+TOY_SHAPES = [("toy", 2, 8, 16, 24)]
 ARMS = ("library", "k3_taps", "k3_im2col")
+# where --reps is 0: calls per timed run for about this many operations
+AUTO_REPS_FLOPS = 1e12
+AUTO_REPS = (20, 1000)
+
+
+def conv_flops(b: int, h: int, cin: int, cout: int) -> int:
+    """Operations of the 5x5 stride-2 SAME conv at one shape."""
+    oh = -(-h // 2)
+    return 2 * b * oh * oh * cout * 25 * cin
+
+
+def auto_reps(flops: float) -> int:
+    """Calls per timed run where ``--reps`` is 0."""
+    lo, hi = AUTO_REPS
+    return max(lo, min(hi, int(AUTO_REPS_FLOPS // flops)))
+
+
+def make_timer(device: torch.device, reps: int, rounds: int) -> Callable:
+    """``timer(fn, sets)``: the median ms per call over ``rounds`` runs of
+    ``reps`` calls rotating over the argument ``sets``, from CUDA events
+    on the card (``timing.time_ms``), on the host's clock on the CPU."""
+    from graphical_gan_tpu_torch.tools import timing
+    if device.type == "cuda":
+        return lambda fn, sets: timing.time_ms(fn, sets[0], reps=rounds,
+                                               inner=reps, sets=sets)
+    return lambda fn, sets: timing.host_ms(fn, sets, reps=rounds, inner=reps)
 
 
 def card_line() -> str:
@@ -80,19 +114,23 @@ def _arms(x, w, bias) -> Dict[str, Tuple[Callable, tuple]]:
 
 def bench_shape(name: str, b: int, h: int, cin: int, cout: int,
                 dtype: torch.dtype, device: torch.device, timer: Callable,
-                seed: int = 0) -> Dict:
+                seed: int = 0, n_inputs: int = 1) -> Dict:
     """The record of one shape: each arm's error against the plain
     reference, its µs and TFLOP/s, the best arm, and how many times faster
-    the better K3 variant is than the library."""
+    the better K3 variant is than the library. ``timer(fn, sets)`` times
+    ``fn`` over the arm's argument sets, one per input set (``n_inputs``
+    of x from ``seed``; the filter and bias are shared)."""
     rng = np.random.default_rng(seed)
-    x = torch.from_numpy(rng.standard_normal((b, h, h, cin), np.float32)
-                         ).to(device=device, dtype=dtype)
-    w = torch.from_numpy(rng.standard_normal((5, 5, cin, cout), np.float32)
-                         * 0.05).to(device=device, dtype=dtype)
-    bias = torch.from_numpy(rng.standard_normal((cout,), np.float32)).to(
-        device=device, dtype=dtype)
-    oh = -(-h // 2)
-    flops = 2 * b * oh * oh * cout * 25 * cin
+
+    def draw(shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                * scale).to(device=device, dtype=dtype)
+
+    x = draw((b, h, h, cin))
+    w = draw((5, 5, cin, cout), 0.05)
+    bias = draw((cout,))
+    xs = [x] + [draw((b, h, h, cin)) for _ in range(max(1, n_inputs) - 1)]
+    flops = conv_flops(b, h, cin, cout)
     ref = conv_gemm_plain(x, w, bias).float()
     scale = max(1.0, float(ref.abs().max()))
     rec = {"shape": name, "B": b, "H": h, "Cin": cin, "Cout": cout,
@@ -102,10 +140,11 @@ def bench_shape(name: str, b: int, h: int, cin: int, cout: int,
         rec[f"k3_{variant}_route"] = {"path": p.path, "tile": [p.bm, p.bn],
                                       "splits": p.splits}
     times = {}
-    for arm, (fn, args) in _arms(x, w, bias).items():
+    per_input = [_arms(xi, w, bias) for xi in xs]
+    for arm, (fn, args) in per_input[0].items():
         got = fn(*args).float()
         rec[f"{arm}_rel_maxerr"] = float((got - ref).abs().max()) / scale
-        t_ms = timer(fn, args)
+        t_ms = timer(fn, [arms[arm][1] for arms in per_input])
         times[arm] = t_ms
         rec[f"{arm}_us"] = t_ms * 1e3
         rec[f"{arm}_tflops"] = flops / (t_ms * 1e-3) / 1e12
@@ -116,19 +155,22 @@ def bench_shape(name: str, b: int, h: int, cin: int, cout: int,
 
 
 def run(shapes: Sequence = SHAPES, dtype: str = "bfloat16",
-        device: str = "cuda", timer: Optional[Callable] = None
-        ) -> List[Dict]:
-    """One record per shape, each printed as a JSON line."""
+        device: str = "cuda", timer: Optional[Callable] = None,
+        reps: int = 0, rounds: int = 5, n_inputs: int = 4) -> List[Dict]:
+    """One record per shape, each printed as a JSON line. ``timer(fn,
+    sets)`` replaces :func:`make_timer`'s (``reps``, 0 for
+    :func:`auto_reps`, and ``rounds``)."""
     dev = resolve_device(device)
     set_numerics()
-    if timer is None:
-        from graphical_gan_tpu_torch.tools.timing import time_ms as timer
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     card = card_line() if dev.type == "cuda" else "no card"
     out = []
     for shape in shapes:
-        rec = bench_shape(*shape, getattr(torch, dtype), dev, timer)
-        rec.update(device_kind=kind, card=card)
+        calls = reps or auto_reps(conv_flops(*shape[1:]))
+        rec = bench_shape(*shape, getattr(torch, dtype), dev,
+                          timer or make_timer(dev, calls, rounds),
+                          n_inputs=n_inputs)
+        rec.update(reps=calls, device_kind=kind, card=card)
         print(json.dumps(rec), flush=True)
         out.append(rec)
     return out
@@ -138,8 +180,24 @@ def main(argv=None) -> List[Dict]:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
+    p.add_argument("--reps", type=int, default=0,
+                   help="calls per timed run, back to back between two "
+                        "CUDA events; 0 = auto per shape: enough calls "
+                        "for about 1e12 operations (20 to 1000)")
+    p.add_argument("--rounds", type=int, default=5,
+                   help="timed runs per arm; the record takes their "
+                        "median")
+    p.add_argument("--n-inputs", type=int, default=4,
+                   help="input sets drawn from the seed that the calls "
+                        "rotate over (with copies up to twice the L2 "
+                        "cache), so no call reads the inputs of the call "
+                        "before it from L2")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (a toy shape, host clock)")
     args = p.parse_args(argv)
-    return run(SHAPES, args.dtype)
+    shapes = TOY_SHAPES if args.device == "cpu" else SHAPES
+    return run(shapes, args.dtype, args.device, reps=args.reps,
+               rounds=args.rounds, n_inputs=args.n_inputs)
 
 
 if __name__ == "__main__":

@@ -2,9 +2,10 @@
 shapes (``graphical_gan_tpu/tools/bench_phase_deconv.py``'s list):
 
     python -m graphical_gan_tpu_torch.tools.bench_phase_deconv \\
-        [--dtype float32,bfloat16] [--shapes gen2,ss3] [--rounds 5]
+        [--dtype float32,bfloat16] [--shapes gen2,ss3] [--rounds 5] [--k 5]
 
-Per shape (k 5, stride 2, SAME), dtype and pass (``fwd``; ``fwdbwd``, the
+Per shape (kernel size ``--k``, 5 by default as the families' deconvs,
+stride 2, SAME), dtype and pass (``fwd``; ``fwdbwd``, the
 forward and the gradients with respect to x and the filter at a fixed
 cotangent), three arms:
 
@@ -69,10 +70,11 @@ def _valid_taps(n: int, t: int, lo: int) -> int:
     return sum(1 for o in range(n) for j in range(t) if 0 <= o - lo + j < n)
 
 
-def k1_bound(b: int, h: int, cin: int, cout: int, dtype: str):
-    """(ms, "operations" or "bytes") of K1's phase conv: H x H to 4·cout
-    channels, a T x T window, its taps in the window padding left out."""
-    big, (pl, _) = _phase_kernel(torch.zeros((K, K, cout, cin)), K)
+def k1_bound(b: int, h: int, cin: int, cout: int, dtype: str, k: int = K):
+    """(ms, "operations" or "bytes") of K1's phase conv for a k x k
+    transpose filter: H x H to 4·cout channels, a T x T window, its taps
+    in the window padding left out."""
+    big, (pl, _) = _phase_kernel(torch.zeros((k, k, cout, cin)), k)
     t = big.shape[0]
     flops = 2.0 * b * cin * 4 * cout * _valid_taps(h, t, pl) ** 2
     size = torch.finfo(getattr(torch, dtype)).bits // 8
@@ -114,7 +116,7 @@ def _arms(x, w, bias) -> Dict[str, Callable]:
     """Per arm, (forward of (x, filter), filter): the transpose filter for
     cudnn and phase, the stride-1 phase filter (HWIO) for library, whose
     output stays in the phase-channel form [B, H, W, 4·O]."""
-    big, (pl, pr) = _phase_kernel(w, K)
+    big, (pl, pr) = _phase_kernel(w, int(w.shape[0]))
     b4 = bias.repeat(4)
 
     def library(xx, ww):
@@ -130,9 +132,10 @@ def _arms(x, w, bias) -> Dict[str, Callable]:
 
 def run(shapes: Sequence, dtypes: Sequence[str], device="cuda",
         reps: int = 10, rounds: int = 5,
-        timer: Optional[Callable] = None) -> List[Dict]:
-    """Time every arm at ``shapes`` (``SHAPES``' tuples) in ``dtypes`` and
-    print one JSON line per (shape, dtype, pass); returns the records."""
+        timer: Optional[Callable] = None, k: int = K) -> List[Dict]:
+    """Time every arm at ``shapes`` (``SHAPES``' tuples) in ``dtypes``, the
+    transpose filters k x k, and print one JSON line per (shape, dtype,
+    pass); returns the records."""
     dev = resolve_device(device)
     set_numerics()
     timer = timer or (lambda fn: best_ms(fn, dev, reps, rounds))
@@ -144,7 +147,7 @@ def run(shapes: Sequence, dtypes: Sequence[str], device="cuda",
             gen = torch.Generator(device=dev).manual_seed(0)
             x = torch.randn((b, h, h, cin), generator=gen, device=dev
                             ).to(td)
-            w = torch.randn((K, K, cout, cin), generator=gen,
+            w = torch.randn((k, k, cout, cin), generator=gen,
                             device=dev) * 0.05
             bias = torch.randn((cout,), generator=gen, device=dev) * 0.1
             g = torch.randn((b, 2 * h, 2 * h, cout), generator=gen,
@@ -153,11 +156,11 @@ def run(shapes: Sequence, dtypes: Sequence[str], device="cuda",
             g4 = g.reshape(b, h, 2, h, 2, cout).permute(
                 0, 1, 3, 2, 4, 5).reshape(b, h, h, 4 * cout)
             arms = _arms(x, w, bias)
-            bound_ms, bound_by = k1_bound(b, h, cin, cout, dtype)
+            bound_ms, bound_by = k1_bound(b, h, cin, cout, dtype, k)
             for which in ("fwd", "fwdbwd"):
                 rec = {"metric": "phase_deconv_ab", "shape": label,
                        "batch": b, "hw": h, "cin": cin, "cout": cout,
-                       "k": K, "dtype": dtype, "pass": which,
+                       "k": k, "dtype": dtype, "pass": which,
                        "k1_bound_ms": bound_ms, "k1_bound_by": bound_by,
                        "card": card,
                        "clock": "cuda events" if dev.type == "cuda"
@@ -192,6 +195,10 @@ def main(argv=None) -> List[Dict]:
                    help="comma-separated subset of the shape labels")
     p.add_argument("--reps", type=int, default=10)
     p.add_argument("--rounds", type=int, default=5)
+    p.add_argument("--k", type=int, default=K,
+                   help="kernel size of the transpose filters (default 5, "
+                        "the families' deconvs); the phase route's "
+                        "stride-1 window and K1's bound follow it")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (a toy shape, host clock)")
     args = p.parse_args(argv)
@@ -199,7 +206,7 @@ def main(argv=None) -> List[Dict]:
     if args.shapes:
         shapes = [s for s in shapes if s[0] in args.shapes.split(",")]
     return run(shapes, args.dtype.split(","), args.device, args.reps,
-               args.rounds)
+               args.rounds, k=args.k)
 
 
 if __name__ == "__main__":

@@ -8,10 +8,12 @@ twice and demands BIT identity:
 1. ``step_replay``     — one step (G+E update and k D updates) from
                          identical state, batches and generator seed: the
                          determinism of the kernels and library ops.
-2. ``chunk_replay``    — N back-to-back iterations of the step, each
-                         drawing its batches on the device from the
-                         resident data (the port runs iterations one by
-                         one; it has no scanned chunk).
+2. ``chunk_replay``    — one dispatch of the trainer's chunked loop
+                         (``Trainer.dispatch``): N back-to-back
+                         iterations, each drawing its batches on the
+                         device from the resident data, replayed from the
+                         same state (the state and the N costs the
+                         dispatch queued).
 3. ``loader_replay``   — two epochs of the host loader at the same seed
                          (``data/common.py: generator_factory``, a numpy
                          gather), byte-compared at the JAX tool's sizes.
@@ -151,30 +153,24 @@ def check_step_replay(model, cfg, resident, device) -> Dict:
 
 
 def check_chunk_replay(model, cfg, resident, n_iters: int, device) -> Dict:
-    from graphical_gan_tpu_torch.data.ondevice import sample_batches, to_device
-    from graphical_gan_tpu_torch.train.step import make_train_step
+    from graphical_gan_tpu_torch.train.trainer import Trainer
 
-    step, init_state = make_train_step(model)
-    state = init_state(model.init(0, device))
-    data = to_device(resident, device)
-
-    def chunk(st):
-        metrics = []
-        for i in range(n_iters):
-            gen = _generator((11 << 32) + i, device)
-            raw = sample_batches(data, 1 + cfg.critic_iters, cfg.batch_size,
-                                 gen)
-            st, m = step(st, raw, st.step > 0, gen)
-            metrics.append(m)
-        return st, metrics
-
-    s1, m1 = chunk(_copy(state))
-    s2, m2 = chunk(_copy(state))
+    with tempfile.TemporaryDirectory() as d:
+        tr = Trainer(model, resident, d, seed=11, device=device,
+                     checkpoint_every=0, render_curves=False)
+        init = tr.fresh_state()
+        runs = []
+        for _ in range(2):
+            tr.state = _copy(init)
+            pend = []
+            tr.dispatch(0, n_iters, pend)
+            runs.append((tr.state, [v for _, _, v in pend]))
+    (s1, m1), (s2, m2) = runs
     ok = _bit_equal(s1, s2) and _bit_equal(m1, m2)
     return {"check": "chunk_replay", "ok": ok,
-            "detail": f"{n_iters} back-to-back iterations replayed "
+            "detail": f"a {n_iters}-iteration Trainer dispatch replayed "
             "bit-exactly" if ok else
-            "replayed iterations differ (sampler/step nondeterminism?)"}
+            "replayed dispatches differ (sampler/step nondeterminism?)"}
 
 
 def check_loader_replay() -> Dict:

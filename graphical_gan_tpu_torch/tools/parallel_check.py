@@ -27,7 +27,10 @@ so the ranks load it and none builds it):
    (every replicated leaf, and every rank's gathered state). The ranks'
    launch counts (set to 0 just before the strategies run) and which
    collectives gloo takes on the ranks' tensors (``all_gather``,
-   ``reduce_scatter``, ``all_to_all``, ``barrier``) are reported.
+   ``reduce_scatter``, ``all_to_all``, ``barrier``) are reported. Then dp
+   trains through the ``Trainer``'s chunked loop (``train/trainer.py``)
+   for CHUNK_ITERS iterations on resident data at ``chunk_size`` 2 and 1:
+   the full states must be equal bit for bit (``chunk_bit_identical``).
 
    In both runs the tp strategy also saves its state mid-run through the
    sharded checkpoint backend (``train/checkpoint_orbax.py``: each rank
@@ -90,6 +93,9 @@ RANK_CASES = (("dp", "gan", "cifar10", "wali-gp", ("data",)),
 WORLD1_CASES = RANK_CASES + (
     ("composed", "gan", "cifar10", "wali-gp", ("data", "model")),)
 ITERS = 2
+# the dp Trainer's chunk check: iterations 0-4 alone, then 5-6 in one
+# dispatch at chunk_size 2
+CHUNK_ITERS = 7
 # the pipeline's cases (family, dataset, mode) per stage count, and its
 # microbatches
 PP_CASES = {2: (("gan", "cifar10", "wali-gp"), ("gmgan", "mnist",
@@ -433,11 +439,38 @@ def rank_main(rank: int, world: int, job: Dict) -> Dict:
             if strategy == "tp":
                 rec["sharded_resume_bit_identical"] = _sharded_resume(
                     model, mesh, device, job["tmp"])
+            if strategy == "dp" and job["run"] == "ranks":
+                rec["chunk_bit_identical"] = _chunk_replay(model, mesh,
+                                                           job["tmp"])
             result["cases"].append(rec)
         result["launches"] = launches
         return result
     finally:
         dist.destroy_process_group()
+
+
+def _chunk_replay(model, mesh, tmp: str) -> bool:
+    """dp Trainers on the ranks over CHUNK_ITERS iterations of resident
+    data (seeded random rows) at ``chunk_size`` 2 and 1: the full states
+    (parameters, Adam's m and v, step) bit for bit."""
+    from graphical_gan_tpu_torch.train.trainer import Trainer
+    cfg = model.cfg
+    rng = np.random.RandomState(3)
+    shape = (8 * cfg.batch_size, cfg.data.output_dim)
+    data = rng.rand(*shape).astype(np.float32) \
+        if cfg.data.normalization == "unit" \
+        else rng.randint(0, 256, shape).astype(np.uint8)
+    states = []
+    for chunk in (2, 1):
+        tr = Trainer(model, data, os.path.join(tmp, f"chunk_{chunk}"),
+                     seed=0, mesh=mesh, parallel="dp", checkpoint_every=0,
+                     chunk_size=chunk, render_curves=False)
+        tr.train(CHUNK_ITERS)
+        full = tr._full_state()
+        states.append((full.step, _leaves(full)))
+    (s0, a), (s1, b) = states
+    return s0 == s1 == CHUNK_ITERS and a.keys() == b.keys() and all(
+        torch.equal(a[k], b[k]) for k in a)
 
 
 def _sharded_resume(model, mesh, device, tmp: str) -> bool:
@@ -706,6 +739,9 @@ def misses_of(doc: Dict, device: str = "cuda") -> List[str]:
     for rec in (ranks or {}).get("cases", []):
         if rec.get("misses"):
             out.append(f"ranks {rec['strategy']}: {rec['misses'][:5]}")
+        if rec["strategy"] == "dp" and not rec.get("chunk_bit_identical"):
+            out.append("ranks dp: the Trainer at chunk_size 2 differs from "
+                       "chunk_size 1")
         if not rec["replicas_bit_identical"]:
             out.append(f"ranks {rec['strategy']}: replicas differ")
     if ranks is not None:

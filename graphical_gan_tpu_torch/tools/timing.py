@@ -2,18 +2,19 @@
 read from device memory: the timer of ``chip_smoke.py`` and
 ``tools/bench_conv_kernel.py``.
 
-The calls rotate over copies of the tensor arguments that together hold at
-least twice the card's L2 cache, so each call reads its inputs from device
-memory, as a bytes bound assumes, and not from what the call before left in
-L2. A spin kernel queued before each timed run keeps the card busy while
-the host enqueues the calls, so host overhead is not timed.
+The calls rotate over the argument sets a caller gives (or one) and copies
+of them that together hold at least twice the card's L2 cache, so each
+call reads its inputs from device memory, as a bytes bound assumes, and not
+from what the call before left in L2. A spin kernel queued before each
+timed run keeps the card busy while the host enqueues the calls, so host
+overhead is not timed.
 """
 
 from __future__ import annotations
 
 import statistics
 import time
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -29,22 +30,30 @@ def rotation_copies(nbytes: int, l2_bytes: int) -> int:
     return max(2, -(-2 * l2_bytes // int(nbytes)))
 
 
+def _clone(args: Sequence) -> tuple:
+    return tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                 for a in args)
+
+
 def time_ms(fn: Callable, args: Sequence, reps: int = 7,
-            inner: int = 20) -> float:
+            inner: int = 20, sets: Optional[Sequence[Sequence]] = None
+            ) -> float:
     """Median device ms of one ``fn(*args)``, from CUDA events around
-    ``inner`` back-to-back calls, over ``reps`` runs. Raises without a
-    card."""
+    ``inner`` back-to-back calls, over ``reps`` runs. ``sets``, where
+    given, are the argument sets the calls rotate over in place of
+    ``args`` (copies of them are added up to :func:`rotation_copies`).
+    Raises without a card."""
     if not torch.cuda.is_available():
         raise RuntimeError("time_ms measures on the card; CUDA is not "
                            "available")
     l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
                  L2_FALLBACK)
-    nbytes = sum(a.numel() * a.element_size() for a in args
+    given = [tuple(s) for s in sets] if sets else [tuple(args)]
+    nbytes = sum(a.numel() * a.element_size() for a in given[0]
                  if isinstance(a, torch.Tensor))
-    n = rotation_copies(nbytes, l2)
-    sets = [tuple(args)] + [tuple(a.clone() if isinstance(a, torch.Tensor)
-                                  else a for a in args)
-                            for _ in range(n - 1)]
+    n = max(len(given), rotation_copies(nbytes, l2))
+    sets = given + [_clone(given[i % len(given)])
+                    for i in range(len(given), n)]
     calls = 0
 
     def run(k):
@@ -70,4 +79,20 @@ def time_ms(fn: Callable, args: Sequence, reps: int = 7,
         end.record()
         torch.cuda.synchronize()
         out.append(start.elapsed_time(end) / inner)
+    return statistics.median(out)
+
+
+def host_ms(fn: Callable, sets: Sequence[Sequence], reps: int = 7,
+            inner: int = 20) -> float:
+    """Median host-clock ms of one call of ``fn``, over ``reps`` runs of
+    ``inner`` calls that rotate over the argument ``sets``: the CPU's
+    counterpart of :func:`time_ms`, which names no device time."""
+    sets = [tuple(s) for s in sets]
+    fn(*sets[0])
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for i in range(inner):
+            fn(*sets[i % len(sets)])
+        out.append((time.perf_counter() - t0) * 1e3 / inner)
     return statistics.median(out)

@@ -31,8 +31,9 @@ gradient, and each gets its own row.
 
 Output: a table and one JSON line, ``{"metric": "trace_attribution",
 ...}``, with the busy ms, the groups' shares and the top kernels;
-``--iters N`` adds per-iteration figures. The tool reads a file and runs
-nothing on a device.
+``--iters N`` adds per-iteration figures (the trainer's trace names the
+iterations it holds, ``ggan.<first>-<last>.``: :func:`traced_iterations`).
+The tool reads a file and runs nothing on a device.
 """
 
 from __future__ import annotations
@@ -143,6 +144,17 @@ def profile_train(tr, n: int):
         host, key=lambda ev: -ev.self_cpu_time_total)[:8]]
     return (busy_ms / wall_ms, busy_ms / n, per_iter, top, host_ops,
             host_top)
+
+
+def traced_iterations(path: str) -> Optional[int]:
+    """How many iterations the trainer's trace under ``path`` holds, from
+    its name (``ggan.<first>-<last>.<pid>.<ns>.trace.json.gz``); None for
+    another trace."""
+    name = os.path.basename(find_trace(path))
+    if not name.startswith("ggan."):
+        return None
+    first, last = name.split(".")[1].split("-")
+    return int(last) - int(first) + 1
 
 
 def find_trace(path: str) -> str:

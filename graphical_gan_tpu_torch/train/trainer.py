@@ -33,29 +33,62 @@ iterations below 2**24).
 The dev sweep and the hooks draw from generators seeded from (seed, their
 salt, iteration), ``(seed << 40) + (salt << 32) + iteration`` with salt >=
 1 (``eval_generator``), so a resumed run scores as an uninterrupted one.
+
+The resident path runs JAX's chunked loop (JAX ``train/trainer.py:
+184-203, 801-945``). The iterations up to the next host event (the
+100-iteration dev and flush cadence, ``checkpoint_every``, each eval hook's
+cadence, the early boundaries 1-5 and the run's end) form a window; the
+window runs as dispatches of ``chunk_size`` iterations (``None``: the whole
+window, at most 100). A dispatch runs its iterations back to back, each
+seeded, drawn and stepped as above, and queues each iteration's logged
+cost as a device scalar; nothing is fetched inside it. At the window's
+end the queued costs come to the host in one copy, the divergence guard
+and ``GGAN_FAULT_NAN_AT`` act on the window, each iteration's cost and
+``time`` (the window's wall time over its iterations) are plotted, and
+then the dev sweep, the flush, the hooks and the checkpoint run, in JAX's
+order. The draws are keyed by (seed, salt,
+iteration), not by dispatch, so every ``chunk_size`` gives the same
+parameters, optimizer state, step, costs and checkpoints, bit for bit;
+only ``time`` differs. The host-fed path runs one iteration at a time and
+ignores ``chunk_size``, as JAX's does. A dispatch is a Python loop over
+the eager step, so JAX's step down to shorter chunks when a scanned
+program fails to compile (``:813-842``) has no counterpart: an exception
+from the step propagates.
+
 ``GGAN_PROFILE=<dir>`` traces iterations ``GGAN_PROFILE_START`` (default
 10) to ``GGAN_PROFILE_START + GGAN_PROFILE_STEPS - 1`` (default 10 of them)
 under ``torch.profiler`` (CPU and, on the card, CUDA activities, with the
-ops' input shapes) and writes a Chrome trace, ``*.trace.json.gz``, into
-``<dir>`` for ``tools/trace_report.py`` (JAX ``train/trainer.py:491-519,
-609-620``). The trace reads the step and changes none of its values.
+ops' input shapes) and writes a Chrome trace,
+``ggan.<first>-<last>.<pid>.<ns>.trace.json.gz``, into ``<dir>`` for
+``tools/trace_report.py`` (JAX ``train/trainer.py:491-519, 609-620,
+865-891``). On the resident path the trace opens at the dispatch that
+holds ``GGAN_PROFILE_START`` and closes after the one that reaches
+``GGAN_PROFILE_START + GGAN_PROFILE_STEPS``, so ``<first>-<last>`` in its
+name are the iterations it holds. The trace reads the step and changes
+none of its values.
 
 Failure handling (JAX ``train/trainer.py:45-66, 229-330, 365-420,
 495-600``):
 
 - **Preemption.** ``request_preempt()`` (SIGTERM through
   ``install_preempt_handlers()``) stops the loop after the iteration in
-  flight: the pending costs are drained into the log, that iteration is
-  checkpointed, ``preempted: checkpoint saved at iteration N; resume with
-  --run-dir`` is logged, and ``train()`` returns with ``preempted`` set.
+  flight (on the resident path, after the dispatch in flight, which ends
+  its window there): the pending costs are drained into the log, that
+  iteration is checkpointed, ``preempted: checkpoint saved at iteration
+  N; resume with --run-dir`` is logged, and ``train()`` returns with
+  ``preempted`` set. At the default ``chunk_size`` a dispatch runs up to
+  the next host event, up to 100 iterations, so the stop waits up to that
+  many iterations; a smaller ``chunk_size`` bounds the wait.
 - **Divergence guard.** With ``max_rollbacks > 0`` each drained window of
   training costs is checked for finiteness; a non-finite cost restores the
   latest checkpoint (an anchor ``ckpt_-1`` is written first where none
-  exists) and retries on salt ``salt_high + 1``, never a salt that already
-  diverged, also across restarts (``rng_salt`` and ``rng_salt_high`` are in
-  each checkpoint's extras). ``GGAN_FAULT_NAN_AT=<iter>`` poisons that
-  iteration's observed cost once (inert without the guard). A preemption
-  whose drained costs are not finite rolls back instead of checkpointing.
+  exists; the window's first non-finite iteration over the ranks is the
+  one reported) and retries on salt ``salt_high + 1``, never a salt
+  that already diverged, also across restarts (``rng_salt`` and
+  ``rng_salt_high`` are in each checkpoint's extras).
+  ``GGAN_FAULT_NAN_AT=<iter>`` poisons that iteration's observed cost
+  once (inert without the guard). A preemption whose drained costs are
+  not finite rolls back instead of checkpointing.
 - **Async checkpoints** (``async_checkpoint=True`` or
   ``GGAN_ASYNC_CKPT=1``): ``save()`` clones the state on the card and a
   worker thread copies it to the host and writes it
@@ -82,8 +115,9 @@ the ranks of the flag), so no rank stops alone while the others wait in a
 collective; a restore (resume, rollback) waits until rank 0's writer has
 joined and takes the checkpoint rank 0 lists, so every rank restores the
 same iteration. These agreements and the barriers run over the mesh's
-host group (gloo on CPU tensors), so the per-iteration preemption check
-syncs no device.
+host group (gloo on CPU tensors), so the preemption check syncs no
+device; the resident path makes it once per dispatch, the host-fed path
+once per iteration.
 
 Checkpoints (JAX ``train/trainer.py:215-226, 394-470``):
 ``checkpoint_backend="npz"`` (default) writes ``ckpt_<iter>.npz`` of the
@@ -98,9 +132,6 @@ into each other (``parallel/pipeline.py: pp_state_from_train_state``,
 ``train_state_from_pp_state``): a dp, tp or one-device run resumes under
 pp at 2 or 4 stages, a pp run resumes unsharded or at another stage
 count.
-
-Left for later slices: multi-iteration dispatch (in the port, a CUDA
-graph over several iterations).
 """
 
 from __future__ import annotations
@@ -237,6 +268,8 @@ class Trainer:
     ``dev_gen_factory`` gives the dev batches the sweep averages over;
     ``lr_scale(t)`` scales Adam's step size at its step count t (the
     linear decay of ``cfg.decay``, ``runs/gan_inference.py``).
+    ``chunk_size`` is the resident path's iterations per dispatch
+    (``None``: up to the next host event, at most 100; else at least 1).
     ``checkpoints_to_keep``, ``max_rollbacks`` and ``async_checkpoint``
     are the failure handling of the module docstring. ``render_curves``
     (default: ``GGAN_RENDER_CURVES``, on unless "0") writes the
@@ -259,7 +292,8 @@ class Trainer:
                  async_checkpoint: Optional[bool] = None,
                  render_curves: Optional[bool] = None,
                  mesh=None, parallel: str = "dp",
-                 checkpoint_backend: str = "npz"):
+                 checkpoint_backend: str = "npz",
+                 chunk_size: Optional[int] = None):
         if resident_data is None and train_gen_factory is None:
             raise ValueError("the Trainer needs resident_data or, for the "
                              "host-fed path, train_gen_factory")
@@ -301,6 +335,7 @@ class Trainer:
             resident_data, self.device)
         self.batch_sampler = batch_sampler or (
             lambda data, gen, n, b: sample_batches(data, n, b, gen))
+        self.chunk_size = None if chunk_size is None else max(1, chunk_size)
         self.train_gen_factory = train_gen_factory
         self.dev_gen_factory = dev_gen_factory
         self._dev_data = None
@@ -714,7 +749,8 @@ class Trainer:
             # a rollback, as after a restart
             batches = None if self.data is not None else self._host_batches()
             try:
-                last = self._loop(iters, batches)
+                last = self._loop(iters, batches) if batches is not None \
+                    else self._loop_resident(iters)
                 break
             except _Diverged as e:
                 self._rollback(e.iteration)
@@ -751,28 +787,55 @@ class Trainer:
         prof.export_chrome_trace(path)
         print(f"profile: iterations {first}-{last} traced to {path}")
 
+    @staticmethod
+    def _pend(iteration: int, costs: Dict, pend) -> None:
+        """Queue ``iteration``'s logged cost (D's, or G's after iteration
+        0), a device scalar, for the next drain: the costs come to the
+        host in one copy at a boundary, not every iteration."""
+        if "disc_cost" in costs:
+            pend.append((iteration, "train disc cost", costs["disc_cost"]))
+        elif iteration > 0:
+            pend.append((iteration, "train gen cost", costs["gen_cost"]))
+
     def _drain(self, pend, inject: bool) -> None:
         """Fetch the pending device costs in one copy, check them where the
-        guard is on (after ``GGAN_FAULT_NAN_AT``'s poison, where ``inject``;
-        the verdict agreed over the ranks) and plot them."""
+        guard is on (after ``GGAN_FAULT_NAN_AT``'s poison, where ``inject``)
+        and plot them. The guard's verdict is the first non-finite
+        iteration of any rank, agreed over the ranks (JAX
+        ``train/trainer.py:895-910``)."""
         vals = torch.stack([v.float() for _, _, v in pend]).cpu().numpy()
         hit = [i for i, (it, _, _) in enumerate(pend)
                if it == self._fault_nan_at]
         if inject and hit and not self._fault_fired:
             self._fault_fired = True
             vals[hit[0]] = np.nan
-        if self.max_rollbacks and self._any_rank(
-                not np.isfinite(vals).all()):
-            raise _Diverged(next(it for (it, _, _), v in zip(pend, vals)
-                                 if not np.isfinite(v)))
+        if self.max_rollbacks:
+            bad = min((it for (it, _, _), v in zip(pend, vals)
+                       if not np.isfinite(v)), default=None)
+            if self._multi():
+                from graphical_gan_tpu_torch.parallel.collectives import (
+                    all_max)
+                worst = all_max(torch.tensor(
+                    [-np.inf if bad is None else -float(bad)]),
+                    self.mesh.host).item()
+                bad = None if worst == -np.inf else int(-worst)
+            if bad is not None:
+                raise _Diverged(bad)
         for (it, name, _), val in zip(pend, vals.tolist()):
             self.logger.plot_at(name, val, it)
         pend.clear()
 
-    def _loop(self, iters: int, batches) -> Dict[str, float]:
-        profile_dir = os.environ.get("GGAN_PROFILE")
+    @staticmethod
+    def _profile_window():
+        """(``GGAN_PROFILE`` dir or None, first traced iteration, end)."""
         first = int(os.environ.get("GGAN_PROFILE_START", "10"))
-        end = first + int(os.environ.get("GGAN_PROFILE_STEPS", "10"))
+        return (os.environ.get("GGAN_PROFILE"), first,
+                first + int(os.environ.get("GGAN_PROFILE_STEPS", "10")))
+
+    def _loop(self, iters: int, batches) -> Dict[str, float]:
+        """The host-fed loop: one iteration at a time (JAX's
+        ``_host_loop``)."""
+        profile_dir, first, end = self._profile_window()
         pend, last, prof = [], {}, None
         iteration = self._start_iter
         try:
@@ -789,25 +852,27 @@ class Trainer:
         return {k: float(v) for k, v in last.items()}
 
     def _iteration(self, iteration: int, iters: int, batches, pend):
-        """One iteration and its boundary work; returns its device costs.
-        A preemption request stops the run after it (``_PreemptStop``); a
-        non-finite drained cost under the guard raises ``_Diverged``."""
+        """One host-fed iteration and its boundary work; returns its device
+        costs. A preemption request stops the run after it
+        (``_PreemptStop``); a non-finite drained cost under the guard
+        raises ``_Diverged``."""
         t0 = time.time()
-        if batches is None:
-            raw = self.draw_batches(iteration)
-        else:
-            self._seed_iteration(iteration)
-            raw = next(batches)
+        self._seed_iteration(iteration)
+        raw = next(batches)
         self.state, last = self.step_fn(self.state, raw, iteration > 0,
                                         self.generator)
-        # device scalars are drained in one copy at the next boundary,
-        # not fetched every iteration
-        if "disc_cost" in last:
-            pend.append((iteration, "train disc cost",
-                         last["disc_cost"]))
-        elif iteration > 0:
-            pend.append((iteration, "train gen cost", last["gen_cost"]))
+        self._pend(iteration, last, pend)
         self.logger.plot("time", time.time() - t0)
+        self._close_window(iteration, iters, last, pend)
+        return last
+
+    def _close_window(self, iteration: int, iters: int, last: Dict,
+                      pend=None) -> None:
+        """The boundary work after ``iteration`` (the host-fed loop's
+        iteration, the resident loop's window's last), in JAX's order: the
+        drain of ``pend`` (the host-fed loop's device costs) where the
+        host acts, dev sweep, flush, tick, hooks, checkpoint, and a
+        preemption agreed over the ranks."""
         flush = iteration < 5 or iteration % 100 == 99
         ckpt = iteration == iters - 1 or (
             self.checkpoint_every > 0
@@ -836,4 +901,73 @@ class Trainer:
             if pend:
                 self._drain(pend, inject=False)
             self._preempt_stop(iteration, last)
-        return last
+
+    # -- the resident path: JAX's chunked loop ------------------------------
+
+    def _next_event(self, done: int, iters: int) -> int:
+        """The first boundary after ``done`` iterations at which the host
+        acts (JAX ``train/trainer.py:801-811``): the 100 cadence,
+        ``checkpoint_every``, the hooks' cadences (a cadence c acts after
+        each multiple of c iterations), the early boundaries 1-5 and
+        ``iters``."""
+        cadences = [100, self.checkpoint_every, *self.eval_hooks]
+        nxt = min((done // c + 1) * c for c in cadences if c > 0)
+        if done < 5:  # the flush at iterations < 5
+            nxt = min(nxt, done + 1)
+        return min(nxt, iters)
+
+    def dispatch(self, start: int, n: int, pend) -> Dict[str, torch.Tensor]:
+        """Iterations ``start`` to ``start + n - 1`` on the resident data,
+        back to back: each seeded, drawn and stepped as one iteration of
+        the loop, its logged cost appended to ``pend`` as a device scalar
+        (:meth:`_pend`). Nothing is fetched to the host. Returns the last
+        iteration's costs."""
+        for it in range(start, start + n):
+            raw = self.draw_batches(it)
+            self.state, costs = self.step_fn(self.state, raw, it > 0,
+                                             self.generator)
+            self._pend(it, costs, pend)
+        return costs
+
+    def _loop_resident(self, iters: int) -> Dict[str, float]:
+        """Windows between host events (:meth:`_next_event`), each run as
+        dispatches of at most ``chunk_size`` iterations, its costs drained
+        in one copy (``GGAN_FAULT_NAN_AT`` and the guard per window),
+        ``time`` plotted per iteration, then closed by the boundary work
+        (JAX ``train/trainer.py:844-945``). A preemption request agreed
+        over the ranks after a dispatch ends the window there."""
+        profile_dir, first, end = self._profile_window()
+        cap = 100 if self.chunk_size is None else self.chunk_size
+        pend, last, prof, traced = [], {}, None, 0
+        it = self._start_iter
+        try:
+            while it < iters:
+                t0, start = time.time(), it
+                target = self._next_event(it, iters)
+                while it < target:
+                    n = min(cap, target - it)
+                    # the trace opens at the dispatch that holds ``first``
+                    # and closes after the one that reaches ``end`` (JAX
+                    # :865-891)
+                    if profile_dir and prof is None and it <= first < it + n:
+                        prof, traced = self._start_profile(), it
+                    last = self.dispatch(it, n, pend)
+                    it += n
+                    if prof is not None and it >= end:
+                        self._stop_profile(prof, profile_dir, traced, it - 1)
+                        prof = None
+                    if it < target and self._any_rank(self._preempt.is_set()):
+                        target = it
+                if pend:
+                    self._drain(pend, inject=True)
+                dt = (time.time() - t0) / (it - start)
+                for g in range(start, it):
+                    self.logger.plot("time", dt)
+                    if g < it - 1:
+                        self.logger.tick()
+                self._close_window(it - 1, iters, last)
+        finally:
+            if prof is not None:  # the run ended or stopped in the trace
+                self._stop_profile(prof, profile_dir, traced,
+                                   max(traced, it - 1))
+        return {k: float(v) for k, v in last.items()}

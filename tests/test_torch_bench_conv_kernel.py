@@ -17,7 +17,7 @@ from graphical_gan_tpu_torch.tools.timing import rotation_copies, time_ms
 
 FIELDS = {"shape", "B", "H", "Cin", "Cout", "dtype", "flops", "best",
           "best_k3_vs_library", "device_kind", "card", "k3_taps_route",
-          "k3_im2col_route"} | {
+          "k3_im2col_route", "reps"} | {
     f"{arm}_{f}" for arm in bench.ARMS for f in ("rel_maxerr", "us",
                                                  "tflops")}
 

@@ -83,7 +83,9 @@ def test_preempt_sigterm_end_to_end(tmp_path):
 
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=ROOT,
                PYTHONUNBUFFERED="1")
-    iters = ["--iters", "30"]
+    # dispatches of 4 iterations: at the default chunk size iterations 5-29
+    # are one dispatch, which a SIGTERM cannot cut before its end
+    iters = ["--iters", "30", "--chunk-size", "4"]
     straight = tmp_path / "straight"
     # the uninterrupted run goes on beside the cut one and its resume
     ref = subprocess.Popen(CLI + iters + ["--run-dir", str(straight)],
