@@ -39,9 +39,10 @@ nothing of JAX or of the JAX package, and does in order:
    hook's and the cluster entry's batches, the fused penalty's D at 192);
 4. time: per kernel and shape, the kernel's median time from CUDA events
    on inputs that are not in L2 (``tools/timing.py``), its plain
-   version's, one PyTorch library call's, and the bound (bytes over
-   3.35 TB/s or the operations the function needs, taps in the padding
-   left out, over 67 TFLOP/s f32 / 989 TFLOP/s bf16); K3 in f32 and bf16
+   version's, one PyTorch library call's, and the bound (bytes over the
+   card's HBM rate or the operations the function needs, taps in the
+   padding left out, over its peak for the dtype: ``tools/mfu.py``'s
+   ``PEAK`` and ``PEAK_BW`` by the card's name); K3 in f32 and bf16
    at the bench shapes, with each variant's route;
 5. serve: writes a full-width cifar10 wali-gp run directory (random
    weights from a seed), serves the sampler, encoder and reconstructor
@@ -150,9 +151,10 @@ nothing of JAX or of the JAX package, and does in order:
    local_ep f32's (its top kernels with the ops and shapes that launched
    them), each divided by the iterations the trace's name says it holds
    (the trace is aligned to the chunked loop's dispatches); ``mfu`` for
-   gan f32 and bf16, gmgan and ssgan f32 (0 < mfu <=
-   1); ``memory`` for gan f32 (the peak above the state and data, within
-   the card's memory); ``determinism`` for gan (DIM 64, B 64) and gmgan
+   gan f32 and bf16, gmgan and ssgan f32 (0 < mfu <= 1 and, from the
+   byte count per iteration, 0 < hbm_bw_util <= 1); ``memory`` for gan
+   f32 (the peak above the state and data, within the card's memory);
+   ``determinism`` for gan (DIM 64, B 64) and gmgan
    mnist local_ep at its published width (all five checks bit-identical);
    ``bench_families``, ``bench_serving`` (three families, batches 8 and
    256) and ``bench_server`` (gan_inference, request sizes 1 and 8); then
@@ -258,11 +260,11 @@ one at a time, the phases that time the card: 1-9 (but train-parity and
 train-repeat; 31 and 32 right after 4, 34 right after 8), 10, 15, 19,
 23, 25 and 27. Then
 the side phases, failure (26), learn (13), family2-learn (18),
-family3-learn (22) and parallel (33), start, each in a process of its own (``SidePhases``: they are bound by the host, so
+family3-learn (22), parallel (33) and eval (12), start, each in a process of its own (``SidePhases``: they are bound by the host, so
 they overlap on a machine of several cores; failure's readings are so
 taken beside the others), and beside them the rest run in this process:
 28, 30, 29 (its throughput so read beside the side phases), train-parity,
-train-repeat, the family1 parity checks, 11, 12, 14, 16, 17, 20, 21 and
+train-repeat, the family1 parity checks, 11, 14, 16, 17, 20, 21 and
 24. Last the side phases are joined, their output logged and their
 launches counted.
 
@@ -273,6 +275,7 @@ writes every logged line to PATH. Each phase logs its seconds.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -284,9 +287,6 @@ import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PEAK_F32 = 67e12     # H100 SXM f32 outside the tensor cores (no TF32)
-PEAK_BF16 = 989e12   # H100 SXM bf16 tensor cores, dense
-HBM_BYTES_S = 3.35e12
 BUCKETS = (8, 64, 256)
 
 # (tolerance atol, rtol) for kernel vs plain version on the same inputs
@@ -393,10 +393,26 @@ def conv_valid_taps(n: int, k: int, s: int, lo: int) -> int:
                if 0 <= o * s - lo + t < n)
 
 
+@functools.cache
+def card_peaks():
+    """(peak operations/s by dtype, HBM bytes/s) of card 0, read from
+    ``tools/mfu.py``'s tables (``PEAK``, ``PEAK_BW``) by the card's name;
+    without a card (the CPU tests of the bounds' arithmetic) the H100's,
+    the card this script checks."""
+    import torch
+    from graphical_gan_tpu_torch.tools import mfu
+    return mfu.card_peaks(torch.cuda.get_device_name(0)
+                          if torch.cuda.is_available() else mfu.H100)
+
+
+def hbm_ms(nbytes: float) -> float:
+    """ms to move ``nbytes`` at card 0's HBM rate."""
+    return nbytes / card_peaks()[1] * 1e3
+
+
 def bound(flops: float, nbytes: float, dtype: str):
-    peak = PEAK_BF16 if dtype == "bfloat16" else PEAK_F32
-    t_ops = flops / peak * 1e3
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / card_peaks()[0][dtype] * 1e3
+    t_bytes = hbm_ms(nbytes)
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -3800,8 +3816,10 @@ def _tool_mfu():
                           ("gmgan", "float32"), ("ssgan", "float32")):
         rec = mfu.measure(family, dtype, TOOL_ROUNDS, TOOL_ITERS, "cuda")
         log({"phase": "tools", "tool": "mfu", **rec})
-        if rec["mfu"] is None or not 0 < rec["mfu"] <= 1:
-            fail(f"mfu {family} {dtype}: {rec['mfu']} outside (0, 1]")
+        for key in ("mfu", "hbm_bw_util"):
+            if rec[key] is None or not 0 < rec[key] <= 1:
+                fail(f"mfu {family} {dtype}: {key} {rec[key]} outside "
+                     f"(0, 1]")
 
 
 def _tool_memory():
@@ -4441,7 +4459,6 @@ def phase_failure(data):
 # int8-export: int8 serving (ops/quant.py) on Q1 and Q2 (csrc/quant.cu) at
 # the published samplers, and the run directory's torch.export artifacts
 
-PEAK_INT8 = 1979e12     # H100 SXM int8 tensor cores, dense
 INT8_CALIB_B = 64       # the calibration batch of the phase's samplers
 INT8_E2E_B = 8          # rows of the card-against-CPU sampler check
 # tests/test_torch_quant_sampler.py's bound: no int8 value flips between
@@ -4663,7 +4680,7 @@ def _q2_row(xq, pf, factor, stride, pads, out_dtype, bias, act, deconv_k,
     """Q2's time at one shape (with the call's bias and activation in its
     epilogue) on ``q2_plan``'s route beside its plain version's and its
     bound (the products its function needs, :func:`_q2_products`, over
-    the int8 peak, or bytes over 3.35 TB/s); the linear shapes add
+    the int8 peak, or bytes over the HBM rate); the linear shapes add
     torch._int_mm where it takes the shape (the library call); at the
     cifar10 sampler's shapes also the ``mma`` route (``mma_ms``) and, at
     its convs, cuDNN's f32 and bf16 conv of the same shape as readings."""
@@ -4683,7 +4700,7 @@ def _q2_row(xq, pf, factor, stride, pads, out_dtype, bias, act, deconv_k,
     nbytes = (xq.numel() + kh * kw * cin * cout + 4 * cout
               + (0 if bias is None else cout * esize)
               + bsz * oh * ow * cout * esize)
-    t_ops, t_bytes = ops / PEAK_INT8 * 1e3, nbytes / HBM_BYTES_S * 1e3
+    t_ops, t_bytes = ops / card_peaks()[0]["int8"] * 1e3, hbm_ms(nbytes)
     plan = _q2_plan_of(xq, pf, stride, pads)
     ms = time_ms(lambda a, wk: kq.int8_conv_packed(
         a, pf._replace(wk=wk), factor, stride, pads, out_dtype, bias, act),
@@ -4748,7 +4765,7 @@ def _q1_row(x, scale, axis, family, b, card):
                           5, 10),
             "plain_ms": time_ms(lambda t: kq.quantize_int8_plain(
                 t, scale, axis), [x], 5, 10),
-            "bound_ms": nbytes / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+            "bound_ms": hbm_ms(nbytes), "bound_by": "bytes",
             "library_ms": None, "card": card}
 
 
@@ -4772,7 +4789,7 @@ def _k2b_q8_row(x2d, mean, inv, scale, offset, act, s_x, family, b, card):
             "q1_ms": time_ms(lambda t: kq.quantize_int8(t, s_x), [y], 5, 10),
             "plain_ms": time_ms(lambda t, *v: kn.bn_apply_q8_plain(
                 t, *v, act, s_x), [x2d] + vecs, 5, 10),
-            "bound_ms": nbytes / HBM_BYTES_S * 1e3, "bound_by": "bytes",
+            "bound_ms": hbm_ms(nbytes), "bound_by": "bytes",
             "library_ms": None, "card": card}
 
 
@@ -6529,8 +6546,8 @@ def phase_int8_deconv(card, timings):
                                        lo, oh, ow)
                 nbytes = (b * h * wd * cin + k * k * cin * cout + 8 * cout
                           + b * oh * ow * cout * 4)
-                t_ops = ops / PEAK_INT8 * 1e3
-                t_bytes = nbytes / HBM_BYTES_S * 1e3
+                t_ops = ops / card_peaks()[0]["int8"] * 1e3
+                t_bytes = hbm_ms(nbytes)
                 plan = _q2_plan_of(xq, pf, 1, pads)
                 row = {"kernel": "int8_conv", "use": "int8 deconv",
                        "shape": [list(shape), cout, k], "stride": stride,
@@ -6638,7 +6655,8 @@ SIDE_PHASES = {"failure": ("phase_failure_side", None),
                "learn": ("phase_learn", "learn"),
                "family2-learn": ("phase_family2_learn", "family2_learn"),
                "family3-learn": ("phase_family3_learn", "family3_learn"),
-               "parallel": ("phase_parallel", "parallel")}
+               "parallel": ("phase_parallel", "parallel"),
+               "eval": ("phase_eval", "eval")}
 SIDE_TIMEOUT = 900    # seconds from the join to the last side phase's exit
 _SIDE_CODE = """
 import sys
@@ -6833,7 +6851,6 @@ def main(argv=None) -> int:
         _timed("train-repeat", phase_train_repeat, data)
         _timed("family1-parity", phase_family1_parity)
         _timed("loaders", phase_loaders, launches["loaders"])
-        _timed("eval", phase_eval, launches["eval"])
         _timed("step-options", phase_step_options, launches["step_options"])
         _timed("family2-parity", phase_family2_parity)
         _timed("cluster", phase_cluster, launches["cluster"])

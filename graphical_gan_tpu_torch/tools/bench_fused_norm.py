@@ -18,9 +18,11 @@ three arms:
 On the card each arm's ms per call is the median of CUDA-event windows
 over inputs rotated out of L2 (``tools/timing.py``); ``bound_ms`` is the
 bytes the function must move (x read once, y written once, the scale and
-offset) over 3.35 TB/s. One JSON line per (shape, dtype), with the card's
-``nvidia-smi`` line. ``--device cpu`` times the plain versions on the
-host's clock at a toy shape (for its test) and names no device metric.
+offset) over the card's HBM rate (``tools/mfu.py: PEAK_BW`` by its name;
+the H100's at ``--device cpu``). One JSON line per (shape, dtype), with the
+card's ``nvidia-smi`` line. ``--device cpu`` times the plain versions on
+the host's clock at a toy shape (for its test) and names no device
+metric.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from graphical_gan_tpu_torch.ops.activations import LEAKY_ALPHA
 from graphical_gan_tpu_torch.ops.kernels.fused_norm import (
     EPS, bn_apply_plain, bn_stats_plain, fused_batchnorm_act)
 from graphical_gan_tpu_torch.tools.bench_conv_kernel import card_line
+from graphical_gan_tpu_torch.tools.mfu import H100, card_peaks, device_kind
 
 # (label, (rows, channels)): the JAX tool's 0.5 GB shape and two of
 # cifar10's BN shapes at B 64 (bench_pallas.py:37-41)
@@ -48,13 +51,12 @@ SHAPES = [
 ]
 TOY_SHAPES = [("toy", (256, 16))]
 ARMS = ("kernel", "plain", "library")
-HBM_BYTES_S = 3.35e12
 
 
-def bound_ms(rows: int, c: int, itemsize: int) -> float:
+def bound_ms(rows: int, c: int, itemsize: int, kind: str = H100) -> float:
     """x read once and y written once in the dtype, scale and offset in
-    f32, over the card's memory rate."""
-    return (2 * rows * c * itemsize + 2 * 4 * c) / HBM_BYTES_S * 1e3
+    f32, over the memory rate of the card named ``kind``."""
+    return (2 * rows * c * itemsize + 2 * 4 * c) / card_peaks(kind)[1] * 1e3
 
 
 def _arms(scale, offset) -> Dict[str, Callable]:
@@ -101,6 +103,7 @@ def run(shapes: Sequence, dtypes: Sequence[str], device="cuda"
     else:
         timer = host_ms
     card = card_line() if dev.type == "cuda" else "cpu"
+    kind = device_kind(dev) if dev.type == "cuda" else H100
     out = []
     for label, (rows, c) in shapes:
         for dtype in dtypes:
@@ -113,7 +116,7 @@ def run(shapes: Sequence, dtypes: Sequence[str], device="cuda"
             arms = _arms(scale, offset)
             rec = {"metric": "fused_bn_act_ab", "shape": label,
                    "rows": rows, "channels": c, "dtype": dtype,
-                   "bound_ms": bound_ms(rows, c, x.element_size()),
+                   "bound_ms": bound_ms(rows, c, x.element_size(), kind),
                    "bound_by": "bytes", "card": card,
                    "clock": "cuda events" if dev.type == "cuda"
                    else "host"}

@@ -21,11 +21,12 @@ cotangent), three arms:
 Each arm is timed with CUDA events around ``--reps`` back-to-back calls in
 a synchronized window, the best of ``--rounds`` windows (ms per call).
 ``k1_bound_ms`` is K1's bound at the phase shape: the operations its conv
-needs (taps in the window padding left out) over 67 TFLOP/s f32 or 989
-TFLOP/s bf16, or its bytes over 3.35 TB/s where that is larger. One JSON
-line per (shape, dtype, pass), with the card's ``nvidia-smi`` line. Runs on
-the card; ``--device cpu`` times the plain versions on the host's clock at
-a toy shape (for its test), and names no device metric.
+needs (taps in the window padding left out) over the card's peak for the
+dtype, or its bytes over its HBM rate where that is larger (``tools/
+mfu.py``'s tables by the card's name; the H100's at ``--device cpu``). One
+JSON line per (shape, dtype, pass), with the card's ``nvidia-smi`` line.
+Runs on the card; ``--device cpu`` times the plain versions on the host's
+clock at a toy shape (for its test), and names no device metric.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from graphical_gan_tpu_torch.ops.conv import conv_transpose
 from graphical_gan_tpu_torch.ops.phase_deconv import (
     _phase_kernel, conv_transpose_phase)
 from graphical_gan_tpu_torch.tools.bench_conv_kernel import card_line
+from graphical_gan_tpu_torch.tools.mfu import H100, card_peaks, device_kind
 
 K = 5
 # (label, batch, H = W, C_in, C_out): cifar10 wali-gp G (DIM 64, B 64)
@@ -60,8 +62,6 @@ SHAPES = [
 ]
 TOY_SHAPES = [("toy", 2, 4, 8, 3)]
 ARMS = ("cudnn", "phase", "library")
-PEAK = {"float32": 67e12, "bfloat16": 989e12}
-HBM_BYTES_S = 3.35e12
 
 
 def _valid_taps(n: int, t: int, lo: int) -> int:
@@ -70,18 +70,20 @@ def _valid_taps(n: int, t: int, lo: int) -> int:
     return sum(1 for o in range(n) for j in range(t) if 0 <= o - lo + j < n)
 
 
-def k1_bound(b: int, h: int, cin: int, cout: int, dtype: str, k: int = K):
+def k1_bound(b: int, h: int, cin: int, cout: int, dtype: str, k: int = K,
+             kind: str = H100):
     """(ms, "operations" or "bytes") of K1's phase conv for a k x k
-    transpose filter: H x H to 4·cout channels, a T x T window, its taps
-    in the window padding left out."""
+    transpose filter on the card named ``kind``: H x H to 4·cout channels,
+    a T x T window, its taps in the window padding left out."""
     big, (pl, _) = _phase_kernel(torch.zeros((k, k, cout, cin)), k)
     t = big.shape[0]
     flops = 2.0 * b * cin * 4 * cout * _valid_taps(h, t, pl) ** 2
     size = torch.finfo(getattr(torch, dtype)).bits // 8
     nbytes = (b * h * h * cin + b * h * h * 4 * cout + big.numel()
               + 4 * cout) * size
-    t_ops = flops / PEAK[dtype] * 1e3
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    peak, bw = card_peaks(kind)
+    t_ops = flops / peak[dtype] * 1e3
+    t_bytes = nbytes / bw * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -140,6 +142,7 @@ def run(shapes: Sequence, dtypes: Sequence[str], device="cuda",
     set_numerics()
     timer = timer or (lambda fn: best_ms(fn, dev, reps, rounds))
     card = card_line() if dev.type == "cuda" else "cpu"
+    kind = device_kind(dev) if dev.type == "cuda" else H100
     out = []
     for label, b, h, cin, cout in shapes:
         for dtype in dtypes:
@@ -156,7 +159,7 @@ def run(shapes: Sequence, dtypes: Sequence[str], device="cuda",
             g4 = g.reshape(b, h, 2, h, 2, cout).permute(
                 0, 1, 3, 2, 4, 5).reshape(b, h, h, 4 * cout)
             arms = _arms(x, w, bias)
-            bound_ms, bound_by = k1_bound(b, h, cin, cout, dtype, k)
+            bound_ms, bound_by = k1_bound(b, h, cin, cout, dtype, k, kind)
             for which in ("fwd", "fwdbwd"):
                 rec = {"metric": "phase_deconv_ab", "shape": label,
                        "batch": b, "hw": h, "cin": cin, "cout": cout,

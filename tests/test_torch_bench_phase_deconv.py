@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from graphical_gan_tpu.tools import bench_phase_deconv as jax_bench
-from graphical_gan_tpu_torch.tools import bench_phase_deconv as bench
+from graphical_gan_tpu_torch.tools import bench_phase_deconv as bench, mfu
 from _torch_threads import one_thread  # noqa: F401
 
 FIELDS = {"metric", "shape", "batch", "hw", "cin", "cout", "k", "dtype",
@@ -56,7 +56,8 @@ def test_k1_bound_counts_taps_inside_the_input():
     ms, by = bench.k1_bound(64, 4, 256, 128, "float32")
     flops = 2.0 * 64 * 256 * 512 * 10 * 10
     assert by == "operations"
-    assert ms == pytest.approx(flops / bench.PEAK["float32"] * 1e3)
+    assert ms == pytest.approx(
+        flops / mfu.PEAK["NVIDIA H100 80GB HBM3"]["float32"] * 1e3)
 
 
 def test_shapes_are_the_jax_tools():

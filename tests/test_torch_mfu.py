@@ -108,34 +108,37 @@ def test_flops_per_iter_does_not_depend_on_dtype(counts):
 
 def test_h100_peaks_are_the_datasheet_dense_rates():
     assert mfu.PEAK["NVIDIA H100 80GB HBM3"] == {"float32": 66.9e12,
-                                                 "bfloat16": 989.4e12}
+                                                 "bfloat16": 989.4e12,
+                                                 "int8": 1979e12}
 
 
 def test_mfu_arithmetic(monkeypatch):
     monkeypatch.delenv("GGAN_PEAK_FLOPS", raising=False)
     rec = mfu.mfu_record("gan", "bfloat16", 294.1e9, 0.1,
-                         "NVIDIA H100 80GB HBM3")
+                         "NVIDIA H100 80GB HBM3", 2e9)
     assert rec["metric"] == "cifar10_wali_gp_mfu"
     assert rec["flops_source"] == "cpu flop counter"
     assert rec["achieved_tflops"] == pytest.approx(2.941)
     assert rec["peak_tflops"] == pytest.approx(989.4)
     assert rec["mfu"] == pytest.approx(2.941e12 / 989.4e12)
     f32 = mfu.mfu_record("ssgan", "float32", 1e12, 0.5,
-                         "NVIDIA H100 80GB HBM3")
+                         "NVIDIA H100 80GB HBM3", 2e9)
     assert f32["metric"] == "ssgan_moving_mnist_local_ep_mfu"
     assert f32["mfu"] == pytest.approx(2e12 / 66.9e12)
 
 
 def test_peak_override_and_unknown_card(monkeypatch):
     monkeypatch.delenv("GGAN_PEAK_FLOPS", raising=False)
-    rec = mfu.mfu_record("gmgan", "float32", 1e9, 1.0, "some other card")
+    rec = mfu.mfu_record("gmgan", "float32", 1e9, 1.0, "some other card",
+                         2e9)
     assert rec["peak_tflops"] is None and rec["mfu"] is None
     assert rec["metric"] == "gmgan_cifar10_local_ep_mfu"
     monkeypatch.setenv("GGAN_PEAK_FLOPS", "2e12")
-    rec = mfu.mfu_record("gmgan", "float32", 1e9, 1.0, "some other card")
+    rec = mfu.mfu_record("gmgan", "float32", 1e9, 1.0, "some other card",
+                         2e9)
     assert rec["peak_tflops"] == 2.0 and rec["mfu"] == pytest.approx(5e-4)
     rec = mfu.mfu_record("gan", "float32", 1e9, 1.0,
-                         "NVIDIA H100 80GB HBM3")
+                         "NVIDIA H100 80GB HBM3", 2e9)
     assert rec["peak_tflops"] == 2.0  # the override wins over the table
 
 
