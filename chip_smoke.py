@@ -212,12 +212,17 @@ nothing of JAX or of the JAX package, and does in order:
    CPU run, outputs and gradients; ``epoch_batches_ondevice`` on the card;
    K1's launches counted;
 31. split-kernels: K2a's and K2c+K2d's split modes (batch statistics
-   over the rows of several ranks: ``bn_stats_local``, ``bn_stats_merge``,
-   ``bn_bwd_reduce``, ``bn_bwd_apply``) at the training BN shapes of B=64
-   over 2 ranks' rows, f32 and bf16: each kernel twice against its plain
-   version, the chains against the one-process plain versions over the
-   whole batch, and each timed at one rank's rows beside the one-launch
-   kernels over the whole batch;
+   over the rows of several ranks: ``bn_stats_local``, one cluster launch
+   into the rank's slot of the exchange buffer; ``bn_apply_split`` and
+   ``bn_apply_split_q8``, K2b with the finalize folded in; ``bn_bwd_
+   reduce``, ``bn_bwd_apply``) at the training BN shapes of B=64 over 2
+   and 4 ranks' rows (the backward over 2), f32 and bf16: each kernel
+   twice against its plain version, the other slots zero, the apply's y
+   and int8 copy bit for bit the one-launch K2b's at its statistics, the
+   chains against the one-process plain versions over the whole batch,
+   and each timed at one rank's rows beside its plain version, its
+   ``torch.batch_norm_*`` library call, the split forward chain and the
+   one-launch kernels over the whole batch;
 32. int8-deconv: the int8 transposed conv of every stride and padding
    (``ops/quant.py: intercept_deconv2d``) at cifar10's G deconvs, on the
    card bit-equal to the CPU, its Q2 call against Q2's plain version, and
@@ -238,7 +243,9 @@ nothing of JAX or of the JAX package, and does in order:
    the ranks with E's and G's BNs, no split kernel), seconds and bubble
    share; standard -> pp -> standard and back bit for bit; the server's
    ``--dp-devices 2`` on 2 gloo ranks, a bucket-64 dispatch float and
-   int8 against one rank's, K2a's split mode launched;
+   int8 against one rank's, the split forward launched (one
+   ``bn_stats_local`` for each ``bn_apply_split`` or int8 form, no
+   one-launch K2a or K2b);
 34. chunk: the trainer's chunked resident loop (JAX's dispatches of up
    to ``chunk_size`` iterations between host events): the published
    cifar10 wali-gp Trainer in f32 and bf16 at chunk_size None against 1
@@ -5357,29 +5364,41 @@ def summary(errs, timings, launches, int8_out):
 
 
 def _split_summary(errs, timings, launches):
-    """K2a's and K2c+K2d's split modes: times summed over one training
-    iteration's 5 BN shapes at one rank's rows of B=64 over SPLIT_RANKS
-    ranks, f32; launches from the parallel phase's 2-rank runs (rank 0);
-    ``rows`` every timed shape with the one-launch kernels' times over the
-    whole batch beside it."""
+    """K2a's (with K2b) and K2c+K2d's split modes: times summed over one
+    training iteration's 5 BN shapes at one rank's rows of B=64 over
+    SPLIT_RANKS ranks, f32; launches from the parallel phase's 2-rank runs
+    (rank 0; the int8 form's from the dp server's int8 dispatches); the
+    library's second readings (``library_var_mean_ms``, the finalize's
+    ``library_finalize_ms``), the split forward chain (``chain_ms``) and
+    the one-launch K2b at the apply's rows (``k2b_ms``) summed alike where
+    a kernel has them; ``rows`` every timed shape and
+    world size with the one-launch kernels' times over the whole batch
+    beside it."""
     out = []
     for name, (src, replaces) in SPLIT_SOURCES.items():
         rows = [r for r in timings if r["kernel"] == name]
-        main = [r for r in rows if r["dtype"] == "float32"]
+        main = [r for r in rows if r["dtype"] == "float32"
+                and r["ranks"] == SPLIT_RANKS]
         ops_ms = sum(r["bound_ms"] for r in main
                      if r["bound_by"] == "operations")
         bytes_ms = sum(r["bound_ms"] for r in main
                        if r["bound_by"] == "bytes")
-        lib = [r["library_ms"] for r in main]
+
+        def total(key):
+            got = [r.get(key) for r in main]
+            return None if None in got else sum(got)
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches.get(name, 0),
             "max_abs_err": errs[name],
-            "ms": sum(r["ms"] for r in main),
-            "plain_ms": sum(r["plain_ms"] for r in main),
-            "bound_ms": sum(r["bound_ms"] for r in main),
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None if None in lib else sum(lib),
+            "library_ms": total("library_ms"),
+            **{key: total(key) for key in ("library_var_mean_ms",
+                                           "library_finalize_ms",
+                                           "chain_ms", "k2b_ms")
+               if any(key in r for r in main)},
             "summed_over": f"one training iteration's 5 BN shapes, one "
                            f"rank's rows of B={SPLIT_B} over {SPLIT_RANKS} "
                            "ranks, f32",
@@ -6294,35 +6313,53 @@ def phase_library_ops(launch_totals):
 # parallelism: K2a's and K2c+K2d's split modes, the int8 transposed conv at
 # every stride and padding, and the strategies over torch.distributed
 
-# the split modes' kernels: K2a's phase 1 (the rank's f64 triples) and its
-# finalize kernel, K2c's sums and K2d's dx
+# the split modes' kernels: K2a's statistics of one rank's rows (one
+# cluster launch, written into the rank's slot of the exchange buffer), K2b
+# with K2a's finalize over the ranks' triples folded in (and its int8 form,
+# for the dp int8 server), K2c's sums and K2d's dx
 SPLIT_SOURCES = {
     "bn_stats_local": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
                        "graphical_gan_tpu/ops/pallas/fused_norm.py:143"),
-    "bn_stats_merge": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
-                       "graphical_gan_tpu/ops/pallas/fused_norm.py:143"),
+    "bn_apply_split": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
+                       "graphical_gan_tpu/ops/pallas/fused_norm.py:143, "
+                       "graphical_gan_tpu/ops/pallas/fused_norm.py:182"),
+    "bn_apply_split_q8": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
+                          "graphical_gan_tpu/ops/pallas/fused_norm.py:182, "
+                          "graphical_gan_tpu/ops/quant.py:103"),
     "bn_bwd_reduce": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
                       "graphical_gan_tpu/ops/pallas/fused_norm.py:212"),
     "bn_bwd_apply": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
                      "graphical_gan_tpu/ops/pallas/fused_norm.py:223"),
 }
 SPLIT_KERNELS = tuple(SPLIT_SOURCES)
-SPLIT_RANKS = 2   # the ranks the training batch is split over
-SPLIT_B = 64      # the published global batch
+SPLIT_RANKS = 2         # the ranks the training batch is split over
+SPLIT_WORLDS = (2, 4)   # the rank counts the split forward is held at
+SPLIT_B = 64            # the published global batch
+# bn_stats_local against its plain version: f64 sums in other orders, each
+# value within 1e-9 of 1 + |value|
+LOCAL_RTOL = 1e-9
 
 
 def _split_bounds(r: int, c: int, itemsize: int, ranks: int):
     """(bound ms, what bounds it) of each split kernel over one rank's r
-    rows of [*, c]: local reads x once and writes 3·C f64; merge reads the
-    ranks' 3·C f64 and writes 3·C f32; reduce reads g and x once and the
-    four per-channel vectors, and writes 2·C f32; apply reads g, x, the
+    rows of [*, c]: local reads x once and writes the [ranks, 3, C] f64
+    exchange buffer; apply_split reads x, scale, offset and the ranks'
+    triples once and writes y and the [3, C] f32 statistics (K2b's bytes
+    with the statistics written in place of mean and inv read, plus the
+    triples), q8 also writes y's int8 copy; reduce reads g and x once and
+    the four per-channel vectors, and writes 2·C f32; apply reads g, x, the
     vectors and red, and writes dx. Operations as the one-launch kernels
-    count them (bn_stats_bound, bn_bwd_bound), split between the phases."""
+    count them (bn_stats_bound, bn_bwd_bound), split between the phases,
+    and about 10 f64 operations a rank and channel for a merge."""
+    trip = ranks * 3 * c * 8
+    merge = 10.0 * ranks * c
     return {
-        "bn_stats_local": bound(3.0 * r * c, r * c * itemsize + 3 * c * 8,
+        "bn_stats_local": bound(3.0 * r * c, r * c * itemsize + trip,
                                 "float32"),
-        "bn_stats_merge": bound(10.0 * ranks * c, ranks * 3 * c * 8
-                                + 3 * c * 4, "float32"),
+        "bn_apply_split": bound(4.0 * r * c + merge, 2 * r * c * itemsize
+                                + 5 * c * 4 + trip, "float32"),
+        "bn_apply_split_q8": bound(6.0 * r * c + merge, r * c * (
+            2 * itemsize + 1) + 5 * c * 4 + trip, "float32"),
         "bn_bwd_reduce": bound(10.0 * r * c, 2 * r * c * itemsize
                                + 6 * c * 4, "float32"),
         "bn_bwd_apply": bound(14.0 * r * c, 3 * r * c * itemsize
@@ -6330,18 +6367,159 @@ def _split_bounds(r: int, c: int, itemsize: int, ranks: int):
     }
 
 
+def _library_ms(name, fn, args):
+    """time_ms of one PyTorch call that computes a kernel's function (its
+    yardstick), or None, logged with the reason, where this PyTorch
+    refuses the inputs."""
+    try:
+        fn(*args)
+    except (RuntimeError, TypeError, ValueError) as e:
+        log({"library_refused": name, "error": str(e)[:300]})
+        return None
+    return time_ms(fn, args)
+
+
+def _library_moments(xs):
+    """The ranks' (mean [W, C], invstd [W, C], count [W]) as
+    ``torch.batch_norm_stats`` gives them, the inputs of
+    ``torch.batch_norm_gather_stats_with_counts``, or None where this
+    PyTorch refuses the inputs."""
+    import torch
+    try:
+        got = [torch.batch_norm_stats(p, 1e-5) for p in xs]
+    except (RuntimeError, TypeError) as e:
+        log({"library_refused": "torch.batch_norm_stats",
+             "error": str(e)[:300]})
+        return None
+    # the counts in the input's dtype, as the call asks (exact: the rows
+    # a rank holds here are powers of two up to 8,192)
+    return (torch.stack([m for m, _ in got]),
+            torch.stack([v for _, v in got]),
+            torch.tensor([float(p.shape[0]) for p in xs], device="cuda",
+                         dtype=xs[0].dtype))
+
+
+def _split_forward(fn, x, xs, scale, offset, act, s_x, label, worst,
+                   misses):
+    """K2a's split mode over ``xs``, one part a rank: each rank's
+    ``bn_stats_local`` in its slot (two calls the same bits, the other
+    slots zero, the triple within LOCAL_RTOL of its plain version), the
+    slots summed as the all_reduce sums them, then on every rank's rows
+    ``bn_apply_split``: its [3, C] against ``bn_stats_merge_plain`` and
+    the whole batch's plain statistics within TOL["stats"], the same on
+    every rank and from two calls, y bit for bit K2b's (``bn_apply``) at
+    those statistics, and ``bn_apply_split_q8``'s y and int8 copy bit for
+    bit ``bn_apply_q8``'s. Returns (the gathered triples, the
+    statistics)."""
+    import torch
+    w = len(xs)
+    dn = str(x.dtype).split(".")[1]
+    bufs = [fn.bn_stats_local(p, i, w) for i, p in enumerate(xs)]
+    if not torch.equal(bufs[0], fn.bn_stats_local(xs[0], 0, w)):
+        misses.append(f"{label}: bn_stats_local differs between two calls")
+    for i, (p, buf) in enumerate(zip(xs, bufs)):
+        if bool(torch.cat([buf[:i], buf[i + 1:]]).ne(0).any()):
+            misses.append(f"{label}: rank {i}'s other slots are not zero")
+        want = fn.bn_stats_local_plain(p)
+        d = float(((buf[i] - want).abs() / (1.0 + want.abs())).max())
+        worst["bn_stats_local"] = max(worst["bn_stats_local"], d)
+        if not d <= LOCAL_RTOL:
+            misses.append(f"{label}: bn_stats_local {d}")
+    parts = torch.stack(bufs).sum(0)  # one non-zero term per slot: exact
+    atol, rtol = TOL[("stats", dn)]
+    stats = None
+    for i, p in enumerate(xs):
+        y, st = fn.bn_apply_split(p, parts, scale, offset, act)
+        if stats is None:
+            stats = st
+            y2, st2 = fn.bn_apply_split(p, parts, scale, offset, act)
+            if not (torch.equal(y, y2) and torch.equal(st, st2)):
+                misses.append(f"{label}: bn_apply_split differs between "
+                              "two calls")
+            e, bad = max_err(st, fn.bn_stats_merge_plain(parts), atol, rtol)
+            e2, bad2 = max_err(st, torch.stack(fn.bn_stats_plain(x)), atol,
+                               rtol)
+            for k in ("bn_apply_split", "bn_apply_split_q8"):
+                worst[k] = max(worst[k], e)
+            if bad or bad2:
+                misses.append(f"{label}: bn_apply_split's statistics {e}, "
+                              f"against the whole batch {e2}")
+        elif not torch.equal(st, stats):
+            misses.append(f"{label}: rank {i}'s statistics differ")
+        if not torch.equal(y, fn.bn_apply(p, stats[0], stats[2], scale,
+                                          offset, act)):
+            misses.append(f"{label}: rank {i}'s y is not K2b's")
+        yq, q, _ = fn.bn_apply_split_q8(p, parts, scale, offset, act, s_x)
+        wy, wq = fn.bn_apply_q8(p, stats[0], stats[2], scale, offset, act,
+                                s_x)
+        if not (torch.equal(yq, wy) and torch.equal(q, wq)):
+            misses.append(f"{label}: rank {i}'s y or int8 copy is not "
+                          "bn_apply_q8's")
+    return parts, stats
+
+
+def _split_backward(fn, g, x, gs, xs, stats, scale, offset, act, rows,
+                    label, worst, misses):
+    """K2c+K2d's split mode at the forward's statistics: each kernel twice
+    against its plain version, the chain against the plain backward over
+    the whole batch. Returns the group's summed red."""
+    import torch
+    dn = str(x.dtype).split(".")[1]
+    mean, inv = stats[0], stats[2]
+    reds = [fn.bn_bwd_reduce(gp, xp, mean, inv, scale, offset, act)
+            for gp, xp in zip(gs, xs)]
+    if not torch.equal(reds[0], fn.bn_bwd_reduce(
+            gs[0], xs[0], mean, inv, scale, offset, act)):
+        misses.append(f"{label}: bn_bwd_reduce differs between two calls")
+    for gp, xp, got in zip(gs, xs, reds):
+        want = fn.bn_bwd_reduce_plain(gp, xp, mean, inv, scale, offset, act)
+        gz, xhat = fn._gz_xhat(gp, xp, mean, inv, scale, offset, act)
+        mag = torch.stack([gz.abs().sum(0), (gz * xhat).abs().sum(0)])
+        d = float(((got - want).abs() / (1.0 + mag)).max())
+        worst["bn_bwd_reduce"] = max(worst["bn_bwd_reduce"], d)
+        if not d <= RED_RTOL:
+            misses.append(f"{label}: bn_bwd_reduce {d}")
+    total = reds[0].clone()
+    for r in reds[1:]:
+        total += r
+    dxs = [fn.bn_bwd_apply(gp, xp, mean, inv, scale, offset, total, act,
+                           rows) for gp, xp in zip(gs, xs)]
+    if not torch.equal(dxs[0], fn.bn_bwd_apply(
+            gs[0], xs[0], mean, inv, scale, offset, total, act, rows)):
+        misses.append(f"{label}: bn_bwd_apply differs between two calls")
+    atol, rtol = TOL[("bwd_apply", dn)]
+    for gp, xp, got in zip(gs, xs, dxs):
+        want = fn.bn_bwd_apply_plain(gp, xp, mean, inv, scale, offset,
+                                     total, act, rows)
+        e, bad = max_err(got, want, atol, rtol)
+        worst["bn_bwd_apply"] = max(worst["bn_bwd_apply"], e)
+        if bad:
+            misses.append(f"{label}: bn_bwd_apply {e}")
+    whole_dx, _ = fn.bn_bwd_plain(g, x, mean, inv, scale, offset, act)
+    e, bad = max_err(torch.cat(dxs), whole_dx, atol, rtol)
+    if bad:
+        misses.append(f"{label}: the split backward against the whole "
+                      f"batch {e}")
+    return total
+
+
 def phase_split_kernels(errs, timings, card):
     """K2a's and K2c+K2d's split modes at the training BN shapes of B=64
-    split over SPLIT_RANKS ranks (each rank's rows one part), f32 and bf16.
-    Check: each kernel against its plain version on the same inputs
-    (``bn_stats_local_plain``, ``bn_stats_merge_plain``,
-    ``bn_bwd_reduce_plain``, ``bn_bwd_apply_plain``), each called twice for
-    the same bits; and the chain (local on each part, merge of the parts'
-    triples; reduce on each part, the sums added, apply on each part)
-    against K2a's and K2c+K2d's plain versions over the concatenated rows.
-    Time: each kernel at one rank's rows beside its plain version (K2a's
-    phase 1 beside ``torch.var_mean``), with the one-launch K2a and
-    K2c+K2d over the whole batch as readings (what world size 1 runs)."""
+    split over the ranks of SPLIT_WORLDS (each rank's rows one part), f32
+    and bf16. The forward at each world size (``_split_forward``: the
+    rank's statistics in its slot, the finalize folded into K2b and its
+    int8 form, bit for bit with the one-launch K2b at those statistics);
+    the backward over SPLIT_RANKS ranks (``_split_backward``). Time, at one
+    rank's rows: each kernel beside its plain version and its library call
+    (``torch.batch_norm_stats`` for the rank's statistics, with
+    ``torch.var_mean`` as a second reading; ``torch.
+    batch_norm_gather_stats_with_counts`` over the ranks' (mean, invstd,
+    count) for the finalize folded into the apply; ``torch.
+    batch_norm_backward_reduce`` and ``batch_norm_backward_elemt`` on gz =
+    g·act'(y), the mask applied first, for the backward's two), the split
+    forward chain (the rank's statistics, then the apply; the all_reduce
+    between them is not timed), and the one-launch K2a and K2c+K2d over
+    the whole batch as readings (what world size 1 runs)."""
     import torch
     from graphical_gan_tpu_torch.ops.kernels import fused_norm as fn
     gen = torch.Generator(device="cuda")
@@ -6353,121 +6531,113 @@ def phase_split_kernels(errs, timings, card):
         for name, rc, act in bn_shapes(SPLIT_B):
             x, scale, offset = _bn_inputs(rc, dtype, gen, mean=3.0)
             g = torch.randn(rc, generator=gen, device="cuda").to(dtype)
-            xs, gs = x.chunk(SPLIT_RANKS), g.chunk(SPLIT_RANKS)
-            r_part = xs[0].shape[0]
-            label = f"{name} {dn}"
-            # K2a split
-            loc = [fn.bn_stats_local(p) for p in xs]
-            again = fn.bn_stats_local(xs[0])
-            if not torch.equal(loc[0], again):
-                misses.append(f"{label}: bn_stats_local differs between "
-                              "two calls")
-            for p, got in zip(xs, loc):
-                want = fn.bn_stats_local_plain(p)
-                d = float(((got - want).abs() / (1.0 + want.abs())).max())
-                worst["bn_stats_local"] = max(worst["bn_stats_local"], d)
-                if not d <= 1e-9:
-                    misses.append(f"{label}: bn_stats_local {d}")
-            parts = torch.stack(loc)
-            merged = fn.bn_stats_merge(parts)
-            if not torch.equal(merged, fn.bn_stats_merge(parts)):
-                misses.append(f"{label}: bn_stats_merge differs between "
-                              "two calls")
-            atol, rtol = TOL[("stats", dn)]
-            e, bad = max_err(merged, fn.bn_stats_merge_plain(parts), atol,
-                             rtol)
-            worst["bn_stats_merge"] = max(worst["bn_stats_merge"], e)
-            whole = torch.stack(fn.bn_stats_plain(x))
-            e2, bad2 = max_err(merged, whole, atol, rtol)
-            if bad or bad2:
-                misses.append(f"{label}: bn_stats_merge {e}, against the "
-                              f"whole batch {e2}")
-            # K2c+K2d split, at the merged statistics
-            mean, inv = merged[0], merged[2]
-            reds = [fn.bn_bwd_reduce(gp, xp, mean, inv, scale, offset, act)
-                    for gp, xp in zip(gs, xs)]
-            if not torch.equal(reds[0], fn.bn_bwd_reduce(
-                    gs[0], xs[0], mean, inv, scale, offset, act)):
-                misses.append(f"{label}: bn_bwd_reduce differs between two "
-                              "calls")
-            for gp, xp, got in zip(gs, xs, reds):
-                want = fn.bn_bwd_reduce_plain(gp, xp, mean, inv, scale,
-                                              offset, act)
-                gz, xhat = fn._gz_xhat(gp, xp, mean, inv, scale, offset, act)
-                mag = torch.stack([gz.abs().sum(0), (gz * xhat).abs().sum(0)])
-                d = float(((got - want).abs() / (1.0 + mag)).max())
-                worst["bn_bwd_reduce"] = max(worst["bn_bwd_reduce"], d)
-                if not d <= RED_RTOL:
-                    misses.append(f"{label}: bn_bwd_reduce {d}")
-            total = reds[0].clone()
-            for r in reds[1:]:
-                total += r
-            dxs = [fn.bn_bwd_apply(gp, xp, mean, inv, scale, offset, total,
-                                   act, rc[0]) for gp, xp in zip(gs, xs)]
-            if not torch.equal(dxs[0], fn.bn_bwd_apply(
-                    gs[0], xs[0], mean, inv, scale, offset, total, act,
-                    rc[0])):
-                misses.append(f"{label}: bn_bwd_apply differs between two "
-                              "calls")
-            atol, rtol = TOL[("bwd_apply", dn)]
-            for gp, xp, got in zip(gs, xs, dxs):
-                want = fn.bn_bwd_apply_plain(gp, xp, mean, inv, scale,
-                                             offset, total, act, rc[0])
-                e, bad = max_err(got, want, atol, rtol)
-                worst["bn_bwd_apply"] = max(worst["bn_bwd_apply"], e)
-                if bad:
-                    misses.append(f"{label}: bn_bwd_apply {e}")
-            whole_dx, _ = fn.bn_bwd_plain(g, x, mean, inv, scale, offset, act)
-            e, bad = max_err(torch.cat(dxs), whole_dx, atol, rtol)
-            if bad:
-                misses.append(f"{label}: the split backward against the "
-                              f"whole batch {e}")
-            # times at one rank's rows, one-launch kernels as readings
-            bounds = _split_bounds(r_part, rc[1], dtype.itemsize,
-                                   SPLIT_RANKS)
-            g0, x0 = gs[0], xs[0]
-            t = {
-                "bn_stats_local": (
-                    lambda a: fn.bn_stats_local(a),
-                    lambda a: fn.bn_stats_local_plain(a),
-                    lambda a: torch.var_mean(a.float(), dim=0,
-                                             correction=0), [x0]),
-                "bn_stats_merge": (
-                    lambda a: fn.bn_stats_merge(a),
-                    lambda a: fn.bn_stats_merge_plain(a), None, [parts]),
-                "bn_bwd_reduce": (
-                    lambda a, b: fn.bn_bwd_reduce(a, b, mean, inv, scale,
-                                                  offset, act),
-                    lambda a, b: fn.bn_bwd_reduce_plain(
-                        a, b, mean, inv, scale, offset, act), None,
-                    [g0, x0]),
-                "bn_bwd_apply": (
-                    lambda a, b: fn.bn_bwd_apply(a, b, mean, inv, scale,
-                                                 offset, total, act, rc[0]),
-                    lambda a, b: fn.bn_bwd_apply_plain(
-                        a, b, mean, inv, scale, offset, total, act, rc[0]),
-                    None, [g0, x0]),
-            }
+            mean_w, _, inv_w = fn.bn_stats_plain(x)
+            y_w = fn.bn_apply_plain(x, mean_w, inv_w, scale, offset, act)
+            s_x = max(float(y_w.float().abs().max()), 1e-6) / 127.0
             one = {"bn_stats_one_launch_ms": time_ms(
-                       lambda a: fn.bn_stats(a), [x]),
-                   "bn_bwd_one_launch_ms": time_ms(
-                       lambda a, b: fn.bn_bwd(a, b, mean, inv, scale,
-                                              offset, act), [g, x])}
-            for kname, (kern, plain, lib, args) in t.items():
-                t_b, by = bounds[kname]
-                row = {"kernel": kname, "shape": name, "B": SPLIT_B,
-                       "rank_rows": r_part, "ranks": SPLIT_RANKS,
-                       "dtype": dn, "card": card,
-                       "ms": time_ms(kern, args),
-                       "plain_ms": time_ms(plain, args, 3, 5),
-                       "library_ms": None if lib is None
-                       else time_ms(lib, args),
-                       "bound_ms": t_b, "bound_by": by, **one}
-                timings.append(row)
-                log({"timing": row})
+                       lambda a: fn.bn_stats(a), [x])}
+            for ranks in SPLIT_WORLDS:
+                label = f"{name} {dn} W={ranks}"
+                xs = x.chunk(ranks)
+                r_part = xs[0].shape[0]
+                parts, stats = _split_forward(fn, x, xs, scale, offset, act,
+                                              s_x, label, worst, misses)
+                x0 = xs[0]
+                bounds = _split_bounds(r_part, rc[1], dtype.itemsize, ranks)
+                moments = _library_moments(xs)
+                # name: (kernel, plain version, library call and its
+                # arguments or None, arguments, more readings)
+                t = {
+                    "bn_stats_local": (
+                        lambda a: fn.bn_stats_local(a, 0, ranks),
+                        lambda a: fn.bn_stats_local_plain(a, 0, ranks),
+                        (lambda a: torch.batch_norm_stats(a, fn.EPS), [x0]),
+                        [x0],
+                        {"library_var_mean_ms": _library_ms(
+                            "torch.var_mean",
+                            lambda a: torch.var_mean(a.float(), dim=0,
+                                                     correction=0), [x0])}),
+                    "bn_apply_split": (
+                        lambda a: fn.bn_apply_split(a, parts, scale, offset,
+                                                    act),
+                        lambda a: fn.bn_apply_split_plain(a, parts, scale,
+                                                          offset, act),
+                        None, [x0],
+                        {"library_finalize_ms": None if moments is None
+                         else _library_ms(
+                             "torch.batch_norm_gather_stats_with_counts",
+                             lambda a, m, v, n: torch.
+                             batch_norm_gather_stats_with_counts(
+                                 a, m, v, None, None, 0.1, fn.EPS, n),
+                             [x0, *moments]),
+                         "chain_ms": time_ms(
+                             lambda a: (fn.bn_stats_local(a, 0, ranks),
+                                        fn.bn_apply_split(a, parts, scale,
+                                                          offset, act)),
+                             [x0]),
+                         # the one-launch K2b at the same rows and stats
+                         "k2b_ms": time_ms(
+                             lambda a: fn.bn_apply(a, stats[0], stats[2],
+                                                   scale, offset, act),
+                             [x0])}),
+                    "bn_apply_split_q8": (
+                        lambda a: fn.bn_apply_split_q8(a, parts, scale,
+                                                       offset, act, s_x),
+                        lambda a: fn.bn_apply_split_q8_plain(
+                            a, parts, scale, offset, act, s_x), None, [x0],
+                        {}),
+                }
+                if ranks == SPLIT_RANKS:
+                    gs = g.chunk(ranks)
+                    total = _split_backward(fn, g, x, gs, xs, stats, scale,
+                                            offset, act, rc[0], label, worst,
+                                            misses)
+                    mean, inv = stats[0], stats[2]
+                    g0 = gs[0]
+                    gz0 = fn._gz_xhat(g0, x0, mean, inv, scale, offset,
+                                      act)[0].to(dtype)
+                    sum_dy, sum_dy_xmu = total[0], total[1] / inv
+                    n_all = torch.full((ranks,), r_part, dtype=torch.int32,
+                                       device="cuda")
+                    # the library's backward calls take gz, the mask
+                    # applied beforehand
+                    t["bn_bwd_reduce"] = (
+                        lambda a, b: fn.bn_bwd_reduce(a, b, mean, inv, scale,
+                                                      offset, act),
+                        lambda a, b: fn.bn_bwd_reduce_plain(
+                            a, b, mean, inv, scale, offset, act),
+                        (lambda a, b: torch.batch_norm_backward_reduce(
+                            a, b, mean, inv, scale, True, True, True),
+                         [gz0, x0]), [g0, x0], {})
+                    t["bn_bwd_apply"] = (
+                        lambda a, b: fn.bn_bwd_apply(
+                            a, b, mean, inv, scale, offset, total, act,
+                            rc[0]),
+                        lambda a, b: fn.bn_bwd_apply_plain(
+                            a, b, mean, inv, scale, offset, total, act,
+                            rc[0]),
+                        (lambda a, b: torch.batch_norm_backward_elemt(
+                            a, b, mean, inv, scale, sum_dy, sum_dy_xmu,
+                            n_all), [gz0, x0]), [g0, x0], {})
+                    one["bn_bwd_one_launch_ms"] = time_ms(
+                        lambda a, b: fn.bn_bwd(a, b, mean, inv, scale,
+                                               offset, act), [g, x])
+                for kname, (kern, plain, lib, args, extra) in t.items():
+                    t_b, by = bounds[kname]
+                    row = {"kernel": kname, "shape": name, "B": SPLIT_B,
+                           "rank_rows": r_part, "ranks": ranks,
+                           "dtype": dn, "card": card,
+                           "ms": time_ms(kern, args),
+                           "plain_ms": time_ms(plain, args, 3, 5),
+                           "library_ms": None if lib is None
+                           else _library_ms(kname, *lib),
+                           "bound_ms": t_b, "bound_by": by, **extra, **one}
+                    timings.append(row)
+                    log({"timing": row})
     errs.update(worst)
-    log({"check": "K2a/K2c+K2d split modes", "ranks": SPLIT_RANKS,
-         "max_err": worst, "misses": misses})
+    log({"check": "K2a/K2c+K2d split modes", "worlds": list(SPLIT_WORLDS),
+         "backward_ranks": SPLIT_RANKS, "max_err": worst,
+         "misses": misses})
     if misses:
         fail(f"split kernels: {misses[:8]}")
 
@@ -6582,8 +6752,12 @@ def phase_parallel(launch_totals):
     dp and tp (cifar10 wali-gp), ep (GMGAN mnist local_ep) and sp (SSGAN
     moving-MNIST local_ep, BN on) on 2 gloo ranks on cuda:0 at the
     published widths against the one-device step, replicas bit-identical.
-    The launches of rank 0's strategy runs (counts set to 0 just before
-    them) are the split kernels' main path."""
+    The launches of rank 0's strategy runs and of its dp server's
+    dispatches (counts set to 0 just before each) are the split kernels'
+    main path: a split BN forward is ``bn_stats_local`` and
+    ``bn_apply_split`` (the server's int8 dispatch ``bn_apply_split_q8``)
+    around one all_reduce, so both count alike; no finalize kernel is
+    left to launch."""
     from graphical_gan_tpu_torch.tools import parallel_check
     out = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
                        "parallel_check.json")
@@ -6631,6 +6805,8 @@ def phase_parallel(launch_totals):
     log({"phase": "parallel", "run": "serve", "bucket": serve["bucket"],
          "cases": serve["cases"],
          "served_by_rank1": [c["served"] for c in doc["serve"][1]["cases"]]})
+    for case in serve["cases"]:  # the int8 form of the split apply
+        _add(launch_totals, case["launches"])
 
 
 def _timed(name, fn, *args):

@@ -17,6 +17,15 @@
 //     Replaces both pallas_calls of fused_norm.py:_bwd (_bwd_reduce_kernel
 //     and _bwd_apply_kernel).
 //
+// Split modes, for batch statistics over the rows of several ranks (a grid
+// barrier cannot wait for another process): K2a's is ggan_bn_stats_local
+// (the rank's f64 (n, mean, M2) in one thread-block-cluster launch, written
+// into the rank's slot of the ranks' exchange buffer, which one all_reduce
+// then fills) and ggan_bn_apply_split (K2b with the finalize, Chan's merge
+// over the ranks' triples, folded in: two launches and the all_reduce for a
+// BN forward); K2c+K2d's is ggan_bn_bwd_split (the sums alone) and
+// ggan_bn_bwd_apply (dx from the group's summed sums).
+//
 // K2a and K2c+K2d share one plan of work units (fused_norm.py:_unit_tiling,
 // a function of the shape alone) and one block shape:
 //   - [R, C] is cut into units (row block x channel tile): about one unit
@@ -80,8 +89,19 @@
 // dx once. The cifar10 shapes move 1-16 MB a call, so a launch and a
 // barrier are a large part of the time; one launch per call, x or g and x
 // read from HBM once, is what the shared design buys.
+//
+// Split forward design. A rank's rows move under 2 MB a call, so the chain
+// of launches, not bytes, bounds it: the rank's statistics are one
+// non-cooperative launch of thread-block clusters (up to 16 blocks over a
+// channel tile's rows, merged through distributed shared memory: no grid
+// barrier, no partials in device memory, attributes set once, capturable
+// by a CUDA graph), and the finalize over the ranks' 3·C triples rides in
+// the apply, whose blocks each merge their tile's W triples again
+// (bn_apply_split_plan keeps those reads under a tenth of x's bytes).
 
 #include <cooperative_groups.h>
+
+#include <atomic>
 
 #include "common.cuh"
 
@@ -273,8 +293,6 @@ struct StatsArgs {
   int rows, n_rb;  // rows per row block, row blocks
   int units;       // n_ct * n_rb; unit u is (row block u / n_ct, tile u % n_ct)
   float eps;
-  double* local;   // split mode: [3, C] f64 (n, mean, M2) of these rows, in
-                   // place of out (nullptr: the one-launch statistics)
 };
 
 // Shared memory of a K2a launch: the block sum's scratch (two f64 values a
@@ -300,19 +318,39 @@ __device__ __forceinline__ void stats_write(float* out, int64_t C, int c, int R,
   out[2 * C + c] = 1.0f / sqrtf(var + eps);
 }
 
-// The end of a channel's statistics: mean, var and inv to `out`, or in the
-// split mode (SPLIT: a separate instantiation, so the one-launch kernel is
-// the code it was) the rows' count, unshifted mean and M2 in f64 to
-// `local`, for the merge over ranks (ggan_bn_stats_merge).
-template <bool SPLIT, typename T>
-__device__ __forceinline__ void stats_finish(const StatsArgs<T>& a, int c, double shift,
-                                             double mean_d, double m2) {
-  if constexpr (SPLIT) {
-    a.local[c] = double(a.R);
-    a.local[a.C + c] = shift + mean_d;
-    a.local[2 * int64_t(a.C) + c] = m2;
-  } else {
-    stats_write(a.out, a.C, c, a.R, shift, mean_d, m2, a.eps);
+// Phase 1 of a K2a unit, per thread: the shift x[0, c] of its VEC channels
+// from c0 and, over rows r0 + ty, r0 + ty + TY, ... below r1 in row order,
+// s[0] = Σd and s[1] = Σd² of d = x - shift in f64 (d is exact there), U
+// rows' loads in flight. A thread whose channels lie past C sums nothing.
+template <typename T, int VEC>
+__device__ __forceinline__ void stats_rows(const T* __restrict__ x, int64_t C, int c0, int r0,
+                                           int r1, int ty, int TY, double (&s)[2][VEC],
+                                           double (&shift)[VEC]) {
+  using P = Pack<T, VEC>;
+  constexpr int U = STATS_UNROLL<VEC>;
+#pragma unroll
+  for (int q = 0; q < VEC; ++q) s[0][q] = s[1][q] = shift[q] = 0.0;
+  if (c0 >= C) return;
+  const P first = *reinterpret_cast<const P*>(x + c0);
+#pragma unroll
+  for (int q = 0; q < VEC; ++q) shift[q] = to_f32(first.v[q]);
+  for (int r = r0 + ty; r < r1; r += TY * U) {
+    P xp[U];
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const int rr = r + j * TY;
+      if (rr < r1) xp[j] = *reinterpret_cast<const P*>(x + rr * C + c0);
+    }
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      if (r + j * TY >= r1) break;
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) {
+        const double d = double(to_f32(xp[j].v[q])) - shift[q];
+        s[0][q] += d;
+        s[1][q] = fma(d, d, s[1][q]);
+      }
+    }
   }
 }
 
@@ -323,10 +361,8 @@ __device__ __forceinline__ void stats_finish(const StatsArgs<T>& a, int c, doubl
 // inv to `out`). One grid-wide barrier. Phase 2: the block of row block 0
 // of each channel tile merges the tile's partials in row-block order
 // (Chan's formula, in f64) and writes mean, var and inv.
-template <typename T, int VEC, bool SPLIT>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads<VEC>, 1) bn_stats_fused_kernel(const StatsArgs<T> a) {
-  using P = Pack<T, VEC>;
-  constexpr int U = STATS_UNROLL<VEC>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int TX = a.tx;
   const int TY = kThreads<VEC> / TX;
@@ -348,31 +384,7 @@ __global__ void __launch_bounds__(kThreads<VEC>, 1) bn_stats_fused_kernel(const 
     const int r0 = rb * a.rows;
     const int r1 = min(r0 + a.rows, a.R);
     double s[2][VEC], shift[VEC];
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) s[0][q] = s[1][q] = shift[q] = 0.0;
-    if (c0 < a.C) {
-      const P first = *reinterpret_cast<const P*>(a.x + c0);
-#pragma unroll
-      for (int q = 0; q < VEC; ++q) shift[q] = to_f32(first.v[q]);
-      for (int r = r0 + ty; r < r1; r += TY * U) {
-        P xp[U];
-#pragma unroll
-        for (int j = 0; j < U; ++j) {
-          const int rr = r + j * TY;
-          if (rr < r1) xp[j] = *reinterpret_cast<const P*>(a.x + rr * C + c0);
-        }
-#pragma unroll
-        for (int j = 0; j < U; ++j) {
-          if (r + j * TY >= r1) break;
-#pragma unroll
-          for (int q = 0; q < VEC; ++q) {
-            const double d = double(to_f32(xp[j].v[q])) - shift[q];
-            s[0][q] += d;
-            s[1][q] = fma(d, d, s[1][q]);
-          }
-        }
-      }
-    }
+    stats_rows<T, VEC>(a.x, C, c0, r0, r1, ty, TY, s, shift);
     block_sum<VEC, 2>(s, scratch, tx, ty, TX);
     if (ty == 0 && c0 < a.C) {
       const double n_u = double(r1 - r0);
@@ -382,7 +394,7 @@ __global__ void __launch_bounds__(kThreads<VEC>, 1) bn_stats_fused_kernel(const 
         const double mean_d = sd / n_u;
         const double m2 = fmax(total[CT + tx * VEC + q] - sd * mean_d, 0.0);
         if (a.n_rb == 1) {
-          stats_finish<SPLIT>(a, c0 + q, shift[q], mean_d, m2);
+          stats_write(a.out, C, c0 + q, a.R, shift[q], mean_d, m2, a.eps);
         } else {
           a.part[int64_t(rb) * 2 * C + c0 + q] = mean_d;
           a.part[(int64_t(rb) * 2 + 1) * C + c0 + q] = m2;
@@ -442,39 +454,300 @@ __global__ void __launch_bounds__(kThreads<VEC>, 1) bn_stats_fused_kernel(const 
       chan_merge(mean_d, m2, staged[p * 2 * CT + k], staged[(p * 2 + 1) * CT + k],
                  weights[2 * p], weights[2 * p + 1]);
     }
-    stats_finish<SPLIT>(a, c, to_f32(a.x[c]), mean_d, m2);
+    stats_write(a.out, C, c, a.R, to_f32(a.x[c]), mean_d, m2, a.eps);
   }
 }
 
-// K2a's split mode, phase 2: channel c's (n, mean, M2) of W ranks, [W, 3, C]
-// f64, merged in rank order by Chan's formula in f64 (the same weights as
-// chan_merge), then mean and var rounded once to f32 and inv from the
-// rounded var, as stats_write writes them. One thread a channel.
-__global__ void __launch_bounds__(256)
-bn_stats_merge_kernel(const double* __restrict__ parts, float* __restrict__ out, int W, int C,
-                      float eps) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  const int64_t stride = 3 * int64_t(C);
-  double n = parts[c], mean = parts[C + c], m2 = parts[2 * int64_t(C) + c];
+// ---------------------------------------------------------------------------
+// K2a's split mode: the rank's statistics (bn_stats_local_kernel) and the
+// finalize folded into a split-mode K2b (bn_apply_split_kernel)
+
+// Chan's merge of the ranks' (n, mean, M2) of channel c in rank order, [W,
+// 3, C] f64: rank r's rows merge into the rows of the ranks before it
+// (the weights of chan_merge from the counts); mean and var rounded once
+// to f32 and inv = 1 / sqrt(var + eps) in f32 from the rounded var, as
+// stats_write rounds them.
+__device__ __forceinline__ void merge_ranks(const double* __restrict__ parts, int64_t C, int c,
+                                            int W, float eps, float& mean_f, float& var_f,
+                                            float& inv_f) {
+  const int64_t stride = 3 * C;
+  double n = parts[c], mean = parts[C + c], m2 = parts[2 * C + c];
+#pragma unroll 4
   for (int r = 1; r < W; ++r) {
     const double nb = parts[r * stride + c];
     const double tot = n + nb;
     const double fb = nb / tot;
-    chan_merge(mean, m2, parts[r * stride + C + c], parts[r * stride + 2 * int64_t(C) + c], fb,
-               n * fb);
+    chan_merge(mean, m2, parts[r * stride + C + c], parts[r * stride + 2 * C + c], fb, n * fb);
     n = tot;
   }
-  const float var = float(m2 / n);
-  out[c] = float(mean);
-  out[C + c] = var;
-  out[2 * C + c] = 1.0f / sqrtf(var + eps);
+  var_f = float(m2 / n);
+  mean_f = float(mean);
+  inv_f = 1.0f / sqrtf(var_f + eps);
+}
+
+constexpr int kMaxCluster = 16;  // blocks of a cluster, with the non-portable size allowed
+
+// The rank's statistics of one channel tile in one thread-block cluster:
+// cluster block p sums rows [p·rows, (p+1)·rows) of the tile as a K2a unit
+// does (stats_rows, block_sum) and keeps its (mean, M2) of d = x - x[0, c]
+// in its shared memory; after cluster.sync() block 0 copies the others'
+// through distributed shared memory into its own, all at once, and after a
+// second cluster.sync() (every block's shared memory stays until block 0
+// has read it) merges them per channel in block order by Chan's formula
+// in f64 (the weights from the plan alone), then writes the rank's
+// unshifted (n, mean, M2) into slot `index` of the [W, 3, C] f64 exchange
+// buffer and zeros into the other slots, so that an all_reduce(SUM) of the
+// buffer is the ranks' triples stacked (x + 0 is exact). No grid barrier,
+// no partials in device memory.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads<VEC>, 1)
+bn_stats_local_kernel(const T* __restrict__ x, double* __restrict__ out, int R, int C, int tx,
+                      int rows, int index, int W) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int TY = kThreads<VEC> / tx;
+  const int CT = tx * VEC;
+  const int groups = TY / warp_rows(tx);
+  const int lane = threadIdx.x % tx;
+  const int ty = threadIdx.x / tx;
+  const int n_blocks = int(cluster.num_blocks());
+  double* scratch = reinterpret_cast<double*>(smem);
+  const double* total = scratch + groups * 2 * CT;
+  // [n_blocks][2][CT]: row 0 this block's (mean, M2) of d; in block 0 the
+  // others' copied in after the first cluster.sync()
+  double* staged = scratch + (groups + 1) * 2 * CT;
+  double* shift_s = staged + n_blocks * 2 * CT;  // [CT]: x[0, c]
+  double* weights = shift_s + CT;                // [n_blocks][2]
+  const int64_t C64 = C;
+  const int p = int(cluster.block_rank());
+  const int ct = blockIdx.x / n_blocks;
+  const int c0 = ct * CT + lane * VEC;
+  const int r0 = p * rows;
+  const int r1 = min(r0 + rows, R);
+  double s[2][VEC], shift[VEC];
+  stats_rows<T, VEC>(x, C64, c0, r0, r1, ty, TY, s, shift);
+  block_sum<VEC, 2>(s, scratch, lane, ty, tx);
+  if (ty == 0 && c0 < C) {
+    const double n_p = double(r1 - r0);
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) {
+      const int k = lane * VEC + q;
+      const double sd = total[k];
+      const double mean_d = sd / n_p;
+      staged[k] = mean_d;
+      staged[CT + k] = fmax(total[CT + k] - sd * mean_d, 0.0);
+      shift_s[k] = shift[q];
+    }
+  }
+  if (p == 0) {
+    for (int b = threadIdx.x; b < n_blocks; b += kThreads<VEC>) {
+      const double na = double(b) * rows;
+      const double nb = double(min(rows, R - b * rows));
+      const double fb = nb / (na + nb);
+      weights[2 * b] = fb;
+      weights[2 * b + 1] = na * fb;
+    }
+  }
+  cluster.sync();
+  if (p == 0) {
+    for (int t = threadIdx.x; t < (n_blocks - 1) * 2 * CT; t += kThreads<VEC>) {
+      const int b = 1 + t / (2 * CT);
+      staged[b * 2 * CT + t % (2 * CT)] = cluster.map_shared_rank(staged, b)[t % (2 * CT)];
+    }
+  }
+  cluster.sync();
+  if (p != 0) return;
+  for (int k = threadIdx.x; k < CT; k += kThreads<VEC>) {
+    const int c = ct * CT + k;
+    if (c >= C) break;
+    double mean_d = staged[k], m2 = staged[CT + k];
+    for (int b = 1; b < n_blocks; ++b) {
+      chan_merge(mean_d, m2, staged[b * 2 * CT + k], staged[(b * 2 + 1) * CT + k],
+                 weights[2 * b], weights[2 * b + 1]);
+    }
+    const double mean = shift_s[k] + mean_d;
+    for (int w = 0; w < W; ++w) {
+      double* slot = out + int64_t(w) * 3 * C64;
+      const bool own = w == index;
+      slot[c] = own ? double(R) : 0.0;
+      slot[C64 + c] = own ? mean : 0.0;
+      slot[2 * C64 + c] = own ? m2 : 0.0;
+    }
+  }
+}
+
+// Shared memory of a bn_stats_local launch: the block sum's scratch (two f64
+// values a channel), the cluster's (mean, M2) of the tile, the shift and
+// the merge's weights. Must equal ops/kernels/fused_norm.py:
+// bn_stats_local_plan's `smem`.
+template <int VEC>
+size_t local_smem(int tx, int cluster) {
+  const size_t ct = size_t(tx) * VEC;
+  const size_t groups = (kThreads<VEC> / tx) / warp_rows(tx);
+  return ((groups + 1) * 2 * ct + size_t(cluster) * 2 * ct + ct + 2 * size_t(cluster)) *
+         sizeof(double);
+}
+
+// A kernel's function attributes, set once per device: the opt-in shared
+// memory up to the H100's 227 KB a block and, for the cluster kernel, the
+// non-portable cluster size 16. A race between two first launches sets them
+// twice, which is harmless.
+constexpr int kMaxDevices = 64;
+template <typename K>
+int configure_once(K kern, std::atomic<bool> (&done)[kMaxDevices], bool cluster16) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (done[dev].load(std::memory_order_acquire)) return 0;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (e == cudaSuccess && cluster16)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  done[dev].store(true, std::memory_order_release);
+  return 0;
+}
+
+template <typename T, int VEC>
+int run_stats_local(const void* x, double* out, int R, int C, int tx, int rows, int cluster,
+                    long long smem, int index, int W, cudaStream_t st) {
+  const int n_ct = (C + tx * VEC - 1) / (tx * VEC);
+  if (tx < 1 || tx > kThreads<VEC> || (tx & (tx - 1)) || rows < 1 || cluster < 1 ||
+      cluster > kMaxCluster || int64_t(rows) * cluster < R ||
+      int64_t(rows) * (cluster - 1) >= R || W < 1 || index < 0 || index >= W ||
+      (VEC > 1 && C % VEC) || local_smem<VEC>(tx, cluster) != size_t(smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = bn_stats_local_kernel<T, VEC>;
+  static std::atomic<bool> done[kMaxDevices];
+  const int code = configure_once(kern, done, true);
+  if (code) return code;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(n_ct) * unsigned(cluster));
+  cfg.blockDim = dim3(kThreads<VEC>);
+  cfg.dynamicSmemBytes = size_t(smem);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;  // a block alone is a cluster of one
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(x), out, R, C, tx, rows,
+                                     index, W);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int APPLY_UNROLL = 4;  // rows a bn_apply_split thread has in flight
+
+// K2b in the split mode, with K2a's finalize folded in: block (tile,
+// row range) merges its tile's channels over the W ranks' triples
+// (merge_ranks) into shared memory, the blocks of row range 0 write the
+// [3, C] f32 (mean, var, inv) the backward saves, and then every block
+// applies to its rows as bn_apply_kernel does, with the same roundings
+// (inv·scale, x - mean, pre_act), so y is K2b's at those statistics to the
+// bit; Q8 adds the int8 copy as bn_apply_kernel<T, VEC, true> writes it.
+// Blocks have 256 threads: tx lanes of VEC channels across the tile, the
+// rest row lanes. A thread's first APPLY_UNROLL rows of x are loaded
+// before the merge, so the triples' trip and x's overlap.
+template <typename T, int VEC, bool Q8>
+__global__ void __launch_bounds__(256)
+bn_apply_split_kernel(const T* __restrict__ x, const double* __restrict__ parts,
+                      const float* __restrict__ scale, const float* __restrict__ offset,
+                      T* __restrict__ y, float* __restrict__ stats, int R, int C, int W, int tx,
+                      int rows, float eps, int act, int8_t* __restrict__ q, float qs) {
+  using P = Pack<T, VEC>;
+  constexpr int U = APPLY_UNROLL;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int CT = tx * VEC;
+  const int TY = 256 / tx;
+  float* s_mean = reinterpret_cast<float*>(smem);  // [CT] each
+  float* s_a = s_mean + CT;                        // inv·scale
+  float* s_off = s_a + CT;
+  const int ct = blockIdx.x;
+  const int64_t C64 = C;
+  const int k0 = (threadIdx.x % tx) * VEC;
+  const int c0 = ct * CT + k0;
+  const int r0 = blockIdx.y * rows;
+  const int r1 = min(r0 + rows, R);
+  const int rs = r0 + int(threadIdx.x / tx);
+  P xp[U];
+  if (c0 < C) {
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const int rr = rs + j * TY;
+      if (rr < r1) xp[j] = *reinterpret_cast<const P*>(x + int64_t(rr) * C64 + c0);
+    }
+  }
+  for (int k = threadIdx.x; k < CT; k += 256) {
+    const int c = ct * CT + k;
+    if (c >= C) break;
+    float mean, var, inv;
+    merge_ranks(parts, C64, c, W, eps, mean, var, inv);
+    s_mean[k] = mean;
+    s_a[k] = inv * scale[c];
+    s_off[k] = offset[c];
+    if (blockIdx.y == 0) {
+      stats[c] = mean;
+      stats[C64 + c] = var;
+      stats[2 * C64 + c] = inv;
+    }
+  }
+  __syncthreads();
+  if (c0 >= C) return;
+  for (int r = rs; r < r1; r += U * TY) {
+    if (r != rs) {
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        const int rr = r + j * TY;
+        if (rr < r1) xp[j] = *reinterpret_cast<const P*>(x + int64_t(rr) * C64 + c0);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const int rr = r + j * TY;
+      if (rr >= r1) break;
+      const int64_t i = int64_t(rr) * C64 + c0;
+      P out;
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const float v =
+            pre_act(to_f32(xp[j].v[k]) - s_mean[k0 + k], s_a[k0 + k], s_off[k0 + k]);
+        out.v[k] = from_f32<T>(apply_act(v, act));
+      }
+      *reinterpret_cast<P*>(y + i) = out;
+      if constexpr (Q8) {
+        Pack<int8_t, VEC> qo;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) qo.v[k] = q8(to_f32(out.v[k]), qs);
+        *reinterpret_cast<Pack<int8_t, VEC>*>(q + i) = qo;
+      }
+    }
+  }
+}
+
+template <typename T, int VEC, bool Q8>
+int run_apply_split(const void* x, const double* parts, const float* scale,
+                    const float* offset, void* y, float* stats, void* q, float qs, int R, int C,
+                    int W, int tx, int rows, int n_rr, long long smem, float eps, int act,
+                    cudaStream_t st) {
+  const int CT = tx * VEC;
+  if (tx < 1 || tx > 256 || (tx & (tx - 1)) || rows < 1 || n_rr < 1 || n_rr > 65535 ||
+      int64_t(rows) * n_rr < R || int64_t(rows) * (n_rr - 1) >= R || W < 1 ||
+      (VEC > 1 && C % VEC) || size_t(smem) != 3 * size_t(CT) * sizeof(float) ||
+      (Q8 && q == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((C + CT - 1) / CT, n_rr);
+  bn_apply_split_kernel<T, VEC, Q8><<<grid, 256, size_t(smem), st>>>(
+      static_cast<const T*>(x), parts, scale, offset, static_cast<T*>(y), stats, R, C, W, tx,
+      rows, eps, act, static_cast<int8_t*>(q), qs);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int VEC>
 int run_stats(const void* x, double* part, float* out, int R, int C, int tx, int rows,
-              int n_rb, long long smem, int grid, float eps, cudaStream_t st,
-              double* local = nullptr) {
+              int n_rb, long long smem, int grid, float eps, cudaStream_t st) {
   const int n_ct = (C + tx * VEC - 1) / (tx * VEC);
   const int units = n_ct * n_rb;
   // the merge stages a channel tile's partials with threads that keep one
@@ -482,13 +755,9 @@ int run_stats(const void* x, double* part, float* out, int R, int C, int tx, int
   if (!plan_ok<VEC>(R, C, tx, rows, n_rb, 0, grid, units) ||
       (n_rb > 1 && kThreads<VEC> % (tx * VEC)) || stats_smem<VEC>(tx, n_rb) != size_t(smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  StatsArgs<T> a{static_cast<const T*>(x), part, out, R, C, tx, n_ct, rows, n_rb, units, eps,
-                 local};
-  if (local != nullptr)
-    return launch_cooperative(bn_stats_fused_kernel<T, VEC, true>, a, grid, kThreads<VEC>,
-                              size_t(smem), st);
-  return launch_cooperative(bn_stats_fused_kernel<T, VEC, false>, a, grid, kThreads<VEC>,
-                            size_t(smem), st);
+  StatsArgs<T> a{static_cast<const T*>(x), part, out, R, C, tx, n_ct, rows, n_rb, units, eps};
+  return launch_cooperative(bn_stats_fused_kernel<T, VEC>, a, grid, kThreads<VEC>, size_t(smem),
+                            st);
 }
 
 // ---------------------------------------------------------------------------
@@ -782,40 +1051,62 @@ void launch_bwd_apply(const void* g, const void* x, const float* mean, const flo
 }  // namespace
 }  // namespace ggan
 
-// K2a's split mode, phase 1: as ggan_bn_stats (the same plan and launch),
-// writing local [3, C] f64 (the rows' count, mean and M2 per channel) in
-// place of the statistics.
-extern "C" int ggan_bn_stats_local(const void* x, void* part, void* local, int dtype, int R,
-                                   int C, int vec, int tx, int rows, int n_rb, long long smem,
-                                   int grid, void* stream) {
+// K2a's split mode, the rank's statistics: x [R, C]; out [W, 3, C] f64 gets
+// the rows' count, unshifted mean and M2 per channel in slot `index` and
+// zeros in the others. vec is 16 / sizeof(dtype) (C a multiple of it, x
+// 16-byte aligned) or 1; tx, rows, cluster and smem come from
+// ops/kernels/fused_norm.py:bn_stats_local_plan. One cluster launch.
+extern "C" int ggan_bn_stats_local(const void* x, void* out, int dtype, int R, int C, int vec,
+                                   int tx, int rows, int cluster, long long smem, int index,
+                                   int W, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  double* pt = static_cast<double*>(part);
-  double* lc = static_cast<double*>(local);
+  double* o = static_cast<double*>(out);
   if (dtype == ggan::kFloat32 && vec == 4) {
-    return ggan::run_stats<float, 4>(x, pt, nullptr, R, C, tx, rows, n_rb, smem, grid, 0.0f,
-                                     st, lc);
+    return ggan::run_stats_local<float, 4>(x, o, R, C, tx, rows, cluster, smem, index, W, st);
   } else if (dtype == ggan::kFloat32 && vec == 1) {
-    return ggan::run_stats<float, 1>(x, pt, nullptr, R, C, tx, rows, n_rb, smem, grid, 0.0f,
-                                     st, lc);
+    return ggan::run_stats_local<float, 1>(x, o, R, C, tx, rows, cluster, smem, index, W, st);
   } else if (dtype == ggan::kBFloat16 && vec == 8) {
-    return ggan::run_stats<__nv_bfloat16, 8>(x, pt, nullptr, R, C, tx, rows, n_rb, smem, grid,
-                                             0.0f, st, lc);
+    return ggan::run_stats_local<__nv_bfloat16, 8>(x, o, R, C, tx, rows, cluster, smem, index,
+                                                   W, st);
   } else if (dtype == ggan::kBFloat16 && vec == 1) {
-    return ggan::run_stats<__nv_bfloat16, 1>(x, pt, nullptr, R, C, tx, rows, n_rb, smem, grid,
-                                             0.0f, st, lc);
+    return ggan::run_stats_local<__nv_bfloat16, 1>(x, o, R, C, tx, rows, cluster, smem, index,
+                                                   W, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K2a's split mode, phase 2: parts [W, 3, C] f64 -> out [3, C] f32 (mean,
-// var, inv).
-extern "C" int ggan_bn_stats_merge(const void* parts, void* out, int W, int C, float eps,
-                                   void* stream) {
-  if (W < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
+// K2b in the split mode with K2a's finalize: x [R, C]; parts [W, 3, C] f64,
+// the ranks' gathered (n, mean, M2); scale and offset [C] f32; y has x's
+// dtype and shape; stats [3, C] f32 gets (mean, var, inv); q (int8 [R, C],
+// Q8 only: nullptr for none) gets q8(y, qs). vec is 16 / sizeof(dtype) (C a
+// multiple of it; x and y 16-byte aligned, q vec-byte aligned) or 1; tx,
+// rows, n_rr and smem come from ops/kernels/fused_norm.py:
+// bn_apply_split_plan.
+extern "C" int ggan_bn_apply_split(const void* x, const void* parts, const void* scale,
+                                   const void* offset, void* y, void* stats, void* q, float qs,
+                                   int dtype, int R, int C, int W, int vec, int tx, int rows,
+                                   int n_rr, long long smem, float eps, int act, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  ggan::bn_stats_merge_kernel<<<(C + 255) / 256, 256, 0, st>>>(
-      static_cast<const double*>(parts), static_cast<float*>(out), W, C, eps);
-  return static_cast<int>(cudaGetLastError());
+  const double* pt = static_cast<const double*>(parts);
+  const float* sc = static_cast<const float*>(scale);
+  const float* of = static_cast<const float*>(offset);
+  float* so = static_cast<float*>(stats);
+#define GGAN_APPLY_SPLIT(T, V)                                                                 \
+  return q ? ggan::run_apply_split<T, V, true>(x, pt, sc, of, y, so, q, qs, R, C, W, tx, rows,  \
+                                               n_rr, smem, eps, act, st)                       \
+           : ggan::run_apply_split<T, V, false>(x, pt, sc, of, y, so, q, qs, R, C, W, tx, rows, \
+                                                n_rr, smem, eps, act, st)
+  if (dtype == ggan::kFloat32 && vec == 4) {
+    GGAN_APPLY_SPLIT(float, 4);
+  } else if (dtype == ggan::kFloat32 && vec == 1) {
+    GGAN_APPLY_SPLIT(float, 1);
+  } else if (dtype == ggan::kBFloat16 && vec == 8) {
+    GGAN_APPLY_SPLIT(__nv_bfloat16, 8);
+  } else if (dtype == ggan::kBFloat16 && vec == 1) {
+    GGAN_APPLY_SPLIT(__nv_bfloat16, 1);
+  }
+#undef GGAN_APPLY_SPLIT
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K2c+K2d's split mode, phase 1: as ggan_bn_bwd with no rows kept on chip

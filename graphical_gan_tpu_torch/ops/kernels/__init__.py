@@ -12,8 +12,9 @@ from graphical_gan_tpu_torch.ops.kernels.conv_gemm import (  # noqa: F401
 from graphical_gan_tpu_torch.ops.kernels.fused_conv import (  # noqa: F401
     conv2d_bias_act, fused_conv2d_bias_act)
 from graphical_gan_tpu_torch.ops.kernels.fused_norm import (  # noqa: F401
-    bn_apply, bn_apply_q8, bn_bwd, bn_bwd_apply, bn_bwd_reduce, bn_stats,
-    bn_stats_local, bn_stats_merge, fused_batchnorm_act)
+    bn_apply, bn_apply_q8, bn_apply_split, bn_apply_split_q8, bn_bwd,
+    bn_bwd_apply, bn_bwd_reduce, bn_stats, bn_stats_local,
+    fused_batchnorm_act)
 from graphical_gan_tpu_torch.ops.kernels.quant import (  # noqa: F401
     int8_conv, quantize_int8)
 
@@ -29,11 +30,12 @@ WRAPPERS = {
     "int8_conv": int8_conv,
     "bn_apply_q8": bn_apply_q8,
 }
-#: K2a's and K2c+K2d's split modes (batch statistics over several ranks,
-#: ``parallel/``), whose launches only a parallel run makes
+#: K2a's (with K2b) and K2c+K2d's split modes (batch statistics over several
+#: ranks, ``parallel/``), whose launches only a parallel run makes
 SPLIT_WRAPPERS = {
     "bn_stats_local": bn_stats_local,
-    "bn_stats_merge": bn_stats_merge,
+    "bn_apply_split": bn_apply_split,
+    "bn_apply_split_q8": bn_apply_split_q8,
     "bn_bwd_reduce": bn_bwd_reduce,
     "bn_bwd_apply": bn_bwd_apply,
 }

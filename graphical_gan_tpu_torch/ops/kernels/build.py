@@ -82,11 +82,13 @@ _SIGNATURES = {
     # stream
     "ggan_bn_apply_q8": [_P] * 7 + [ctypes.c_float, _I, ctypes.c_longlong,
                                     _I, _I, _I, _P],
-    # x, part, local, dtype, R, C, vec, tx, rows, n_rb, smem, grid, stream
-    "ggan_bn_stats_local": [_P] * 3 + [_I] * 7 + [ctypes.c_longlong, _I,
+    # x, out, dtype, R, C, vec, tx, rows, cluster, smem, index, W, stream
+    "ggan_bn_stats_local": [_P] * 2 + [_I] * 7 + [ctypes.c_longlong, _I, _I,
                                                   _P],
-    # parts, out, W, C, eps, stream
-    "ggan_bn_stats_merge": [_P, _P, _I, _I, ctypes.c_float, _P],
+    # x, parts, scale, offset, y, stats, q, qs, dtype, R, C, W, vec, tx,
+    # rows, n_rr, smem, eps, act, stream
+    "ggan_bn_apply_split": [_P] * 7 + [ctypes.c_float] + [_I] * 8
+    + [ctypes.c_longlong, ctypes.c_float, _I, _P],
     # g, x, mean, inv, scale, offset, part, red, dx, dtype, R, C, vec, tx,
     # rows, n_rb, slots, smem, grid, act, reduce_only, stream
     "ggan_bn_bwd_split": [_P] * 9 + [_I] * 8 + [ctypes.c_longlong, _I, _I,

@@ -24,11 +24,15 @@ Three kernels in ``csrc/fused_norm.cu``, each behind its own wrapper:
 Split modes, for batch statistics over the rows of several ranks
 (``parallel/``: DP, SP): a grid barrier cannot wait for another process,
 so each kernel's two phases become two steps with the cross-rank sums
-between them. K2a: :func:`bn_stats_local` (the one launch's phase 1 and
-in-rank merge, writing the rank's f64 (n, mean, M2) unshifted), an
-exchange of those [3, C] triples, :func:`bn_stats_merge` (the finalize
-kernel: Chan's merge in rank order). K2c+K2d: :func:`bn_bwd_reduce` (the
-launch's sums, no dx), the sums added over the ranks in rank order,
+between them. K2a with K2b: :func:`bn_stats_local` (one cluster launch:
+the rank's f64 (n, mean, M2), unshifted, written into the rank's slot of
+the [W, 3, C] exchange buffer, zeros in the others), one ``all_reduce``
+of that buffer (``parallel/collectives.py: all_reduce_stack``), then
+:func:`bn_apply_split` (K2b with the finalize, Chan's merge of the W
+triples in rank order, folded in; it also writes the [3, C] (mean, var,
+inv) the backward saves), or :func:`bn_apply_split_q8` for the int8
+server: two launches for a BN forward. K2c+K2d: :func:`bn_bwd_reduce`
+(the launch's sums, no dx), the sums added over the ranks in rank order,
 :func:`bn_bwd_apply` (dx from the summed red over the group's rows). At
 one rank the one-launch kernels run as before.
 
@@ -444,14 +448,22 @@ def bn_bwd(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
 # -- split modes: batch statistics over the rows of several ranks ----------
 
 
-def bn_stats_local_plain(x2d: torch.Tensor) -> torch.Tensor:
+def bn_stats_local_plain(x2d: torch.Tensor, index: int = 0,
+                         world: Optional[int] = None) -> torch.Tensor:
     """[3, C] f64: the rows' count n, mean and M2 = Σ(x - mean)² per
-    column, unshifted (each rank's own ``x[0, c]`` shift would differ)."""
+    column, unshifted (each rank's own ``x[0, c]`` shift would differ).
+    With ``world``, the slot form: the [world, 3, C] exchange buffer with
+    the triple in slot ``index`` and zeros in the others."""
     x64 = x2d.double()
     mean = x64.mean(dim=0)
     m2 = (x64 - mean).square().sum(dim=0)
-    return torch.stack([torch.full_like(mean, float(x2d.shape[0])), mean,
-                        m2])
+    triple = torch.stack([torch.full_like(mean, float(x2d.shape[0])), mean,
+                          m2])
+    if world is None:
+        return triple
+    out = triple.new_zeros((int(world),) + tuple(triple.shape))
+    out[index] = triple
+    return out
 
 
 def bn_stats_merge_plain(parts: torch.Tensor, eps: float = EPS
@@ -459,7 +471,8 @@ def bn_stats_merge_plain(parts: torch.Tensor, eps: float = EPS
     """[3, C] f32 (mean, var, inv) of the ranks' [W, 3, C] f64 (n, mean,
     M2), merged in rank order by Chan's formula in f64; mean and var are
     rounded once to f32 and inv is taken in f32 from the rounded var, as
-    K2a's one launch writes them."""
+    K2a's one launch writes them. The reference of the finalize that
+    :func:`bn_apply_split` folds in."""
     n, mean, m2 = parts[0, 0], parts[0, 1], parts[0, 2]
     for r in range(1, parts.shape[0]):
         nb, mb, m2b = parts[r, 0], parts[r, 1], parts[r, 2]
@@ -473,60 +486,256 @@ def bn_stats_merge_plain(parts: torch.Tensor, eps: float = EPS
     return torch.stack([mean.float(), var, torch.rsqrt(var + eps)])
 
 
-def bn_stats_local(x2d: torch.Tensor) -> torch.Tensor:
-    """K2a's split mode, phase 1: this rank's [3, C] f64 (n, mean, M2) per
-    column of [R, C] (its units merged in the launch, as in the one-launch
-    K2a, then the shift added back to the mean). One cooperative launch."""
-    if x2d.device.type == "cpu":
-        return bn_stats_local_plain(x2d)
+class LocalPlan(NamedTuple):
+    """:func:`bn_stats_local`'s launch for one shape
+    (:func:`bn_stats_local_plan`): one thread-block cluster per channel
+    tile, its blocks over the tile's rows."""
+    vec: int      # channels per load: 16 bytes' worth, or 1
+    tx: int       # lanes across a channel tile (a power of two)
+    ty: int       # row lanes: the block's threads // tx
+    ct: int       # channels per tile: tx * vec
+    n_ct: int     # channel tiles, one cluster each
+    rows: int     # rows per block (a multiple of ty); the last block's may
+                  # be ragged
+    cluster: int  # blocks per cluster (the plan's at most _CLUSTER_MAX)
+    smem: int     # dynamic shared memory per block, bytes
+
+
+# blocks of a cluster the plan takes at most. The kernel takes up to 16 (the
+# non-portable size), but at 512 threads and 96 registers a block holds its
+# SM alone, and too few of the H100's GPCs hold 16 such blocks at once: at
+# 2,048 rows of 8 tiles, clusters of 16 took 0.0124 ms against 0.0072 at 8
+# (PERF.md §6, tools/sweep_stats_local.py)
+_CLUSTER_MAX = 8
+
+
+@functools.lru_cache(maxsize=None)
+def bn_stats_local_plan(r: int, c: int, dtype: torch.dtype,
+                        aligned: bool = True) -> LocalPlan:
+    """The launch of :func:`bn_stats_local` for [r, c] in ``dtype``
+    (``aligned``: x starts on 16 bytes), a function of the shape alone:
+    channel tiles as :func:`_unit_tiling` cuts them, each tile's rows cut
+    over a cluster of up to ``_CLUSTER_MAX`` blocks (:func:`local_plan_at`).
+    G.BN1's 32 rows a rank take a cluster of 1, G.BN3's 8,192 rows of 64
+    channels fill it."""
+    u = _unit_tiling(r, c, dtype, aligned)
+    return local_plan_at(r, c, u.vec, u.tx, u.tx * u.ty, _CLUSTER_MAX)
+
+
+def local_plan_at(r: int, c: int, vec: int, tx: int, threads: int,
+                  most: int) -> LocalPlan:
+    """The :class:`LocalPlan` of [r, c] at ``vec`` channels a load, ``tx``
+    lanes across a tile of a ``threads``-thread block and clusters of at
+    most ``most`` blocks: as many blocks as keep the clusters within one
+    block per SM and every block's row lanes busy. Shared memory: the
+    block sum's scratch (two f64 values a channel), the cluster's (mean,
+    M2) of the tile (block 0 gathers the others'), the shift and the
+    merge's two weights a block. ``tools/sweep_stats_local.py`` times
+    other lanes and limits through it."""
+    ty = threads // tx
+    ct = tx * vec
+    n_ct = -(-c // ct)
+    want = max(1, min(most, _SMS // n_ct, -(-r // ty)))
+    rows = -(-(-(-r // want)) // ty) * ty
+    cluster = -(-r // rows)
+    groups = ty // (32 // tx if tx < 32 else 1)
+    smem = ((groups + 1) * 2 * ct + cluster * 2 * ct + ct + 2 * cluster) * 8
+    return LocalPlan(vec, tx, ty, ct, n_ct, rows, cluster, smem)
+
+
+class SplitApplyPlan(NamedTuple):
+    """:func:`bn_apply_split`'s grid for one shape
+    (:func:`bn_apply_split_plan`): blocks of 256 threads over (channel
+    tile, row range)."""
+    vec: int   # channels per load: 16 bytes' worth, or 1
+    tx: int    # lanes across a channel tile (a power of two)
+    ty: int    # row lanes: 256 // tx
+    ct: int    # channels per tile: tx * vec
+    n_ct: int  # channel tiles
+    rows: int  # rows per block (a multiple of ty); the last may be ragged
+    n_rr: int  # row ranges
+    smem: int  # shared memory per block: mean, inv·scale and offset, f32
+
+
+_APPLY_THREADS = 256
+_APPLY_BLOCKS = 4 * _SMS  # blocks the row ranges aim for at most
+_TRIPLE_SHARE = 10        # triples read past the first: < 1/10 of x's bytes
+_SECTOR = 32              # bytes of a row a tile covers at the least
+
+
+@functools.lru_cache(maxsize=None)
+def bn_apply_split_plan(r: int, c: int, dtype: torch.dtype, world: int,
+                        aligned: bool = True) -> SplitApplyPlan:
+    """:func:`bn_apply_split`'s grid for [r, c] in ``dtype`` over
+    ``world`` ranks' triples (``aligned``: x and y start on 16 bytes, an
+    int8 copy on 16 / itemsize), a function of the shape alone. Every
+    block merges its tile's ``world`` triples (24 bytes a rank and
+    channel) again, so the row ranges are few enough that the reads past
+    the first stay under a tenth of x's bytes: (n_rr - 1)·24·world <
+    r·itemsize / 10. Tiles start at 64 bytes of a row, wider where the
+    rows are fewer than a block's row lanes (G.BN1's 32 rows), narrower,
+    down to one 32-byte sector, while the blocks would not fill the SMs."""
+    size = dtype.itemsize
+    full = 16 // size
+    vec = full if aligned and c % full == 0 else 1
+    lanes = -(-c // vec)
+    top = min(_APPLY_THREADS, 1 << (lanes - 1).bit_length())
+    max_rr = 1 + (r * size - 1) // (_TRIPLE_SHARE * 24 * world)
+
+    def grid(tx):
+        ty = _APPLY_THREADS // tx
+        n_ct = -(-lanes // tx)
+        want = max(1, min(max_rr, -(-r // ty), -(-_APPLY_BLOCKS // n_ct)))
+        rows = -(-(-(-r // want)) // ty) * ty
+        return ty, n_ct, rows, -(-r // rows)
+
+    tx = min(top, max(1, _MIN_SEGMENT // (vec * size)))
+    while tx < top and _APPLY_THREADS // tx > r:
+        tx *= 2
+    ty, n_ct, rows, n_rr = grid(tx)
+    while (n_ct * n_rr < _SMS and tx > 1 and tx * vec * size > _SECTOR
+           and 2 * ty <= r):
+        tx //= 2
+        ty, n_ct, rows, n_rr = grid(tx)
+    return SplitApplyPlan(vec, tx, ty, tx * vec, n_ct, rows, n_rr,
+                          3 * tx * vec * 4)
+
+
+def launch_stats_local(x2d: torch.Tensor, p: LocalPlan, index: int,
+                       world: int) -> torch.Tensor:
+    """Launch ggan_bn_stats_local on CUDA ``x2d`` at plan ``p``: the
+    [world, 3, C] f64 exchange buffer, the rows' (n, mean, M2) in slot
+    ``index`` and zeros in the others. Counts nothing:
+    :func:`bn_stats_local` is the wrapper."""
     _check_2d(x2d, "bn_stats_local")
+    if not 0 <= index < world:
+        raise ValueError(f"bn_stats_local: slot {index} of {world}")
     r, c = x2d.shape
-    p = bn_stats_plan(r, c, x2d.dtype, x2d.data_ptr() % 16 == 0)
-    part = torch.empty((max(p.n_rb, 1) * 2 + 3) * c, dtype=torch.float64,
-                       device=x2d.device)
-    local = part[p.n_rb * 2 * c:].view(3, c)
+    out = torch.empty((world, 3, c), dtype=torch.float64, device=x2d.device)
     code = build.lib().ggan_bn_stats_local(
-        x2d.data_ptr(), part.data_ptr(), local.data_ptr(),
-        build.DTYPE_CODES[_DTYPES[x2d.dtype]], r, c, p.vec, p.tx, p.rows,
-        p.n_rb, p.smem, p.grid, build.stream_ptr(x2d.device))
+        x2d.data_ptr(), out.data_ptr(), build.DTYPE_CODES[_DTYPES[x2d.dtype]],
+        r, c, p.vec, p.tx, p.rows, p.cluster, p.smem, index, world,
+        build.stream_ptr(x2d.device))
     build.check(code, "ggan_bn_stats_local")
-    bn_stats_local.launches += 1
-    return local
-
-
-def bn_stats_merge(parts: torch.Tensor, eps: float = EPS) -> torch.Tensor:
-    """K2a's split mode, phase 2: the finalize kernel, one thread a channel,
-    over the gathered [W, 3, C] f64 triples in rank order -> [3, C] f32
-    (mean, var, inv)."""
-    if parts.device.type == "cpu":
-        return bn_stats_merge_plain(parts, eps)
-    if parts.device.type != "cuda" or parts.dtype != torch.float64 \
-            or parts.ndim != 3 or parts.shape[1] != 3:
-        raise ValueError("bn_stats_merge takes [W, 3, C] f64 on cuda, got "
-                         f"{parts.dtype} {tuple(parts.shape)} on "
-                         f"{parts.device}")
-    parts = parts.contiguous()
-    w, _, c = parts.shape
-    out = torch.empty((3, c), dtype=torch.float32, device=parts.device)
-    code = build.lib().ggan_bn_stats_merge(
-        parts.data_ptr(), out.data_ptr(), w, c, float(eps),
-        build.stream_ptr(parts.device))
-    build.check(code, "ggan_bn_stats_merge")
-    bn_stats_merge.launches += 1
     return out
 
 
-def bn_stats_group(x2d: torch.Tensor, group, eps: float = EPS
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(mean, var, inv) per column over the rows of every rank of
-    ``group`` (``parallel/collectives.py``): :func:`bn_stats_local`, the
-    triples gathered, :func:`bn_stats_merge`; identical bits on every
-    rank. One rank: K2a's one launch."""
-    if group is None or group.size == 1:
-        return bn_stats(x2d, eps)
-    from graphical_gan_tpu_torch.parallel.collectives import gather_stack
-    out = bn_stats_merge(gather_stack(bn_stats_local(x2d), group), eps)
-    return out[0], out[1], out[2]
+def bn_stats_local(x2d: torch.Tensor, index: int, world: int
+                   ) -> torch.Tensor:
+    """K2a's split mode, the rank's statistics: the [world, 3, C] f64
+    exchange buffer with the rows' count n, mean and M2 per column of
+    [R, C] in slot ``index`` (its row blocks merged in the launch, then
+    the shift added back to the mean) and zeros elsewhere. One
+    non-cooperative cluster launch (:func:`bn_stats_local_plan`)."""
+    if x2d.device.type == "cpu":
+        return bn_stats_local_plain(x2d, index, world)
+    r, c = x2d.shape
+    out = launch_stats_local(
+        x2d, bn_stats_local_plan(r, c, x2d.dtype, x2d.data_ptr() % 16 == 0),
+        index, int(world))
+    bn_stats_local.launches += 1
+    return out
+
+
+def bn_stats_exchange(x2d: torch.Tensor, group) -> torch.Tensor:
+    """The [W, 3, C] f64 triples of every rank of ``group``, in rank order,
+    the same bits on every rank: :func:`bn_stats_local` in the slot form,
+    then one ``all_reduce`` of the buffer."""
+    from graphical_gan_tpu_torch.parallel.collectives import (
+        all_reduce_stack)
+    return all_reduce_stack(
+        bn_stats_local(x2d, group.index, group.size), group)
+
+
+def bn_apply_split_plain(x2d: torch.Tensor, parts: torch.Tensor,
+                         scale: torch.Tensor, offset: torch.Tensor,
+                         act: Optional[str] = None, eps: float = EPS
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y, stats): the finalize (:func:`bn_stats_merge_plain` of the
+    ranks' [W, 3, C] triples) then :func:`bn_apply_plain` at its mean and
+    inv; stats is [3, C] f32 (mean, var, inv)."""
+    stats = bn_stats_merge_plain(parts, eps)
+    return bn_apply_plain(x2d, stats[0], stats[2], scale, offset,
+                          act), stats
+
+
+def bn_apply_split_q8_plain(x2d: torch.Tensor, parts: torch.Tensor,
+                            scale: torch.Tensor, offset: torch.Tensor,
+                            act: Optional[str], s_x: float,
+                            eps: float = EPS
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """(y, q, stats): the finalize then :func:`bn_apply_q8_plain`."""
+    stats = bn_stats_merge_plain(parts, eps)
+    y, q = bn_apply_q8_plain(x2d, stats[0], stats[2], scale, offset, act,
+                             s_x)
+    return y, q, stats
+
+
+def _apply_split(name, x2d, parts, scale, offset, act, eps, s_x=None):
+    """Launch ggan_bn_apply_split: (y, q or None, stats)."""
+    _check_2d(x2d, name)
+    if act not in build.ACT_CODES:
+        raise ValueError(f"unknown activation {act!r}")
+    r, c = x2d.shape
+    if parts.dtype != torch.float64 or parts.ndim != 3 \
+            or parts.shape[1:] != (3, c) or parts.device != x2d.device:
+        raise ValueError(f"{name} takes the ranks' [W, 3, {c}] f64 triples "
+                         f"on {x2d.device}, got {parts.dtype} "
+                         f"{tuple(parts.shape)} on {parts.device}")
+    parts = parts.contiguous()
+    scale, offset = _chan_f32(x2d, scale, offset)
+    y = torch.empty_like(x2d)
+    q = None if s_x is None else torch.empty_like(x2d, dtype=torch.int8)
+    stats = torch.empty((3, c), dtype=torch.float32, device=x2d.device)
+    vec = 16 // x2d.dtype.itemsize
+    aligned = (x2d.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+               and (q is None or q.data_ptr() % vec == 0))
+    p = bn_apply_split_plan(r, c, x2d.dtype, parts.shape[0], aligned)
+    code = build.lib().ggan_bn_apply_split(
+        x2d.data_ptr(), parts.data_ptr(), scale.data_ptr(),
+        offset.data_ptr(), y.data_ptr(), stats.data_ptr(),
+        None if q is None else q.data_ptr(),
+        1.0 if s_x is None else float(s_x),
+        build.DTYPE_CODES[_DTYPES[x2d.dtype]], r, c, parts.shape[0], p.vec,
+        p.tx, p.rows, p.n_rr, p.smem, float(eps), build.ACT_CODES[act],
+        build.stream_ptr(x2d.device))
+    build.check(code, "ggan_bn_apply_split")
+    return y, q, stats
+
+
+def bn_apply_split(x2d: torch.Tensor, parts: torch.Tensor,
+                   scale: torch.Tensor, offset: torch.Tensor,
+                   act: Optional[str] = None, eps: float = EPS
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2b in the split mode with K2a's finalize folded in: (y, stats)
+    from the ranks' gathered [W, 3, C] f64 triples
+    (:func:`bn_stats_exchange`). Each block merges its channel tile's
+    triples in rank order (:func:`bn_stats_merge_plain`'s arithmetic) and
+    applies as :func:`bn_apply` does: y is K2b's at the [3, C] f32 (mean,
+    var, inv) it also writes. One launch."""
+    if x2d.device.type == "cpu":
+        return bn_apply_split_plain(x2d, parts, scale, offset, act, eps)
+    y, _, stats = _apply_split("bn_apply_split", x2d, parts, scale, offset,
+                               act, eps)
+    bn_apply_split.launches += 1
+    return y, stats
+
+
+def bn_apply_split_q8(x2d: torch.Tensor, parts: torch.Tensor,
+                      scale: torch.Tensor, offset: torch.Tensor,
+                      act: Optional[str], s_x: float, eps: float = EPS
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`bn_apply_split` with y's int8 copy at ``s_x`` as
+    :func:`bn_apply_q8` writes it: (y, q, stats), one launch (the dp int8
+    server)."""
+    if x2d.device.type == "cpu":
+        return bn_apply_split_q8_plain(x2d, parts, scale, offset, act, s_x,
+                                       eps)
+    y, q, stats = _apply_split("bn_apply_split_q8", x2d, parts, scale,
+                               offset, act, eps, s_x)
+    bn_apply_split_q8.launches += 1
+    return y, q, stats
 
 
 def bn_bwd_reduce(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
@@ -618,7 +827,8 @@ bn_apply.launches = 0
 bn_apply_q8.launches = 0
 bn_bwd.launches = 0
 bn_stats_local.launches = 0
-bn_stats_merge.launches = 0
+bn_apply_split.launches = 0
+bn_apply_split_q8.launches = 0
 bn_bwd_reduce.launches = 0
 bn_bwd_apply.launches = 0
 
@@ -697,8 +907,9 @@ class FusedBatchNormAct(torch.autograd.Function):
     """act(batchnorm(x)) over channels-last x with batch statistics, with the
     JAX package's custom VJP (``fused_norm.py:174-236``).
 
-    Forward: K2a then K2b; saves ``(x, scale, offset, mean, inv)`` as
-    ``_fwd`` does. Backward: K2c+K2d (:class:`_BatchNormActBackward`);
+    Forward: K2a then K2b (under a group of two or more ranks
+    :func:`bn_stats_local`, the exchange, :func:`bn_apply_split`); saves
+    ``(x, scale, offset, mean, inv)`` as ``_fwd`` does. Backward: K2c+K2d (:class:`_BatchNormActBackward`);
     ``dx`` in x's dtype, ``dscale = Σgz·xhat`` and ``doffset = Σgz`` in f32,
     cast to the parameters' dtypes. The backward can be differentiated once
     more, as the mnist discriminator's gradient penalty needs: the
@@ -708,8 +919,13 @@ class FusedBatchNormAct(torch.autograd.Function):
     def forward(ctx, x, scale, offset, act, eps, group=None):
         c = x.shape[-1]
         x2d = x.reshape(-1, c)
-        mean, _, inv = bn_stats_group(x2d, group, eps)
-        y = bn_apply(x2d, mean, inv, scale, offset, act)
+        if group is None or group.size == 1:
+            mean, _, inv = bn_stats(x2d, eps)
+            y = bn_apply(x2d, mean, inv, scale, offset, act)
+        else:
+            y, stats = bn_apply_split(x2d, bn_stats_exchange(x2d, group),
+                                      scale, offset, act, eps)
+            mean, inv = stats[0], stats[2]
         ctx.save_for_backward(x, scale, offset, mean, inv)
         ctx.conf = (act, eps, group)
         return y.reshape(x.shape)
@@ -741,10 +957,14 @@ def batchnorm_act_q8(x: torch.Tensor, scale: torch.Tensor,
     """act(batchnorm(x)) over channels-last x with batch statistics, and
     its int8 copy at ``s_x``: K2a, then K2b with its second output. For the
     int8 serving path only (no gradient). With ``group`` the statistics
-    are the whole batch's over its ranks (K2a's split mode,
-    :func:`bn_stats_group`), as a data-parallel server needs."""
+    are the whole batch's over its ranks, as a data-parallel server needs:
+    :func:`bn_stats_exchange`, then :func:`bn_apply_split_q8`."""
     c = x.shape[-1]
     x2d = x.reshape(-1, c)
-    mean, _, inv = bn_stats_group(x2d, group, eps)
-    y, q = bn_apply_q8(x2d, mean, inv, scale, offset, act, s_x)
+    if group is None or group.size == 1:
+        mean, _, inv = bn_stats(x2d, eps)
+        y, q = bn_apply_q8(x2d, mean, inv, scale, offset, act, s_x)
+    else:
+        y, q, _ = bn_apply_split_q8(x2d, bn_stats_exchange(x2d, group),
+                                    scale, offset, act, s_x, eps)
     return y.reshape(x.shape), q.reshape(x.shape)

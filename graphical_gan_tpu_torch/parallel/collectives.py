@@ -9,8 +9,11 @@ takes there), so one code path runs on NCCL across cards, on gloo with
 several ranks on one card, and on gloo on the CPU:
 
 - :func:`gather_stack` writes each rank's tensor into its row of a zero
-  buffer and sums the buffers: each row is one rank's tensor plus zeros,
-  exact (a -0 becomes +0);
+  buffer and sums the buffers (:func:`all_reduce_stack`): each row is one
+  rank's tensor plus zeros, exact (a -0 becomes +0); a producer that
+  writes its row and the zeros itself (the BN statistics' slot form,
+  ``ops/kernels/fused_norm.py: bn_stats_local``) hands its buffer to
+  :func:`all_reduce_stack` directly;
 - :func:`sum_in_rank_order` adds the gathered rows one after another in
   rank order, so every rank computes the same bits and replicas stay
   bit-identical, whatever order the backend reduces in.
@@ -67,14 +70,23 @@ def _trivial(group: Optional[Group]) -> bool:
     return group is None or group.size == 1
 
 
+def all_reduce_stack(buf: torch.Tensor, group: Optional[Group]
+                     ) -> torch.Tensor:
+    """``buf`` [size, ...], in which this rank wrote its row and zeros in
+    the others, with every rank's row: one ``all_reduce(SUM)`` in place
+    (no gradient). The rows are :func:`gather_stack`'s, bit for bit."""
+    if not _trivial(group):
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group.pg)
+    return buf
+
+
 def gather_stack(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
     """[size, *x.shape]: row r is rank r's x (no gradient)."""
     if _trivial(group):
         return x.detach().unsqueeze(0)
     buf = x.new_zeros((group.size,) + tuple(x.shape))
     buf[group.index] = x.detach()
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group.pg)
-    return buf
+    return all_reduce_stack(buf, group)
 
 
 def sum_in_rank_order(x: torch.Tensor, group: Optional[Group]

@@ -57,8 +57,9 @@ so the ranks load it and none builds it):
    and int8, against the one-rank server's (float within DP_SERVE_ATOL;
    int8 within it at all but DP_SERVE_INT8_SHARE of the elements, where
    a merged statistic may move a value across an int8 rounding step),
-   rank 0's launches of the dispatch (K2a's split mode, no one-launch
-   K2a) and both servers' ms per dispatch.
+   rank 0's launches of the dispatch (the split forward: as many
+   ``bn_stats_local`` launches as ``bn_apply_split`` and its int8 form's
+   together, no one-launch K2a or K2b) and both servers' ms per dispatch.
 
 Each run prints one JSON line; ``--out`` also writes them as one JSON
 document; ``--runs`` picks runs (default all). Exits nonzero if a check
@@ -712,8 +713,11 @@ def _spawn(run: str, world: int, device: str, small: bool,
 
 K1 = "fused_conv2d_bias_act"
 K2 = ("bn_stats", "bn_apply", "bn_bwd")
-SPLIT = ("bn_stats_local", "bn_stats_merge", "bn_bwd_reduce",
+# the split kernels a data-parallel training step launches; a BN forward
+# is one bn_stats_local and one bn_apply_split around one all_reduce
+SPLIT = ("bn_stats_local", "bn_apply_split", "bn_bwd_reduce",
          "bn_bwd_apply")
+ONE_LAUNCH_FWD = ("bn_stats", "bn_apply", "bn_apply_q8")
 # the ranks of a pipeline run that hold convolutions (K1) and the BNs of
 # E and G (K2a, K2b, K2c+K2d at one launch): by stage count
 PP_K1_RANKS = {2: (0, 1), 4: (0, 1, 2)}
@@ -744,10 +748,15 @@ def misses_of(doc: Dict, device: str = "cuda") -> List[str]:
                        "chunk_size 1")
         if not rec["replicas_bit_identical"]:
             out.append(f"ranks {rec['strategy']}: replicas differ")
-    if ranks is not None:
+    if ranks is not None and card:
+        got = ranks["launches"]
         for name in SPLIT:
-            if card and not ranks["launches"].get(name):
+            if not got.get(name):
                 out.append(f"ranks: {name} never launched")
+        if got.get("bn_stats_local") != got.get("bn_apply_split"):
+            out.append(f"ranks: {got.get('bn_stats_local')} bn_stats_local "
+                       f"launches for {got.get('bn_apply_split')} "
+                       "bn_apply_split")
     for run in ("pp", "pp4"):
         res = doc.get(run)
         if res is None:
@@ -788,12 +797,18 @@ def misses_of(doc: Dict, device: str = "cuda") -> List[str]:
                            f"elements over {DP_SERVE_ATOL}")
             if card:
                 got = rec["launches"]
-                want = ["bn_stats_local", "bn_stats_merge"] + (
-                    ["bn_apply_q8"] if q == "int8" else ["bn_apply"])
+                want = ["bn_stats_local"] + (
+                    ["bn_apply_split_q8"] if q == "int8"
+                    else ["bn_apply_split"])
                 missing = [k for k in want if not got.get(k)]
-                if missing or got.get("bn_stats"):
+                one = {k: got[k] for k in ONE_LAUNCH_FWD if got.get(k)}
+                applies = (got.get("bn_apply_split", 0)
+                           + got.get("bn_apply_split_q8", 0))
+                if missing or one or got.get("bn_stats_local") != applies:
                     out.append(f"serve {q}: {missing} never launched, "
-                               f"bn_stats {got.get('bn_stats')}")
+                               f"one-launch {one}, "
+                               f"{got.get('bn_stats_local')} bn_stats_local "
+                               f"launches for {applies} applies")
         served = [c["served"] for c in serve[1]["cases"]]
         # the counted dispatch and its warm-up, 5 timed and theirs
         if served != [8, 8]:

@@ -207,6 +207,26 @@ def bn_sync_worker(rank: int, world: int, cases: List[Dict]):
     return out
 
 
+def bn_split_fwd_worker(rank: int, world: int, p: Dict):
+    """The split BN forward's exchange on this rank: its rows of
+    ``p['x']`` [world * n, C] in the slot form (``bn_stats_local`` with
+    its slot of the world's buffer) through ``all_reduce_stack``, and the
+    [3, C] triple through ``gather_stack``, as raw bits (int64 views, so a
+    -0 and a +0 differ); then :func:`bn_sync_worker` over ``p['cases']``."""
+    import torch.distributed as dist
+    from graphical_gan_tpu_torch.ops.kernels import fused_norm as fn
+    from graphical_gan_tpu_torch.parallel.collectives import (
+        Group, all_reduce_stack, gather_stack)
+    group = Group(dist.group.WORLD, world, rank)
+    n = p["x"].shape[0] // world
+    x = torch.from_numpy(p["x"][rank * n:(rank + 1) * n])
+    slot = all_reduce_stack(fn.bn_stats_local(x, rank, world), group)
+    stack = gather_stack(fn.bn_stats_local_plain(x), group)
+    return {"slot": slot.view(torch.int64).numpy(),
+            "stack": stack.view(torch.int64).numpy(),
+            "bn": bn_sync_worker(rank, world, p["cases"])}
+
+
 def cli_worker(rank: int, world: int, p: Dict):
     """One rank of a training CLI, ``p['module']``'s ``main(p['argv'])``,
     in the ranks' process group (as torchrun would start it), with the

@@ -127,26 +127,31 @@ def test_misses_of_a_pipeline_run(change, missed):
 
 
 def _serve(err, share, launches):
+    # the int8 dispatch's BNs write their int8 copies: the apply's int8 form
+    int8 = {("bn_apply_split_q8" if k == "bn_apply_split" else k): v
+            for k, v in launches.items()}
     return [{"cases": [dict(quantize=None, max_abs_err=err,
                             over_atol_share=0.0, launches=launches),
                        dict(quantize="int8", max_abs_err=1.0,
-                            over_atol_share=share,
-                            launches=dict(launches, bn_apply_q8=1))]},
+                            over_atol_share=share, launches=int8)]},
             {"cases": [{"served": 8}, {"served": 8}]}]
 
 
+SPLIT_FWD = {"bn_stats_local": 3, "bn_apply_split": 3}
+
+
 @pytest.mark.parametrize("err, share, launches, missed", [
-    (0.0, 0.0, {"bn_stats_local": 1, "bn_stats_merge": 1, "bn_apply": 1},
-     False),
-    (2e-5, 0.0, {"bn_stats_local": 1, "bn_stats_merge": 1, "bn_apply": 1},
-     True),
-    (0.0, 2e-3, {"bn_stats_local": 1, "bn_stats_merge": 1, "bn_apply": 1},
-     True),
-    (0.0, 0.0, {"bn_stats": 1, "bn_apply": 1}, True)])
+    (0.0, 0.0, SPLIT_FWD, False),
+    (2e-5, 0.0, SPLIT_FWD, True),
+    (0.0, 2e-3, SPLIT_FWD, True),
+    (0.0, 0.0, {"bn_stats": 1, "bn_apply": 1}, True),
+    (0.0, 0.0, dict(SPLIT_FWD, bn_apply=3), True),
+    (0.0, 0.0, dict(SPLIT_FWD, bn_stats_local=6), True)])
 def test_misses_of_the_dp_server(err, share, launches, missed):
     """The dp server's gate: float within DP_SERVE_ATOL, int8 past it at
-    most DP_SERVE_INT8_SHARE of the elements, K2a's split mode launched
-    and never its one launch."""
+    most DP_SERVE_INT8_SHARE of the elements, the split forward launched
+    (one ``bn_stats_local`` per ``bn_apply_split`` or int8 form) and never
+    the one-launch K2a or K2b."""
     doc = {"serve": _serve(err, share, launches)}
     assert bool(pc.misses_of(doc, "cuda")) == missed
 
@@ -165,3 +170,27 @@ def test_serve_run_on_the_cpu():
     assert [c["quantize"] for c in cases] == [None, "int8"]
     assert all(c["dp_devices"] == 2 and c["shape"] == [8, 3072]
                for c in cases)
+
+
+def _ranks(launches):
+    case = {"strategy": "dp", "misses": [], "chunk_bit_identical": True,
+            "replicas_bit_identical": True}
+    return {"cases": [case], "launches": launches}
+
+
+RANKS_SPLIT = {"bn_stats_local": 30, "bn_apply_split": 30,
+               "bn_bwd_reduce": 10, "bn_bwd_apply": 10}
+
+
+@pytest.mark.parametrize("launches, missed", [
+    (RANKS_SPLIT, False),
+    (dict(RANKS_SPLIT, bn_apply_split=0), True),
+    (dict(RANKS_SPLIT, bn_stats_local=60), True),
+    (dict(RANKS_SPLIT, bn_bwd_reduce=0), True)])
+def test_misses_of_the_ranks_split_launches(launches, missed):
+    """The 2-rank training runs' gate: every split kernel launched, and a
+    split BN forward is one ``bn_stats_local`` and one ``bn_apply_split``
+    (as many of each); on the CPU the launches are not held."""
+    doc = {"ranks": _ranks(launches)}
+    assert bool(pc.misses_of(doc, "cuda")) == missed
+    assert pc.misses_of(doc, "cpu") == []
