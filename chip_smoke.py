@@ -215,14 +215,16 @@ nothing of JAX or of the JAX package, and does in order:
    over the rows of several ranks: ``bn_stats_local``, one cluster launch
    into the rank's slot of the exchange buffer; ``bn_apply_split`` and
    ``bn_apply_split_q8``, K2b with the finalize folded in; ``bn_bwd_
-   reduce``, ``bn_bwd_apply``) at the training BN shapes of B=64 over 2
-   and 4 ranks' rows (the backward over 2), f32 and bf16: each kernel
-   twice against its plain version, the other slots zero, the apply's y
-   and int8 copy bit for bit the one-launch K2b's at its statistics, the
-   chains against the one-process plain versions over the whole batch,
-   and each timed at one rank's rows beside its plain version, its
-   ``torch.batch_norm_*`` library call, the split forward chain and the
-   one-launch kernels over the whole batch;
+   local``, one cluster launch of the rank's backward sums into its slot;
+   ``bn_bwd_apply_split``, K2d with the ranks' sums added in rank order
+   folded in) at the training BN shapes of B=64 over 2 and 4 ranks' rows,
+   f32 and bf16: each kernel twice against its plain version, the other
+   slots zero, the apply's y and int8 copy bit for bit the one-launch
+   K2b's at its statistics, the chains against the one-process plain
+   versions over the whole batch, and each timed at one rank's rows
+   beside its plain version, its ``torch.batch_norm_*`` library call,
+   the split forward and backward chains and the one-launch kernels over
+   the whole batch;
 32. int8-deconv: the int8 transposed conv of every stride and padding
    (``ops/quant.py: intercept_deconv2d``) at cifar10's G deconvs, on the
    card bit-equal to the CPU, its Q2 call against Q2's plain version, and
@@ -5369,8 +5371,9 @@ def _split_summary(errs, timings, launches):
     SPLIT_RANKS ranks, f32; launches from the parallel phase's 2-rank runs
     (rank 0; the int8 form's from the dp server's int8 dispatches); the
     library's second readings (``library_var_mean_ms``, the finalize's
-    ``library_finalize_ms``), the split forward chain (``chain_ms``) and
-    the one-launch K2b at the apply's rows (``k2b_ms``) summed alike where
+    ``library_finalize_ms``), the split forward and backward chains
+    (``chain_ms``, ``bwd_chain_ms``) and the one-launch K2b at the apply's
+    rows (``k2b_ms``) summed alike where
     a kernel has them; ``rows`` every timed shape and
     world size with the one-launch kernels' times over the whole batch
     beside it."""
@@ -5397,7 +5400,8 @@ def _split_summary(errs, timings, launches):
             "library_ms": total("library_ms"),
             **{key: total(key) for key in ("library_var_mean_ms",
                                            "library_finalize_ms",
-                                           "chain_ms", "k2b_ms")
+                                           "chain_ms", "bwd_chain_ms",
+                                           "k2b_ms")
                if any(key in r for r in main)},
             "summed_over": f"one training iteration's 5 BN shapes, one "
                            f"rank's rows of B={SPLIT_B} over {SPLIT_RANKS} "
@@ -6316,7 +6320,9 @@ def phase_library_ops(launch_totals):
 # the split modes' kernels: K2a's statistics of one rank's rows (one
 # cluster launch, written into the rank's slot of the exchange buffer), K2b
 # with K2a's finalize over the ranks' triples folded in (and its int8 form,
-# for the dp int8 server), K2c's sums and K2d's dx
+# for the dp int8 server), K2c's sums of one rank's rows (one cluster
+# launch, into the rank's slot of the backward's exchange buffer) and K2d
+# with the ranks' sums added in rank order folded in
 SPLIT_SOURCES = {
     "bn_stats_local": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
                        "graphical_gan_tpu/ops/pallas/fused_norm.py:143"),
@@ -6326,14 +6332,14 @@ SPLIT_SOURCES = {
     "bn_apply_split_q8": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
                           "graphical_gan_tpu/ops/pallas/fused_norm.py:182, "
                           "graphical_gan_tpu/ops/quant.py:103"),
-    "bn_bwd_reduce": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
-                      "graphical_gan_tpu/ops/pallas/fused_norm.py:212"),
-    "bn_bwd_apply": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
-                     "graphical_gan_tpu/ops/pallas/fused_norm.py:223"),
+    "bn_bwd_local": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
+                     "graphical_gan_tpu/ops/pallas/fused_norm.py:212"),
+    "bn_bwd_apply_split": ("graphical_gan_tpu_torch/csrc/fused_norm.cu",
+                           "graphical_gan_tpu/ops/pallas/fused_norm.py:223"),
 }
 SPLIT_KERNELS = tuple(SPLIT_SOURCES)
 SPLIT_RANKS = 2         # the ranks the training batch is split over
-SPLIT_WORLDS = (2, 4)   # the rank counts the split forward is held at
+SPLIT_WORLDS = (2, 4)   # the rank counts the split kernels are held at
 SPLIT_B = 64            # the published global batch
 # bn_stats_local against its plain version: f64 sums in other orders, each
 # value within 1e-9 of 1 + |value|
@@ -6346,13 +6352,17 @@ def _split_bounds(r: int, c: int, itemsize: int, ranks: int):
     exchange buffer; apply_split reads x, scale, offset and the ranks'
     triples once and writes y and the [3, C] f32 statistics (K2b's bytes
     with the statistics written in place of mean and inv read, plus the
-    triples), q8 also writes y's int8 copy; reduce reads g and x once and
-    the four per-channel vectors, and writes 2·C f32; apply reads g, x, the
-    vectors and red, and writes dx. Operations as the one-launch kernels
-    count them (bn_stats_bound, bn_bwd_bound), split between the phases,
-    and about 10 f64 operations a rank and channel for a merge."""
+    triples), q8 also writes y's int8 copy; bwd_local reads g, x and the
+    four per-channel vectors once and writes the [ranks, 2, C] f32
+    exchange buffer; bwd_apply_split reads g, x, the vectors and the
+    ranks' sums once (its blocks read the sums again per row range; the
+    bound counts them once) and writes dx. Operations as the one-launch
+    kernels count them (bn_stats_bound, bn_bwd_bound), split between the
+    phases, about 10 f64 operations a rank and channel for a merge, and 2
+    f32 adds a rank and channel for the sums' rank-order sum."""
     trip = ranks * 3 * c * 8
     merge = 10.0 * ranks * c
+    sums = ranks * 2 * c * 4
     return {
         "bn_stats_local": bound(3.0 * r * c, r * c * itemsize + trip,
                                 "float32"),
@@ -6360,10 +6370,11 @@ def _split_bounds(r: int, c: int, itemsize: int, ranks: int):
                                 + 5 * c * 4 + trip, "float32"),
         "bn_apply_split_q8": bound(6.0 * r * c + merge, r * c * (
             2 * itemsize + 1) + 5 * c * 4 + trip, "float32"),
-        "bn_bwd_reduce": bound(10.0 * r * c, 2 * r * c * itemsize
-                               + 6 * c * 4, "float32"),
-        "bn_bwd_apply": bound(14.0 * r * c, 3 * r * c * itemsize
-                              + 6 * c * 4, "float32"),
+        "bn_bwd_local": bound(10.0 * r * c, 2 * r * c * itemsize
+                              + 4 * c * 4 + sums, "float32"),
+        "bn_bwd_apply_split": bound(14.0 * r * c + 2.0 * ranks * c,
+                                    3 * r * c * itemsize + 4 * c * 4 + sums,
+                                    "float32"),
     }
 
 
@@ -6460,66 +6471,78 @@ def _split_forward(fn, x, xs, scale, offset, act, s_x, label, worst,
 
 def _split_backward(fn, g, x, gs, xs, stats, scale, offset, act, rows,
                     label, worst, misses):
-    """K2c+K2d's split mode at the forward's statistics: each kernel twice
-    against its plain version, the chain against the plain backward over
-    the whole batch. Returns the group's summed red."""
+    """K2c+K2d's split mode at the forward's statistics over ``xs``, one
+    part a rank: each rank's ``bn_bwd_local`` in its slot (two calls the
+    same bits, the other slots +0, the sums within RED_RTOL of each
+    channel's mass of its plain version), the slots summed as the
+    all_reduce sums them, then on every rank's rows ``bn_bwd_apply_split``
+    (two calls the same bits, within TOL["bwd_apply"] of its plain
+    version: the rank-order sum, then ``bn_bwd_apply_plain``),
+    and the ranks' dx against the plain backward over the whole batch.
+    Returns the gathered sums."""
     import torch
     dn = str(x.dtype).split(".")[1]
     mean, inv = stats[0], stats[2]
-    reds = [fn.bn_bwd_reduce(gp, xp, mean, inv, scale, offset, act)
-            for gp, xp in zip(gs, xs)]
-    if not torch.equal(reds[0], fn.bn_bwd_reduce(
-            gs[0], xs[0], mean, inv, scale, offset, act)):
-        misses.append(f"{label}: bn_bwd_reduce differs between two calls")
-    for gp, xp, got in zip(gs, xs, reds):
+    w = len(xs)
+    bufs = [fn.bn_bwd_local(gp, xp, mean, inv, scale, offset, i, w, act)
+            for i, (gp, xp) in enumerate(zip(gs, xs))]
+    if not torch.equal(bufs[0], fn.bn_bwd_local(
+            gs[0], xs[0], mean, inv, scale, offset, 0, w, act)):
+        misses.append(f"{label}: bn_bwd_local differs between two calls")
+    for i, (gp, xp, buf) in enumerate(zip(gs, xs, bufs)):
+        others = torch.cat([buf[:i], buf[i + 1:]])
+        if bool(others.view(torch.int32).ne(0).any()):
+            misses.append(f"{label}: rank {i}'s other slots are not +0")
         want = fn.bn_bwd_reduce_plain(gp, xp, mean, inv, scale, offset, act)
         gz, xhat = fn._gz_xhat(gp, xp, mean, inv, scale, offset, act)
         mag = torch.stack([gz.abs().sum(0), (gz * xhat).abs().sum(0)])
-        d = float(((got - want).abs() / (1.0 + mag)).max())
-        worst["bn_bwd_reduce"] = max(worst["bn_bwd_reduce"], d)
+        d = float(((buf[i] - want).abs() / (1.0 + mag)).max())
+        worst["bn_bwd_local"] = max(worst["bn_bwd_local"], d)
         if not d <= RED_RTOL:
-            misses.append(f"{label}: bn_bwd_reduce {d}")
-    total = reds[0].clone()
-    for r in reds[1:]:
-        total += r
-    dxs = [fn.bn_bwd_apply(gp, xp, mean, inv, scale, offset, total, act,
-                           rows) for gp, xp in zip(gs, xs)]
-    if not torch.equal(dxs[0], fn.bn_bwd_apply(
-            gs[0], xs[0], mean, inv, scale, offset, total, act, rows)):
-        misses.append(f"{label}: bn_bwd_apply differs between two calls")
+            misses.append(f"{label}: bn_bwd_local {d}")
+    sums = torch.stack(bufs).sum(0)  # one non-zero term per slot: exact
+    dxs = [fn.bn_bwd_apply_split(gp, xp, mean, inv, scale, offset, sums,
+                                 rows, act) for gp, xp in zip(gs, xs)]
+    if not torch.equal(dxs[0], fn.bn_bwd_apply_split(
+            gs[0], xs[0], mean, inv, scale, offset, sums, rows, act)):
+        misses.append(f"{label}: bn_bwd_apply_split differs between two "
+                      "calls")
     atol, rtol = TOL[("bwd_apply", dn)]
     for gp, xp, got in zip(gs, xs, dxs):
-        want = fn.bn_bwd_apply_plain(gp, xp, mean, inv, scale, offset,
-                                     total, act, rows)
+        want = fn.bn_bwd_apply_split_plain(gp, xp, mean, inv, scale, offset,
+                                           sums, rows, act)
         e, bad = max_err(got, want, atol, rtol)
-        worst["bn_bwd_apply"] = max(worst["bn_bwd_apply"], e)
+        worst["bn_bwd_apply_split"] = max(worst["bn_bwd_apply_split"], e)
         if bad:
-            misses.append(f"{label}: bn_bwd_apply {e}")
+            misses.append(f"{label}: bn_bwd_apply_split {e}")
     whole_dx, _ = fn.bn_bwd_plain(g, x, mean, inv, scale, offset, act)
     e, bad = max_err(torch.cat(dxs), whole_dx, atol, rtol)
     if bad:
         misses.append(f"{label}: the split backward against the whole "
                       f"batch {e}")
-    return total
+    return sums
 
 
 def phase_split_kernels(errs, timings, card):
     """K2a's and K2c+K2d's split modes at the training BN shapes of B=64
     split over the ranks of SPLIT_WORLDS (each rank's rows one part), f32
-    and bf16. The forward at each world size (``_split_forward``: the
+    and bf16. At each world size the forward (``_split_forward``: the
     rank's statistics in its slot, the finalize folded into K2b and its
-    int8 form, bit for bit with the one-launch K2b at those statistics);
-    the backward over SPLIT_RANKS ranks (``_split_backward``). Time, at one
-    rank's rows: each kernel beside its plain version and its library call
+    int8 form, bit for bit with the one-launch K2b at those statistics)
+    and the backward (``_split_backward``: the rank's sums in its slot,
+    the rank-order sum folded into K2d). Time, at one rank's rows: each
+    kernel beside its plain version and its library call
     (``torch.batch_norm_stats`` for the rank's statistics, with
     ``torch.var_mean`` as a second reading; ``torch.
     batch_norm_gather_stats_with_counts`` over the ranks' (mean, invstd,
     count) for the finalize folded into the apply; ``torch.
     batch_norm_backward_reduce`` and ``batch_norm_backward_elemt`` on gz =
     g·act'(y), the mask applied first, for the backward's two), the split
-    forward chain (the rank's statistics, then the apply; the all_reduce
-    between them is not timed), and the one-launch K2a and K2c+K2d over
-    the whole batch as readings (what world size 1 runs)."""
+    forward chain (``chain_ms``: the rank's statistics, then the apply)
+    and backward chain (``bwd_chain_ms``: the rank's sums, then dx; the
+    all_reduce between them is not timed in either), and the one-launch
+    K2a and K2c+K2d over the whole batch as readings (what world size 1
+    runs)."""
     import torch
     from graphical_gan_tpu_torch.ops.kernels import fused_norm as fn
     gen = torch.Generator(device="cuda")
@@ -6587,38 +6610,43 @@ def phase_split_kernels(errs, timings, card):
                             a, parts, scale, offset, act, s_x), None, [x0],
                         {}),
                 }
+                gs = g.chunk(ranks)
+                sums = _split_backward(fn, g, x, gs, xs, stats, scale,
+                                       offset, act, rc[0], label, worst,
+                                       misses)
+                mean, inv = stats[0], stats[2]
+                g0 = gs[0]
+                gz0 = fn._gz_xhat(g0, x0, mean, inv, scale, offset,
+                                  act)[0].to(dtype)
+                red = sums.sum(0)  # the ranks' sums (the library's input)
+                sum_dy, sum_dy_xmu = red[0], red[1] / inv
+                n_all = torch.full((ranks,), r_part, dtype=torch.int32,
+                                   device="cuda")
+                # the library's backward calls take gz, the mask applied
+                # beforehand
+                t["bn_bwd_local"] = (
+                    lambda a, b: fn.bn_bwd_local(a, b, mean, inv, scale,
+                                                 offset, 0, ranks, act),
+                    lambda a, b: fn.bn_bwd_local_plain(
+                        a, b, mean, inv, scale, offset, 0, ranks, act),
+                    (lambda a, b: torch.batch_norm_backward_reduce(
+                        a, b, mean, inv, scale, True, True, True),
+                     [gz0, x0]), [g0, x0], {})
+                t["bn_bwd_apply_split"] = (
+                    lambda a, b: fn.bn_bwd_apply_split(
+                        a, b, mean, inv, scale, offset, sums, rc[0], act),
+                    lambda a, b: fn.bn_bwd_apply_split_plain(
+                        a, b, mean, inv, scale, offset, sums, rc[0], act),
+                    (lambda a, b: torch.batch_norm_backward_elemt(
+                        a, b, mean, inv, scale, sum_dy, sum_dy_xmu, n_all),
+                     [gz0, x0]), [g0, x0],
+                    {"bwd_chain_ms": time_ms(
+                        lambda a, b: fn.bn_bwd_apply_split(
+                            a, b, mean, inv, scale, offset,
+                            fn.bn_bwd_local(a, b, mean, inv, scale, offset,
+                                            0, ranks, act), rc[0], act),
+                        [g0, x0])})
                 if ranks == SPLIT_RANKS:
-                    gs = g.chunk(ranks)
-                    total = _split_backward(fn, g, x, gs, xs, stats, scale,
-                                            offset, act, rc[0], label, worst,
-                                            misses)
-                    mean, inv = stats[0], stats[2]
-                    g0 = gs[0]
-                    gz0 = fn._gz_xhat(g0, x0, mean, inv, scale, offset,
-                                      act)[0].to(dtype)
-                    sum_dy, sum_dy_xmu = total[0], total[1] / inv
-                    n_all = torch.full((ranks,), r_part, dtype=torch.int32,
-                                       device="cuda")
-                    # the library's backward calls take gz, the mask
-                    # applied beforehand
-                    t["bn_bwd_reduce"] = (
-                        lambda a, b: fn.bn_bwd_reduce(a, b, mean, inv, scale,
-                                                      offset, act),
-                        lambda a, b: fn.bn_bwd_reduce_plain(
-                            a, b, mean, inv, scale, offset, act),
-                        (lambda a, b: torch.batch_norm_backward_reduce(
-                            a, b, mean, inv, scale, True, True, True),
-                         [gz0, x0]), [g0, x0], {})
-                    t["bn_bwd_apply"] = (
-                        lambda a, b: fn.bn_bwd_apply(
-                            a, b, mean, inv, scale, offset, total, act,
-                            rc[0]),
-                        lambda a, b: fn.bn_bwd_apply_plain(
-                            a, b, mean, inv, scale, offset, total, act,
-                            rc[0]),
-                        (lambda a, b: torch.batch_norm_backward_elemt(
-                            a, b, mean, inv, scale, sum_dy, sum_dy_xmu,
-                            n_all), [gz0, x0]), [g0, x0], {})
                     one["bn_bwd_one_launch_ms"] = time_ms(
                         lambda a, b: fn.bn_bwd(a, b, mean, inv, scale,
                                                offset, act), [g, x])
@@ -6756,8 +6784,9 @@ def phase_parallel(launch_totals):
     dispatches (counts set to 0 just before each) are the split kernels'
     main path: a split BN forward is ``bn_stats_local`` and
     ``bn_apply_split`` (the server's int8 dispatch ``bn_apply_split_q8``)
-    around one all_reduce, so both count alike; no finalize kernel is
-    left to launch."""
+    around one all_reduce, a split BN backward ``bn_bwd_local`` and
+    ``bn_bwd_apply_split`` around one, so each pair counts alike; no
+    finalize kernel and no rank-order sum is left to launch."""
     from graphical_gan_tpu_torch.tools import parallel_check
     out = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
                        "parallel_check.json")

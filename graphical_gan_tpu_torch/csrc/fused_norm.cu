@@ -23,8 +23,10 @@
 // into the rank's slot of the ranks' exchange buffer, which one all_reduce
 // then fills) and ggan_bn_apply_split (K2b with the finalize, Chan's merge
 // over the ranks' triples, folded in: two launches and the all_reduce for a
-// BN forward); K2c+K2d's is ggan_bn_bwd_split (the sums alone) and
-// ggan_bn_bwd_apply (dx from the group's summed sums).
+// BN forward); K2c+K2d's is ggan_bn_bwd_local (the rank's [Σgz, Σgz·xhat]
+// in one cluster launch, into the rank's slot of a [W, 2, C] exchange
+// buffer) and ggan_bn_bwd_apply_split (dx, with the ranks' sums added in
+// rank order folded in): two launches and the all_reduce for a BN backward.
 //
 // K2a and K2c+K2d share one plan of work units (fused_norm.py:_unit_tiling,
 // a function of the shape alone) and one block shape:
@@ -98,6 +100,15 @@
 // by a CUDA graph), and the finalize over the ranks' 3·C triples rides in
 // the apply, whose blocks each merge their tile's W triples again
 // (bn_apply_split_plan keeps those reads under a tenth of x's bytes).
+//
+// Split backward design, the same shape: the rank's sums are one cluster
+// launch (bn_bwd_local_kernel: the blocks store their sums into block 0's
+// shared memory through distributed shared memory once the cluster's
+// blocks have all started, and block 0 adds them in block order after a
+// cluster barrier), and the apply adds the W ranks' 2·C sums in rank
+// order in each block before its tile's dx (bn_bwd_apply_split_plan keeps those reads
+// under a tenth of g's and x's bytes). The one-launch K2c+K2d is the only
+// cooperative launch of the backward, and it runs on one card alone.
 
 #include <cooperative_groups.h>
 
@@ -608,6 +619,40 @@ int configure_once(K kern, std::atomic<bool> (&done)[kMaxDevices], bool cluster1
   return 0;
 }
 
+// The two halves of a cluster barrier, for a phase that orders no memory
+// (cluster.sync() is both halves with release and acquire): every thread
+// of the cluster arrives once, then waits until all the others have.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Launches a kernel of thread-block clusters of `cluster` blocks along x
+// (a block alone is a cluster of one) through cudaLaunchKernelEx, not
+// cooperatively.
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kern)(Params...), int grid, int threads, int cluster, size_t smem,
+                    cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(grid));
+  cfg.blockDim = dim3(unsigned(threads));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int VEC>
 int run_stats_local(const void* x, double* out, int R, int C, int tx, int rows, int cluster,
                     long long smem, int index, int W, cudaStream_t st) {
@@ -621,22 +666,8 @@ int run_stats_local(const void* x, double* out, int R, int C, int tx, int rows, 
   static std::atomic<bool> done[kMaxDevices];
   const int code = configure_once(kern, done, true);
   if (code) return code;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(unsigned(n_ct) * unsigned(cluster));
-  cfg.blockDim = dim3(kThreads<VEC>);
-  cfg.dynamicSmemBytes = size_t(smem);
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = unsigned(cluster);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = cluster > 1 ? 1 : 0;  // a block alone is a cluster of one
-  cudaError_t e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(x), out, R, C, tx, rows,
-                                     index, W);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return launch_clusters(kern, n_ct * cluster, kThreads<VEC>, cluster, size_t(smem), st,
+                         static_cast<const T*>(x), out, R, C, tx, rows, index, W);
 }
 
 constexpr int APPLY_UNROLL = 4;  // rows a bn_apply_split thread has in flight
@@ -802,9 +833,8 @@ __device__ __forceinline__ void bwd_load_params(const BwdArgs<T>& a, int c0, flo
 
 // The end of a unit once its channels' sums are in block_red: red (by the
 // block of row block 0), then dx of the unit's rows from the g and x kept
-// in `slot` (rows past cache_rows read again); with REDUCE_ONLY (the split
-// mode's phase 1, a separate instantiation) red alone.
-template <typename T, int VEC, int UNROLL, bool REDUCE_ONLY>
+// in `slot` (rows past cache_rows read again).
+template <typename T, int VEC, int UNROLL>
 __device__ __forceinline__ void bwd_finish_unit(const BwdArgs<T>& a, const Pack<T, VEC>* slot,
                                                 int rb, int ct, int c0, int r0, int r1, int tx,
                                                 int ty, int TX, const float* block_red,
@@ -821,7 +851,7 @@ __device__ __forceinline__ void bwd_finish_unit(const BwdArgs<T>& a, const Pack<
       if (c < a.C) a.red[(t / CT) * C + c] = block_red[t];
     }
   }
-  if (REDUCE_ONLY || c0 >= a.C) return;
+  if (c0 >= a.C) return;
   const float rows_f = float(a.R);
   // dx = (gz - Σgz/R - d·inv·Σ(gz·xhat)/R)·inv·scale, as mg and ivm below
   float mg[VEC], ivm[VEC];
@@ -873,7 +903,7 @@ __device__ __forceinline__ void bwd_finish_unit(const BwdArgs<T>& a, const Pack<
 // row block (n_rb == 1, e.g. G.BN1's [B, 4096]), a unit's sums are its
 // channels' totals already: the block writes dx right after phase 1, and no
 // block waits at the barrier.
-template <typename T, int VEC, bool REDUCE_ONLY>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads<VEC>, 1) bn_bwd_fused_kernel(const BwdArgs<T> a) {
   using P = Pack<T, VEC>;
   constexpr int UNROLL = BWD_UNROLL;
@@ -931,8 +961,8 @@ __global__ void __launch_bounds__(kThreads<VEC>, 1) bn_bwd_fused_kernel(const Bw
     }
     block_sum<VEC, 2>(s, scratch, tx, ty, TX);
     if (a.n_rb == 1) {
-      bwd_finish_unit<T, VEC, UNROLL, REDUCE_ONLY>(a, slot, rb, ct, c0, r0, r1, tx, ty, TX,
-                                                   block_red, m, iv, sa, of);
+      bwd_finish_unit<T, VEC, UNROLL>(a, slot, rb, ct, c0, r0, r1, tx, ty, TX, block_red, m,
+                                      iv, sa, of);
     } else {
       for (int t = threadIdx.x; t < 2 * CT; t += kThreads<VEC>) {
         const int c = ct * CT + t % CT;
@@ -969,8 +999,8 @@ __global__ void __launch_bounds__(kThreads<VEC>, 1) bn_bwd_fused_kernel(const Bw
     }
   }
   block_sum<VEC, 2>(s, scratch, tx, ty, TX);
-  bwd_finish_unit<T, VEC, UNROLL, REDUCE_ONLY>(a, cache, rb, ct, c0, r0, r1, tx, ty, TX,
-                                               block_red, m, iv, sa, of);
+  bwd_finish_unit<T, VEC, UNROLL>(a, cache, rb, ct, c0, r0, r1, tx, ty, TX, block_red, m, iv,
+                                  sa, of);
 }
 
 // Shared memory of a K2c+K2d launch: the block sums' scratch, then `slots`
@@ -986,7 +1016,7 @@ template <typename T, int VEC>
 int run_bwd(const void* g, const void* x, const float* mean, const float* inv,
             const float* scale, const float* offset, float* part, float* red, void* dx,
             int R, int C, int tx, int rows, int n_rb, int slots, int cache_rows,
-            long long smem, int grid, int act, cudaStream_t st, int reduce_only = 0) {
+            long long smem, int grid, int act, cudaStream_t st) {
   const int CT = tx * VEC;
   const int n_ct = (C + CT - 1) / CT;
   const int units = n_ct * n_rb;
@@ -997,55 +1027,259 @@ int run_bwd(const void* g, const void* x, const float* mean, const float* inv,
   BwdArgs<T> a{static_cast<const T*>(g), static_cast<const T*>(x), mean, inv, scale,
                offset, part, red, static_cast<T*>(dx), R, C, tx, n_ct, rows, n_rb,
                units, slots, cache_rows, act};
-  if (reduce_only)
-    return launch_cooperative(bn_bwd_fused_kernel<T, VEC, true>, a, grid, kThreads<VEC>,
-                              size_t(smem), st);
-  return launch_cooperative(bn_bwd_fused_kernel<T, VEC, false>, a, grid, kThreads<VEC>,
-                            size_t(smem), st);
+  return launch_cooperative(bn_bwd_fused_kernel<T, VEC>, a, grid, kThreads<VEC>, size_t(smem),
+                            st);
 }
 
-// K2c+K2d's split mode, phase 2: dx of every element from the group's
-// summed red ([Σgz; Σgz·xhat] over `rows` rows), with the one-launch
-// kernel's arithmetic (bwd_finish_unit): y and act' recomputed as K2b
-// computes them, dx = (gz - Σgz/N - d·inv·Σ(gz·xhat)/N)·inv·scale. One
-// elementwise pass: g and x read once, dx written once.
+// ---------------------------------------------------------------------------
+// K2c+K2d's split mode: the rank's sums (bn_bwd_local_kernel) and dx with
+// the ranks' sums added in rank order folded in (bn_bwd_apply_split_kernel)
+
+// The rank's [Σgz, Σgz·xhat] of one channel tile in one thread-block
+// cluster: cluster block p sums rows [p·rows, (p+1)·rows) of the tile per
+// thread in row order, with the one-launch kernel's arithmetic (gz =
+// g·act'(pre_act(d, inv·scale, offset)), Σgz·xhat as fmaf(gz, d·inv, ·)),
+// BWD_UNROLL rows' loads of g and x in flight, then a block_sum; each
+// block but 0 stores its sums into its row of block 0's shared memory
+// through distributed shared memory; after one cluster.sync() (its release
+// and acquire order those stores before block 0's reads) the other blocks
+// are done, and block 0 adds their sums to its own in block order and
+// writes the rank's [2, C] into slot `index` of the [W, 2, C] f32 exchange
+// buffer and zeros into the other slots, so that an all_reduce(SUM) of the
+// buffer is the ranks' sums stacked (x + 0 is exact). Distributed shared
+// memory may be touched only once every block of the cluster has started
+// and only until its owner exits: every thread arrives on the cluster
+// barrier at entry and waits on it just before the stores (the wait
+// overlaps the row loop), and block 0 reads after the cluster.sync() that
+// the others pass before they exit. No grid barrier, no partials in device
+// memory.
 template <typename T, int VEC>
-__global__ void __launch_bounds__(256)
-bn_bwd_apply_kernel(const T* __restrict__ g, const T* __restrict__ x,
+__global__ void __launch_bounds__(kThreads<VEC>, 1)
+bn_bwd_local_kernel(const T* __restrict__ g, const T* __restrict__ x,
                     const float* __restrict__ mean, const float* __restrict__ inv,
                     const float* __restrict__ scale, const float* __restrict__ offset,
-                    const float* __restrict__ red, T* __restrict__ dx, int64_t n_packs, int C,
-                    float rows, int act) {
-  const Pack<T, VEC>* gp = reinterpret_cast<const Pack<T, VEC>*>(g);
-  const Pack<T, VEC>* xp = reinterpret_cast<const Pack<T, VEC>*>(x);
-  Pack<T, VEC>* dp = reinterpret_cast<Pack<T, VEC>*>(dx);
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n_packs; i += stride) {
-    const int c0 = int((i * VEC) % C);  // C % VEC == 0: a pack never wraps a row
-    const Pack<T, VEC> gi = gp[i], xi = xp[i];
-    Pack<T, VEC> out;
+                    float* __restrict__ out, int R, int C, int tx, int rows, int act, int index,
+                    int W) {
+  using P = Pack<T, VEC>;
+  constexpr int UNROLL = BWD_UNROLL;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  cluster_arrive_relaxed();  // this block has started: waited on before the stores
+  const int TY = kThreads<VEC> / tx;
+  const int CT = tx * VEC;
+  const int groups = TY / warp_rows(tx);
+  const int lane = threadIdx.x % tx;
+  const int ty = threadIdx.x / tx;
+  const int n_blocks = int(cluster.num_blocks());
+  float* scratch = reinterpret_cast<float*>(smem);
+  float* block_red = scratch + groups * 2 * CT;  // [2][CT]: the block's sums
+  // in block 0: [n_blocks][2][CT], block b's sums in row b (row 0 unused)
+  float* gathered = block_red + 2 * CT;
+  const int64_t C64 = C;
+  const int p = int(cluster.block_rank());
+  const int ct = blockIdx.x / n_blocks;
+  const int c0 = ct * CT + lane * VEC;
+  const int r0 = p * rows;
+  const int r1 = min(r0 + rows, R);
+  float s[2][VEC];
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      const int c = c0 + k;
-      const float sa = inv[c] * scale[c];
-      const float d = to_f32(xi.v[k]) - mean[c];
-      const float gz = to_f32(gi.v[k]) * act_grad(pre_act(d, sa, offset[c]), act);
-      const float mg = red[c] / rows;
-      const float ivm = inv[c] * (red[C + c] / rows);
-      out.v[k] = from_f32<T>((gz - mg - d * ivm) * sa);
+  for (int q = 0; q < VEC; ++q) s[0][q] = s[1][q] = 0.0f;
+  if (c0 < C) {
+    float m[VEC], iv[VEC], sa[VEC], of[VEC];
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) {
+      m[q] = mean[c0 + q];
+      iv[q] = inv[c0 + q];
+      sa[q] = iv[q] * scale[c0 + q];
+      of[q] = offset[c0 + q];
     }
-    dp[i] = out;
+    for (int r = r0 + ty; r < r1; r += TY * UNROLL) {
+      P gp[UNROLL], xp[UNROLL];
+#pragma unroll
+      for (int j = 0; j < UNROLL; ++j) {
+        const int rr = r + j * TY;
+        if (rr < r1) {
+          gp[j] = *reinterpret_cast<const P*>(g + rr * C64 + c0);
+          xp[j] = *reinterpret_cast<const P*>(x + rr * C64 + c0);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < UNROLL; ++j) {
+        if (r + j * TY >= r1) break;
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) {
+          const float d = to_f32(xp[j].v[q]) - m[q];
+          const float gz = to_f32(gp[j].v[q]) * act_grad(pre_act(d, sa[q], of[q]), act);
+          s[0][q] += gz;
+          s[1][q] = fmaf(gz, d * iv[q], s[1][q]);
+        }
+      }
+    }
+  }
+  block_sum<VEC, 2>(s, scratch, lane, ty, tx);
+  cluster_wait();  // every block of the cluster has started
+  if (p != 0) {
+    float* row = cluster.map_shared_rank(gathered, 0) + p * 2 * CT;
+    for (int t = threadIdx.x; t < 2 * CT; t += kThreads<VEC>) row[t] = block_red[t];
+  }
+  cluster.sync();
+  if (p != 0) return;
+  for (int t = threadIdx.x; t < 2 * CT; t += kThreads<VEC>) {
+    const int c = ct * CT + t % CT;
+    if (c >= C) continue;
+    float v = block_red[t];
+    for (int b = 1; b < n_blocks; ++b) v += gathered[b * 2 * CT + t];
+    float* dst = out + int64_t(t / CT) * C64 + c;
+    for (int w = 0; w < W; ++w) dst[int64_t(w) * 2 * C64] = w == index ? v : 0.0f;
+  }
+}
+
+// Shared memory of a bn_bwd_local launch: the block sum's scratch (two f32
+// values a channel) and the cluster's sums of the tile (block 0 gathers the
+// others'). Must equal ops/kernels/fused_norm.py: bn_bwd_local_plan's
+// `smem`.
+template <int VEC>
+size_t bwd_local_smem(int tx, int cluster) {
+  const size_t groups = (kThreads<VEC> / tx) / warp_rows(tx);
+  return (groups + 1 + size_t(cluster)) * 2 * size_t(tx) * VEC * sizeof(float);
+}
+
+template <typename T, int VEC>
+int run_bwd_local(const void* g, const void* x, const float* mean, const float* inv,
+                  const float* scale, const float* offset, float* out, int R, int C, int tx,
+                  int rows, int cluster, long long smem, int act, int index, int W,
+                  cudaStream_t st) {
+  const int n_ct = (C + tx * VEC - 1) / (tx * VEC);
+  if (tx < 1 || tx > kThreads<VEC> || (tx & (tx - 1)) || rows < 1 || cluster < 1 ||
+      cluster > kMaxCluster || int64_t(rows) * cluster < R ||
+      int64_t(rows) * (cluster - 1) >= R || W < 1 || index < 0 || index >= W ||
+      (VEC > 1 && C % VEC) || bwd_local_smem<VEC>(tx, cluster) != size_t(smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = bn_bwd_local_kernel<T, VEC>;
+  static std::atomic<bool> done[kMaxDevices];
+  const int code = configure_once(kern, done, true);
+  if (code) return code;
+  return launch_clusters(kern, n_ct * cluster, kThreads<VEC>, cluster, size_t(smem), st,
+                         static_cast<const T*>(g), static_cast<const T*>(x), mean, inv, scale,
+                         offset, out, R, C, tx, rows, act, index, W);
+}
+
+// K2d in the split mode, with the ranks' sums added in rank order folded
+// in: block (tile, row range) adds its tile's channels over the W slots of
+// the exchange buffer in rank order from slot 0 (as collectives.py:
+// sum_in_rank_order adds them) and puts mean, inv·scale, offset, Σgz/N and
+// inv·(Σgz·xhat/N) in shared memory, then writes dx of its rows with its
+// roundings pinned by intrinsics, so that they do not depend on the
+// compiler's contractions: gz = g·act'(pre_act(d, inv·scale, offset))
+// rounded (a gz fused into the subtraction that follows differs at leaky
+// ReLU's 0.2), then (gz - Σgz/N) - d·inv·(Σgz·xhat/N) as one fused
+// multiply-add, times inv·scale. Blocks have 256 threads: tx lanes of VEC
+// channels across the tile, the rest row lanes. A thread's first
+// APPLY_UNROLL rows of g and x are loaded before the merge, so the sums'
+// trip and theirs overlap.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(256)
+bn_bwd_apply_split_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                          const float* __restrict__ mean, const float* __restrict__ inv,
+                          const float* __restrict__ scale, const float* __restrict__ offset,
+                          const float* __restrict__ sums, T* __restrict__ dx, int R, int C, int W,
+                          int tx, int rows, float n_rows, int act) {
+  using P = Pack<T, VEC>;
+  constexpr int U = APPLY_UNROLL;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int CT = tx * VEC;
+  const int TY = 256 / tx;
+  float* s_mean = reinterpret_cast<float*>(smem);  // [CT] each
+  float* s_sa = s_mean + CT;                       // inv·scale
+  float* s_off = s_sa + CT;
+  float* s_mg = s_off + CT;                        // Σgz / N
+  float* s_ivm = s_mg + CT;                        // inv·(Σgz·xhat / N)
+  const int ct = blockIdx.x;
+  const int64_t C64 = C;
+  const int k0 = (threadIdx.x % tx) * VEC;
+  const int c0 = ct * CT + k0;
+  const int r0 = blockIdx.y * rows;
+  const int r1 = min(r0 + rows, R);
+  const int rs = r0 + int(threadIdx.x / tx);
+  P gp[U], xp[U];
+  if (c0 < C) {
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const int rr = rs + j * TY;
+      if (rr < r1) {
+        gp[j] = *reinterpret_cast<const P*>(g + int64_t(rr) * C64 + c0);
+        xp[j] = *reinterpret_cast<const P*>(x + int64_t(rr) * C64 + c0);
+      }
+    }
+  }
+  for (int k = threadIdx.x; k < CT; k += 256) {
+    const int c = ct * CT + k;
+    if (c >= C) break;
+    float s0 = sums[c], s1 = sums[C64 + c];
+    for (int w = 1; w < W; ++w) {
+      s0 += sums[int64_t(w) * 2 * C64 + c];
+      s1 += sums[(int64_t(w) * 2 + 1) * C64 + c];
+    }
+    const float iv = inv[c];
+    s_mean[k] = mean[c];
+    s_sa[k] = iv * scale[c];
+    s_off[k] = offset[c];
+    s_mg[k] = s0 / n_rows;
+    s_ivm[k] = iv * (s1 / n_rows);
+  }
+  __syncthreads();
+  if (c0 >= C) return;
+  float m[VEC], sa[VEC], of[VEC], mg[VEC], ivm[VEC];
+#pragma unroll
+  for (int q = 0; q < VEC; ++q) {
+    m[q] = s_mean[k0 + q];
+    sa[q] = s_sa[k0 + q];
+    of[q] = s_off[k0 + q];
+    mg[q] = s_mg[k0 + q];
+    ivm[q] = s_ivm[k0 + q];
+  }
+  for (int r = rs; r < r1; r += U * TY) {
+    if (r != rs) {
+#pragma unroll
+      for (int j = 0; j < U; ++j) {
+        const int rr = r + j * TY;
+        if (rr < r1) {
+          gp[j] = *reinterpret_cast<const P*>(g + int64_t(rr) * C64 + c0);
+          xp[j] = *reinterpret_cast<const P*>(x + int64_t(rr) * C64 + c0);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const int rr = r + j * TY;
+      if (rr >= r1) break;
+      P out;
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) {
+        const float d = to_f32(xp[j].v[q]) - m[q];
+        const float gz = __fmul_rn(to_f32(gp[j].v[q]), act_grad(pre_act(d, sa[q], of[q]), act));
+        out.v[q] = from_f32<T>(__fmul_rn(__fmaf_rn(-d, ivm[q], __fsub_rn(gz, mg[q])), sa[q]));
+      }
+      *reinterpret_cast<P*>(dx + int64_t(rr) * C64 + c0) = out;
+    }
   }
 }
 
 template <typename T, int VEC>
-void launch_bwd_apply(const void* g, const void* x, const float* mean, const float* inv,
-                      const float* scale, const float* offset, const float* red, void* dx,
-                      int64_t numel, int C, float rows, int act, cudaStream_t st) {
-  const int64_t n_packs = numel / VEC;
-  bn_bwd_apply_kernel<T, VEC><<<apply_grid(n_packs), 256, 0, st>>>(
-      static_cast<const T*>(g), static_cast<const T*>(x), mean, inv, scale, offset, red,
-      static_cast<T*>(dx), n_packs, C, rows, act);
+int run_bwd_apply_split(const void* g, const void* x, const float* mean, const float* inv,
+                        const float* scale, const float* offset, const float* sums, void* dx,
+                        int R, int C, int W, int tx, int rows, int n_rr, long long smem,
+                        float n_rows, int act, cudaStream_t st) {
+  const int CT = tx * VEC;
+  if (tx < 1 || tx > 256 || (tx & (tx - 1)) || rows < 1 || n_rr < 1 || n_rr > 65535 ||
+      int64_t(rows) * n_rr < R || int64_t(rows) * (n_rr - 1) >= R || W < 1 ||
+      (VEC > 1 && C % VEC) || size_t(smem) != 5 * size_t(CT) * sizeof(float) || !(n_rows > 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((C + CT - 1) / CT, n_rr);
+  bn_bwd_apply_split_kernel<T, VEC><<<grid, 256, size_t(smem), st>>>(
+      static_cast<const T*>(g), static_cast<const T*>(x), mean, inv, scale, offset, sums,
+      static_cast<T*>(dx), R, C, W, tx, rows, n_rows, act);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1109,65 +1343,70 @@ extern "C" int ggan_bn_apply_split(const void* x, const void* parts, const void*
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K2c+K2d's split mode, phase 1: as ggan_bn_bwd with no rows kept on chip
-// (cache_rows 0) and reduce_only 1: red alone, dx untouched.
-extern "C" int ggan_bn_bwd_split(const void* g, const void* x, const void* mean,
+// K2c's split mode, the rank's sums: g and x [R, C] in one dtype; mean,
+// inv, scale and offset [C] f32; out [W, 2, C] f32 gets [Σgz, Σgz·xhat]
+// per channel in slot `index` and zeros in the others. vec is
+// 16 / sizeof(dtype) (C a multiple of it, g and x 16-byte aligned) or 1;
+// tx, rows, cluster and smem come from ops/kernels/fused_norm.py:
+// bn_bwd_local_plan. One cluster launch.
+extern "C" int ggan_bn_bwd_local(const void* g, const void* x, const void* mean,
                                  const void* inv, const void* scale, const void* offset,
-                                 void* part, void* red, void* dx, int dtype, int R, int C,
-                                 int vec, int tx, int rows, int n_rb, int slots,
-                                 long long smem, int grid, int act, int reduce_only,
+                                 void* out, int dtype, int R, int C, int vec, int tx, int rows,
+                                 int cluster, long long smem, int act, int index, int W,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(mean);
   const float* iv = static_cast<const float*>(inv);
   const float* sc = static_cast<const float*>(scale);
   const float* of = static_cast<const float*>(offset);
-  float* pt = static_cast<float*>(part);
-  float* rd = static_cast<float*>(red);
+  float* o = static_cast<float*>(out);
+#define GGAN_BWD_LOCAL(T, V)                                                                     \
+  return ggan::run_bwd_local<T, V>(g, x, m, iv, sc, of, o, R, C, tx, rows, cluster, smem, act, \
+                                   index, W, st)
   if (dtype == ggan::kFloat32 && vec == 4) {
-    return ggan::run_bwd<float, 4>(g, x, m, iv, sc, of, pt, rd, dx, R, C, tx, rows, n_rb,
-                                   slots, 0, smem, grid, act, st, reduce_only);
+    GGAN_BWD_LOCAL(float, 4);
   } else if (dtype == ggan::kFloat32 && vec == 1) {
-    return ggan::run_bwd<float, 1>(g, x, m, iv, sc, of, pt, rd, dx, R, C, tx, rows, n_rb,
-                                   slots, 0, smem, grid, act, st, reduce_only);
+    GGAN_BWD_LOCAL(float, 1);
   } else if (dtype == ggan::kBFloat16 && vec == 8) {
-    return ggan::run_bwd<__nv_bfloat16, 8>(g, x, m, iv, sc, of, pt, rd, dx, R, C, tx, rows,
-                                           n_rb, slots, 0, smem, grid, act, st, reduce_only);
+    GGAN_BWD_LOCAL(__nv_bfloat16, 8);
   } else if (dtype == ggan::kBFloat16 && vec == 1) {
-    return ggan::run_bwd<__nv_bfloat16, 1>(g, x, m, iv, sc, of, pt, rd, dx, R, C, tx, rows,
-                                           n_rb, slots, 0, smem, grid, act, st, reduce_only);
+    GGAN_BWD_LOCAL(__nv_bfloat16, 1);
   }
+#undef GGAN_BWD_LOCAL
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K2c+K2d's split mode, phase 2: g and x [R, C] in one dtype; mean, inv,
-// scale and offset [C] f32; red [2, C] f32, the group's sums over `rows`
-// rows; dx has x's dtype and shape. vec is 4 (C % 4 == 0 and 16-byte aligned
-// g, x and dx) or 1.
-extern "C" int ggan_bn_bwd_apply(const void* g, const void* x, const void* mean,
-                                 const void* inv, const void* scale, const void* offset,
-                                 const void* red, void* dx, int dtype, long long numel, int C,
-                                 float rows, int act, int vec, void* stream) {
+// K2d in the split mode with the ranks' sums added in rank order: g and x
+// [R, C] in one dtype; mean, inv, scale and offset [C] f32; sums [W, 2, C]
+// f32, the ranks' gathered [Σgz, Σgz·xhat]; n_rows the group's rows; dx
+// has x's dtype and shape. vec is 16 / sizeof(dtype) (C a multiple of it;
+// g, x and dx 16-byte aligned) or 1; tx, rows, n_rr and smem come from
+// ops/kernels/fused_norm.py:bn_bwd_apply_split_plan.
+extern "C" int ggan_bn_bwd_apply_split(const void* g, const void* x, const void* mean,
+                                       const void* inv, const void* scale, const void* offset,
+                                       const void* sums, void* dx, int dtype, int R, int C, int W,
+                                       int vec, int tx, int rows, int n_rr, long long smem,
+                                       float n_rows, int act, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(mean);
   const float* iv = static_cast<const float*>(inv);
   const float* sc = static_cast<const float*>(scale);
   const float* of = static_cast<const float*>(offset);
-  const float* rd = static_cast<const float*>(red);
+  const float* su = static_cast<const float*>(sums);
+#define GGAN_BWD_APPLY_SPLIT(T, V)                                                              \
+  return ggan::run_bwd_apply_split<T, V>(g, x, m, iv, sc, of, su, dx, R, C, W, tx, rows, n_rr, \
+                                         smem, n_rows, act, st)
   if (dtype == ggan::kFloat32 && vec == 4) {
-    ggan::launch_bwd_apply<float, 4>(g, x, m, iv, sc, of, rd, dx, numel, C, rows, act, st);
+    GGAN_BWD_APPLY_SPLIT(float, 4);
   } else if (dtype == ggan::kFloat32 && vec == 1) {
-    ggan::launch_bwd_apply<float, 1>(g, x, m, iv, sc, of, rd, dx, numel, C, rows, act, st);
-  } else if (dtype == ggan::kBFloat16 && vec == 4) {
-    ggan::launch_bwd_apply<__nv_bfloat16, 4>(g, x, m, iv, sc, of, rd, dx, numel, C, rows, act,
-                                             st);
+    GGAN_BWD_APPLY_SPLIT(float, 1);
+  } else if (dtype == ggan::kBFloat16 && vec == 8) {
+    GGAN_BWD_APPLY_SPLIT(__nv_bfloat16, 8);
   } else if (dtype == ggan::kBFloat16 && vec == 1) {
-    ggan::launch_bwd_apply<__nv_bfloat16, 1>(g, x, m, iv, sc, of, rd, dx, numel, C, rows, act,
-                                             st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    GGAN_BWD_APPLY_SPLIT(__nv_bfloat16, 1);
   }
-  return static_cast<int>(cudaGetLastError());
+#undef GGAN_BWD_APPLY_SPLIT
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K2a. x is [R, C]; part is [n_rb, 2, C] f64 scratch; out is [3, C] f32:

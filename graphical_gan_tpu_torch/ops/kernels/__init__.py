@@ -13,7 +13,7 @@ from graphical_gan_tpu_torch.ops.kernels.fused_conv import (  # noqa: F401
     conv2d_bias_act, fused_conv2d_bias_act)
 from graphical_gan_tpu_torch.ops.kernels.fused_norm import (  # noqa: F401
     bn_apply, bn_apply_q8, bn_apply_split, bn_apply_split_q8, bn_bwd,
-    bn_bwd_apply, bn_bwd_reduce, bn_stats, bn_stats_local,
+    bn_bwd_apply_split, bn_bwd_local, bn_stats, bn_stats_local,
     fused_batchnorm_act)
 from graphical_gan_tpu_torch.ops.kernels.quant import (  # noqa: F401
     int8_conv, quantize_int8)
@@ -36,8 +36,8 @@ SPLIT_WRAPPERS = {
     "bn_stats_local": bn_stats_local,
     "bn_apply_split": bn_apply_split,
     "bn_apply_split_q8": bn_apply_split_q8,
-    "bn_bwd_reduce": bn_bwd_reduce,
-    "bn_bwd_apply": bn_bwd_apply,
+    "bn_bwd_local": bn_bwd_local,
+    "bn_bwd_apply_split": bn_bwd_apply_split,
 }
 
 

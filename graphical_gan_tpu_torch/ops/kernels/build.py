@@ -89,14 +89,14 @@ _SIGNATURES = {
     # rows, n_rr, smem, eps, act, stream
     "ggan_bn_apply_split": [_P] * 7 + [ctypes.c_float] + [_I] * 8
     + [ctypes.c_longlong, ctypes.c_float, _I, _P],
-    # g, x, mean, inv, scale, offset, part, red, dx, dtype, R, C, vec, tx,
-    # rows, n_rb, slots, smem, grid, act, reduce_only, stream
-    "ggan_bn_bwd_split": [_P] * 9 + [_I] * 8 + [ctypes.c_longlong, _I, _I,
+    # g, x, mean, inv, scale, offset, out, dtype, R, C, vec, tx, rows,
+    # cluster, smem, act, index, W, stream
+    "ggan_bn_bwd_local": [_P] * 7 + [_I] * 7 + [ctypes.c_longlong, _I, _I,
                                                 _I, _P],
-    # g, x, mean, inv, scale, offset, red, dx, dtype, numel, C, rows, act,
-    # vec, stream
-    "ggan_bn_bwd_apply": [_P] * 8 + [_I, ctypes.c_longlong, _I,
-                                     ctypes.c_float, _I, _I, _P],
+    # g, x, mean, inv, scale, offset, sums, dx, dtype, R, C, W, vec, tx,
+    # rows, n_rr, smem, n_rows, act, stream
+    "ggan_bn_bwd_apply_split": [_P] * 8 + [_I] * 8
+    + [ctypes.c_longlong, ctypes.c_float, _I, _P],
 }
 
 _lock = threading.Lock()

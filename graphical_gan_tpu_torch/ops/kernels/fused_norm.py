@@ -31,10 +31,13 @@ of that buffer (``parallel/collectives.py: all_reduce_stack``), then
 :func:`bn_apply_split` (K2b with the finalize, Chan's merge of the W
 triples in rank order, folded in; it also writes the [3, C] (mean, var,
 inv) the backward saves), or :func:`bn_apply_split_q8` for the int8
-server: two launches for a BN forward. K2c+K2d: :func:`bn_bwd_reduce`
-(the launch's sums, no dx), the sums added over the ranks in rank order,
-:func:`bn_bwd_apply` (dx from the summed red over the group's rows). At
-one rank the one-launch kernels run as before.
+server: two launches for a BN forward. K2c+K2d: :func:`bn_bwd_local`
+(one cluster launch: the rank's f32 [Σgz, Σgz·xhat] written into its slot
+of the [W, 2, C] exchange buffer, zeros in the others), one
+``all_reduce`` of that buffer, then :func:`bn_bwd_apply_split` (K2d with
+the ranks' sums added in rank order folded in, dx over the group's rows):
+two launches for a BN backward. At one rank the one-launch kernels run as
+before.
 
 K2a's and K2c+K2d's work units come from one tiling (:func:`_unit_tiling`,
 a function of the shape alone; :func:`bn_stats_plan`, :func:`bn_bwd_plan`)
@@ -155,10 +158,11 @@ def _unit_tiling(r: int, c: int, dtype: torch.dtype,
                     -(-units // grid), 0, 0, False)
 
 
-def _block_sum_bytes(p: UnitPlan, values: int, size: int) -> int:
+def _block_sum_bytes(p, values: int, size: int) -> int:
     """The scratch of csrc block_sum over ``values`` per channel of
-    ``size`` bytes: a row per warp's group of row lanes, and one for the
-    totals."""
+    ``size`` bytes at plan ``p``'s lanes (a :class:`UnitPlan` or a
+    :class:`LocalPlan`): a row per warp's group of row lanes, and one for
+    the totals."""
     groups = p.ty // (32 // p.tx if p.tx < 32 else 1)
     return (groups + 1) * values * p.ct * size
 
@@ -487,9 +491,10 @@ def bn_stats_merge_plain(parts: torch.Tensor, eps: float = EPS
 
 
 class LocalPlan(NamedTuple):
-    """:func:`bn_stats_local`'s launch for one shape
-    (:func:`bn_stats_local_plan`): one thread-block cluster per channel
-    tile, its blocks over the tile's rows."""
+    """:func:`bn_stats_local`'s or :func:`bn_bwd_local`'s launch for one
+    shape (:func:`bn_stats_local_plan`, :func:`bn_bwd_local_plan`): one
+    thread-block cluster per channel tile, its blocks over the tile's
+    rows."""
     vec: int      # channels per load: 16 bytes' worth, or 1
     tx: int       # lanes across a channel tile (a power of two)
     ty: int       # row lanes: the block's threads // tx
@@ -501,10 +506,11 @@ class LocalPlan(NamedTuple):
     smem: int     # dynamic shared memory per block, bytes
 
 
-# blocks of a cluster the plan takes at most. The kernel takes up to 16 (the
-# non-portable size), but at 512 threads and 96 registers a block holds its
-# SM alone, and too few of the H100's GPCs hold 16 such blocks at once: at
-# 2,048 rows of 8 tiles, clusters of 16 took 0.0124 ms against 0.0072 at 8
+# blocks of a cluster the local plans take at most. The kernels take up to
+# 16 (the non-portable size), but at 512 threads and 96 registers a block
+# holds its SM alone, and too few of the H100's GPCs hold 16 such blocks at
+# once: at 2,048 rows of 8 tiles, clusters of 16 took 0.0124 ms against
+# 0.0072 at 8 in bn_stats_local, 0.0089 against 0.0060 in bn_bwd_local
 # (PERF.md §6, tools/sweep_stats_local.py)
 _CLUSTER_MAX = 8
 
@@ -544,9 +550,9 @@ def local_plan_at(r: int, c: int, vec: int, tx: int, threads: int,
 
 
 class SplitApplyPlan(NamedTuple):
-    """:func:`bn_apply_split`'s grid for one shape
-    (:func:`bn_apply_split_plan`): blocks of 256 threads over (channel
-    tile, row range)."""
+    """:func:`bn_apply_split`'s or :func:`bn_bwd_apply_split`'s grid for
+    one shape (:func:`bn_apply_split_plan`, :func:`bn_bwd_apply_split_plan`):
+    blocks of 256 threads over (channel tile, row range)."""
     vec: int   # channels per load: 16 bytes' worth, or 1
     tx: int    # lanes across a channel tile (a power of two)
     ty: int    # row lanes: 256 // tx
@@ -554,33 +560,34 @@ class SplitApplyPlan(NamedTuple):
     n_ct: int  # channel tiles
     rows: int  # rows per block (a multiple of ty); the last may be ragged
     n_rr: int  # row ranges
-    smem: int  # shared memory per block: mean, inv·scale and offset, f32
+    smem: int  # shared memory per block: its per-channel f32 values
 
 
 _APPLY_THREADS = 256
 _APPLY_BLOCKS = 4 * _SMS  # blocks the row ranges aim for at most
-_TRIPLE_SHARE = 10        # triples read past the first: < 1/10 of x's bytes
+_REREAD_SHARE = 10        # the ranks' values read past the first row range:
+                          # < 1/10 of the rows' bytes
 _SECTOR = 32              # bytes of a row a tile covers at the least
 
 
-@functools.lru_cache(maxsize=None)
-def bn_apply_split_plan(r: int, c: int, dtype: torch.dtype, world: int,
-                        aligned: bool = True) -> SplitApplyPlan:
-    """:func:`bn_apply_split`'s grid for [r, c] in ``dtype`` over
-    ``world`` ranks' triples (``aligned``: x and y start on 16 bytes, an
-    int8 copy on 16 / itemsize), a function of the shape alone. Every
-    block merges its tile's ``world`` triples (24 bytes a rank and
-    channel) again, so the row ranges are few enough that the reads past
-    the first stay under a tenth of x's bytes: (n_rr - 1)·24·world <
-    r·itemsize / 10. Tiles start at 64 bytes of a row, wider where the
-    rows are fewer than a block's row lanes (G.BN1's 32 rows), narrower,
-    down to one 32-byte sector, while the blocks would not fill the SMs."""
+def _split_apply_grid(r: int, c: int, dtype: torch.dtype, row_bytes: int,
+                      reread: int, values: int, aligned: bool
+                      ) -> SplitApplyPlan:
+    """The (channel tile, row range) grid of a split-mode apply over [r, c]
+    in ``dtype``, a function of the shape alone: every block reads its
+    tile's ranks' values again (``reread`` bytes a channel), so the row
+    ranges are few enough that the reads past the first stay under a
+    tenth of the ``row_bytes`` a row and channel the kernel reads:
+    (n_rr - 1)·reread < r·row_bytes / 10. Tiles start at 64 bytes of a row,
+    wider where the rows are fewer than a block's row lanes (G.BN1's 32
+    rows), narrower, down to one 32-byte sector, while the blocks would not
+    fill the SMs. ``values`` f32 a channel go to shared memory."""
     size = dtype.itemsize
     full = 16 // size
     vec = full if aligned and c % full == 0 else 1
     lanes = -(-c // vec)
     top = min(_APPLY_THREADS, 1 << (lanes - 1).bit_length())
-    max_rr = 1 + (r * size - 1) // (_TRIPLE_SHARE * 24 * world)
+    max_rr = 1 + (r * row_bytes - 1) // (_REREAD_SHARE * reread)
 
     def grid(tx):
         ty = _APPLY_THREADS // tx
@@ -598,7 +605,19 @@ def bn_apply_split_plan(r: int, c: int, dtype: torch.dtype, world: int,
         tx //= 2
         ty, n_ct, rows, n_rr = grid(tx)
     return SplitApplyPlan(vec, tx, ty, tx * vec, n_ct, rows, n_rr,
-                          3 * tx * vec * 4)
+                          values * tx * vec * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def bn_apply_split_plan(r: int, c: int, dtype: torch.dtype, world: int,
+                        aligned: bool = True) -> SplitApplyPlan:
+    """:func:`bn_apply_split`'s grid for [r, c] in ``dtype`` over
+    ``world`` ranks' triples (``aligned``: x and y start on 16 bytes, an
+    int8 copy on 16 / itemsize): :func:`_split_apply_grid` with the
+    triples (24 bytes a rank and channel) read again against x's bytes;
+    mean, inv·scale and offset in shared memory."""
+    return _split_apply_grid(r, c, dtype, dtype.itemsize, 24 * world, 3,
+                             aligned)
 
 
 def launch_stats_local(x2d: torch.Tensor, p: LocalPlan, index: int,
@@ -738,67 +757,157 @@ def bn_apply_split_q8(x2d: torch.Tensor, parts: torch.Tensor,
     return y, q, stats
 
 
-def bn_bwd_reduce(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
-                  inv: torch.Tensor, scale: torch.Tensor,
-                  offset: torch.Tensor, act: Optional[str] = None
-                  ) -> torch.Tensor:
-    """K2c+K2d's split mode, phase 1: this rank's red = [Σgz, Σgz·xhat]
-    per column, f32 [2, C] (K2c+K2d's launch, with no dx written). One
-    cooperative launch."""
-    if x2d.device.type == "cpu":
-        return bn_bwd_reduce_plain(g2d, x2d, mean, inv, scale, offset, act)
-    _check_2d(x2d, "bn_bwd_reduce")
+@functools.lru_cache(maxsize=None)
+def bn_bwd_local_plan(r: int, c: int, dtype: torch.dtype,
+                      aligned: bool = True) -> LocalPlan:
+    """The launch of :func:`bn_bwd_local` for [r, c] in ``dtype``
+    (``aligned``: g and x start on 16 bytes), a function of the shape
+    alone: channel tiles as :func:`_unit_tiling` cuts them, each tile's
+    rows cut over a cluster of up to ``_CLUSTER_MAX`` blocks
+    (:func:`bwd_local_plan_at`)."""
+    u = _unit_tiling(r, c, dtype, aligned)
+    return bwd_local_plan_at(r, c, u.vec, u.tx, u.tx * u.ty, _CLUSTER_MAX)
+
+
+def bwd_local_plan_at(r: int, c: int, vec: int, tx: int, threads: int,
+                      most: int) -> LocalPlan:
+    """:func:`local_plan_at`'s tiles and clusters, with the shared memory
+    of :func:`bn_bwd_local`: the block sum's scratch (two f32 values a
+    channel) and the cluster's sums of the tile, which the blocks store
+    into block 0's."""
+    p = local_plan_at(r, c, vec, tx, threads, most)
+    return p._replace(smem=_block_sum_bytes(p, 2, 4)
+                      + p.cluster * 2 * p.ct * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def bn_bwd_apply_split_plan(r: int, c: int, dtype: torch.dtype, world: int,
+                            aligned: bool = True) -> SplitApplyPlan:
+    """:func:`bn_bwd_apply_split`'s grid for [r, c] in ``dtype`` over
+    ``world`` ranks' sums (``aligned``: g, x and dx start on 16 bytes):
+    :func:`_split_apply_grid` with the [world, 2, C] f32 sums (8 bytes a
+    rank and channel) read again against g's and x's bytes; mean,
+    inv·scale, offset, Σgz/N and inv·Σ(gz·xhat)/N in shared memory."""
+    return _split_apply_grid(r, c, dtype, 2 * dtype.itemsize, 8 * world, 5,
+                             aligned)
+
+
+def bn_bwd_local_plain(g2d: torch.Tensor, x2d: torch.Tensor,
+                       mean: torch.Tensor, inv: torch.Tensor,
+                       scale: torch.Tensor, offset: torch.Tensor, index: int,
+                       world: int, act: Optional[str] = None) -> torch.Tensor:
+    """The [world, 2, C] f32 exchange buffer: :func:`bn_bwd_reduce_plain`'s
+    [Σgz, Σgz·xhat] of the rows in slot ``index``, zeros in the others."""
+    if not 0 <= index < world:
+        raise ValueError(f"bn_bwd_local: slot {index} of {world}")
+    red = bn_bwd_reduce_plain(g2d, x2d, mean, inv, scale, offset, act)
+    out = red.new_zeros((int(world),) + tuple(red.shape))
+    out[index] = red
+    return out
+
+
+def launch_bwd_local(g2d: torch.Tensor, x2d: torch.Tensor,
+                     mean: torch.Tensor, inv: torch.Tensor,
+                     scale: torch.Tensor, offset: torch.Tensor,
+                     act: Optional[str], p: LocalPlan, index: int,
+                     world: int) -> torch.Tensor:
+    """Launch ggan_bn_bwd_local on CUDA ``g2d`` and ``x2d`` at plan ``p``:
+    the [world, 2, C] f32 exchange buffer, the rows' sums in slot
+    ``index`` and zeros in the others. Counts nothing:
+    :func:`bn_bwd_local` is the wrapper."""
+    _check_2d(x2d, "bn_bwd_local")
     if act not in build.ACT_CODES:
         raise ValueError(f"unknown activation {act!r}")
-    g2d = _same_layout(g2d, x2d, "bn_bwd_reduce")
+    if not 0 <= index < world:
+        raise ValueError(f"bn_bwd_local: slot {index} of {world}")
+    g2d = _same_layout(g2d, x2d, "bn_bwd_local")
     chan = _chan_f32(x2d, mean, inv, scale, offset)
+    r, c = x2d.shape
+    out = torch.empty((world, 2, c), dtype=torch.float32, device=x2d.device)
+    code = build.lib().ggan_bn_bwd_local(
+        g2d.data_ptr(), x2d.data_ptr(), *[t.data_ptr() for t in chan],
+        out.data_ptr(), build.DTYPE_CODES[_DTYPES[x2d.dtype]], r, c, p.vec,
+        p.tx, p.rows, p.cluster, p.smem, build.ACT_CODES[act], index, world,
+        build.stream_ptr(x2d.device))
+    build.check(code, "ggan_bn_bwd_local")
+    return out
+
+
+def bn_bwd_local(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
+                 inv: torch.Tensor, scale: torch.Tensor, offset: torch.Tensor,
+                 index: int, world: int, act: Optional[str] = None
+                 ) -> torch.Tensor:
+    """K2c's split mode, the rank's sums: the [world, 2, C] f32 exchange
+    buffer with [Σgz, Σgz·xhat] per column of [R, C] in slot ``index``
+    (its blocks' sums added in block order in the launch) and zeros
+    elsewhere. One non-cooperative cluster launch
+    (:func:`bn_bwd_local_plan`)."""
+    if x2d.device.type == "cpu":
+        return bn_bwd_local_plain(g2d, x2d, mean, inv, scale, offset, index,
+                                  world, act)
+    g2d = _same_layout(g2d, x2d, "bn_bwd_local")
     r, c = x2d.shape
     aligned = all(t.data_ptr() % 16 == 0 for t in (g2d, x2d))
-    p = bn_bwd_plan(r, c, x2d.dtype, aligned)._replace(cache_rows=0)
-    p = p._replace(smem=_block_sum_bytes(p, 2, 4))
-    f32 = dict(dtype=torch.float32, device=x2d.device)
-    part = torch.empty((p.n_rb, 2, c), **f32)
-    red = torch.empty((2, c), **f32)
-    code = build.lib().ggan_bn_bwd_split(
-        g2d.data_ptr(), x2d.data_ptr(), *[t.data_ptr() for t in chan],
-        part.data_ptr(), red.data_ptr(), 0,
-        build.DTYPE_CODES[_DTYPES[x2d.dtype]], r, c, p.vec, p.tx, p.rows,
-        p.n_rb, p.slots, p.smem, p.grid, build.ACT_CODES[act], 1,
-        build.stream_ptr(x2d.device))
-    build.check(code, "ggan_bn_bwd_split")
-    bn_bwd_reduce.launches += 1
-    return red
+    out = launch_bwd_local(g2d, x2d, mean, inv, scale, offset, act,
+                           bn_bwd_local_plan(r, c, x2d.dtype, aligned),
+                           index, int(world))
+    bn_bwd_local.launches += 1
+    return out
 
 
-def bn_bwd_apply(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
-                 inv: torch.Tensor, scale: torch.Tensor,
-                 offset: torch.Tensor, red: torch.Tensor,
-                 act: Optional[str] = None,
-                 rows: Optional[int] = None) -> torch.Tensor:
-    """K2c+K2d's split mode, phase 2: dx = (gz - Σgz/N - xhat·Σ(gz·xhat)/N)
-    ·inv·scale in x's dtype from the group's summed ``red`` [2, C], N =
-    ``rows`` (the group's rows; default x's). One elementwise launch."""
-    n = x2d.shape[0] if rows is None else int(rows)
+def bn_bwd_apply_split_plain(g2d: torch.Tensor, x2d: torch.Tensor,
+                             mean: torch.Tensor, inv: torch.Tensor,
+                             scale: torch.Tensor, offset: torch.Tensor,
+                             sums: torch.Tensor, rows: int,
+                             act: Optional[str] = None) -> torch.Tensor:
+    """dx from the ranks' [W, 2, C] sums: the sums added in rank order from
+    slot 0 (as ``parallel/collectives.py: sum_in_rank_order`` adds them),
+    then :func:`bn_bwd_apply_plain` over the group's ``rows``."""
+    total = sums[0].clone()
+    for w in range(1, sums.shape[0]):
+        total += sums[w]
+    return bn_bwd_apply_plain(g2d, x2d, mean, inv, scale, offset, total, act,
+                              rows)
+
+
+def bn_bwd_apply_split(g2d: torch.Tensor, x2d: torch.Tensor,
+                       mean: torch.Tensor, inv: torch.Tensor,
+                       scale: torch.Tensor, offset: torch.Tensor,
+                       sums: torch.Tensor, rows: int,
+                       act: Optional[str] = None) -> torch.Tensor:
+    """K2d in the split mode with the ranks' sums added in rank order
+    folded in: dx = (gz - Σgz/N - xhat·Σ(gz·xhat)/N)·inv·scale in x's dtype
+    from the ranks' gathered [W, 2, C] f32 sums, N = ``rows`` (the group's
+    rows). Each block adds its tile's W sums from slot 0 on, the order
+    every rank takes, so the ranks' sums are the same bits on every rank.
+    One launch."""
     if x2d.device.type == "cpu":
-        return bn_bwd_apply_plain(g2d, x2d, mean, inv, scale, offset, red,
-                                  act, n)
-    _check_2d(x2d, "bn_bwd_apply")
+        return bn_bwd_apply_split_plain(g2d, x2d, mean, inv, scale, offset,
+                                        sums, rows, act)
+    _check_2d(x2d, "bn_bwd_apply_split")
     if act not in build.ACT_CODES:
         raise ValueError(f"unknown activation {act!r}")
-    g2d = _same_layout(g2d, x2d, "bn_bwd_apply")
-    chan = _chan_f32(x2d, mean, inv, scale, offset)
-    red = red.to(device=x2d.device, dtype=torch.float32).contiguous()
     r, c = x2d.shape
+    if sums.dtype != torch.float32 or sums.ndim != 3 \
+            or sums.shape[1:] != (2, c) or sums.device != x2d.device:
+        raise ValueError(f"bn_bwd_apply_split takes the ranks' [W, 2, {c}] "
+                         f"f32 sums on {x2d.device}, got {sums.dtype} "
+                         f"{tuple(sums.shape)} on {sums.device}")
+    if int(rows) < 1:
+        raise ValueError(f"bn_bwd_apply_split: {rows} rows")
+    g2d = _same_layout(g2d, x2d, "bn_bwd_apply_split")
+    chan = _chan_f32(x2d, mean, inv, scale, offset)
+    sums = sums.contiguous()
     dx = torch.empty_like(x2d)
     aligned = all(t.data_ptr() % 16 == 0 for t in (g2d, x2d, dx))
-    vec = 4 if c % 4 == 0 and aligned else 1
-    code = build.lib().ggan_bn_bwd_apply(
+    p = bn_bwd_apply_split_plan(r, c, x2d.dtype, sums.shape[0], aligned)
+    code = build.lib().ggan_bn_bwd_apply_split(
         g2d.data_ptr(), x2d.data_ptr(), *[t.data_ptr() for t in chan],
-        red.data_ptr(), dx.data_ptr(), build.DTYPE_CODES[_DTYPES[x2d.dtype]],
-        x2d.numel(), c, float(n), build.ACT_CODES[act], vec,
-        build.stream_ptr(x2d.device))
-    build.check(code, "ggan_bn_bwd_apply")
-    bn_bwd_apply.launches += 1
+        sums.data_ptr(), dx.data_ptr(), build.DTYPE_CODES[_DTYPES[x2d.dtype]],
+        r, c, sums.shape[0], p.vec, p.tx, p.rows, p.n_rr, p.smem,
+        float(int(rows)), build.ACT_CODES[act], build.stream_ptr(x2d.device))
+    build.check(code, "ggan_bn_bwd_apply_split")
+    bn_bwd_apply_split.launches += 1
     return dx
 
 
@@ -807,19 +916,24 @@ def bn_bwd_group(g2d: torch.Tensor, x2d: torch.Tensor, mean: torch.Tensor,
                  offset: torch.Tensor, act: Optional[str], group
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dx, this rank's red) of a BN whose statistics ran over ``group``:
-    :func:`bn_bwd_reduce`, the sums added over the group in rank order,
-    :func:`bn_bwd_apply` over the group's rows. The rank's own red is what
-    its scale and offset gradients are (the step averages them over the
-    group). One rank: K2c+K2d's one launch."""
+    :func:`bn_bwd_local` in the rank's slot, one ``all_reduce`` of the
+    buffer, :func:`bn_bwd_apply_split` over the group's rows. The rank's
+    own red, read back from its slot, is what its scale and offset
+    gradients are (the step averages them over the group). One rank:
+    K2c+K2d's one launch."""
     if group is None or group.size == 1:
         return bn_bwd(g2d, x2d, mean, inv, scale, offset, act)
     from graphical_gan_tpu_torch.parallel.collectives import (
-        sum_in_rank_order)
-    red = bn_bwd_reduce(g2d, x2d, mean, inv, scale, offset, act)
-    total = sum_in_rank_order(red, group)
-    dx = bn_bwd_apply(g2d, x2d, mean, inv, scale, offset, total, act,
-                      x2d.shape[0] * group.size)
-    return dx, red
+        all_reduce_stack)
+    sums = all_reduce_stack(bn_bwd_local(g2d, x2d, mean, inv, scale, offset,
+                                         group.index, group.size, act),
+                            group)
+    dx = bn_bwd_apply_split(g2d, x2d, mean, inv, scale, offset, sums,
+                            x2d.shape[0] * group.size, act)
+    # the all_reduce adds +0 from the other slots, which turns a -0 sum
+    # into +0: the only way the rank's red here can differ from the sums
+    # its kernel wrote
+    return dx, sums[group.index]
 
 
 bn_stats.launches = 0
@@ -829,8 +943,8 @@ bn_bwd.launches = 0
 bn_stats_local.launches = 0
 bn_apply_split.launches = 0
 bn_apply_split_q8.launches = 0
-bn_bwd_reduce.launches = 0
-bn_bwd_apply.launches = 0
+bn_bwd_local.launches = 0
+bn_bwd_apply_split.launches = 0
 
 
 def bn_act_backward_plain(g: torch.Tensor, x: torch.Tensor,
@@ -881,6 +995,10 @@ class _BatchNormActBackward(torch.autograd.Function):
         x2d, g2d = x.reshape(-1, c), g.reshape(-1, c)
         dx, red = bn_bwd_group(g2d, x2d, mean, inv, scale, offset, act,
                                group)
+        # under a group red is the rank's slot of the exchange buffer after
+        # the all_reduce, which turns a -0 there into +0: on the CPU (the
+        # plain sums) dscale and doffset can differ from the chain before
+        # the exchange buffer only in the sign of a zero
         ctx.save_for_backward(g, x, scale, offset)
         ctx.conf = (act, eps, group)
         return (dx.reshape(x.shape), red[1].to(scale.dtype),
@@ -909,7 +1027,9 @@ class FusedBatchNormAct(torch.autograd.Function):
 
     Forward: K2a then K2b (under a group of two or more ranks
     :func:`bn_stats_local`, the exchange, :func:`bn_apply_split`); saves
-    ``(x, scale, offset, mean, inv)`` as ``_fwd`` does. Backward: K2c+K2d (:class:`_BatchNormActBackward`);
+    ``(x, scale, offset, mean, inv)`` as ``_fwd`` does. Backward: K2c+K2d
+    (:class:`_BatchNormActBackward`; under a group :func:`bn_bwd_local`,
+    the exchange, :func:`bn_bwd_apply_split`);
     ``dx`` in x's dtype, ``dscale = Σgz·xhat`` and ``doffset = Σgz`` in f32,
     cast to the parameters' dtypes. The backward can be differentiated once
     more, as the mnist discriminator's gradient penalty needs: the

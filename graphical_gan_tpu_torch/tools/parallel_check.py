@@ -25,7 +25,9 @@ so the ranks load it and none builds it):
    by at most FLIP_M_SHARE of the leaf's largest, ``_misses``) and the
    replicas bit-identical across ranks
    (every replicated leaf, and every rank's gathered state). The ranks'
-   launch counts (set to 0 just before the strategies run) and which
+   launch counts (set to 0 just before the strategies run: every split
+   kernel launched, as many ``bn_stats_local`` as ``bn_apply_split`` and
+   as many ``bn_bwd_local`` as ``bn_bwd_apply_split``) and which
    collectives gloo takes on the ranks' tensors (``all_gather``,
    ``reduce_scatter``, ``all_to_all``, ``barrier``) are reported. Then dp
    trains through the ``Trainer``'s chunked loop (``train/trainer.py``)
@@ -714,9 +716,13 @@ def _spawn(run: str, world: int, device: str, small: bool,
 K1 = "fused_conv2d_bias_act"
 K2 = ("bn_stats", "bn_apply", "bn_bwd")
 # the split kernels a data-parallel training step launches; a BN forward
-# is one bn_stats_local and one bn_apply_split around one all_reduce
-SPLIT = ("bn_stats_local", "bn_apply_split", "bn_bwd_reduce",
-         "bn_bwd_apply")
+# is one bn_stats_local and one bn_apply_split around one all_reduce, a
+# BN backward one bn_bwd_local and one bn_bwd_apply_split
+SPLIT = ("bn_stats_local", "bn_apply_split", "bn_bwd_local",
+         "bn_bwd_apply_split")
+# (local, apply) pairs that launch equally often in the ranks run
+SPLIT_PAIRS = (("bn_stats_local", "bn_apply_split"),
+               ("bn_bwd_local", "bn_bwd_apply_split"))
 ONE_LAUNCH_FWD = ("bn_stats", "bn_apply", "bn_apply_q8")
 # the ranks of a pipeline run that hold convolutions (K1) and the BNs of
 # E and G (K2a, K2b, K2c+K2d at one launch): by stage count
@@ -753,10 +759,10 @@ def misses_of(doc: Dict, device: str = "cuda") -> List[str]:
         for name in SPLIT:
             if not got.get(name):
                 out.append(f"ranks: {name} never launched")
-        if got.get("bn_stats_local") != got.get("bn_apply_split"):
-            out.append(f"ranks: {got.get('bn_stats_local')} bn_stats_local "
-                       f"launches for {got.get('bn_apply_split')} "
-                       "bn_apply_split")
+        for local, apply in SPLIT_PAIRS:
+            if got.get(local) != got.get(apply):
+                out.append(f"ranks: {got.get(local)} {local} launches for "
+                           f"{got.get(apply)} {apply}")
     for run in ("pp", "pp4"):
         res = doc.get(run)
         if res is None:

@@ -227,6 +227,64 @@ def bn_split_fwd_worker(rank: int, world: int, p: Dict):
             "bn": bn_sync_worker(rank, world, p["cases"])}
 
 
+def bn_split_bwd_worker(rank: int, world: int, p: Dict):
+    """The split BN backward's exchange on this rank, from its rows of the
+    [world * n, C] ``g`` and ``x`` of ``p`` at the whole batch's
+    statistics: the slot form (``bn_bwd_local`` in its slot of the world's
+    buffer) through ``all_reduce_stack`` and the [2, C] sums through
+    ``gather_stack``, as raw bits (int32 views, so a -0 and a +0 differ);
+    dx of ``bn_bwd_apply_split`` on the gathered slots and of
+    ``sum_in_rank_order`` then ``bn_bwd_apply_plain`` (the chain it
+    replaced), as raw bits; then :func:`bn_sync_worker` over
+    ``p['cases']``; then, with ``gather_stack`` and ``sum_in_rank_order``
+    patched to raise, one first-order BN backward over the world, and the
+    ``all_reduce_stack`` calls it made."""
+    import torch.distributed as dist
+    from graphical_gan_tpu_torch.ops.kernels import fused_norm as fn
+    from graphical_gan_tpu_torch.parallel import collectives as col
+    group = col.Group(dist.group.WORLD, world, rank)
+    n = p["x"].shape[0] // world
+    rows = slice(rank * n, (rank + 1) * n)
+    x_all, g_all = torch.from_numpy(p["x"]), torch.from_numpy(p["g"])
+    scale, offset = torch.from_numpy(p["scale"]), torch.from_numpy(
+        p["offset"])
+    mean, _, inv = fn.bn_stats_plain(x_all)
+    x, g = x_all[rows], g_all[rows]
+    args = (g, x, mean, inv, scale, offset)
+    slot = col.all_reduce_stack(fn.bn_bwd_local(*args, rank, world,
+                                                p["act"]), group)
+    red = fn.bn_bwd_reduce_plain(*args, p["act"])
+    stack = col.gather_stack(red, group)
+    dx = fn.bn_bwd_apply_split(*args, slot, x_all.shape[0], p["act"])
+    chain = fn.bn_bwd_apply_plain(*args, col.sum_in_rank_order(red, group),
+                                  p["act"], x_all.shape[0])
+    out = {"slot": slot.view(torch.int32).numpy(),
+           "stack": stack.view(torch.int32).numpy(),
+           "dx": dx.view(torch.int32).numpy(),
+           "chain": chain.view(torch.int32).numpy(),
+           "bn": bn_sync_worker(rank, world, p["cases"])}
+
+    def refuse(*a, **k):
+        raise AssertionError("the split backward gathered or summed "
+                             "outside its exchange buffer")
+
+    calls = []
+    reduce = col.all_reduce_stack
+
+    def counted(buf, grp):
+        calls.append(tuple(buf.shape))
+        return reduce(buf, grp)
+
+    col.gather_stack, col.sum_in_rank_order = refuse, refuse
+    col.all_reduce_stack = counted
+    xg = x.clone().requires_grad_(True)
+    y = fn.fused_batchnorm_act(xg, scale, offset, p["act"], group=group)
+    forward = len(calls)
+    y.backward(g)
+    out["calls"] = {"forward": calls[:forward], "backward": calls[forward:]}
+    return out
+
+
 def cli_worker(rank: int, world: int, p: Dict):
     """One rank of a training CLI, ``p['module']``'s ``main(p['argv'])``,
     in the ranks' process group (as torchrun would start it), with the

@@ -7,8 +7,9 @@ CPU, against the same BN over the whole batch in one process.
   rank order (``bn_stats_merge_plain``) equals the one-pass statistics of
   the concatenated rows (``bn_stats_plain``) to f32 rounding, also for
   parts of unequal size and a mean far from 0.
-- The split K2c+K2d's plain versions: the parts' red summed, then dx over
-  the group's rows, equals ``bn_bwd_plain`` on the concatenation.
+- The split K2c+K2d's plain versions: the parts' sums in their slots of
+  the exchange buffer, summed, then dx over the group's rows, equal
+  ``bn_bwd_plain`` on the concatenation.
 - Through ``fused_batchnorm_act(..., group=)`` on the ranks: y, dx, and the
   scale and offset gradients summed over the ranks, and the second order
   (the gradient of ``sum(dx * v)`` w.r.t. x and scale) equal the
@@ -63,14 +64,14 @@ def test_bwd_split_equals_whole_batch(world, act):
     mean, _, inv = fn.bn_stats_plain(x)
     want_dx, want_red = fn.bn_bwd_plain(g, x, mean, inv, scale, offset, act)
     parts = list(zip(g.chunk(world), x.chunk(world)))
-    reds = [fn.bn_bwd_reduce(gp, xp, mean, inv, scale, offset, act)
-            for gp, xp in parts]
-    total = reds[0]
-    for r in reds[1:]:
-        total = total + r
-    _close(total, want_red)
-    dx = torch.cat([fn.bn_bwd_apply(gp, xp, mean, inv, scale, offset, total,
-                                    act, x.shape[0]) for gp, xp in parts])
+    # each rank's slot of the exchange buffer, summed as the all_reduce
+    # sums them
+    sums = sum(fn.bn_bwd_local(gp, xp, mean, inv, scale, offset, i, world,
+                               act) for i, (gp, xp) in enumerate(parts))
+    _close(sums.sum(0), want_red)
+    dx = torch.cat([fn.bn_bwd_apply_split(gp, xp, mean, inv, scale, offset,
+                                          sums, x.shape[0], act)
+                    for gp, xp in parts])
     _close(dx, want_dx)
 
 

@@ -179,18 +179,21 @@ def _ranks(launches):
 
 
 RANKS_SPLIT = {"bn_stats_local": 30, "bn_apply_split": 30,
-               "bn_bwd_reduce": 10, "bn_bwd_apply": 10}
+               "bn_bwd_local": 10, "bn_bwd_apply_split": 10}
 
 
 @pytest.mark.parametrize("launches, missed", [
     (RANKS_SPLIT, False),
     (dict(RANKS_SPLIT, bn_apply_split=0), True),
     (dict(RANKS_SPLIT, bn_stats_local=60), True),
-    (dict(RANKS_SPLIT, bn_bwd_reduce=0), True)])
+    (dict(RANKS_SPLIT, bn_bwd_local=0), True),
+    (dict(RANKS_SPLIT, bn_bwd_apply_split=20), True)])
 def test_misses_of_the_ranks_split_launches(launches, missed):
-    """The 2-rank training runs' gate: every split kernel launched, and a
+    """The 2-rank training runs' gate: every split kernel launched, a
     split BN forward is one ``bn_stats_local`` and one ``bn_apply_split``
-    (as many of each); on the CPU the launches are not held."""
+    and a split BN backward one ``bn_bwd_local`` and one
+    ``bn_bwd_apply_split`` (as many of each); on the CPU the launches are
+    not held."""
     doc = {"ranks": _ranks(launches)}
     assert bool(pc.misses_of(doc, "cuda")) == missed
     assert pc.misses_of(doc, "cpu") == []
