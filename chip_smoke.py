@@ -74,13 +74,19 @@ nothing of JAX or of the JAX package, and does in order:
    directory, Q1, Q2, K1 and K2 launched inside the programs;
 8. train: the port's Trainer at the published cifar10 wali-gp config
    (B=64, DIM=64, z=128, k=5) on a resident synthetic 50k set, in f32 and
-   bf16: finite costs, every kernel launched, ms per iteration, images/s,
-   busy share and device time by group; then 2 iterations on the card
+   bf16, on its step graph (iterations 0-1 eager, the capture at 2, then
+   replays), under ``torch.profiler``: finite costs, every kernel
+   launched; the training kernels' executions read off the device trace
+   (a replay calls no wrapper) exactly PER_ITER's, the wrappers' counts
+   PER_ITER's for the iterations that ran Python (the eager ones and the
+   capture); then on the graph ms per iteration, images/s, busy share and
+   device time by group (a replayed kernel in the group its eager
+   launches had in the main path's trace); then 2 iterations on the card
    against the CPU from the same params, batches and noise, two runs from
    one seed bit for bit, and a resumed run against an uninterrupted one;
-   in f32 the step's host ms/iter and host ops with the kernels called
-   straight (as eager calls run) and through their ``torch.library`` ops'
-   dispatcher (as traced calls run; a reading);
+   in f32 the eager dispatch's host ms/iter and host ops with the kernels
+   called straight (as eager calls run) and through their
+   ``torch.library`` ops' dispatcher (as traced calls run; a reading);
 9. bench-conv: K3's own path, ``tools/bench_conv_kernel.main()`` (four
    bf16 shapes, the library arm beside K3a and K3b; ``--reps 0 --rounds 5
    --n-inputs 4``); K3a must run its TMA mainloop there, and K1's counter
@@ -249,18 +255,26 @@ nothing of JAX or of the JAX package, and does in order:
    ``bn_stats_local`` for each ``bn_apply_split`` or int8 form, no
    one-launch K2a or K2b);
 34. chunk: the trainer's chunked resident loop (JAX's dispatches of up
-   to ``chunk_size`` iterations between host events): the published
-   cifar10 wali-gp Trainer in f32 and bf16 at chunk_size None against 1
-   over 12 iterations with checkpoints at 7 and 11 and a hook at 5 and
-   11, bit for bit (parameters, Adam's m, v and t, step, every logged
-   cost, every checkpoint array), its launches exactly PER_ITER's; in
-   f32 a resume at a window boundary and a rollback through
-   ``GGAN_FAULT_NAN_AT`` inside a window, each bit for bit against its
-   reference; GMGAN mnist local_ep and SSGAN moving-MNIST local_ep on the
-   device pipeline's sampler, 9 iterations at chunk 3 against 1; then
-   per dtype the warm host ms per iteration of one 30-iteration window
-   at chunk_size None and at 1 and each one's busy share over 5 (a
-   reading);
+   to ``chunk_size`` iterations between host events) and its step graph
+   (``train/graph.py``: the iteration captured once as a CUDA graph and
+   replayed): the published cifar10 wali-gp Trainer in f32 and bf16,
+   the graph at chunk_size None and 1 against the eager dispatch
+   (``Trainer._eager``) over 12 iterations with checkpoints at 7 and 11
+   and a hook at 5 and 11, bit for bit (parameters, Adam's m, v and t,
+   step, every logged cost, every checkpoint array), one capture per
+   graph Trainer, the training kernels' executions read off each run's
+   device trace exactly PER_ITER's and the wrappers' counts PER_ITER's
+   for the iterations that ran Python; in f32 a resume at a
+   window boundary under the graph against the eager run, and a rollback
+   through ``GGAN_FAULT_NAN_AT`` inside a window, the graph (captured
+   again after it) against the eager dispatch, bit for bit; GMGAN mnist
+   local_ep, SSGAN moving-MNIST local_ep on the device pipeline's
+   sampler and cifar10 wali-gp with remat, 9 iterations, the graph at
+   chunk 3 against the eager dispatch at 1; then per dtype, on new warm
+   Trainers, the warm host ms per iteration of one 30-iteration window,
+   the graph at chunk_size None and 1, then eager at None, each one's
+   busy share and device ms per iteration over 5, and the graph's
+   captures and the memory reserved after its capture (a reading);
 35. prints one JSON line per kernel summary, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -1761,14 +1775,49 @@ def _finite_state(tr, label):
         fail(f"{label}: non-finite parameters {bad[:5]}")
 
 
+def _traced_train(tr, iters, host=False):
+    """``tr.train(iters)`` with the counts set to 0 just before it and read
+    just after, under ``torch.profiler`` (CUDA activity; ``host`` adds the
+    host's): (its last costs, the wrappers' counts, the counts with each
+    training kernel's executions read off the device trace in place of
+    its wrapper's, the seconds, the profile). A step graph's replay calls
+    no wrapper, so only the trace sees what it ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from graphical_gan_tpu_torch.ops import kernels
+    from graphical_gan_tpu_torch.tools import trace_report
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    with profile(activities=acts) as prof:
+        metrics = tr.train(iters)
+        torch.cuda.synchronize()
+    got = kernels.launches()
+    secs = time.perf_counter() - t0
+    ran = {**got, **kernels.device_launches(trace_report.kernel_counts(prof))}
+    return metrics, got, ran, secs, prof
+
+
+def _per_iter_want(iters):
+    """PER_ITER's launches over ``iters`` iterations from iteration 0."""
+    return {k: a * iters + b for k, (a, b) in PER_ITER.items()}
+
+
+def _python_iters(tr, iters):
+    """Of ``iters`` iterations that ``tr`` ran, those whose step ran Python
+    (the eager ones and each capture), which its wrappers counted."""
+    return iters - (tr.replays - tr.captures)
+
+
 def phase_train(launch_totals, data, k1_counts):
     """The training main path: per compute dtype, the counts are set to 0,
-    the Trainer runs TRAIN_ITERS iterations, and the counts are read; then
-    the steady state is timed and profiled. ``launch_totals`` receives the
-    counts summed over both dtypes, ``k1_counts`` K1's per dtype."""
+    the Trainer runs TRAIN_ITERS iterations on its step graph under
+    ``torch.profiler``, and the counts are read; then the steady state is
+    timed and profiled on the graph. ``launch_totals`` receives the
+    launches summed over both dtypes (the training kernels' executions
+    from the device trace), ``k1_counts`` K1's per dtype."""
     from graphical_gan_tpu_torch.tools.mfu import time_train
-    from graphical_gan_tpu_torch.tools.trace_report import profile_train
-    from graphical_gan_tpu_torch.ops import kernels
+    from graphical_gan_tpu_torch.tools import trace_report
     from graphical_gan_tpu_torch.train.trainer import Trainer
     base = os.path.join(ROOT, "graphical_gan_tpu_torch", "_build",
                         "smoke_train")
@@ -1777,29 +1826,41 @@ def phase_train(launch_totals, data, k1_counts):
         model = _published(dtype)
         tr = Trainer(model, data, os.path.join(base, dtype), seed=0,
                      device="cuda", checkpoint_every=0)
-        t0 = time.perf_counter()
-        kernels.reset_launches()
-        metrics = tr.train(TRAIN_ITERS)
-        got = kernels.launches()
-        secs = time.perf_counter() - t0
-        for k, v in got.items():
+        metrics, got, ran, secs, prof = _traced_train(tr, TRAIN_ITERS,
+                                                      host=True)
+        by_name = trace_report.groups_by_name(trace_report.device_rows(prof))
+        del prof
+        captured = tr._graph.launches if tr._graph is not None else {}
+        made = (tr.captures, tr.replays)
+        for k, v in ran.items():
             launch_totals[k] = launch_totals.get(k, 0) + v
-        k1_counts[(dtype, "train")] = got["fused_conv2d_bias_act"]
-        want = {k: a * TRAIN_ITERS + b for k, (a, b) in PER_ITER.items()}
+        k1_counts[(dtype, "train")] = ran["fused_conv2d_bias_act"]
+        want = _per_iter_want(TRAIN_ITERS)
+        python = _python_iters(tr, TRAIN_ITERS)
+        want_wrappers = _per_iter_want(python)
         if not all(math.isfinite(v) for v in metrics.values()):
             fail(f"train {dtype}: non-finite costs {metrics}")
         _finite_state(tr, f"train {dtype}")
-        if got != want:
-            fail(f"train {dtype}: kernel launches {got} != {want}")
+        if made != (1, TRAIN_ITERS - 2):
+            fail(f"train {dtype}: {tr.captures} captures, {tr.replays} "
+                 f"replays (Trainer.eager_reason: {tr.eager_reason()})")
+        if ran != want:
+            fail(f"train {dtype}: kernel executions {ran} != {want}")
+        if got != want_wrappers:
+            fail(f"train {dtype}: wrapper launches {got} != {want_wrappers}"
+                 f" ({python} iterations ran Python)")
         ms = time_train(tr, TIME_ITERS)
-        busy, dev_ms, groups, top, host_ops, host_top = profile_train(
-            tr, PROFILE_ITERS)
+        busy, dev_ms, groups, top, host_ops, host_top = \
+            trace_report.profile_train(tr, PROFILE_ITERS, by_name)
         if dtype == "float32":
-            _custom_op_cost(tr, ms, host_ops)
+            _custom_op_cost(tr)
         per_iter_images = (1 + model.cfg.critic_iters) * model.cfg.batch_size
-        log({"phase": "train", "dtype": dtype, "iters": TRAIN_ITERS,
-             "seconds": round(secs, 3), "last_metrics": metrics,
-             "launches": got, "ms_per_iter": ms,
+        log({"phase": "train", "dtype": dtype, "dispatch": "step graph",
+             "iters": TRAIN_ITERS, "seconds": round(secs, 3),
+             "last_metrics": metrics, "launches": ran,
+             "wrapper_launches": got, "iterations_that_ran_python": python,
+             "captures": made[0], "replays": made[1],
+             "capture_launches": captured, "ms_per_iter": ms,
              "images_per_s": per_iter_images / ms * 1e3,
              "busy_share": busy, "device_ms_per_iter": dev_ms,
              "device_ms_per_iter_by_group": groups,
@@ -1840,15 +1901,15 @@ def _per_call_us(fn, args):
     return t / OP_CALLS * 1e6
 
 
-def _custom_op_cost(tr, ms_direct, host_ops):
+def _custom_op_cost(tr):
     """What the ``torch.library`` ops' dispatcher would cost the host: the
     published f32 step's host ms/iter and profiled aten ops per iteration
-    as it runs (eager calls straight to the CUDA implementations; the
-    train phase's reading) and with every kernel call through its op
-    (``_ViaOps``), and each wrapper's host µs per call both ways (on tiny
-    tensors, so the card keeps up and the loop times the host alone),
-    which the step's calls per iteration turn into ms/iter. A reading, not
-    a limit."""
+    on the eager dispatch (``Trainer._eager``; a replay calls no wrapper)
+    as it runs (eager calls straight to the CUDA implementations) and with
+    every kernel call through its op (``_ViaOps``), and each wrapper's
+    host µs per call both ways (on tiny tensors, so the card keeps up and
+    the loop times the host alone), which the step's calls per iteration
+    turn into ms/iter. A reading, not a limit."""
     import torch
     from graphical_gan_tpu_torch.ops.kernels import (
         bn_apply, bn_stats, fused_conv2d_bias_act)
@@ -1871,10 +1932,14 @@ def _custom_op_cost(tr, ms_direct, host_ops):
             through = _per_call_us(fn, args)
         us[name] = {"ops_us": through, "direct_us": direct}
     per_iter = {k: a for k, (a, _) in PER_ITER.items()}
+    tr._graph, tr._eager = None, True
+    ms_direct = time_train(tr, TIME_ITERS)
+    host_ops = profile_train(tr, PROFILE_ITERS)[4]
     with _ViaOps():
         ms_ops = time_train(tr, TIME_ITERS)
         prof = profile_train(tr, PROFILE_ITERS)
     log({"check": "custom-op dispatch cost", "dtype": "float32",
+         "dispatch": "eager",
          "ms_per_iter_ops": ms_ops, "ms_per_iter_direct": ms_direct,
          "per_call_host_us": us,
          "host_ms_per_iter_from_per_call": sum(
@@ -2241,6 +2306,7 @@ CHUNK_NAN_AT = 9        # GGAN_FAULT_NAN_AT: inside the window 8-11
 # GMGAN and SSGAN: 9 iterations (0-4 alone, then 5-8) at chunk 3 against 1
 CHUNK_FAMILY_ITERS = 9
 CHUNK_FAMILY_SIZE = 3
+CHUNK_WARM_ITERS = 4    # the timing's Trainers: eager 0-1, capture at 2
 CHUNK_TIME_ITERS = 30   # one warm window per chunk size, timed
 CHUNK_PROFILE_ITERS = 5
 
@@ -2280,9 +2346,10 @@ def _differ(a, b):
     return sorted(k for k in a if a[k] != b[k])
 
 
-def _chunk_trainer(model, data, path, chunk, **kw):
-    """A Trainer at ``chunk_size`` ``chunk`` that records its dispatch
-    sizes (``.sizes``) and its hooks' iterations (``.hook_its``)."""
+def _chunk_trainer(model, data, path, chunk, eager=False, **kw):
+    """A Trainer at ``chunk_size`` ``chunk``, on the eager dispatch where
+    ``eager`` (else the step graph), that records its dispatch sizes
+    (``.sizes``) and its hooks' iterations (``.hook_its``)."""
     from graphical_gan_tpu_torch.train.trainer import Trainer
     hook_its, sizes = [], []
     kw.setdefault("checkpoint_every", CHUNK_CKPT_EVERY)
@@ -2291,6 +2358,7 @@ def _chunk_trainer(model, data, path, chunk, **kw):
     tr = Trainer(model, data, path, seed=0, device="cuda",
                  checkpoints_to_keep=0, chunk_size=chunk,
                  render_curves=False, **kw)
+    tr._eager = eager
     dispatch = tr.dispatch
 
     def counted(start, n, pend):
@@ -2301,40 +2369,55 @@ def _chunk_trainer(model, data, path, chunk, **kw):
     return tr
 
 
-def _chunk_pair(label, make, iters, chunks, launch_totals, misses,
-                want=None):
-    """A run per chunk size of ``chunks`` (``make(chunk)`` builds its
-    Trainer), counts set to 0 just before each and read just after:
-    the runs' arrays must be equal bit for bit and their launches equal
-    (and equal to ``want`` where given). Returns the first run's
-    trainer."""
-    from graphical_gan_tpu_torch.ops import kernels
-    runs = []
-    for chunk in chunks:
-        tr = make(chunk)
-        t0 = time.perf_counter()
-        kernels.reset_launches()
-        tr.train(iters)
-        got = kernels.launches()
-        _add(launch_totals, got)
-        runs.append((chunk, tr, got, time.perf_counter() - t0,
-                     _run_arrays(tr)))
-    (c0, tr0, got0, _, arr0), (c1, tr1, got1, _, arr1) = runs
-    differ = _differ(arr0, arr1)
+def _chunk_runs(label, make, iters, runs, launch_totals, misses,
+                want=None, captures=1):
+    """A run per ``(chunk_size, eager)`` of ``runs`` (``make(chunk,
+    eager)`` builds its Trainer) under ``torch.profiler``
+    (``_traced_train``): every run's arrays must equal the first's bit for
+    bit, its launches (the training kernels' executions read off the
+    device trace) the first's (and ``want`` where given, with the
+    wrappers' counts ``want``'s for the iterations that ran Python), two
+    chunk sizes give two dispatch patterns, and each graph run made
+    ``captures`` captures, each eager run none. Returns the trainers."""
+    out = []
+    for chunk, eager in runs:
+        tr = make(chunk, eager)
+        _, got, ran, secs, prof = _traced_train(tr, iters)
+        del prof
+        _add(launch_totals, ran)
+        out.append((tr, ran, secs, _run_arrays(tr), got))
+    tr0, got0, _, arr0, _ = out[0]
+    differ = sorted({k for _, _, _, arr, _ in out[1:]
+                     for k in _differ(arr0, arr)})
+    same_launches = all(got == got0 for _, got, _, _, _ in out)
+    made = [tr.captures for tr, _, _, _, _ in out]
+    wrappers_exact = all(
+        w == _per_iter_want(_python_iters(tr, iters))
+        for tr, _, _, _, w in out) if want else True
     log({"phase": "chunk", "run": label, "iters": iters,
-         "chunk_sizes": [c0, c1], "dispatches": [tr0.sizes, tr1.sizes],
-         "hook_iterations": [tr0.hook_its, tr1.hook_its],
-         "seconds": [round(r[3], 3) for r in runs],
+         "runs": [{"chunk_size": c, "eager": e} for c, e in runs],
+         "dispatches": [tr.sizes for tr, _, _, _, _ in out],
+         "hook_iterations": [tr.hook_its for tr, _, _, _, _ in out],
+         "seconds": [round(r[2], 3) for r in out], "captures": made,
+         "replays": [tr.replays for tr, _, _, _, _ in out],
          "arrays_compared": len(arr0), "bit_identical": not differ,
          "differing": differ[:5], "launches": got0,
-         "launches_equal": got0 == got1,
-         **({"launches_per_iter_exact": got0 == want} if want else {})})
-    if differ or got0 != got1 or (want and got0 != want) \
-            or tr0.sizes == tr1.sizes:
-        misses.append(f"{label}: differing {differ[:5]}, launches {got0} / "
-                      f"{got1} (want {want}), dispatches {tr0.sizes} / "
-                      f"{tr1.sizes}")
-    return tr0
+         "launches_equal": same_launches,
+         "wrapper_launches": [w for _, _, _, _, w in out],
+         **({"launches_per_iter_exact": got0 == want,
+             "wrapper_launches_exact": wrappers_exact} if want else {})})
+    chunks = {}
+    for (chunk, _), (tr, _, _, _, _) in zip(runs, out):
+        chunks.setdefault(chunk, tr.sizes)
+    if differ or not same_launches or (want and got0 != want) \
+            or not wrappers_exact \
+            or len({tuple(v) for v in chunks.values()}) != len(chunks) \
+            or made != [0 if e else captures for _, e in runs]:
+        misses.append(f"{label}: differing {differ[:5]}, launches "
+                      f"{[got for _, got, _, _, _ in out]} (want {want}), "
+                      f"wrappers {[w for _, _, _, _, w in out]}, "
+                      f"dispatches {chunks}, captures {made}")
+    return [tr for tr, _, _, _, _ in out]
 
 
 def _run_window(tr, n):
@@ -2371,15 +2454,29 @@ def _window_busy(tr, n):
     return busy_ms / wall_ms, busy_ms / n
 
 
-def _chunk_timing(tr, dtype):
-    """Warm host ms per iteration of one CHUNK_TIME_ITERS window at
-    chunk_size None and 1 (``_run_window``, bounded by
-    synchronizes), and the busy share of a CHUNK_PROFILE_ITERS window at
-    each (``_window_busy``): readings."""
+def _chunk_timing(model, data, base, dtype):
+    """Warm host ms per iteration of one CHUNK_TIME_ITERS window
+    (``_run_window``, bounded by synchronizes) and the busy share and
+    device ms per iteration of a CHUNK_PROFILE_ITERS window
+    (``_window_busy``): a graph Trainer of ``model``, new and warm (its
+    step graph captured), at chunk_size None and 1, then an eager one at
+    None; and the graph Trainer's captures and the memory reserved after
+    its capture: readings. New Trainers and the graph first: this order
+    avoids a known defect, a profiled replay of a graph captured before
+    other graphs came and went, with a profiler session without replays
+    in between, which segfaulted in the replay (PyTorch 2.11, CUDA 12.8,
+    an H100); ``tools/graph_profile_repro.py`` does not reproduce it
+    without the port's Trainer, so its cause is not known."""
     import torch
+    graph, eager = (_chunk_trainer(model, data, os.path.join(
+        base, f"timing_{dtype}_{kind}"), None, kind == "eager",
+        checkpoint_every=0, eval_hooks={}) for kind in ("graph", "eager"))
+    for tr in (graph, eager):
+        tr.train(CHUNK_WARM_ITERS)
     rec = {"phase": "chunk", "run": "timing", "dtype": dtype,
            "window": CHUNK_TIME_ITERS, "profiled": CHUNK_PROFILE_ITERS}
-    for chunk in (None, 1):
+    for tr, kind, chunk in ((graph, "graph", None), (graph, "graph", 1),
+                            (eager, "eager", None)):
         tr.chunk_size = chunk
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2387,25 +2484,31 @@ def _chunk_timing(tr, dtype):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / CHUNK_TIME_ITERS
         busy, dev_ms = _window_busy(tr, CHUNK_PROFILE_ITERS)
-        key = "none" if chunk is None else str(chunk)
-        rec.update({f"ms_per_iter_chunk_{key}": ms,
-                    f"busy_share_chunk_{key}": busy,
-                    f"device_ms_per_iter_chunk_{key}": dev_ms})
-    rec["ms_ratio_none_over_1"] = (rec["ms_per_iter_chunk_none"]
-                                   / rec["ms_per_iter_chunk_1"])
+        key = f"{kind}_chunk_{'none' if chunk is None else chunk}"
+        rec.update({f"ms_per_iter_{key}": ms, f"busy_share_{key}": busy,
+                    f"device_ms_per_iter_{key}": dev_ms})
+    rec["ms_ratio_graph_over_eager"] = (rec["ms_per_iter_graph_chunk_none"]
+                                        / rec["ms_per_iter_eager_chunk_none"])
+    rec["graph_captures"] = graph.captures
+    rec["graph_mib_reserved_after_capture"] = graph._graph.reserved / 2 ** 20
     log(rec)
 
 
 def phase_chunk(launch_totals, data):
-    """The chunked resident loop on the card: per compute dtype, the
-    published cifar10 wali-gp Trainer at chunk_size None against 1 over
+    """The chunked resident loop and its step graph on the card: per
+    compute dtype, the published cifar10 wali-gp Trainer, the graph at
+    chunk_size None and 1 against the eager dispatch at None, over
     CHUNK_ITERS iterations (checkpoints, a hook and the early boundaries
     inside), bit for bit (parameters, Adam's m, v and t, step, every
-    logged cost, every checkpoint array), its launches PER_ITER's; then the
-    timing readings. In f32 a resume at a window boundary and a rollback
-    through GGAN_FAULT_NAN_AT inside a window, each bit for bit against
-    its reference. GMGAN mnist local_ep (resident) and SSGAN moving-MNIST
-    local_ep (the device pipeline's sampler) at chunk 3 against 1."""
+    logged cost, every checkpoint array), its launches PER_ITER's; then
+    the timing readings on new Trainers. In f32 a resume at a window
+    boundary under the graph against the eager run, and a rollback
+    through GGAN_FAULT_NAN_AT inside a window, the graph (captured again
+    after the restore) against the eager dispatch, each bit for bit. GMGAN mnist local_ep (resident),
+    SSGAN moving-MNIST local_ep (the device pipeline's sampler) and
+    cifar10 wali-gp with remat (its recomputes on their own generator
+    states under the capture), the graph at chunk 3 against the eager
+    dispatch at 1."""
     from graphical_gan_tpu_torch.core.config import gmgan_defaults
     from graphical_gan_tpu_torch.runs import gmgan as gm
     from graphical_gan_tpu_torch.runs.gan_inference import resident_data
@@ -2413,41 +2516,48 @@ def phase_chunk(launch_totals, data):
                         "smoke_chunk")
     shutil.rmtree(base, ignore_errors=True)
     misses = []
-    want = {k: a * CHUNK_ITERS + b for k, (a, b) in PER_ITER.items()}
-    refs = {}
+    want = _per_iter_want(CHUNK_ITERS)
+    runs = {}
     for dtype in ("float32", "bfloat16"):
         model = _published(dtype)
-        refs[dtype] = _chunk_pair(
+        runs[dtype] = _chunk_runs(
             f"cifar10 wali-gp {dtype}",
-            lambda c: _chunk_trainer(model, data, os.path.join(
-                base, f"{dtype}_{c}"), c),
-            CHUNK_ITERS, (None, 1), launch_totals, misses, want)
-        if refs[dtype].hook_its != [5, 11]:
-            misses.append(f"{dtype}: hooks at {refs[dtype].hook_its}")
+            lambda c, e: _chunk_trainer(model, data, os.path.join(
+                base, f"{dtype}_{c}_{'eager' if e else 'graph'}"), c, e),
+            CHUNK_ITERS, ((None, False), (1, False), (None, True)),
+            launch_totals, misses, want)
+        if runs[dtype][0].hook_its != [5, 11]:
+            misses.append(f"{dtype}: hooks at {runs[dtype][0].hook_its}")
     model = _published("float32")
-    # resume: a run stopped at a window boundary, continued by a new Trainer
+    # resume: a run stopped at a window boundary, continued by a new
+    # Trainer, both on the graph, against the eager run
     path = os.path.join(base, "resume")
     _chunk_trainer(model, data, path, None).train(CHUNK_RESUME_AT)
     resumed = _chunk_trainer(model, data, path, None)
     resumed.train(CHUNK_ITERS)
-    ref = _run_arrays(refs["float32"])
+    ref = _run_arrays(runs["float32"][2])
     for name in ("train disc cost", "train gen cost"):  # the resumed span
         ref[name] = [kv for kv in ref[name] if kv[0] >= CHUNK_RESUME_AT]
     differ = _differ(ref, _run_arrays(resumed))
     log({"phase": "chunk", "run": "resume", "resumed_at":
          resumed._start_iter, "dispatches": resumed.sizes,
-         "bit_identical": not differ, "differing": differ[:5]})
-    if differ or resumed._start_iter != CHUNK_RESUME_AT:
-        misses.append(f"resume at {resumed._start_iter}: {differ[:5]}")
-    # rollback: the poison inside the window 8-11, the same at chunk 1
+         "captures": resumed.captures, "bit_identical": not differ,
+         "differing": differ[:5]})
+    if differ or resumed._start_iter != CHUNK_RESUME_AT \
+            or resumed.captures != 1:
+        misses.append(f"resume at {resumed._start_iter}: {differ[:5]}, "
+                      f"captures {resumed.captures}")
+    # rollback: the poison inside the window 8-11; the graph's Trainer
+    # captures again after the restore
     old = os.environ.get("GGAN_FAULT_NAN_AT")
     os.environ["GGAN_FAULT_NAN_AT"] = str(CHUNK_NAN_AT)
     try:
-        tr = _chunk_pair(
+        tr = _chunk_runs(
             "rollback cifar10 wali-gp float32",
-            lambda c: _chunk_trainer(model, data, os.path.join(
-                base, f"rollback_{c}"), c, max_rollbacks=1),
-            CHUNK_ITERS, (None, 1), launch_totals, misses)
+            lambda c, e: _chunk_trainer(model, data, os.path.join(
+                base, f"rollback_{c}_{e}"), c, e, max_rollbacks=1),
+            CHUNK_ITERS, ((None, False), (1, True)), launch_totals, misses,
+            captures=2)[0]
     finally:
         if old is None:
             os.environ.pop("GGAN_FAULT_NAN_AT", None)
@@ -2472,15 +2582,17 @@ def phase_chunk(launch_totals, data):
              gdata, {}),
             ("ssgan moving-MNIST local_ep device", lambda: _ssgan_model(
                 "moving_mnist", "local_ep"), sdata,
-             {"batch_sampler": sampler})):
+             {"batch_sampler": sampler}),
+            ("remat cifar10 wali-gp float32", lambda: _option_model(
+                remat=True), data, {})):
         m = build()
-        _chunk_pair(label, lambda c: _chunk_trainer(
-            m, d, os.path.join(base, f"{label.split()[0]}_{c}"), c,
+        _chunk_runs(label, lambda c, e: _chunk_trainer(
+            m, d, os.path.join(base, f"{label.split()[0]}_{c}_{e}"), c, e,
             checkpoint_every=0, eval_hooks={}, **kw),
-            CHUNK_FAMILY_ITERS, (CHUNK_FAMILY_SIZE, 1), launch_totals,
-            misses)
+            CHUNK_FAMILY_ITERS, ((CHUNK_FAMILY_SIZE, False), (1, True)),
+            launch_totals, misses)
     for dtype in ("float32", "bfloat16"):
-        _chunk_timing(refs[dtype], dtype)
+        _chunk_timing(_published(dtype), data, base, dtype)
     if misses:
         fail(f"chunk: {misses}")
 
@@ -3782,9 +3894,12 @@ def _trace_run(base, tag, tr, first, n):
 
 
 def _tool_trace(base, data):
-    """trace_report over the cifar10 wali-gp Trainer's GGAN_PROFILE trace,
-    held to profile_train's device ms; then SSGAN moving-MNIST local_ep
-    f32's trace, whose top kernels name the convs they serve."""
+    """trace_report over the cifar10 wali-gp Trainer's GGAN_PROFILE trace
+    (a new step graph's warm-up and capture, then its replays, whose
+    kernels are attributed to the graph launch and grouped as the
+    warm-up's), held to profile_train's device ms of the graph; then SSGAN
+    moving-MNIST local_ep f32's trace on the eager dispatch, whose top
+    kernels name the convs they serve."""
     from graphical_gan_tpu_torch.tools import trace_report
     from graphical_gan_tpu_torch.tools.mfu import make_trainer
     from graphical_gan_tpu_torch.train.trainer import Trainer
@@ -3808,6 +3923,9 @@ def _tool_trace(base, data):
              f"({rep['lanes']} lanes) against profile_train's {dev_ms}")
     tr = make_trainer("ssgan", "float32", os.path.join(base, "ssgan"),
                       "cuda", data_rows=200)
+    # eager: its kernels keep the ops that launched them, which name the
+    # convs (a replay's kernels have the graph launch alone)
+    tr._eager = True
     trace_dir = _trace_run(base, "ssgan_trace", tr, 1, SSGAN_TRACE_ITERS)
     traced = trace_report.traced_iterations(trace_dir)
     rep = trace_report.report(trace_dir, iters=traced, top=8)

@@ -261,9 +261,11 @@ __device__ __forceinline__ void block_sum(A (&s)[NS][VEC], A* scratch, int tx, i
   __syncthreads();
 }
 
-// Launches a kernel of the shared plan as one cooperative launch. Where the
-// grid cannot be co-resident at this shared memory size, the launch returns
-// cudaErrorCooperativeLaunchTooLarge.
+// Launches a kernel of the shared plan as one cooperative launch, through
+// cudaLaunchKernelEx with the cooperative attribute, which stream capture
+// takes into a CUDA graph (the trainer's step graph, train/graph.py). Where
+// the grid cannot be co-resident at this shared memory size, the launch
+// returns cudaErrorCooperativeLaunchTooLarge.
 template <typename Args>
 int launch_cooperative(void (*kern)(Args), Args a, int grid, int threads, size_t smem,
                        cudaStream_t st) {
@@ -271,9 +273,17 @@ int launch_cooperative(void (*kern)(Args), Args a, int grid, int threads, size_t
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        int(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern), dim3(grid),
-                                  dim3(threads), args, smem, st);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(grid));
+  cfg.blockDim = dim3(unsigned(threads));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, a);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -55,3 +55,40 @@ def launches() -> dict:
 def split_launches() -> dict:
     """The split modes' launches (:data:`SPLIT_WRAPPERS`)."""
     return {name: fn.launches for name, fn in SPLIT_WRAPPERS.items()}
+
+
+def launch_counts() -> dict:
+    """Every launch counter: each wrapper's by its name, Q2's per route as
+    ``int8_conv/<route>``."""
+    out = {**launches(), **split_launches()}
+    out.update({f"int8_conv/{r}": n for r, n in int8_conv.routes.items()})
+    return out
+
+
+#: the kernel functions that each training-path wrapper launches once per
+#: call (K1's split-K reduction, a second kernel of some calls, is left
+#: out), for reading launches off a device trace: a CUDA graph's replay
+#: runs its kernels with no wrapper call, so the counters above see only
+#: the launches made from Python (eager ones and those a capture records).
+#: K3b's im2col route runs K1's kernels and ``bn_apply_q8`` K2b's, so a
+#: trace read this way holds neither (the training path calls neither).
+DEVICE_SYMBOLS = {
+    "fused_conv2d_bias_act": ("conv_k1_mma_kernel", "conv_k1_fma_kernel",
+                              "conv_k1_wgmma_kernel"),
+    "bn_stats": ("bn_stats_fused_kernel",),
+    "bn_apply": ("bn_apply_kernel",),
+    "bn_bwd": ("bn_bwd_fused_kernel",),
+}
+
+
+def device_launches(kernel_counts: dict) -> dict:
+    """Each :data:`DEVICE_SYMBOLS` wrapper's kernel executions, from
+    ``kernel_counts``: device kernel names (a profiler's, demangled, with
+    their template arguments) and how often each ran."""
+    out = dict.fromkeys(DEVICE_SYMBOLS, 0)
+    for name, n in kernel_counts.items():
+        for wrapper, symbols in DEVICE_SYMBOLS.items():
+            if any(f"{sym}<" in name or f"{sym}(" in name
+                   for sym in symbols):
+                out[wrapper] += n
+    return out

@@ -18,9 +18,16 @@ moments and the parameter tensors it is given (multi-tensor ``_foreach``
 ops, a few launches per player instead of a few per tensor), where the JAX
 functions return new arrays. Adam's step count ``t`` is a CPU tensor, so
 ``lr_t`` is computed on the host and the update never waits on the card.
-Adam's ``lr_scale(t)`` scales ``lr_t`` at that optimizer's own step count
-``t`` (1 at its first update), as the JAX Adam does (``optimizers.py:
-41, 73-74``): the face script's linear decay.
+The update reads ``lr_t`` from a device scalar, in JAX's order, ``p -
+lr_t * m / (sqrt(v) + eps)`` (``optimizers.py:85``): the train step
+counts ``t`` on the host before an iteration and fills the step sizes of
+its updates into one small device tensor (:meth:`Adam.advance`), so a
+CUDA graph of the iteration (``train/graph.py``) reads new step sizes at
+each replay; an update given no scalar counts ``t`` and makes its own.
+Adam's
+``lr_scale(t)`` scales ``lr_t`` at that optimizer's own step count ``t``
+(1 at its first update), as the JAX Adam does (``optimizers.py: 41,
+73-74``): the face script's linear decay.
 """
 
 from __future__ import annotations
@@ -97,11 +104,24 @@ class Adam(_Base):
             lr_t = f(lr_t) * f(self.lr_scale(f(t)))
         return float(lr_t)
 
+    def advance(self, state: dict, n: int) -> List[float]:
+        """Count ``n`` updates in ``state``'s ``t`` (a CPU int32) and return
+        their step sizes, ``lr_t`` at each of their counts."""
+        state["t"] = state["t"] + n
+        t = int(state["t"])
+        return [self.lr_t(t - n + i) for i in range(1, n + 1)]
+
     @torch.no_grad()
-    def update(self, grads: Params, state: dict, params: Params) -> None:
+    def update(self, grads: Params, state: dict, params: Params,
+               lr_t: Optional[torch.Tensor] = None) -> None:
+        """One update at step size ``lr_t``, an f32 scalar on the
+        parameters' device that the caller filled from :meth:`advance`;
+        without it the update counts ``t`` and makes the scalar itself."""
         names = list(grads)
-        state["t"] = state["t"] + 1
-        lr_t = self.lr_t(int(state["t"]))
+        if lr_t is None:
+            lr_t = torch.full((), self.advance(state, 1)[0],
+                              dtype=torch.float32,
+                              device=params[names[0]].device)
         g = _f32([grads[n] for n in names])
         ms, vs = [state["m"][n] for n in names], [state["v"][n] for n in names]
         m, v = _f32(ms), _f32(vs)
@@ -112,7 +132,9 @@ class Adam(_Base):
         denom = torch._foreach_sqrt(v)
         torch._foreach_add_(denom, self.eps)
         base, live = self._base(state, params, names)
-        torch._foreach_addcdiv_(base, m, denom, value=-lr_t)
+        step = torch._foreach_mul(m, lr_t)
+        torch._foreach_div_(step, denom)
+        torch._foreach_sub_(base, step)
         _store(live, base)
         _store(ms, m)
         _store(vs, v)

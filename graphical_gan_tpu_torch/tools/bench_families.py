@@ -9,8 +9,9 @@ their published configs, timed the way ``tools/mfu.py`` times the step.
   iteration from a resident digit pool (``data/ondevice_moving_mnist.py``).
 
 Method: a ``Trainer`` over resident random data (50,000 images, 2,000
-videos, 50,000 digits), warmed by two iterations, then back-to-back
-iterations bounded by ``torch.cuda.synchronize`` (``tools/mfu.py:
+videos, 50,000 digits), warmed by three iterations (on the card the step
+graph's capture among them), then back-to-back iterations of the
+Trainer's dispatch bounded by ``torch.cuda.synchronize`` (``tools/mfu.py:
 time_train``), best of ``--rounds``; images per iteration are counted as
 ``bench.py:111`` counts them, (1+k)·B. On the card each record adds
 ``device_ms`` per iteration and the busy share (device time over wall
@@ -73,7 +74,8 @@ def bench(name: str, dtype: str = "bfloat16", rounds: int = 5,
     with tempfile.TemporaryDirectory() as outf:
         tr = make_trainer(family, dtype, outf, dev,
                           data_rows=data_rows or resident_rows(family), **kw)
-        time_train(tr, 2)  # warm: kernel builds, cuDNN plans, allocator
+        # warm: kernel builds, cuDNN plans, allocator, the graph's capture
+        time_train(tr, 3)
         ms = min(time_train(tr, iters) for _ in range(rounds))
         busy = device_ms = None
         if dev.type == "cuda":

@@ -100,7 +100,10 @@ def step_memory(dtype: str = "float32", family: str = "gan",
     with tempfile.TemporaryDirectory() as outf:
         tr = make_trainer(family, dtype, outf, device, data_rows=data_rows,
                           **overrides)
-        time_train(tr, 1)  # warm: kernel builds, cuDNN plans, lazy state
+        # warm: kernel builds, cuDNN plans, lazy state (iteration 0 skips
+        # the G update); on the card the measured iteration is the step
+        # graph's capture, whose pool holds the iteration's working set
+        time_train(tr, 2)
         if tr.device.type == "cuda":
             temp, backend = _cuda_rise(lambda: time_train(tr, 1),
                                        tr.device), "cuda"

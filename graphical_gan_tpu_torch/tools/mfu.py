@@ -46,10 +46,12 @@ Method:
      contraction's result to memory once. Only a kernel that fused two
      contractions could move less, and no model path has one.
 
-2. Step time: back-to-back ``Trainer.step_fn(draw_batches(i))`` over
-   resident random data on the card, bounded by ``torch.cuda.synchronize``
+2. Step time: back-to-back iterations of the Trainer's dispatch over
+   resident random data on the card (on a card with no mesh, the step
+   graph's replays), bounded by ``torch.cuda.synchronize``
    (:func:`time_train`, which ``chip_smoke.py`` times its training runs
-   with), best of ``--rounds`` rounds of ``--iters`` iterations.
+   with), best of ``--rounds`` rounds of ``--iters`` iterations after
+   three that warm and capture.
 3. MFU = flops / sec_per_iter / peak, by card and compute dtype
    (:data:`PEAK`; ``GGAN_PEAK_FLOPS`` overrides it). ``achieved_gbps`` =
    bytes / sec_per_iter / 1e9 and ``hbm_bw_util`` = bytes / sec_per_iter
@@ -315,15 +317,15 @@ def flops_per_iter(dtype: str = "float32", family: str = "gan",
 
 def time_train(tr, n: int) -> float:
     """Host wall ms per Trainer iteration (batches drawn and gathered on
-    the device, one step), ``n`` back to back, bounded by synchronizes on a
-    card."""
+    the device, one step), ``n`` back to back as the trainer runs them (its
+    dispatch: the step graph's replays where ``Trainer.eager_reason``
+    allows them), bounded by synchronizes on a card."""
     cuda = tr.device.type == "cuda"
     start = tr.state.step
     if cuda:
         torch.cuda.synchronize(tr.device)
     t0 = time.perf_counter()
-    for i in range(n):
-        tr.step_fn(tr.state, tr.draw_batches(start + i), True, tr.generator)
+    tr.dispatch(start, n, [])
     if cuda:
         torch.cuda.synchronize(tr.device)
     return (time.perf_counter() - t0) * 1e3 / n
@@ -391,7 +393,8 @@ def measure(family: str = "gan", dtype: str = "float32", rounds: int = 5,
         tr = make_trainer(family, dtype, outf, dev,
                           data_rows=data_rows or resident_rows(family),
                           **overrides)
-        time_train(tr, 2)  # warm: kernel builds, cuDNN plans, allocator
+        # warm: kernel builds, cuDNN plans, allocator, the graph's capture
+        time_train(tr, 3)
         ms = min(time_train(tr, iters) for _ in range(rounds))
     return mfu_record(family, dtype, cost["flops"], ms / 1e3,
                       device_kind(dev), cost["bytes accessed"])

@@ -22,8 +22,17 @@ Two groupings take the place of XLA's ``hlo_category``:
   runtime call with its ``correlation`` id; the ops are the ``cpu_op``
   events that enclose that call on its thread, the autograd nodes of a
   backward included (``ConvolutionBackward0``, ``FusedConv2dBiasAct
-  Backward``). The innermost op's ``Input Dims`` (recorded where the
-  profiler ran with ``record_shapes``) name the layer a kernel serves.
+  Backward``). A kernel of a CUDA graph's replay (the trainer's step
+  graph, ``train/graph.py``) has no launching op: its launch is the graph
+  launch (``cudaGraphLaunch``), which heads its chain, so it falls in
+  K1's, K2's or the copies' group by its name, else in the group that the
+  same kernel's eager launches in the trace fell in (the graph's warm-up
+  iteration launches them: :func:`groups_by_name`; where one name served
+  several groups, the one it spent the most time in), else in "graph
+  replay" (a cuDNN conv's implicit GEMM is not taken for a GEMM), and the
+  groups still add up to the busy time. The innermost op's ``Input Dims`` (recorded
+  where the profiler ran with ``record_shapes``) name the layer a kernel
+  serves.
 
 The top ops are rows of (kernel, the ops that launched it, their input
 shapes): one cuDNN kernel may serve a deconv's forward and a conv's input
@@ -65,6 +74,9 @@ TRAIN_GROUPS = (
     ("K2c-d BN backward", ("bn_bwd_fused_kernel",), ()),
     ("BN second order (plain)", (), ("_BatchNormActBackwardBackward",)),
     ("memcpy", ("Memcpy", "Memset"), ()),
+    # a replay's kernels have no op: the kernel-name groups above, else
+    # their name's eager group (groups_by_name), else this
+    ("graph replay", (), ("GraphLaunch",)),
     ("optimizer", (), ("aten::_foreach",)),
     ("conv gradients (cuDNN)", (), ("FusedConv2dBiasActBackward",
                                     "ConvolutionBackwardBackward")),
@@ -85,39 +97,45 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def op_group(kernel: str, chain: Sequence[str]) -> str:
+def op_group(kernel: str, chain: Sequence[str],
+             by_name: Optional[Dict[str, str]] = None) -> str:
     """The training group of a kernel named ``kernel`` whose launching ops,
-    innermost first, are ``chain``."""
+    innermost first, are ``chain``; a graph's replayed kernel, of no name
+    group, takes its group in ``by_name`` (:func:`groups_by_name`) where it
+    has one."""
     for label, names, ops in TRAIN_GROUPS:
         if any(k in kernel for k in names) or any(
                 o in c for o in ops for c in chain):
+            if label == "graph replay" and kernel in (by_name or {}):
+                return by_name[kernel]
             return label
     return "other"
 
 
-def profile_train(tr, n: int):
-    """(device busy / wall time, device ms per iteration, device ms per
-    iteration by :func:`op_group`, the largest kernels, the host's ops per
-    iteration and the ops that take the most host time) over ``n`` Trainer
-    iterations on the card under ``torch.profiler``, read from its events
-    in memory (no trace file); the profiler's own cost inflates the host
-    times."""
-    import time
+def groups_by_name(rows) -> Dict[str, str]:
+    """{kernel name: training group} from ``rows`` of (kernel name, its
+    launching ops innermost first, device µs): for each name that was
+    launched other than by a graph's replay, the group those launches
+    spent the most time in (:func:`op_group`)."""
+    spent: Dict[Tuple[str, str], float] = defaultdict(float)
+    for name, chain, us in rows:
+        if not any("GraphLaunch" in c for c in chain):
+            spent[(name, op_group(name, chain))] += us
+    best: Dict[str, Tuple[str, float]] = {}
+    for (name, group), us in spent.items():
+        if us > best.get(name, ("", -1.0))[1]:
+            best[name] = (group, us)
+    return {name: group for name, (group, _) in best.items()}
 
-    import torch
+
+def device_rows(prof) -> List[Tuple[str, List[str], float]]:
+    """(kernel name, launching ops innermost first, device µs) of every
+    device event of a finished ``torch.profiler`` session, from its events
+    in memory. The device time of a name that no op's launches account
+    for (a graph's replay: its launch lies in no op) is one row whose
+    chain is the graph launch."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    start = tr.state.step
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(n):
-            tr.step_fn(tr.state, tr.draw_batches(start + i), True,
-                       tr.generator)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, top = {}, {}
+    rows, claimed = [], defaultdict(float)
     for ev in prof.events():
         kernels = getattr(ev, "kernels", None) or []
         if ev.device_type != DeviceType.CPU or not kernels:
@@ -127,14 +145,72 @@ def profile_train(tr, n: int):
             chain.append(q.name)
             q = q.cpu_parent
         for k in kernels:
-            g = op_group(k.name, chain)
-            groups[g] = groups.get(g, 0.0) + k.duration / 1e3
-            top[k.name[:90]] = top.get(k.name[:90], 0.0) + k.duration / 1e3
+            rows.append((k.name, chain, k.duration))
+            claimed[k.name] += k.duration
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CPU:
+            continue
+        rest = _device_us(ev) - claimed.get(ev.key, 0.0)
+        if rest > 1e-3:
+            rows.append((ev.key, ["cudaGraphLaunch"], rest))
+    return rows
+
+
+def _device_us(ev) -> float:
+    """An averaged device event's self device µs (the attribute's name
+    changed across PyTorch releases)."""
+    return getattr(ev, "self_device_time_total",
+                   getattr(ev, "self_cuda_time_total", 0.0))
+
+
+def kernel_counts(prof) -> Dict[str, int]:
+    """{device kernel name: executions} of a finished ``torch.profiler``
+    session: eager launches and a graph's replays alike."""
+    from torch.autograd import DeviceType
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if ev.device_type != DeviceType.CPU}
+
+
+def profile_train(tr, n: int, by_name: Optional[Dict[str, str]] = None):
+    """(device busy / wall time, device ms per iteration, device ms per
+    iteration by :func:`op_group`, the largest kernels, the host's ops per
+    iteration and the ops that take the most host time) over ``n`` Trainer
+    iterations on the card, run as the trainer runs them (its dispatch:
+    the step graph's replays where ``Trainer.eager_reason`` allows them),
+    under ``torch.profiler``, read from its events in memory (no trace
+    file); the profiler's own cost inflates the host times. ``by_name``
+    groups replayed kernels (:func:`groups_by_name`, from a session that
+    holds the eager launches). Under the step graph the iterations before
+    the window, outside it, warm and capture a new graph: no replay is
+    profiled of a graph captured before an earlier profiler session (such
+    replays have segfaulted in ``CUDAGraph.replay``; PERF.md, Open
+    questions)."""
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pend = []
+    if tr.eager_reason() is None:
+        tr._graph = None
+        while tr._graph is None or tr._graph.graph is None:
+            tr.dispatch(tr.state.step, 1, pend)
+    start = tr.state.step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.dispatch(start, n, pend)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, top = {}, {}
+    for name, chain, us in device_rows(prof):
+        g = op_group(name, chain, by_name)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+        top[name[:90]] = top.get(name[:90], 0.0) + us / 1e3
     averages = prof.key_averages()
-    busy_ms = sum(
-        getattr(ev, "self_device_time_total",
-                getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
-        for ev in averages if ev.device_type != DeviceType.CPU)
+    busy_ms = sum(_device_us(ev) / 1e3 for ev in averages
+                  if ev.device_type != DeviceType.CPU)
     per_iter = {k: v / n for k, v in sorted(groups.items())}
     top = [[k, v / n] for k, v in sorted(top.items(), key=lambda kv: -kv[1])
            [:10]]
@@ -269,7 +345,8 @@ def enclosing_ops(evs) -> Dict[int, List[dict]]:
 def launching_ops(evs, kernels) -> Dict[int, List[dict]]:
     """The ops that launched each device event, innermost first, keyed by
     ``id(event)``: through the launch call with the event's ``correlation``
-    id, else through the op with its ``External id``."""
+    id (a graph launch itself first, for the kernels of its replay), else
+    through the op with its ``External id``."""
     chains = enclosing_ops(evs)
     by_corr, by_ext = {}, {}
     for e in evs:
@@ -285,7 +362,9 @@ def launching_ops(evs, kernels) -> Dict[int, List[dict]]:
         args = k.get("args") or {}
         launch = by_corr.get(args.get("correlation"))
         if launch is not None:
-            out[id(k)] = chains.get(id(launch), [])
+            chain = chains.get(id(launch), [])
+            out[id(k)] = ([launch] + chain if "GraphLaunch" in launch["name"]
+                          else chain)
         else:
             op = by_ext.get(args.get("External id"))
             out[id(k)] = chains.get(id(op), []) if op is not None else []
@@ -323,6 +402,9 @@ def report(path: str, iters: Optional[int] = None, top: int = 10) -> Dict:
         chains = launching_ops(evs, ops)
     else:
         chains = enclosing_ops(evs)
+    by_name = groups_by_name(
+        (e["name"], [c["name"] for c in chains.get(id(e), [])], us)
+        for e, us in attributed)
     by_kernel: Dict[str, float] = defaultdict(float)
     n_kernel: Dict[str, int] = defaultdict(int)
     by_op: Dict[str, float] = defaultdict(float)
@@ -334,7 +416,8 @@ def report(path: str, iters: Optional[int] = None, top: int = 10) -> Dict:
     for e, self_us in attributed:
         chain = chains.get(id(e), [])
         names = [c["name"] for c in chain]
-        kg, og = kernel_group(e["name"]), op_group(e["name"], names)
+        kg, og = (kernel_group(e["name"]),
+                  op_group(e["name"], names, by_name))
         by_kernel[kg] += self_us
         n_kernel[kg] += 1
         by_op[og] += self_us

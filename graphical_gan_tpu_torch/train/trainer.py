@@ -50,9 +50,22 @@ order. The draws are keyed by (seed, salt,
 iteration), not by dispatch, so every ``chunk_size`` gives the same
 parameters, optimizer state, step, costs and checkpoints, bit for bit;
 only ``time`` differs. The host-fed path runs one iteration at a time and
-ignores ``chunk_size``, as JAX's does. A dispatch is a Python loop over
-the eager step, so JAX's step down to shorter chunks when a scanned
-program fails to compile (``:813-842``) has no counterpart: an exception
+ignores ``chunk_size``, as JAX's does.
+
+On a CUDA device with no mesh, a dispatch replays one CUDA graph per
+iteration, JAX's jitted step (``:182``; ``train/graph.py``). The rule is
+:meth:`Trainer.eager_reason`, decided before any capture: it names why a
+run stays eager (the CPU, a mesh, the host-fed loop), and None lets the
+graph run. Under it, the iterations run eagerly until one with ``do_gen``
+has (iterations 0 and 1 of a fresh run, the first after a resume), that
+one on the graph's capture stream; the next captures the iteration's body
+once per Trainer (again after a resume or a rollback, which replace the
+state's tensors) and every later one replays it, seeded and given its
+Adam step sizes by the host before each replay, its logged cost copied
+out after. A replay gives the eager iteration's bits. A
+capture error raises: there is no eager fallback, and JAX's step down to
+shorter chunks when a scanned program fails to compile (``:813-842``) has
+no counterpart, since one iteration's graph has no size cap; an exception
 from the step propagates.
 
 ``GGAN_PROFILE=<dir>`` traces iterations ``GGAN_PROFILE_START`` (default
@@ -64,8 +77,10 @@ ops' input shapes) and writes a Chrome trace,
 865-891``). On the resident path the trace opens at the dispatch that
 holds ``GGAN_PROFILE_START`` and closes after the one that reaches
 ``GGAN_PROFILE_START + GGAN_PROFILE_STEPS``, so ``<first>-<last>`` in its
-name are the iterations it holds. The trace reads the step and changes
-none of its values.
+name are the iterations it holds. Under the step graph the trace opens
+with a new graph: its first iteration is the warm-up, its second the
+capture, the rest replays (:meth:`_start_profile`). The trace reads the
+step and changes none of its values.
 
 Failure handling (JAX ``train/trainer.py:45-66, 229-330, 365-420,
 495-600``):
@@ -73,7 +88,8 @@ Failure handling (JAX ``train/trainer.py:45-66, 229-330, 365-420,
 - **Preemption.** ``request_preempt()`` (SIGTERM through
   ``install_preempt_handlers()``) stops the loop after the iteration in
   flight (on the resident path, after the dispatch in flight, which ends
-  its window there): the pending costs are drained into the log, that
+  its window there; on the card the host runs one dispatch ahead of the
+  device at most): the pending costs are drained into the log, that
   iteration is checkpointed, ``preempted: checkpoint saved at iteration
   N; resume with --run-dir`` is logged, and ``train()`` returns with
   ``preempted`` set. At the default ``chunk_size`` a dispatch runs up to
@@ -153,6 +169,7 @@ from graphical_gan_tpu_torch.data.ondevice import sample_batches, to_device
 from graphical_gan_tpu_torch.data.prefetch import prefetch_to_device
 from graphical_gan_tpu_torch.report.plot import MetricLogger
 from graphical_gan_tpu_torch.train import checkpoint as ckpt_lib
+from graphical_gan_tpu_torch.train.graph import StepGraph
 from graphical_gan_tpu_torch.train.step import make_train_step
 
 
@@ -366,6 +383,13 @@ class Trainer:
             async_checkpoint = os.environ.get("GGAN_ASYNC_CKPT") == "1"
         self._ckpt_writer = (ckpt_lib.AsyncWriter() if async_checkpoint
                              else None)
+        # the resident iteration's CUDA graph (eager_reason), the captures
+        # this Trainer made, the iterations its graphs ran, and the eager
+        # dispatch asked for on the card
+        self._graph: Optional[StepGraph] = None
+        self.captures = 0
+        self.replays = 0
+        self._eager = False
 
     def _log(self, line: str) -> None:
         if not self.rank0:
@@ -767,7 +791,14 @@ class Trainer:
         return last
 
     def _start_profile(self):
+        """Open the trace. The step graph is dropped, so the trace holds
+        its warm-up and its capture: the warm-up's kernels keep the ops
+        that launched them, which name the groups of the replays' kernels
+        (``tools/trace_report.py``), and no replay is traced of a graph
+        captured before the trace began (such replays have segfaulted in
+        ``CUDAGraph.replay``; PERF.md, Open questions)."""
         from torch.profiler import ProfilerActivity, profile
+        self._graph = None
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
@@ -916,17 +947,48 @@ class Trainer:
             nxt = min(nxt, done + 1)
         return min(nxt, iters)
 
+    def eager_reason(self) -> Optional[str]:
+        """Why this Trainer's resident iterations run eagerly, or None,
+        where they run as a CUDA graph (``train/graph.py``)."""
+        if self._eager:
+            return "the eager dispatch was asked for (Trainer._eager)"
+        if self.mesh is not None:
+            return ("a mesh: its collectives, gloo's among them, are not "
+                    "captured")
+        if self.data is None:
+            return "the host-fed loop: its batches come from the host"
+        if self.device.type != "cuda":
+            return f"no CUDA graph on {self.device.type}"
+        return None
+
+    def eager_iteration(self, it: int, pend) -> Dict[str, torch.Tensor]:
+        """Iteration ``it`` on the resident data, seeded, drawn and stepped
+        eagerly, its logged cost appended to ``pend``; returns its
+        costs."""
+        raw = self.draw_batches(it)
+        self.state, costs = self.step_fn(self.state, raw, it > 0,
+                                         self.generator)
+        self._pend(it, costs, pend)
+        return costs
+
     def dispatch(self, start: int, n: int, pend) -> Dict[str, torch.Tensor]:
         """Iterations ``start`` to ``start + n - 1`` on the resident data,
         back to back: each seeded, drawn and stepped as one iteration of
-        the loop, its logged cost appended to ``pend`` as a device scalar
+        the loop (a replay of the step graph where :meth:`eager_reason`
+        allows it), its logged cost appended to ``pend`` as a device scalar
         (:meth:`_pend`). Nothing is fetched to the host. Returns the last
         iteration's costs."""
         for it in range(start, start + n):
-            raw = self.draw_batches(it)
-            self.state, costs = self.step_fn(self.state, raw, it > 0,
-                                             self.generator)
-            self._pend(it, costs, pend)
+            if self._graph is not None and self._graph.state is not \
+                    self.state:
+                self._graph = None  # a resume or rollback replaced it
+            if self._graph is not None:
+                costs = self._graph.run(it, pend)
+            elif it > 0 and self.eager_reason() is None:
+                self._graph = StepGraph(self)
+                costs = self._graph.warm(it, pend)
+            else:
+                costs = self.eager_iteration(it, pend)
         return costs
 
     def _loop_resident(self, iters: int) -> Dict[str, float]:
@@ -935,7 +997,11 @@ class Trainer:
         in one copy (``GGAN_FAULT_NAN_AT`` and the guard per window),
         ``time`` plotted per iteration, then closed by the boundary work
         (JAX ``train/trainer.py:844-945``). A preemption request agreed
-        over the ranks after a dispatch ends the window there."""
+        over the ranks after a dispatch ends the window there. On the card
+        one dispatch stays in flight, as in JAX (``:865-874``): the host
+        waits for the one before it, so it runs at most a dispatch ahead of
+        the device (the step graph's replays would otherwise queue the
+        whole window before a request is seen)."""
         profile_dir, first, end = self._profile_window()
         cap = 100 if self.chunk_size is None else self.chunk_size
         pend, last, prof, traced = [], {}, None, 0
@@ -944,6 +1010,7 @@ class Trainer:
             while it < iters:
                 t0, start = time.time(), it
                 target = self._next_event(it, iters)
+                in_flight = None
                 while it < target:
                     n = min(cap, target - it)
                     # the trace opens at the dispatch that holds ``first``
@@ -953,6 +1020,11 @@ class Trainer:
                         prof, traced = self._start_profile(), it
                     last = self.dispatch(it, n, pend)
                     it += n
+                    if self.device.type == "cuda":
+                        if in_flight is not None:
+                            in_flight.synchronize()
+                        in_flight = torch.cuda.Event()
+                        in_flight.record()
                     if prof is not None and it >= end:
                         self._stop_profile(prof, profile_dir, traced, it - 1)
                         prof = None

@@ -117,7 +117,8 @@ def _train(model, remat, iters=2, restore=True, monkeypatch=None):
         if not restore:
             monkeypatch.setattr(
                 step_mod, "_rematerialized",
-                lambda fn, gen: lambda p: torch.utils.checkpoint.checkpoint(
+                lambda fn, gen, rewinds: lambda p:
+                torch.utils.checkpoint.checkpoint(
                     fn, p, use_reentrant=False))
         step, init = step_mod.make_train_step(model)
         state = init(model.init(2, "cpu"))

@@ -77,7 +77,11 @@ def test_kernel_group(name, group):
     ("dgrad2d_alg1_1", ["aten::convolution_backward",
                         "ConvolutionBackward0"], "deconv backward"),
     ("vectorized_elementwise", ["aten::_foreach_add_"], "optimizer"),
-    ("vectorized_elementwise", ["aten::add"], "other")])
+    ("vectorized_elementwise", ["aten::add"], "other"),
+    ("conv_k1_wgmma", ["cudaGraphLaunch"], "K1 forward"),
+    ("dgrad2d_alg1_1", ["cudaGraphLaunch"], "graph replay"),
+    ("sm80_xmma_dgrad_implicit_gemm", ["cudaGraphLaunch"], "graph replay"),
+    ("sm80_xmma_dgrad_implicit_gemm", ["aten::mm"], "GEMMs")])
 def test_op_group(kernel, chain, group):
     assert tr.op_group(kernel, chain) == group
 
@@ -155,6 +159,87 @@ def test_report_attributes_kernels_to_their_ops(tmp_path):
     copy = next(o for o in r["top_ops"] if o["op"] == "Memcpy DtoH")
     assert copy["launched_by"] == ["aten::copy_"]
     assert path == tr.find_trace(str(tmp_path))
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_report_attributes_graph_kernels_to_the_graph_launch(tmp_path,
+                                                             warm):
+    """The kernels of a CUDA graph's replay share the correlation id of
+    the one ``cudaGraphLaunch`` and have no launching op: each is in K1's
+    or K2's group by its name, else in the group of the same name's eager
+    launches in the trace (``warm``: the graph's warm-up iteration, a
+    deconv's backward and forward), else "graph replay" (a cuDNN implicit
+    GEMM too), launched by the graph launch, and the groups add up to the
+    busy time."""
+    evs = [
+        _ev("ggan::eval", 0.0, 40.0, tid=1, cat="cpu_op",
+            args={"External id": 3}),
+        _ev("cudaGraphLaunch", 10.0, 20.0, tid=1, cat="cuda_runtime",
+            args={"correlation": 90, "External id": 3}),
+        _ev("cudaGraphLaunch", 100.0, 20.0, tid=1, cat="cuda_runtime",
+            args={"correlation": 91}),
+    ]
+    for corr, t0 in ((90, 50.0), (91, 500.0)):
+        evs += [_ev("conv_k1_wgmma", t0, 30.0, pid=0, tid=7, cat="kernel",
+                    args={"correlation": corr}),
+                _ev("bn_bwd_fused_kernel", t0 + 30.0, 20.0, pid=0, tid=7,
+                    cat="kernel", args={"correlation": corr}),
+                _ev("dgrad2d_alg1_1", t0 + 50.0, 100.0, pid=0, tid=7,
+                    cat="kernel", args={"correlation": corr}),
+                _ev("sm80_xmma_fprop_implicit_gemm", t0 + 150.0, 50.0,
+                    pid=0, tid=7, cat="kernel", args={"correlation": corr})]
+    if warm:
+        for ext, op, kernel, t0 in (
+                (20, "ConvolutionBackward0", "dgrad2d_alg1_1", 2000.0),
+                (21, "aten::conv_transpose2d",
+                 "sm80_xmma_fprop_implicit_gemm", 3000.0)):
+            evs += [_ev(op, t0, 40.0, tid=1, cat="cpu_op",
+                        args={"External id": ext}),
+                    _ev("cudaLaunchKernel", t0 + 10.0, 5.0, tid=1,
+                        cat="cuda_runtime",
+                        args={"correlation": ext, "External id": ext}),
+                    _ev(kernel, t0 + 20.0, 100.0, pid=0, tid=7,
+                        cat="kernel", args={"correlation": ext})]
+    with gzip.open(str(tmp_path / "g.trace.json.gz"), "wt") as f:
+        json.dump({"traceEvents": evs}, f)
+    r = tr.report(str(tmp_path), iters=2)
+    assert r["n_events"] == (10 if warm else 8)
+    assert r["busy_ms"] == (0.6 if warm else 0.4)
+    by_op = {g["group"]: g["ms"] for g in r["by_op"]}
+    assert by_op == ({"deconv backward": 0.3, "deconv forward": 0.2,
+                      "K1 forward": 0.06, "K2c-d BN backward": 0.04}
+                     if warm else
+                     {"graph replay": 0.3, "K1 forward": 0.06,
+                      "K2c-d BN backward": 0.04})
+    assert sum(by_op.values()) == pytest.approx(r["busy_ms"])
+    assert sum(g["ms"] for g in r["by_kernel"]) == pytest.approx(
+        r["busy_ms"])
+    # the first launch sits inside an op, the second inside none
+    dgrads = [o["launched_by"] for o in r["top_ops"]
+              if o["op"] == "dgrad2d_alg1_1"]
+    assert ["cudaGraphLaunch"] in dgrads
+    assert ["cudaGraphLaunch", "ggan::eval"] in dgrads
+
+
+def test_groups_by_name_takes_the_eager_group_of_most_time():
+    """A name that eager launches served in two groups goes to the one it
+    spent the most time in; replayed launches and the names they alone
+    launched name no group; ``op_group`` takes the map for a replayed
+    kernel of no name group only."""
+    rows = [("dgrad", ["aten::conv_transpose2d"], 10.0),
+            ("dgrad", ["ConvolutionBackward0"], 30.0),
+            ("dgrad", ["cudaGraphLaunch"], 500.0),
+            ("only_replayed", ["cudaGraphLaunch"], 5.0),
+            ("conv_k1_fma", ["FusedConv2dBiasAct"], 1.0)]
+    by_name = tr.groups_by_name(rows)
+    assert by_name == {"dgrad": "deconv backward",
+                       "conv_k1_fma": "K1 forward"}
+    assert tr.op_group("dgrad", ["cudaGraphLaunch"], by_name) == \
+        "deconv backward"
+    assert tr.op_group("only_replayed", ["cudaGraphLaunch"], by_name) == \
+        "graph replay"
+    assert tr.op_group("dgrad", ["aten::conv_transpose2d"], by_name) == \
+        "deconv forward"
 
 
 def test_find_trace_raises_when_missing(tmp_path):
